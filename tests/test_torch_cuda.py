@@ -2,7 +2,9 @@
 card, at small shapes chosen for their edges: channel widths off the
 kernel tiles, the 3-channel stem, tiles with no valid row, FPS past the
 on-chip distance buffer, ragged query and key counts, corners that do
-not pair up. chip_smoke.py checks the published shapes.
+not pair up, a fully masked batch row, dropout; and the two autograd
+Functions on the card against the same Functions on the CPU.
+chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports no jax, so it runs where only PyTorch is installed:
@@ -16,8 +18,14 @@ import torch
 
 from vdetr_tpu_torch.ops import fps as tfps
 from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
+                                               rpe_cross_attention_ad,
+                                               rpe_cross_attention_bwd,
+                                               rpe_cross_attention_bwd_plain,
                                                rpe_cross_attention_plain)
 from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
+                                                   keyed_conv_ad,
+                                                   keyed_conv_dw,
+                                                   keyed_conv_dw_plain,
                                                    keyed_conv_plain)
 from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
 
@@ -36,12 +44,8 @@ def t(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-@pytest.mark.parametrize("cin,cout,stride", [(3, 16, 2), (16, 24, 1),
-                                             (40, 8, 2), (64, 130, 1),
-                                             (256, 72, 1), (300, 64, 2)])
-def test_keyed_conv_kernel_matches_plain(rng, cuda, cin, cout, stride):
-    """Capacity 4096 holds ~1.4k voxels: whole tiles have no valid row.
-    From 256 input channels the offsets are split over three blocks."""
+def conv_case(rng, cuda, cin, cout, stride):
+    """Capacity 4096 holding ~1.4k voxels: whole tiles have no valid row."""
     pts = (rng.rand(2, 1500, 3) * [0.6, 0.5, 0.3]).astype(np.float32)
     g = voxelize(t(pts, cuda), t(pts, cuda), torch.ones(2, 1500, dtype=bool,
                                                         device=cuda),
@@ -51,13 +55,62 @@ def test_keyed_conv_kernel_matches_plain(rng, cuda, cin, cout, stride):
     q = (go.coords * 2 if stride == 2 else go.coords).contiguous()
     w = t((rng.randn(27, cin, cout) / np.sqrt(27 * cin)).astype(np.float32),
           cuda)
-    args = (f.contiguous(), g.keys, q, go.valid, g.extent, w)
+    dout = (torch.randn(*go.keys.shape, cout, device=cuda)
+            * go.valid[..., None]).contiguous()
+    return (f.contiguous(), g.keys, q, go.valid, g.extent, w), dout
+
+
+@pytest.mark.parametrize("cin,cout,stride", [(3, 16, 2), (16, 24, 1),
+                                             (40, 8, 2), (64, 130, 1),
+                                             (256, 72, 1), (300, 64, 2)])
+def test_keyed_conv_kernel_matches_plain(rng, cuda, cin, cout, stride):
+    """From 256 input channels the offsets are split over three blocks."""
+    args, _ = conv_case(rng, cuda, cin, cout, stride)
     before = keyed_conv.launches
     got = keyed_conv(*args)
     assert keyed_conv.launches == before + 1
     ref = keyed_conv_plain(*args)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout,stride", [(3, 64, 2), (64, 64, 1),
+                                             (64, 128, 2), (512, 512, 1),
+                                             (40, 8, 1)],
+                         ids=["stem", "64-64", "stride-2", "512-512",
+                              "ragged"])
+def test_keyed_conv_dw_kernel_matches_plain(rng, cuda, cin, cout, stride):
+    """Kernel D at the published convs' channel widths (and widths off
+    its 64 x 64 tiles), with row splits: f32 sums over ~1.4k rows per
+    entry, 1e-5 of the largest."""
+    args, dout = conv_case(rng, cuda, cin, cout, stride)
+    dargs = args[:5] + (dout,)
+    before = keyed_conv_dw.launches
+    got = keyed_conv_dw(*dargs)
+    assert keyed_conv_dw.launches == before + 1
+    ref = keyed_conv_dw_plain(*dargs)
+    scale = float(ref.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("stride", [1, 2], ids=["submanifold", "stride-2"])
+def test_keyed_conv_function_gradients_kernel_vs_plain(rng, cuda, stride):
+    """The autograd Function on the card (kernels A and D, the scatter
+    dFeats) against the same Function on the CPU (plain versions)."""
+    args, dout = conv_case(rng, cuda, 24, 40, stride)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        f = args[0].to(dev).requires_grad_()
+        w = args[5].to(dev).requires_grad_()
+        out = keyed_conv_ad(f, args[1].to(dev), args[2].to(dev),
+                            args[3].to(dev), args[4], w,
+                            submanifold=stride == 1)
+        res.append([x.cpu() for x in (out.detach(),) + torch.autograd.grad(
+            out, (f, w), dout.to(dev))])
+    for got, ref in zip(*res):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("N", [5, 300, 50000, 120000],
@@ -103,6 +156,86 @@ def test_rpe_kernel_matches_plain(rng, cuda, rotate, B, nQ, nK):
                                atol=1e-5, rtol=1e-4)
 
 
+def rpe_args(rng, cuda, B, nQ, nK, H=4, hd=64, n=10):
+    q = rng.randn(B, nQ, H, hd).astype(np.float32) * 0.3
+    k = rng.randn(B, nK, hd).astype(np.float32) * 0.3
+    v = rng.randn(B, nK, hd).astype(np.float32)
+    corners = (rng.rand(B, nQ, 8, 3) * 4).astype(np.float32)
+    angles = ((rng.rand(B, nQ) - 0.5) * 6).astype(np.float32)
+    key_xyz = (rng.rand(B, nK, 3) * 4).astype(np.float32)
+    tables = (rng.randn(8, n, n, n, H) * 0.5).astype(np.float32)
+    key_valid = rng.rand(B, nK) > 0.2
+    key_valid[0] = False  # a fully masked batch row
+    return [t(a, cuda) for a in (q, k, v, corners, angles, key_xyz, tables,
+                                 key_valid)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rotate", [False, True])
+def test_rpe_train_forward_stats_match_plain(rng, cuda, rate, rotate):
+    """Kernel C's training form: the output under dropout, the row
+    log-sum-exp (0 on the fully masked row) and the stored logits."""
+    args = rpe_args(rng, cuda, 2, 40, 257)
+    seed = torch.tensor([5], dtype=torch.int64, device=cuda)
+    kw = dict(log_scale=512.0, max_value=4.0, rotate=rotate,
+              dropout_rate=rate, seed=seed, return_stats=True)
+    got = rpe_cross_attention(*args, **kw)
+    ref = rpe_cross_attention_plain(*args, **kw)
+    assert float(got[1][0].abs().max()) == 0.0
+    valid = args[7][:, None, None, :].expand_as(ref[2])
+    for g, r in ((got[0], ref[0]), (got[1], ref[1]),
+                 (got[2][valid], ref[2][valid])):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,nQ,nK,rotate", [(2, 16, 64, False),
+                                            (1, 13, 100, True),
+                                            (2, 40, 257, False)],
+                         ids=["tiles", "ragged-rotated", "many-tiles"])
+def test_rpe_bwd_kernel_matches_plain(rng, cuda, rate, B, nQ, nK, rotate):
+    """Kernel F against its plain version from the same stored logits
+    and lse: dq, dtables (shared-memory and global atomics), ds, eg."""
+    args = rpe_args(rng, cuda, B, nQ, nK)
+    seed = torch.tensor([3], dtype=torch.int64, device=cuda)
+    kw = dict(log_scale=512.0, max_value=4.0, rotate=rotate,
+              dropout_rate=rate, seed=seed)
+    out, lse, logits = rpe_cross_attention_plain(*args, return_stats=True,
+                                                 **kw)
+    dout = torch.randn_like(out)
+    bargs = (args[1], args[2], args[3], args[4], args[5], args[7], out,
+             dout, logits, lse, 10)
+    before = rpe_cross_attention_bwd.launches
+    got = rpe_cross_attention_bwd(*bargs, **kw)
+    assert rpe_cross_attention_bwd.launches == before + 1
+    ref = rpe_cross_attention_bwd_plain(*bargs, **kw)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=2e-5 * max(1.0, float(r.abs().max())))
+
+
+def test_rpe_function_gradients_kernel_vs_plain(rng, cuda):
+    """The autograd Function with dropout on the card (kernels C and F)
+    against the same Function on the CPU (plain versions): the hash
+    mask is the same on both."""
+    args = rpe_args(rng, cuda, 2, 24, 130)
+    dout = torch.randn(args[0].shape, device=cuda)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        a = [x.to(dev) for x in args]
+        leaves = [a[i].requires_grad_() for i in (0, 1, 2, 6)]
+        out = rpe_cross_attention_ad(
+            a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], log_scale=512.0,
+            max_value=4.0, rotate=True, dropout_rate=0.2,
+            seed=torch.tensor([11], dtype=torch.int64, device=dev))
+        res.append([x.cpu() for x in (out.detach(),) + torch.autograd.grad(
+            out, leaves, dout.to(dev))])
+    for got, ref in zip(*res):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=2e-5 * max(1.0, float(ref.abs().max())))
+
+
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     """A CUDA tensor never falls back to the plain version: a layout or
     type the kernel does not take raises."""
@@ -119,3 +252,10 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
                             torch.rand(1, 16, 3, device=cuda),
                             torch.rand(8, 10, 10, 10, 3, device=cuda),
                             log_scale=512.0, max_value=4.0)
+    f = torch.rand(1, 16, 8, device=cuda)
+    keys = torch.arange(16, dtype=torch.int32, device=cuda)[None]
+    coords = torch.zeros(1, 16, 3, dtype=torch.int32, device=cuda)
+    valid = torch.ones(1, 16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):  # a strided dout
+        keyed_conv_dw(f, keys, coords, valid, (4, 4, 4),
+                      torch.rand(1, 16, 5, device=cuda)[..., :4])

@@ -99,7 +99,7 @@ def jax_and_port(cfg):
     rng = np.random.RandomState(1)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)
-    port = build_port_model(cfg, PortScannetConfig())
+    port = build_port_model(cfg, PortScannetConfig(), device="cpu")
     load_jax_params(port, params, stats, cfg)
     return jm, {"params": params, "batch_stats": stats}, port
 
@@ -202,16 +202,25 @@ def test_weight_bridge_round_trip(models):
 
 
 def test_import_is_jax_free():
-    code = ("import sys, vdetr_tpu_torch.models.vdetr, vdetr_tpu_torch.convert,"
-            " vdetr_tpu_torch.data.synthetic, vdetr_tpu_torch.kernels;"
-            " bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'jaxlib', 'flax')];"
-            " print(bad); sys.exit(1 if bad else 0)")
+    """Every module of the port, and chip_smoke, imports in a fresh
+    process without loading jax, jaxlib, flax, optax or any module of the
+    JAX package `vdetr_tpu`."""
+    mods = sorted(
+        "vdetr_tpu_torch." + ".".join(p.relative_to(
+            REPO / "vdetr_tpu_torch").with_suffix("").parts)
+        for p in (REPO / "vdetr_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py") + ["vdetr_tpu_torch", "chip_smoke"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "    ('jax', 'jaxlib', 'flax', 'optax', 'vdetr_tpu'))\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+    assert len(mods) > 20  # the walk found the package
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
@@ -239,4 +248,5 @@ def test_build_model_refuses_unported_options(option):
     """Options the JAX model has and this slice does not port fail loudly
     instead of running something else."""
     with pytest.raises(NotImplementedError):
-        build_port_model(tiny_config(**option), PortScannetConfig())
+        build_port_model(tiny_config(**option), PortScannetConfig(),
+                         device="cpu")

@@ -269,6 +269,7 @@ def test_norms_match_jax(rng, kind):
         if kind != "masked_in":
             target.running_mean.copy_(t(mean))
             target.running_var.copy_(t(var))
+        mod.eval()  # the batch norms take batch statistics in train mode
         got = mod(t(x), t(mask)) if kind != "bn1d" else mod(t(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=1e-5)

@@ -1,14 +1,18 @@
-"""vdetr_tpu_torch: the V-DETR eval forward in PyTorch on an NVIDIA H100.
+"""vdetr_tpu_torch: V-DETR in PyTorch on an NVIDIA H100: the eval forward
+(`models.vdetr.build_model`) and the train step (`train.engine.Trainer`)
+of the published model.
 
 A port of `vdetr_tpu` (JAX on a TPU), which stays in the repository as
 the reference. Module names mirror `vdetr_tpu/` so each counterpart is
-easy to find. The three Pallas kernels of the eval forward become CUDA
-C++ kernels for Hopper (`csrc/`), each with a plain PyTorch version in
-the module that wraps it: a wrapper launches its kernel on CUDA tensors
-and takes the plain version only for tensors on the CPU.
+easy to find. The Pallas kernels on these paths become CUDA C++ kernels
+for Hopper (`csrc/`), each with a plain PyTorch version in the module
+that wraps it: a wrapper launches its kernel on CUDA tensors and takes
+the plain version only for tensors on the CPU. Entry points put the
+model on the CUDA card unless the caller passes `device`.
 
-The package imports torch and numpy, and from `vdetr_tpu` only the two
-jax-free modules `vdetr_tpu.config` and `vdetr_tpu.train.torch_import`.
+The package imports torch and numpy, and nothing of `vdetr_tpu`: what it
+shares with it (the configuration, the weight-name mapping) it keeps in
+its own copies (`config.py`, `convert.py`).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -13,6 +13,15 @@
 // align_corners=False: component 0 indexes the last table axis). R is
 // the optional object-frame rotation by the query's angle.
 //
+// Training form (the flash backward, rpe_attention_bwd.cu, consumes it):
+// attention dropout after the softmax, p -> p * keep / (1 - rate), on the
+// numerator only, as the Pallas kernel applies it; keep comes from the
+// counter hash of rpe_common.cuh, which the backward replays. Optional
+// outputs: the row log-sum-exp (0 for a batch row whose keys are all
+// masked) and the masked biased logits, which the backward reads instead
+// of recomputing the bias (the JAX package's train forward stores them
+// too, rpe_attention.py:663-673).
+//
 // The TPU kernel's hat-product P matrices, paired-corner table layout and
 // its reliance on corners i, i+4 sharing x/y exist only because Mosaic has
 // no dynamic gather. Here each corner is sampled with 8 direct reads from
@@ -31,9 +40,7 @@
 // masked keys get -1e9, so a fully masked row averages V uniformly, as in
 // the reference.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "rpe_common.cuh"
 
 namespace {
 
@@ -43,13 +50,14 @@ constexpr int TK = 64;            // keys per tile
 constexpr int TPR = 4;            // threads per (query, head) row
 constexpr int NT = TQ * H * TPR;  // 128 threads
 
-__device__ __forceinline__ float quantize(float d, float log_scale,
-                                          float max_value, int n) {
-  const float mag = log2f(fabsf(d) * log_scale + 1.0f);
-  const float s = d > 0.f ? mag : (d < 0.f ? -mag : 0.f);
-  const float q = s / 3.0f / max_value;
-  return ((q + 1.0f) * n - 1.0f) * 0.5f;
-}
+// Training outputs of the forward; every pointer may be null.
+struct TrainOut {
+  float* lse;              // (B, nQ, H) row log-sum-exp
+  float* logits;           // (B, H, nQ, nK) masked biased logits
+  const long long* seed;   // device scalar; null: no dropout
+  uint32_t threshold;      // keep iff hash >> 8 >= threshold
+  float scale;             // 1 / (1 - rate)
+};
 
 template <int HD>
 __global__ void __launch_bounds__(NT)
@@ -62,7 +70,7 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
                      const float* __restrict__ tables,   // (8, n, n, n, H)
                      const uint8_t* __restrict__ key_valid,  // (B, nK) or null
                      float* __restrict__ out,            // (B, nQ, H, HD)
-                     int nQ, int nK, int n, float log_scale,
+                     TrainOut train, int nQ, int nK, int n, float log_scale,
                      float max_value) {
   constexpr int DPT = HD / TPR;  // dims per thread, strided by TPR
   extern __shared__ float4 smem4[];
@@ -83,6 +91,11 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
   const int ql = row / H, h = row % H;
   const int qi = q0 + ql;
   const bool rotate = cossin != nullptr;
+  const bool dropout = train.seed != nullptr;
+  const uint32_t rowh =
+      dropout ? rpe::row_hash((uint32_t)*train.seed,
+                              (uint32_t)((b * H + h) * nQ + qi))
+              : 0u;
 
   const float4* tab4 = reinterpret_cast<const float4*>(tables);
   for (int i = tid; i < 8 * n3; i += NT) s_tab[i] = tab4[i];
@@ -95,6 +108,13 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
     s_cs[i] = (rotate && qq < nQ) ? cossin[((size_t)b * nQ + qq) * 2 + i % 2]
                                   : 0.f;
   }
+  // a batch row with no valid key averages V; its lse is written as 0
+  int any_valid = key_valid == nullptr;
+  if (train.lse != nullptr && !any_valid) {
+    for (int i = tid; i < nK; i += NT)
+      any_valid |= key_valid[(size_t)b * nK + i] != 0;
+  }
+  any_valid = __syncthreads_or(any_valid);
 
   float qr[DPT], acc[DPT];
   const float* qrow = q + (((size_t)b * nQ + (qi < nQ ? qi : 0)) * H + h) * HD;
@@ -104,6 +124,8 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
     acc[i] = 0.f;
   }
   float m_run = -INFINITY, l_run = 0.f;
+  float* lrow = train.logits == nullptr || qi >= nQ ? nullptr
+      : train.logits + (((size_t)b * H + h) * nQ + qi) * nK;
 
   const float* kb = k + (size_t)b * nK * HD;
   const float* vb = v + (size_t)b * nK * HD;
@@ -144,36 +166,15 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
           dx = rx;
           dy = ry;
         }
-        const float iw = quantize(dx, log_scale, max_value, n);
-        const float ih = quantize(dy, log_scale, max_value, n);
-        const float id = quantize(dz, log_scale, max_value, n);
-        const float fw = floorf(iw), fh = floorf(ih), fd = floorf(id);
-        const float ww = iw - fw, wh = ih - fh, wd = id - fd;
-        const int cw0 = (int)fw, ch0 = (int)fh, cd0 = (int)fd;
         const float4* tc = s_tab + (size_t)c * n3;
-#pragma unroll
-        for (int dd = 0; dd < 2; ++dd) {
-          const int cd = cd0 + dd;
-          if (cd < 0 || cd >= n) continue;
-          const float wdd = dd ? wd : 1.f - wd;
-#pragma unroll
-          for (int dh = 0; dh < 2; ++dh) {
-            const int ch = ch0 + dh;
-            if (ch < 0 || ch >= n) continue;
-            const float wdh = wdd * (dh ? wh : 1.f - wh);
-#pragma unroll
-            for (int dw = 0; dw < 2; ++dw) {
-              const int cw = cw0 + dw;
-              if (cw < 0 || cw >= n) continue;
-              const float wt = wdh * (dw ? ww : 1.f - ww);
-              const float4 t = tc[(cd * n + ch) * n + cw];
-              bias.x += wt * t.x;
-              bias.y += wt * t.y;
-              bias.z += wt * t.z;
-              bias.w += wt * t.w;
-            }
-          }
-        }
+        rpe::corner_taps(dx, dy, dz, log_scale, max_value, n,
+                         [&](int cell, float wt) {
+                           const float4 t = tc[cell];
+                           bias.x += wt * t.x;
+                           bias.y += wt * t.y;
+                           bias.z += wt * t.z;
+                           bias.w += wt * t.w;
+                         });
       }
       s_bias[pq * TK + pk] = bias;
     }
@@ -195,6 +196,9 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
       const float lg = mk > 0.f ? part + bh : (mk == 0.f ? -1e9f : -INFINITY);
       s[kk] = lg;
       m_tile = fmaxf(m_tile, lg);
+      // the row's four threads write every fourth key
+      if (lrow != nullptr && (kk & (TPR - 1)) == g && mk >= 0.f)
+        lrow[k0 + kk] = lg;
     }
     const float m_new = fmaxf(m_run, m_tile);
     const float alpha = expf(m_run - m_new);
@@ -205,8 +209,14 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
     for (int kk = 0; kk < TK; ++kk) {
       const float p = expf(s[kk] - m_new);
       l_tile += p;
+      // dropout scales the numerator only: the softmax denominator never
+      // sees it (post-softmax dropout)
+      const float pv =
+          dropout ? (rpe::keep(rowh, (uint32_t)(k0 + kk), train.threshold)
+                         ? p * train.scale : 0.f)
+                  : p;
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += p * s_v[kk * HD + g + TPR * i];
+      for (int i = 0; i < DPT; ++i) acc[i] += pv * s_v[kk * HD + g + TPR * i];
     }
     l_run = l_run * alpha + l_tile;
     m_run = m_new;
@@ -217,15 +227,18 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
     const float inv = 1.f / l_run;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) orow[g + TPR * i] = acc[i] * inv;
+    if (train.lse != nullptr && g == 0)
+      train.lse[((size_t)b * nQ + qi) * H + h] =
+          any_valid ? m_run + logf(l_run) : 0.f;
   }
 }
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v,
            const float* corners, const float* cossin, const float* key_xyz,
-           const float* tables, const uint8_t* key_valid, float* out, int B,
-           int nQ, int nK, int n, float log_scale, float max_value,
-           cudaStream_t stream) {
+           const float* tables, const uint8_t* key_valid, float* out,
+           TrainOut train, int B, int nQ, int nK, int n, float log_scale,
+           float max_value, cudaStream_t stream) {
   const size_t n3 = (size_t)n * n * n;
   const size_t smem = 8 * n3 * sizeof(float4) +
                       (2 * TK * HD + TQ * TK * H + TK * 4 + TQ * 26) *
@@ -236,29 +249,35 @@ int launch(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nQ + TQ - 1) / TQ, B);
   rpe_attention_kernel<HD><<<grid, NT, smem, stream>>>(
-      q, k, v, corners, cossin, key_xyz, tables, key_valid, out, nQ, nK, n,
-      log_scale, max_value);
+      q, k, v, corners, cossin, key_xyz, tables, key_valid, out, train, nQ,
+      nK, n, log_scale, max_value);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns cudaErrorInvalidValue (1) for a head count or head width the
-// kernel is not built for; the Python wrapper checks both first.
+// kernel is not built for; the Python wrapper checks both first. lse,
+// logits and seed may be null (eval: none of them); a null seed means no
+// dropout.
 extern "C" int rpe_cross_attention_f32(
     const void* q, const void* k, const void* v, const void* corners,
     const void* cossin, const void* key_xyz, const void* tables,
-    const void* key_valid, void* out, int B, int nQ, int nK, int heads,
-    int hd, int n, float log_scale, float max_value, int rotate,
-    void* stream) {
+    const void* key_valid, void* out, void* lse, void* logits,
+    const void* seed, int B, int nQ, int nK, int heads, int hd, int n,
+    float log_scale, float max_value, int rotate, int keep_threshold,
+    float drop_scale, void* stream) {
   if (heads != H) return (int)cudaErrorInvalidValue;
   if (B <= 0 || nQ <= 0 || nK <= 0) return (int)cudaGetLastError();
   const float* cs = rotate ? (const float*)cossin : nullptr;
+  const TrainOut train{(float*)lse, (float*)logits, (const long long*)seed,
+                       (uint32_t)keep_threshold, drop_scale};
   auto args = [&](auto fn) {
     return fn((const float*)q, (const float*)k, (const float*)v,
               (const float*)corners, cs, (const float*)key_xyz,
               (const float*)tables, (const uint8_t*)key_valid, (float*)out,
-              B, nQ, nK, n, log_scale, max_value, (cudaStream_t)stream);
+              train, B, nQ, nK, n, log_scale, max_value,
+              (cudaStream_t)stream);
   };
   switch (hd) {
     case 8: return args(launch<8>);

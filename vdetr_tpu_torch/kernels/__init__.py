@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each `vdetr_tpu_torch/csrc/<name>.cu` has a plain C interface. At first
+Each `vdetr_tpu_torch/csrc/<name>.cu` has a plain C interface; device
+code shared by several sources sits in `csrc/*.cuh` headers. At first
 use it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 under `build/kernels/` at the repository root and loaded with ctypes.
-The library name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.
+The library name carries a hash of the source, the headers and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: the package imports on machines
 without nvcc or a GPU, where only the plain PyTorch versions run.
@@ -35,10 +36,17 @@ _SIGNATURES = {
     "keyed_conv": ("keyed_conv_f32",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _P]),
+    "keyed_conv_dw": ("keyed_conv_dw_f32",
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _P]),
     "fps": ("fps_f32", [_P, _P, _P, _I, _I, _I, _P]),
     "rpe_attention": ("rpe_cross_attention_f32",
-                      [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P]),
+    "rpe_attention_bwd": ("rpe_cross_attention_bwd_f32",
+                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                           _I, _F, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -56,7 +64,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's digest
+    src = b"".join(p.read_bytes() for p in
+                   [_CSRC / f"{name}.cu"] + sorted(_CSRC.glob("*.cuh")))
     flags = " ".join(_NVCC_FLAGS).encode()
     digest = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"

@@ -5,6 +5,10 @@ The reference runs 1x1 Conv1d layers over (B, C, N); here the same
 weights, shaped (out, in, 1) as the reference stores them, multiply the
 channel-last (B, N, C) features directly. `nn.Sequential` indices follow
 the reference, so state_dict names match it.
+
+Dropout draws its mask from an explicit `torch.Generator` that the
+caller passes down the forward (the JAX package's `rngs={"dropout":
+...}`), never from the global generator.
 """
 
 from __future__ import annotations
@@ -32,10 +36,28 @@ class Conv1x1(nn.Module):
         return F.linear(x, self.weight[:, :, 0], self.bias)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout, as flax.linen.Dropout: in train mode each element
+    is kept with probability 1 - p (a Bernoulli draw from `generator`) and
+    scaled by 1 / (1 - p); the identity in eval mode or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in train mode needs a torch.Generator")
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=generator)
+        return x * keep / (1.0 - self.p)
+
+
 class GenericMLP(nn.Module):
     """Reference models/helpers.py:74-141 with the published choices:
-    BatchNorm and ReLU. Each hidden layer is conv, norm, relu, dropout
-    (dropout is the identity in eval)."""
+    BatchNorm and ReLU. Each hidden layer is conv, norm, relu, dropout."""
 
     def __init__(self, input_dim: int, hidden_dims: Sequence[int],
                  output_dim: int, dropout: Optional[float] = None,
@@ -49,7 +71,7 @@ class GenericMLP(nn.Module):
             layers += [Conv1x1(dim, h, bias=False), BatchNorm1d(h),
                        nn.ReLU()]
             if dropout is not None:
-                layers.append(nn.Dropout(dropout))
+                layers.append(Dropout(dropout))
             dim = h
         layers.append(Conv1x1(dim, output_dim, bias=output_use_bias))
         if output_use_norm:
@@ -58,8 +80,11 @@ class GenericMLP(nn.Module):
             layers.append(nn.ReLU())
         self.layers = nn.Sequential(*layers)
 
-    def forward(self, x):
-        return self.layers(x)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        for layer in self.layers:
+            x = layer(x, generator) if isinstance(layer, Dropout) \
+                else layer(x)
+        return x
 
 
 class PositionEmbeddingLearned(nn.Module):

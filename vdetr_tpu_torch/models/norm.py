@@ -1,4 +1,4 @@
-"""Normalization layers in eval mode (torch counterpart of
+"""Normalization layers (torch counterpart of
 `vdetr_tpu/models/norm.py:20-141`).
 
 The parameters keep torch's names (`weight`, `bias`, `running_mean`,
@@ -6,6 +6,14 @@ The parameters keep torch's names (`weight`, `bias`, `running_mean`,
 MinkowskiBatchNorm does, so the port's state_dict uses the reference
 V-DETR names. The normalization is written out, channel-last, rather
 than calling `F.batch_norm`, which would reach cuDNN on the GPU.
+
+In train mode (`module.train()`) the batch norms take their statistics
+from the batch, as the JAX package does: the mean and the biased
+variance max(E[x^2] - E[x]^2, 0), over the valid rows of (B, V) for the
+masked voxel norm and over all of (B, N) for the dense one. The running
+statistics then move by momentum 0.1 towards the batch mean and the
+unbiased variance. In eval mode they normalize with the running
+statistics.
 """
 
 from __future__ import annotations
@@ -13,9 +21,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
+
 
 class BatchNorm1d(nn.Module):
-    """Eval-mode BatchNorm over the last axis with running statistics."""
+    """BatchNorm over the last axis of (B, N, C), statistics over (B, N)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -25,20 +35,44 @@ class BatchNorm1d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def normalize(self, x, mask=None):
+        """Normalize x (B, N, C); in train mode with statistics over the
+        rows where `mask` (B, N) is true (all rows when None)."""
+        if self.training:
+            if mask is None:
+                cnt = torch.tensor(float(x.shape[0] * x.shape[1]),
+                                   device=x.device)
+                s, sq = x.sum(dim=(0, 1)), (x * x).sum(dim=(0, 1))
+            else:
+                m = mask.to(x.dtype)[..., None]
+                cnt = m.sum().clamp(min=1.0)
+                s, sq = (x * m).sum(dim=(0, 1)), (x * x * m).sum(dim=(0, 1))
+            mean = s / cnt
+            var = (sq / cnt - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.running_mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mean)
+                self.running_var.mul_(1 - MOMENTUM).add_(MOMENTUM * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+    def forward(self, x):
+        return self.normalize(x)
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm of padded voxel features (B, V, C); invalid rows are 0."""
+    """BatchNorm of padded voxel features (B, V, C); invalid rows are 0
+    and take no part in the statistics."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.bn = BatchNorm1d(num_features, eps)
 
     def forward(self, x, mask):
-        return torch.where(mask[..., None], self.bn(x.float()), 0.0)
+        return torch.where(mask[..., None], self.bn.normalize(x.float(), mask),
+                           0.0)
 
 
 class MaskedInstanceNorm(nn.Module):

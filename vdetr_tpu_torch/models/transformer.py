@@ -1,17 +1,19 @@
-"""V-DETR decoder, eval mode: FFN proposal layer, top-k query selection
-and the global decoder layers with vertex-RPE cross-attention (torch
-counterpart of `vdetr_tpu/models/transformer.py`; reference
+"""V-DETR decoder: FFN proposal layer, top-k query selection and the
+global decoder layers with vertex-RPE cross-attention (torch counterpart
+of `vdetr_tpu/models/transformer.py`; reference
 models/vdetr_transformer.py).
 
-Layouts are channel-last (B, N, C). Dropout modules are kept where the
-reference has them, for its state_dict names, and are the identity in
-eval. Parameter names follow the reference V-DETR state_dict.
+Layouts are channel-last (B, N, C). Parameter names follow the reference
+V-DETR state_dict. In train mode dropout acts at every site where the
+JAX modules have `nn.Dropout(..., deterministic=not train)`, drawing
+from the `generator` passed down the forward, and the boxes that prime
+each layer are detached where the JAX package stops gradients.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -22,9 +24,11 @@ from vdetr_tpu_torch.geometry.boxes import (
     box_parametrization_to_corners,
     convert_corners_camera2lidar,
 )
-from vdetr_tpu_torch.models.mlp import GenericMLP, PositionEmbeddingLearned
+from vdetr_tpu_torch.models.mlp import (Dropout, GenericMLP,
+                                        PositionEmbeddingLearned)
 from vdetr_tpu_torch.ops.rpe import make_coords_table
-from vdetr_tpu_torch.ops.rpe_attention import rpe_cross_attention
+from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
+                                               rpe_cross_attention_ad)
 
 FOCAL_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 # flax.linen.LayerNorm's default epsilon, which the JAX package uses
@@ -91,7 +95,8 @@ def refine_box_predictions(heads_out, pre_center_normalized,
                                             num_angle_bin, zero_angle=True)
     corners_aa = box_parametrization_to_corners(center_un, size_un,
                                                 angle_zero)
-    semcls_prob, obj_prob = objectness_and_cls_prob(cls_logits, use_focal)
+    semcls_prob, obj_prob = objectness_and_cls_prob(cls_logits.detach(),
+                                                    use_focal)
     return {
         "sem_cls_logits": cls_logits,
         "center_normalized": center_norm,
@@ -122,14 +127,15 @@ class MultiHeadSelfAttention(nn.Module):
     """nn.MultiheadAttention's function and parameter names (packed
     in_proj, out_proj), written out with plain matmuls and softmax."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
+        self.attn_drop = Dropout(dropout)
 
-    def forward(self, q_in, k_in, v_in):
+    def forward(self, q_in, k_in, v_in, generator=None):
         B, N, D = q_in.shape
         H = self.num_heads
         hd = D // H
@@ -139,6 +145,7 @@ class MultiHeadSelfAttention(nn.Module):
         k = F.linear(k_in, wk, bk).reshape(B, N, H, hd)
         v = F.linear(v_in, wv, bv).reshape(B, N, H, hd)
         attn = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        attn = self.attn_drop(attn, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, N, D)
         return self.out_proj(out)
 
@@ -146,12 +153,15 @@ class MultiHeadSelfAttention(nn.Module):
 class GlobalShareCrossAttention(nn.Module):
     """Cross-attention with the 8-corner RPE bias and one shared K/V head
     (reference vdetr_transformer.py:656-758). The attention itself is the
-    Hopper kernel (`ops/rpe_attention.py`)."""
+    Hopper kernel (`ops/rpe_attention.py`), its backward the flash
+    backward kernel; in train mode it drops attention weights in-kernel,
+    seeded from the generator."""
 
     def __init__(self, dim: int, num_heads: int, rpe_dim: int,
                  rpe_quant: str = "bilinear_4_10", log_scale: float = 512.0,
-                 angle_type: str = ""):
+                 angle_type: str = "", dropout: float = 0.0):
         super().__init__()
+        self.dropout = float(dropout)
         _, max_value, num_points = rpe_quant.split("_")
         self.max_value = float(max_value)
         self.num_points = int(num_points)
@@ -163,6 +173,7 @@ class GlobalShareCrossAttention(nn.Module):
         self.k = nn.Linear(dim, hd)
         self.v = nn.Linear(dim, hd)
         self.proj = nn.Linear(dim, dim)
+        self.proj_drop = Dropout(dropout)
         self.cpb_mlps = nn.ModuleList([
             nn.Sequential(nn.Linear(3, rpe_dim), nn.ReLU(),
                           nn.Linear(rpe_dim, num_heads, bias=False))
@@ -181,19 +192,29 @@ class GlobalShareCrossAttention(nn.Module):
             for mlp in self.cpb_mlps])
 
     def forward(self, query, key, reference_point, reference_angle, key_xyz,
-                key_valid=None):
+                key_valid=None, generator=None):
         B, nQ, D = query.shape
         H = self.num_heads
         hd = D // H
         q = self.q(query).reshape(B, nQ, H, hd) * (hd ** -0.5)
-        out = rpe_cross_attention(
+        rate = self.dropout if self.training else 0.0
+        seed = None
+        if rate > 0:
+            if generator is None:
+                raise ValueError("dropout in train mode needs a "
+                                 "torch.Generator")
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=generator.device)
+        attend = (rpe_cross_attention_ad if torch.is_grad_enabled()
+                  else rpe_cross_attention)
+        out = attend(
             q.contiguous(), self.k(key).contiguous(),
             self.v(key).contiguous(), reference_point.contiguous(),
             reference_angle.contiguous(), key_xyz.contiguous(),
             self.rpe_tables().contiguous(), key_valid,
             log_scale=self.log_scale, max_value=self.max_value,
-            rotate=self.rotate)
-        return self.proj(out.reshape(B, nQ, D))
+            rotate=self.rotate, dropout_rate=rate, seed=seed)
+        return self.proj_drop(self.proj(out.reshape(B, nQ, D)), generator)
 
 
 # --------------------------------------------------------------------------
@@ -204,15 +225,18 @@ class FFNLayer(nn.Module):
     """Pre-norm FFN over the seed tokens, decoder "layer 0" (reference
     vdetr_transformer.py:585-606)."""
 
-    def __init__(self, dim: int, ffn_dim: int):
+    def __init__(self, dim: int, ffn_dim: int, dropout: float = 0.0):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
 
-    def forward(self, memory):
+    def forward(self, memory, generator=None):
         m = self.norm(memory)
-        return m + self.linear2(F.relu(self.linear1(m)))
+        h = self.dropout1(F.relu(self.linear1(m)), generator)
+        return m + self.dropout2(self.linear2(h), generator)
 
 
 class GlobalDecoderLayer(nn.Module):
@@ -225,24 +249,32 @@ class GlobalDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(c.dec_dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(c.dec_dim, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(c.dec_dim, eps=LN_EPS)
-        self.self_attn = MultiHeadSelfAttention(c.dec_dim, c.dec_nhead)
+        self.self_attn = MultiHeadSelfAttention(c.dec_dim, c.dec_nhead,
+                                                c.dec_dropout)
         self.multihead_attn = GlobalShareCrossAttention(
             c.dec_dim, c.dec_nhead, c.rpe_dim, c.rpe_quant, c.log_scale,
-            c.angle_type)
+            c.angle_type, c.dec_dropout)
         self.linear1 = nn.Linear(c.dec_dim, c.dec_ffn_dim)
         self.linear2 = nn.Linear(c.dec_ffn_dim, c.dec_dim)
+        # after self-attention, cross-attention, the FFN's relu and its
+        # output (JAX transformer.py:416, 429, 434, 436)
+        self.dropout1, self.dropout2, self.dropout3, self.dropout4 = (
+            Dropout(c.dec_dropout) for _ in range(4))
 
     def forward(self, tgt, memory, reference_point, reference_angle,
-                enc_xyz, query_pos, key_valid=None):
+                enc_xyz, query_pos, key_valid=None, generator=None):
         t2 = self.norm1(tgt)
         q = t2 + query_pos
-        tgt = tgt + self.self_attn(q, q, t2)
+        tgt = tgt + self.dropout1(self.self_attn(q, q, t2, generator),
+                                  generator)
         t2 = self.norm2(tgt)
-        tgt = tgt + self.multihead_attn(t2 + query_pos, memory,
-                                        reference_point, reference_angle,
-                                        enc_xyz, key_valid)
+        ca = self.multihead_attn(t2 + query_pos, memory, reference_point,
+                                 reference_angle, enc_xyz, key_valid,
+                                 generator)
+        tgt = tgt + self.dropout2(ca, generator)
         t2 = self.norm3(tgt)
-        return tgt + self.linear2(F.relu(self.linear1(t2)))
+        h = self.dropout3(F.relu(self.linear1(t2)), generator)
+        return tgt + self.dropout4(self.linear2(h), generator)
 
 
 _HEADS = ("sem_cls", "center", "size", "angle_cls", "angle_residual")
@@ -262,8 +294,8 @@ class BoxHeads(nn.Module):
                 c.dec_dim, [c.dec_dim, c.dec_dim], outs[h],
                 dropout=c.mlp_dropout))
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
-        return {h: getattr(self, f"{h}_head")(x) for h in _HEADS}
+    def forward(self, x, generator=None) -> Dict[str, torch.Tensor]:
+        return {h: getattr(self, f"{h}_head")(x, generator) for h in _HEADS}
 
 
 class PointClsHead(GenericMLP):
@@ -278,7 +310,7 @@ class PointClsHead(GenericMLP):
 
 
 class TransformerDecoder(nn.Module):
-    """Reference vdetr_transformer.py:105-452, eval only."""
+    """Reference vdetr_transformer.py:105-452."""
 
     def __init__(self, cfg, num_semcls: int, num_angle_bin: int):
         super().__init__()
@@ -289,7 +321,7 @@ class TransformerDecoder(nn.Module):
         self.num_semcls = num_semcls
         self.num_angle_bin = num_angle_bin
         num_layers = c.dec_nlayers - 1  # the first FFN layer counts as one
-        self.first_layer = FFNLayer(c.dec_dim, c.dec_ffn_dim)
+        self.first_layer = FFNLayer(c.dec_dim, c.dec_ffn_dim, c.dec_dropout)
         self.norm = nn.LayerNorm(c.dec_dim, eps=LN_EPS)  # shared by layers
         if c.q_content in ("random", "random_add"):
             self.query_embed = nn.Embedding(c.nqueries, c.dec_dim)
@@ -305,18 +337,20 @@ class TransformerDecoder(nn.Module):
         self.pointcls_heads = PointClsHead(c, num_semcls)
 
     def forward(self, enc_features, enc_xyz, point_cloud_dims,
-                enc_box_predictions, enc_valid=None):
+                enc_box_predictions, enc_valid=None,
+                generator: Optional[torch.Generator] = None):
         c = self.cfg
-        output = self.first_layer(enc_features)
+        output = self.first_layer(enc_features, generator)
         pred0 = refine_box_predictions(
-            self.mlp_heads[0](self.norm(output)),
+            self.mlp_heads[0](self.norm(output), generator),
             enc_box_predictions["center_normalized"],
             enc_box_predictions["size_normalized"],
             point_cloud_dims, self.num_angle_bin, c.use_focal)
         intermediate: List[Dict[str, torch.Tensor]] = [pred0]
 
         # top-k proposals; a stable descending sort keeps lax.top_k's
-        # lower-index-first order among equal scores
+        # lower-index-first order among equal scores (the objectness is
+        # detached in refine_box_predictions)
         obj = pred0["objectness_prob"]
         if enc_valid is not None:
             obj = torch.where(enc_valid, obj, -torch.inf)
@@ -328,13 +362,16 @@ class TransformerDecoder(nn.Module):
             idx = topk.reshape(topk.shape + (1,) * (x.ndim - 2))
             return x.gather(1, idx.expand((-1, -1) + x.shape[2:]))
 
-        reference_point = convert_corners_camera2lidar(
-            g(pred0["box_corners"]))
-        reference_center = g(pred0["center_unnormalized"])
-        reference_size = g(pred0["size_unnormalized"])
-        reference_angle = g(pred0["angle_continuous"])
-        proposal_center_norm = g(pred0["center_normalized"])
-        proposal_size_norm = g(pred0["size_normalized"])
+        # the layers refine detached priors (JAX transformer.py:530-538)
+        sg = {k: pred0[k].detach() for k in (
+            "box_corners", "center_unnormalized", "size_unnormalized",
+            "angle_continuous", "center_normalized", "size_normalized")}
+        reference_point = convert_corners_camera2lidar(g(sg["box_corners"]))
+        reference_center = g(sg["center_unnormalized"])
+        reference_size = g(sg["size_unnormalized"])
+        reference_angle = g(sg["angle_continuous"])
+        proposal_center_norm = g(sg["center_normalized"])
+        proposal_size_norm = g(sg["size_normalized"])
         output = g(output)
         if c.q_content == "zero":
             output = torch.zeros_like(output)
@@ -347,16 +384,18 @@ class TransformerDecoder(nn.Module):
         for idx, layer in enumerate(self.layers):
             if idx > 0:
                 reference_point = convert_corners_camera2lidar(
-                    box_prediction["box_corners"])
-                reference_center = box_prediction["center_unnormalized"]
-                reference_size = box_prediction["size_unnormalized"]
-                reference_angle = box_prediction["angle_continuous"]
+                    box_prediction["box_corners"].detach())
+                reference_center = \
+                    box_prediction["center_unnormalized"].detach()
+                reference_size = box_prediction["size_unnormalized"].detach()
+                reference_angle = box_prediction["angle_continuous"].detach()
             query_pos = self.query_pos_projection[idx](
                 torch.cat([reference_center, reference_size], dim=-1))
             output = layer(output, enc_features, reference_point,
-                           reference_angle, enc_xyz, query_pos, enc_valid)
+                           reference_angle, enc_xyz, query_pos, enc_valid,
+                           generator)
             box_prediction = refine_box_predictions(
-                self.mlp_heads[idx + 1](self.norm(output)),
+                self.mlp_heads[idx + 1](self.norm(output), generator),
                 proposal_center_norm, proposal_size_norm, point_cloud_dims,
                 self.num_angle_bin, c.use_focal)
             intermediate.append(box_prediction)

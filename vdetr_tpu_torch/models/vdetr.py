@@ -1,5 +1,8 @@
-"""VDETR: the full detector in eval mode (torch counterpart of
-`vdetr_tpu/models/vdetr.py`; reference models/model_vdetr.py).
+"""VDETR: the full detector (torch counterpart of
+`vdetr_tpu/models/vdetr.py`; reference models/model_vdetr.py). In train
+mode its batch norms take batch statistics and its dropout draws from
+the generator given to `forward`; gradients reach every parameter, the
+sparse convs' through the keyed-conv autograd Function.
 
 Pipeline: voxelize @ 1 cm -> SparseResNet34 -> FPN top-down to stride 4
 -> furthest-point-sample 4096 seeds -> seed class head + anchor boxes ->
@@ -74,11 +77,13 @@ class VDETR(nn.Module):
             return point_clouds
         return point_clouds[..., :3]
 
-    def forward(self, inputs: Dict[str, torch.Tensor], debug_stop: int = 0):
+    def forward(self, inputs: Dict[str, torch.Tensor], debug_stop: int = 0,
+                generator: Optional[torch.Generator] = None):
         """inputs: point_clouds (B, N, D), point_cloud_dims_min/max (B, 3),
         optional point_validity (B, N) bool. debug_stop k > 0 returns the
         digest the JAX model returns after stage k (1 voxelize, 2
-        backbone, 3 FPN, 4 FPS, 5 heads/anchors)."""
+        backbone, 3 FPN, 4 FPS, 5 heads/anchors). `generator` (on the
+        model's device) drives dropout in train mode."""
         c = self.cfg
         point_clouds = inputs["point_clouds"]
         dims_min = inputs["point_cloud_dims_min"]
@@ -129,7 +134,8 @@ class VDETR(nn.Module):
 
         # ---- projection + seed classification + anchors ----
         enc_features = self.encoder_to_decoder_projection(enc_features)
-        point_cls_logits = self.decoder.pointcls_heads(enc_features)
+        point_cls_logits = self.decoder.pointcls_heads(enc_features,
+                                                       generator)
         class_idx = torch.sigmoid(point_cls_logits).argmax(dim=-1)
         if c.hard_anchor:
             size_per_class = torch.ones_like(self.mean_size_arr)
@@ -153,7 +159,8 @@ class VDETR(nn.Module):
 
         box_predictions = self.decoder(enc_features, enc_xyz,
                                        point_cloud_dims, enc_box_predictions,
-                                       enc_valid=seed_valid)
+                                       enc_valid=seed_valid,
+                                       generator=generator)
         box_predictions["seed_inds"] = seed_inds
         box_predictions["seed_xyz"] = enc_xyz
         box_predictions["enc_outputs"] = enc_box_predictions
@@ -221,11 +228,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 heads.sem_cls_head.layers[-1].bias.fill_(FOCAL_PRIOR_BIAS)
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when None. Raises when that is a CUDA
+    device and CUDA is unavailable: the port never falls back to the CPU
+    on its own; callers that want the CPU say so."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
 def build_model(cfg: VDETRConfig, dataset_config,
-                generator: Optional[torch.Generator] = None) -> VDETR:
-    """The eval model of `cfg`, initialised from `generator` (default: a
-    generator seeded with cfg.seed). Load trained or JAX weights over it
-    with `load_state_dict` or `convert.load_jax_params`."""
+                generator: Optional[torch.Generator] = None,
+                device=None) -> VDETR:
+    """The model of `cfg` in eval mode on `device` (default: the CUDA
+    card; raises without one), its weights drawn on the CPU from
+    `generator` (default: a generator seeded with cfg.seed). Load trained
+    or JAX weights over it with `load_state_dict` or
+    `convert.load_jax_params`."""
+    device = resolve_device(device)
     cfg.validate()
     missing = _unsupported(cfg)
     if missing:
@@ -236,4 +258,4 @@ def build_model(cfg: VDETRConfig, dataset_config,
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
-    return model.eval()
+    return model.to(device).eval()

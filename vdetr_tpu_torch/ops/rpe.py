@@ -28,15 +28,11 @@ def make_coords_table(max_value: float, num_points: int) -> np.ndarray:
     return g.reshape(-1, 3)
 
 
-def trilinear_sample(table, p0, p1, p2):
-    """table (n, n, n, H) on the grid (axes d, h, w); p0/p1/p2
-    broadcast-compatible (...,) sample components in [-1, 1], component
-    0 -> w, 1 -> h, 2 -> d. Out-of-range taps contribute zero. Returns
-    (H, ...), heads first."""
-    n = table.shape[0]
-    H = table.shape[-1]
-    flat = table.reshape(-1, H).t().contiguous()     # (H, n^3)
-
+def trilinear_taps(p0, p1, p2, n: int):
+    """The 8 trilinear taps of samples (p0, p1, p2) (broadcast-compatible,
+    components in [-1, 1]; component 0 -> w, 1 -> h, 2 -> d) on an n^3
+    grid: a list of (cell, weight), cell the flat (d, h, w) index and
+    weight 0 for taps outside the grid (zero padding)."""
     def to_idx(p):
         # align_corners=False: continuous index = ((p + 1) * n - 1) / 2
         return ((p + 1.0) * n - 1.0) * 0.5
@@ -46,7 +42,7 @@ def trilinear_sample(table, p0, p1, p2):
     fw, fh, fd = torch.floor(iw), torch.floor(ih), torch.floor(id_)
     ww, wh, wd = iw - fw, ih - fh, id_ - fd
     fw, fh, fd = fw.long(), fh.long(), fd.long()
-    out = table.new_zeros((H,) + iw.shape)
+    taps = []
     for dw in (0, 1):
         for dh in (0, 1):
             for dd in (0, 1):
@@ -55,7 +51,22 @@ def trilinear_sample(table, p0, p1, p2):
                        & (cd >= 0) & (cd < n))
                 w = ((ww if dw else 1.0 - ww) * (wh if dh else 1.0 - wh)
                      * (wd if dd else 1.0 - wd)) * inb
-                idx = ((cd.clamp(0, n - 1) * n + ch.clamp(0, n - 1)) * n
-                       + cw.clamp(0, n - 1))
-                out = out + flat[:, idx] * w
+                cell = ((cd.clamp(0, n - 1) * n + ch.clamp(0, n - 1)) * n
+                        + cw.clamp(0, n - 1))
+                taps.append((cell, w))
+    return taps
+
+
+def trilinear_sample(table, p0, p1, p2):
+    """table (n, n, n, H) on the grid (axes d, h, w); p0/p1/p2
+    broadcast-compatible (...,) sample components in [-1, 1], component
+    0 -> w, 1 -> h, 2 -> d. Out-of-range taps contribute zero. Returns
+    (H, ...), heads first."""
+    n = table.shape[0]
+    H = table.shape[-1]
+    flat = table.reshape(-1, H).t().contiguous()     # (H, n^3)
+    out = None
+    for cell, w in trilinear_taps(p0, p1, p2, n):
+        term = flat[:, cell] * w
+        out = term if out is None else out + term
     return out

@@ -3,16 +3,17 @@
 
 Weights are (K, C_in, C_out) with offsets x-major / z-fastest. Every 3^3
 conv (submanifold or stride 2, the 3-channel stem included) runs the
-keyed Hopper kernel (`ops/sparse_conv_keyed.py`). The 1x1 downsample and
-the kernel-2 transpose convs are plain torch, as they are plain XLA in
-the JAX package: a lookup, a row gather and `torch.matmul`.
+keyed Hopper kernel (`ops/sparse_conv_keyed.py`), whose autograd Function
+gives the gradients. The 1x1 downsample and the kernel-2 transpose
+convs are plain torch, as they are plain XLA in the JAX package: a
+lookup, a row gather and `torch.matmul`, differentiated by autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv
+from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv_ad
 from vdetr_tpu_torch.ops.voxelize import (KEY_SENTINEL, VoxelGrid,
                                           downsample_grid, gather_rows,
                                           lookup, pack_keys,
@@ -25,8 +26,9 @@ def sparse_conv(grid: VoxelGrid, weights, kernel_size: int = 3) -> VoxelGrid:
     if kernel_size == 1:
         out = torch.matmul(grid.features, weights[0])
     elif kernel_size == 3:
-        out = keyed_conv(grid.features, grid.keys, grid.coords, grid.valid,
-                         grid.extent, weights)
+        out = keyed_conv_ad(grid.features, grid.keys, grid.coords,
+                            grid.valid, grid.extent, weights,
+                            submanifold=True)
     else:
         raise ValueError(f"unsupported kernel size {kernel_size}")
     return grid.replace(features=out * grid.valid[..., None])
@@ -48,8 +50,8 @@ def sparse_conv_down(grid: VoxelGrid, weights, out_capacity: int = 0,
         x = gather_rows(grid.features, lookup(grid.keys, qk))
         out = torch.matmul(x, weights[0])
     elif kernel_size == 3:
-        out = keyed_conv(grid.features, grid.keys, q0, out_grid.valid,
-                         grid.extent, weights)
+        out = keyed_conv_ad(grid.features, grid.keys, q0, out_grid.valid,
+                            grid.extent, weights, submanifold=False)
     else:
         raise ValueError(f"unsupported kernel size {kernel_size}")
     return out_grid.replace(features=out * out_grid.valid[..., None])

@@ -1,15 +1,27 @@
-"""Keyed 3x3x3 sparse convolution: the wrapper of the Hopper kernel
-`csrc/keyed_conv.cu` and its plain PyTorch version.
+"""Keyed 3x3x3 sparse convolution and its gradients: the wrappers of the
+Hopper kernels `csrc/keyed_conv.cu` (forward) and `csrc/keyed_conv_dw.cu`
+(weight gradient), their plain PyTorch versions, and the autograd
+Function that joins them.
 
-Replaces the TPU kernel `vdetr_tpu/ops/sparse_conv_keyed.py:keyed_conv`.
-The function, per query row v and kernel offset k (x-major, z-fastest,
-`kernel_offsets`): pack `q[v] + off[k]` with `pack_keys`' bounds check,
-find it in the sorted keys of the input table, and accumulate
-`feats[hit] @ W[k]` in float32; a miss contributes 0. Its contract in the
-JAX package is `sparse_conv._gather_matmul` over `_zrun_neighbors`.
+Replaces the TPU kernels `vdetr_tpu/ops/sparse_conv_keyed.py:keyed_conv`
+and `keyed_conv_dw`. The function, per query row v and kernel offset k
+(x-major, z-fastest, `kernel_offsets`): pack `q[v] + off[k]` with
+`pack_keys`' bounds check, find it in the sorted keys of the input table,
+and accumulate `feats[hit] @ W[k]` in float32; a miss contributes 0. Its
+contract in the JAX package is `sparse_conv._gather_matmul` over
+`_zrun_neighbors`, and the gradients are that function's vjp:
+- dW[k] = sum_v feats[nbr_k(v)]^T dout[v]: kernel D;
+- dFeats of a submanifold conv (query sites = table sites) is the same
+  conv of dout with flipped weights, W'[k] = W[26 - k]^T, since
+  nbr_k(v) = u iff nbr_{26-k}(u) = v (the JAX package's identity,
+  `_kc_bwd`): kernel A again. The Hopper kernel resolves every neighbour
+  exactly, so none of the TPU kernel's fix-up rows are needed;
+- dFeats of a stride-2 conv is the transpose scatter (`_kcf_bwd`), which
+  the JAX package leaves to XLA: here a lookup, a matmul per offset and a
+  scatter-add, in plain torch ops.
 
-What bounds the kernel on the H100, and how its design answers it, is in
-the source note of `csrc/keyed_conv.cu`.
+What bounds each kernel on the H100, and how its design answers it, is
+in the source notes of `csrc/keyed_conv.cu` and `csrc/keyed_conv_dw.cu`.
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ from vdetr_tpu_torch import kernels
 from vdetr_tpu_torch.ops.voxelize import (KEY_SENTINEL, gather_rows, lookup,
                                           pack_keys)
 
+_SMS = 132  # streaming multiprocessors of an H100
+
 
 def kernel_offsets(kernel_size: int, device=None) -> torch.Tensor:
     """(k^3, 3) int32 offsets of an odd kernel, x-major / z-fastest."""
@@ -29,17 +43,23 @@ def kernel_offsets(kernel_size: int, device=None) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
-def keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent, weights):
-    """Plain version: one `searchsorted` lookup per offset, then a row
-    gather and a matmul per offset, accumulated in float32."""
+def neighbour_map(in_keys, q_coords, q_valid, extent):
+    """(B, 27, V) int64 rows of each query's 27 neighbours in the input
+    table; V_in for a miss or an invalid query row."""
     B, V, _ = q_coords.shape
-    K = weights.shape[0]
     offs = kernel_offsets(3, q_coords.device)
     q = q_coords[:, None, :, :] + offs[None, :, None, :]      # (B, 27, V, 3)
     qk = torch.where(q_valid[:, None, :], pack_keys(q, extent), KEY_SENTINEL)
-    nbr = lookup(in_keys, qk.reshape(B, K * V)).reshape(B, K, V)
-    out = feats.new_zeros(B, V, weights.shape[-1], dtype=torch.float32)
-    for k in range(K):
+    return lookup(in_keys, qk.reshape(B, 27 * V)).reshape(B, 27, V)
+
+
+def keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent, weights):
+    """Plain version: one `searchsorted` lookup per offset, then a row
+    gather and a matmul per offset, accumulated in float32."""
+    nbr = neighbour_map(in_keys, q_coords, q_valid, extent)
+    out = feats.new_zeros(q_coords.shape[:2] + (weights.shape[-1],),
+                          dtype=torch.float32)
+    for k in range(weights.shape[0]):
         out = out + torch.matmul(gather_rows(feats, nbr[:, k]), weights[k])
     return out
 
@@ -61,14 +81,8 @@ def keyed_conv(feats, in_keys, q_coords, q_valid, extent, weights):
     B, V_in, C = feats.shape
     V = q_coords.shape[1]
     Co = weights.shape[-1]
-    gx, gy, gz = (int(e) for e in extent)
-    kernels.check(feats, torch.float32, (B, V_in, C), "feats")
-    kernels.check(in_keys, torch.int32, (B, V_in), "in_keys")
-    kernels.check(q_coords, torch.int32, (B, V, 3), "q_coords")
-    kernels.check(q_valid, torch.bool, (B, V), "q_valid")
+    gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
     kernels.check(weights, torch.float32, (27, C, Co), "weights")
-    if gx * gy * gz > 2 ** 31:  # the largest key must fit in int32
-        raise ValueError(f"extent {extent} does not pack into int32 keys")
     out = torch.empty(B, V, Co, dtype=torch.float32, device=feats.device)
     # wide inputs are the deep levels, where few row tiles are live: three
     # blocks share each tile's 27 offsets (partial sums added in order)
@@ -86,3 +100,121 @@ def keyed_conv(feats, in_keys, q_coords, q_valid, extent, weights):
 
 keyed_conv.launches = 0
 
+
+def keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent, dout):
+    """Plain version of the weight gradient: per offset, the gathered
+    input rows (zero at misses and invalid rows) times dout."""
+    C, Co = feats.shape[-1], dout.shape[-1]
+    nbr = neighbour_map(in_keys, q_coords, q_valid, extent)
+    d = dout.reshape(-1, Co)
+    return torch.stack([
+        torch.matmul(gather_rows(feats, nbr[:, k]).reshape(-1, C).t(), d)
+        for k in range(27)])
+
+
+def keyed_conv_dw(feats, in_keys, q_coords, q_valid, extent, dout):
+    """Weight gradient of `keyed_conv`: (27, C, Co) float32 from feats
+    (B, V_in, C), the conv's sites and dout (B, V, Co). Rows that are
+    invalid or miss contribute nothing, so dout needs no masking.
+
+    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
+    `keyed_conv_dw_plain`."""
+    if not feats.is_cuda:
+        return keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent,
+                                   dout)
+    B, V_in, C = feats.shape
+    V, Co = q_coords.shape[1], dout.shape[-1]
+    gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
+    kernels.check(dout, torch.float32, (B, V, Co), "dout")
+    rows = B * V
+    # one block per (offset, 64 x 64 dW tile); the rows are split over
+    # more blocks until two waves of the card's SMs have work, each split
+    # at least 256 rows (partials added in a fixed order)
+    tiles = 27 * -(-C // 64) * -(-Co // 64)
+    splits = max(1, min(-(-2 * _SMS // tiles), -(-rows // 256)))
+    rows_per_split = max(16, -(-rows // (splits * 16)) * 16)
+    splits = max(1, -(-rows // rows_per_split))
+    dev = feats.device
+    dw = torch.empty(27, C, Co, dtype=torch.float32, device=dev)
+    nbr = torch.empty(27, rows, dtype=torch.int32, device=dev)
+    scratch = (torch.empty(splits, 27, C, Co, dtype=torch.float32,
+                           device=dev) if splits > 1 else dw)
+    kernels.call("keyed_conv_dw", feats.data_ptr(), in_keys.data_ptr(),
+                 q_coords.data_ptr(), q_valid.data_ptr(), dout.data_ptr(),
+                 dw.data_ptr(), nbr.data_ptr(), scratch.data_ptr(), B, V_in,
+                 V, C, Co, gx, gy, gz, splits, rows_per_split,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    keyed_conv_dw.launches += 1
+    return dw
+
+
+keyed_conv_dw.launches = 0
+
+
+def keyed_conv_dfeats_scatter(dout, in_keys, q_coords, q_valid, extent,
+                              weights, v_in: int):
+    """dFeats of a conv whose query sites are not its table's sites (the
+    stride-2 convs): each query row's dout @ W[k]^T added to its k-th
+    neighbour's row. Plain torch on every device, as in the JAX package,
+    where XLA computes it outside any Pallas kernel."""
+    B, V, Co = dout.shape
+    C = weights.shape[1]
+    nbr = neighbour_map(in_keys, q_coords, q_valid, extent)
+    dfeats = dout.new_zeros(B, v_in + 1, C)  # row v_in takes the misses
+    for k in range(27):
+        dfeats.scatter_add_(1, nbr[:, k, :, None].expand(-1, -1, C),
+                            torch.matmul(dout, weights[k].t()))
+    return dfeats[:, :v_in]
+
+
+def _check_common(feats, in_keys, q_coords, q_valid, extent):
+    B, V_in, C = feats.shape
+    V = q_coords.shape[1]
+    gx, gy, gz = (int(e) for e in extent)
+    kernels.check(feats, torch.float32, (B, V_in, C), "feats")
+    kernels.check(in_keys, torch.int32, (B, V_in), "in_keys")
+    kernels.check(q_coords, torch.int32, (B, V, 3), "q_coords")
+    kernels.check(q_valid, torch.bool, (B, V), "q_valid")
+    if gx * gy * gz > 2 ** 31:  # the largest key must fit in int32
+        raise ValueError(f"extent {extent} does not pack into int32 keys")
+    return gx, gy, gz
+
+
+class _KeyedConv(torch.autograd.Function):
+    """`keyed_conv` with its gradients (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, in_keys, q_coords, q_valid, extent,
+                submanifold):
+        ctx.save_for_backward(feats, weights, in_keys, q_coords, q_valid)
+        ctx.extent = extent
+        ctx.submanifold = submanifold
+        return keyed_conv(feats, in_keys, q_coords, q_valid, extent, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, weights, in_keys, q_coords, q_valid = ctx.saved_tensors
+        dout = dout.contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            if ctx.submanifold:
+                flipped = weights.flip(0).transpose(1, 2).contiguous()
+                dfeats = keyed_conv(dout, in_keys, q_coords, q_valid,
+                                    ctx.extent, flipped)
+            else:
+                dfeats = keyed_conv_dfeats_scatter(
+                    dout, in_keys, q_coords, q_valid, ctx.extent, weights,
+                    feats.shape[1])
+        if ctx.needs_input_grad[1]:
+            dw = keyed_conv_dw(feats, in_keys, q_coords, q_valid, ctx.extent,
+                               dout)
+        return dfeats, dw, None, None, None, None, None
+
+
+def keyed_conv_ad(feats, in_keys, q_coords, q_valid, extent, weights,
+                  submanifold: bool):
+    """Differentiable `keyed_conv` (same arguments). `submanifold` says
+    that the query sites are the table's own sites (q_coords are its
+    coords, q_valid its validity), which selects the dFeats route."""
+    return _KeyedConv.apply(feats, weights, in_keys, q_coords, q_valid,
+                            extent, submanifold)
