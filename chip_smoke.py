@@ -9,22 +9,29 @@ Phases, each printing its own lines:
      one nvcc per source, all at once;
   3. kernels: each kernel's wrapper against its plain PyTorch version on
      the card, at the shapes the published model gives it, with TF32
-     off: the keyed conv (A) and its weight gradient (D), FPS (B), the
-     RPE attention forward (C, eval and training form with dropout and
-     the log-sum-exp) and its flash backward (F, dropout 0 and 0.1);
-     prints the error, its tolerance, both times and the kernel's bound;
-  4. forward: the published VDETR (VDETRConfig() defaults, seeded random
-     weights) on synthetic 100k-point scenes at batch 1 and 4 under
-     torch.inference_mode(): outputs finite and of the expected shapes,
-     every kernel launched the expected number of times, median ms per
-     scene and peak memory; and a small model whose kernel forward on
-     the card agrees with the plain forward on the CPU;
-  5. train: the published model's train step (Trainer, matcher "jv",
-     batch 1, dropout on): a warm step, then timed steps with finite
-     loss and gradients and the expected launches of A, B, C, D and F
-     per step, median ms per step, peak memory and a breakdown by phase;
-     and a small model's step on the card against the same step on the
-     CPU (dropout 0): loss, every gradient and the updated parameters;
+     off: the keyed conv (A) and its weight gradient (D), the neighbour
+     map (G) on the forward's nine maps, the mapped conv (H, also held to
+     A) and its weight gradient (I), FPS (B), the RPE attention forward
+     (C, eval and training form with dropout and the log-sum-exp) and its
+     flash backward (F, dropout 0 and 0.1); prints the error, its
+     tolerance, both times and the kernel's bound;
+  4. forward, on both sparse-conv routes (conv_route "keyed", the
+     default, and "mapped"): the published VDETR (VDETRConfig() defaults,
+     seeded random weights, the same on both routes) on synthetic
+     100k-point scenes at batch 1 and 4 under torch.inference_mode():
+     outputs finite and of the expected shapes, every kernel launched
+     the expected number of times, peak memory, and median ms per scene
+     from timed runs of the two routes in turn; the two routes' FPN
+     outputs agree; and a small model on each route whose kernel forward
+     on the card agrees with the plain forward on the CPU;
+  5. train, on both routes: the published model's train step (Trainer,
+     matcher "jv", batch 1, dropout on), the two routes' steps in turn on
+     the same batches: three warm steps, then timed steps with finite
+     loss and gradients and the expected launches per step (A, D or G,
+     H, I; B, C, F), median ms per step, peak memory and a breakdown by
+     phase; and a small model's step on each route on the card against
+     the same step on the CPU (dropout 0): loss, every gradient and the
+     updated parameters;
   6. a JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}} -- printed only when every phase
      passed.
@@ -56,7 +63,14 @@ REPO_SOURCES = {
                       "vdetr_tpu/ops/sparse_conv_keyed.py:513"),
     "rpe_cross_attention_bwd": ("vdetr_tpu_torch/csrc/rpe_attention_bwd.cu",
                                 "vdetr_tpu/ops/rpe_attention.py:561"),
+    "kernel_map": ("vdetr_tpu_torch/csrc/map_kernel.cu",
+                   "vdetr_tpu/ops/map_kernel.py:185"),
+    "mapped_conv": ("vdetr_tpu_torch/csrc/mapped_conv.cu",
+                    "vdetr_tpu/ops/sparse_conv_kernel.py:202"),
+    "mapped_conv_dw": ("vdetr_tpu_torch/csrc/mapped_conv_dw.cu",
+                       "vdetr_tpu/ops/sparse_conv_kernel.py:293"),
 }
+ROUTES = ("keyed", "mapped")
 # the card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # f32 outside the tensor cores and device-memory bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -71,6 +85,13 @@ LIBRARY_NONE = {
     "keyed_conv_dw": "weight gradient of the keyed sparse conv: no torch op",
     "rpe_cross_attention_bwd": "backward of the above, with the table "
                                "gradient: no torch op",
+    "kernel_map": "27-offset neighbour lookup in sorted voxel keys: no "
+                  "single torch op (searchsorted needs the packing, the "
+                  "bounds check and the hit test around it)",
+    "mapped_conv": "gather-GEMM over a neighbour map with misses: no single "
+                   "torch op (the gather-then-matmul yardstick is timed "
+                   "beside it, 'gather_matmul_ms')",
+    "mapped_conv_dw": "weight gradient of a gather-GEMM: no single torch op",
 }
 
 
@@ -145,8 +166,9 @@ def level_grids(cfg, device):
 def conv_cases(cfg, grids, gen):
     """The published shapes of four 3^3 convs: the stem, a stage-1
     submanifold conv, a stride-2 conv into stage 2, a stage-4 conv. Per
-    case (label, kernel A's args, a premasked dout, neighbour hits)."""
-    from vdetr_tpu_torch.ops.sparse_conv_keyed import neighbour_map
+    case (label, kernel A's args, a premasked dout, neighbour hits, the
+    conv's neighbour map)."""
+    from vdetr_tpu_torch.ops.map_kernel import neighbour_map
 
     device = grids[0].keys.device
     w = cfg.inplanes
@@ -164,22 +186,25 @@ def conv_cases(cfg, grids, gen):
                 gi.extent, wt)
         dout = (torch.randn(go.keys.shape + (cout,), generator=gen,
                             device=device) * go.valid[..., None]).contiguous()
-        hits = int((neighbour_map(gi.keys, args[2], go.valid, gi.extent)
-                    < gi.capacity).sum())
+        nbr = neighbour_map(gi.keys, args[2], go.valid, gi.extent)
+        hits = int((nbr < gi.capacity).sum())
         label = (f"{cin}->{cout} {'submanifold' if li == lo else 'stride-2'}"
                  f" V_in={gi.capacity} V={go.capacity} "
                  f"valid={int(go.valid.sum())}")
-        out.append((label, args, dout, hits))
+        out.append((label, args, dout, hits, nbr))
     return out
 
 
 def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
-                      weight_grad=False):
-    """Kernel A (or, with weight_grad, D) against its plain version on
-    each conv case; per case the error, both times and the bound."""
+                      kargs_of):
+    """A conv kernel (A, D, H or I) against its plain version on each conv
+    case, called on `kargs_of(case)`; per case the error, both times and
+    the bound (each tensor argument read once, the result written once;
+    2 * C_in * C_out flops per neighbour hit)."""
     errs, ms, plain_ms, bound, out_cases = [], 0.0, 0.0, 0.0, []
-    for label, args, dout, hits in cases:
-        kargs = args[:5] + (dout,) if weight_grad else args
+    for case in cases:
+        label, args, hits = case[0], case[1], case[3]
+        kargs = kargs_of(case)
         got = kernel(*kargs)
         ref = plain(*kargs)
         torch.cuda.synchronize()
@@ -189,8 +214,9 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
         t_k = time_ms(lambda: kernel(*kargs), reps=10)
         t_p = time_ms(lambda: plain(*kargs), reps=3)
         cin, cout = args[5].shape[1:]
-        b_ms, b_by = bound_ms(nbytes(*kargs[:4], kargs[5]) + ref.numel() * 4,
-                              2.0 * cin * cout * hits)
+        b_ms, b_by = bound_ms(
+            nbytes(*(a for a in kargs if torch.is_tensor(a)))
+            + ref.numel() * 4, 2.0 * cin * cout * hits)
         ok = err <= tol
         log(f"check {name} {label}: max_abs_err={err:.3e} "
             f"(max|ref|={scale:.3e}) tol={tol:.3e} -> {'ok' if ok else 'FAIL'};"
@@ -209,27 +235,140 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
                 bound_by=_dominant(out_cases), cases=out_cases)
 
 
+CONV_REASON = ("float32 sums of up to 27*C_in products taken in another "
+               "order than the plain per-offset matmuls; 1e-4 of max|ref| "
+               "is ~10x the sqrt(n)*2^-24 rounding spread at n = 27*512")
+DW_REASON = ("each dW entry is a float32 sum over up to 65536 rows, taken "
+             "in 16-row register tiles and a fixed-order sum of row splits "
+             "against the plain version's GEMM order; 2e-5 of max|ref| is "
+             "~10x the rounding spread measured on the card")
+
+
 def check_keyed_conv(cases):
     from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                        keyed_conv_plain)
 
-    return check_conv_kernel(
-        "keyed_conv", cases, keyed_conv, keyed_conv_plain, 1e-4,
-        "float32 sums of up to 27*C_in products taken in another order "
-        "than the plain per-offset matmuls; 1e-4 of max|ref| is ~10x the "
-        "sqrt(n)*2^-24 rounding spread at n = 27*512")
+    return check_conv_kernel("keyed_conv", cases, keyed_conv,
+                             keyed_conv_plain, 1e-4, CONV_REASON,
+                             lambda c: c[1])
 
 
 def check_keyed_conv_dw(cases):
     from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv_dw,
                                                        keyed_conv_dw_plain)
 
-    return check_conv_kernel(
-        "keyed_conv_dw", cases, keyed_conv_dw, keyed_conv_dw_plain, 2e-5,
-        "each dW entry is a float32 sum over up to 65536 rows, taken in "
-        "16-row register tiles and a fixed-order sum of row splits against "
-        "the plain version's GEMM order; 2e-5 of max|ref| is ~10x the "
-        "rounding spread measured on the card", weight_grad=True)
+    return check_conv_kernel("keyed_conv_dw", cases, keyed_conv_dw,
+                             keyed_conv_dw_plain, 2e-5, DW_REASON,
+                             lambda c: c[1][:5] + (c[2],))
+
+
+def gather_matmul(feats, nbr, weights):
+    """The yardstick beside kernel H: all 27 neighbours gathered into one
+    (B, V, 27 * C) tensor, then one torch.matmul with the (27 * C, Co)
+    weights (TF32 off)."""
+    from vdetr_tpu_torch.ops.voxelize import gather_rows
+
+    B, _, V = nbr.shape
+    x = gather_rows(feats, nbr.long().transpose(1, 2).reshape(B, V * 27))
+    return torch.matmul(x.reshape(B, V, -1),
+                        weights.reshape(-1, weights.shape[-1]))
+
+
+def check_mapped_conv(cases):
+    """Kernel H against its plain version, against kernel A on the same
+    case (A's tolerance), and the gather-then-matmul yardstick's time."""
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
+                                                        mapped_conv_plain)
+
+    res = check_conv_kernel("mapped_conv", cases, mapped_conv,
+                            mapped_conv_plain, 1e-4, CONV_REASON,
+                            lambda c: (c[1][0], c[4], c[1][5]))
+    worst_a, yard_ms = 0.0, 0.0
+    for case, rec in zip(cases, res["cases"]):
+        label, args, nbr = case[0], case[1], case[4]
+        got = mapped_conv(args[0], nbr, args[5])
+        ref = keyed_conv(*args)
+        y = gather_matmul(args[0], nbr, args[5])
+        torch.cuda.synchronize()
+        scale = max(1.0, float(ref.abs().max()))
+        err_a = float((got - ref).abs().max())
+        err_y = float((y - got).abs().max())
+        worst_a = max(worst_a, err_a / scale)
+        t_y = time_ms(lambda: gather_matmul(args[0], nbr, args[5]), reps=3)
+        yard_ms += t_y
+        rec.update(vs_keyed_err=err_a, gather_matmul_ms=t_y)
+        log(f"check mapped_conv vs keyed_conv {label}: max_abs_err="
+            f"{err_a:.3e} tol={1e-4 * scale:.3e} -> "
+            f"{'ok' if err_a <= 1e-4 * scale else 'FAIL'}; gather-then-"
+            f"matmul yardstick {t_y:.3f} ms (its max_abs_err vs H "
+            f"{err_y:.3e})")
+        del y
+    res["ok"] = res["ok"] and worst_a <= 1e-4
+    res["gather_matmul_ms"] = yard_ms
+    return res
+
+
+def check_mapped_conv_dw(cases):
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv_dw,
+                                                        mapped_conv_dw_plain)
+
+    return check_conv_kernel("mapped_conv_dw", cases, mapped_conv_dw,
+                             mapped_conv_dw_plain, 2e-5, DW_REASON,
+                             lambda c: (c[1][0], c[4], c[2]))
+
+
+def map_cases(grids):
+    """The nine neighbour maps of the published forward: the five
+    stride-2 maps (raw -> stem, stem -> stage 1, ..., stage 3 -> 4; the
+    queries are 2 * the coarser level's coords) and the four level maps
+    (stages 1 .. 4 on their own sites). Per map (label, kernel G's
+    args)."""
+    out = []
+    for li in range(len(grids) - 1):
+        gi, go = grids[li], grids[li + 1]
+        out.append((f"stride-2 V_in={gi.capacity} V={go.capacity}",
+                    (gi.keys, (go.coords * 2).contiguous(), go.valid,
+                     gi.extent)))
+    for g in grids[2:]:
+        out.append((f"level V={g.capacity}",
+                    (g.keys, g.coords, g.valid, g.extent)))
+    return out
+
+
+def check_kernel_map(grids):
+    """Kernel G against its plain version on the forward's nine maps:
+    bit-identical. Bound: the keys, queries and validity read once and the
+    map written once; the operations (per valid query row and (dx, dy)
+    group a binary search of log2(V_in) steps and three compares) are far
+    below it."""
+    from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
+
+    ok_all, ms, plain_ms, bound, out_cases = True, 0.0, 0.0, 0.0, []
+    for label, args in map_cases(grids):
+        got = kernel_map(*args)
+        ref = neighbour_map(*args)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum())
+        t_k = time_ms(lambda: kernel_map(*args), reps=10)
+        t_p = time_ms(lambda: neighbour_map(*args), reps=3)
+        keys, q, qv, _ = args
+        ops = int(qv.sum()) * 9 * (math.log2(keys.shape[1]) + 3)
+        b_ms, b_by = bound_ms(nbytes(keys, q, qv) + got.numel() * 4, ops)
+        ok = mism == 0
+        ok_all &= ok
+        log(f"check kernel_map {label} valid={int(qv.sum())}: {mism} entries"
+            f" differ, tolerance 0 -> {'ok' if ok else 'FAIL'}; kernel "
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        ms += t_k
+        plain_ms += t_p
+        bound += b_ms
+        out_cases.append({"case": label, "max_abs_err": float(mism),
+                          "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                          "bound_by": b_by})
+    return dict(ok=ok_all, err=max(c["max_abs_err"] for c in out_cases),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=_dominant(out_cases), cases=out_cases)
 
 
 def check_fps(cfg, grids):
@@ -435,34 +574,60 @@ def check_rpe_bwd(cfg, case):
 # --------------------------------------------------------------------------
 
 def expected_launches(model, cfg, train: bool = False):
-    """Kernel launches of one forward, or of one train step: A once per
-    3^3 conv forward and again for each submanifold conv's dFeats, D
-    once per 3^3 conv, C and F once per decoder layer, FPS once."""
-    from vdetr_tpu_torch.models.backbone import SparseConv, SparseConvDown
+    """Kernel launches of one forward, or of one train step, on the
+    model's conv route. Keyed: A once per 3^3 conv forward and again for
+    each submanifold conv's dFeats, D once per 3^3 conv. Mapped: G once
+    per stride-2 3^3 conv and once per level (each stage's first block
+    maps its sites; the maps are saved for the backward), H where keyed
+    runs A, I where keyed runs D; no A or D. Both: C and F once per
+    decoder layer, FPS once."""
+    from vdetr_tpu_torch.models.backbone import (SparseBasicBlock,
+                                                 SparseConv, SparseConvDown)
 
     k3 = [m for m in model.modules()
           if isinstance(m, (SparseConv, SparseConvDown))
           and m.kernel_size == 3]
+    conv = sum(isinstance(m, SparseConv) for m in k3) if train else 0
+    conv += len(k3)
     layers = cfg.dec_nlayers - 1
-    out = {"keyed_conv": len(k3), "fps": 1, "rpe_cross_attention": layers}
+    out = {k: 0 for k in launch_counters()}
+    out.update(fps=1, rpe_cross_attention=layers)
+    if model.conv_route == "keyed":
+        out["keyed_conv"] = conv
+    else:
+        out["kernel_map"] = (
+            sum(isinstance(m, SparseConvDown) for m in k3)
+            + sum(isinstance(m, SparseBasicBlock) and m.stride == 2
+                  for m in model.modules()))
+        out["mapped_conv"] = conv
     if train:
-        out["keyed_conv"] += sum(isinstance(m, SparseConv) for m in k3)
-        out["keyed_conv_dw"] = len(k3)
+        out["keyed_conv_dw" if model.conv_route == "keyed"
+            else "mapped_conv_dw"] = len(k3)
         out["rpe_cross_attention_bwd"] = layers
     return out
 
 
 def launch_counters():
     from vdetr_tpu_torch.ops.fps import furthest_point_sample
+    from vdetr_tpu_torch.ops.map_kernel import kernel_map
     from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
                                                    rpe_cross_attention_bwd)
     from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                        keyed_conv_dw)
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
+                                                        mapped_conv_dw)
 
     return {"keyed_conv": keyed_conv, "fps": furthest_point_sample,
             "rpe_cross_attention": rpe_cross_attention,
             "keyed_conv_dw": keyed_conv_dw,
-            "rpe_cross_attention_bwd": rpe_cross_attention_bwd}
+            "rpe_cross_attention_bwd": rpe_cross_attention_bwd,
+            "kernel_map": kernel_map, "mapped_conv": mapped_conv,
+            "mapped_conv_dw": mapped_conv_dw}
+
+
+def fmt_counts(counts, expected):
+    return ", ".join(f"{k} {counts[k]} (expected {e})"
+                     for k, e in expected.items())
 
 
 def check_outputs(out, cfg, B, num_semcls):
@@ -483,46 +648,68 @@ def check_outputs(out, cfg, B, num_semcls):
     return bad
 
 
-def run_forward(cfg, device, gen, power):
+def published_model(cfg, device, route):
+    """The published model on `route`, its weights from the seed (the
+    same on both routes)."""
     from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.models.vdetr import build_model
 
+    return build_model(cfg, ScannetDatasetConfig(),
+                       generator=torch.Generator().manual_seed(SEED),
+                       device=device, conv_route=route)
+
+
+def run_forward(models, cfg, device, power, reps: int = 6):
+    """The published forward of each route's model at batch 1 and 4:
+    launches and outputs of one run, then `reps` timed runs per route, the
+    routes in turn (the order alternating) so that their medians share
+    the call's conditions; median ms per scene and peak memory (with both
+    routes' models resident)."""
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+
     ds = ScannetDatasetConfig()
-    model = build_model(cfg, ds, generator=gen, device=device)
-    expected = expected_launches(model, cfg)
     counters = launch_counters()
-    ok, launches, per_batch = True, None, {}
+    ok, launches = True, {route: None for route in models}
+    per_batch = {route: {} for route in models}
     for B in (1, 4):
         inputs = synthetic_batch(cfg.num_points, B, device)
+        times = {route: [] for route in models}
         with torch.inference_mode():
-            for fn in counters.values():
-                fn.launches = 0
-            out = model(inputs)
-            torch.cuda.synchronize()
-            counts = {k: fn.launches for k, fn in counters.items()}
-            bad = check_outputs(out, cfg, B, ds.num_semcls)
-            cmp = {k: (counts[k], expected[k]) for k in expected}
-            good_counts = all(c == e for c, e in cmp.values())
-            if B == 1:
-                launches = counts
-            torch.cuda.reset_peak_memory_stats(device)
-            times = []
-            for _ in range(5):
+            for route, model in models.items():
+                expected = expected_launches(model, cfg)
+                for fn in counters.values():
+                    fn.launches = 0
+                out = model(inputs)
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
+                counts = {k: fn.launches for k, fn in counters.items()}
+                bad = check_outputs(out, cfg, B, ds.num_semcls)
+                ok &= counts == expected and not bad
+                if B == 1:
+                    launches[route] = counts
+                del out
+                torch.cuda.reset_peak_memory_stats(device)
                 model(inputs)
                 torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-        med = statistics.median(times)
-        per_batch[B] = med / B
-        log(f"forward B={B} N={cfg.num_points}: launches "
-            + ", ".join(f"{k} {c} (expected {e})" for k, (c, e) in cmp.items())
-            + f"; outputs {'finite, shapes ok' if not bad else bad[:5]}; "
-            f"median {med:.2f} ms ({med / B:.2f} ms/scene) over 5 warm runs "
-            f"[{', '.join(f'{t:.1f}' for t in times)}]; peak memory "
-            f"{peak:.2f} GiB; card {power}")
-        ok &= good_counts and not bad
+                peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+                log(f"forward {route} B={B} N={cfg.num_points}: launches "
+                    + fmt_counts(counts, expected)
+                    + f"; outputs {'finite, shapes ok' if not bad else bad[:5]}"
+                    f"; peak memory {peak:.2f} GiB (both routes' weights "
+                    "resident)")
+            for i in range(reps):
+                for route in (ROUTES if i % 2 == 0 else ROUTES[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    models[route](inputs)
+                    torch.cuda.synchronize()
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+        for route in models:
+            med = statistics.median(times[route])
+            per_batch[route][B] = med / B
+            runs = ", ".join(f"{t:.1f}" for t in times[route])
+            log(f"forward {route} B={B}: median {med:.2f} ms "
+                f"({med / B:.2f} ms/scene) over {reps} warm runs in turn with "
+                f"the other route [{runs}]; card {power}")
     return ok, launches, per_batch
 
 
@@ -536,15 +723,43 @@ def tiny_config():
         inplanes=8, enc_dim=32, num_points=512)
 
 
-def check_small_forward_against_cpu(device, gen):
-    """The whole forward at a small size: kernels on the card against the
-    plain versions on the CPU, same weights and inputs."""
+def compare_fpn(models, cfg, device):
+    """The FPN output (the out block's features, `debug_stop=3`) of the two
+    routes on the same weights and scene."""
+    inputs = synthetic_batch(cfg.num_points, 1, device)
+    feats = {}
+    for route, model in models.items():
+        block = getattr(model, f"out_block_{cfg.layer_idx}")
+        hook = block.register_forward_hook(
+            lambda mod, args, out, route=route: feats.__setitem__(
+                route, out.features))
+        with torch.inference_mode():
+            model(inputs, debug_stop=3)
+        hook.remove()
+    torch.cuda.synchronize()
+    ref, got = feats["keyed"], feats["mapped"]
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    tol = 1e-4 * max(1.0, scale)
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    log(f"forward FPN output, mapped vs keyed route, B=1: max_abs_err="
+        f"{err:.3e} (max|keyed|={scale:.3e}) tol={tol:.3e} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    log("  tolerance reason: H and A run the same f32 tile GEMM over the "
+        "same neighbours, so the routes differ only where a kernel's "
+        "summation order does: A's 1e-4 of max|ref| per conv")
+    return ok, err
+
+
+def check_small_forward_against_cpu(device, gen, route):
+    """The whole forward at a small size on `route`: kernels on the card
+    against the plain versions on the CPU, same weights and inputs."""
     from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.models.vdetr import build_model
 
     cfg = tiny_config()
     model = build_model(cfg, ScannetDatasetConfig(), generator=gen,
-                        device="cpu")
+                        device="cpu", conv_route=route)
     with torch.no_grad():  # non-trivial heads and norm statistics
         for name, p in model.named_parameters():
             p.add_(torch.randn(p.shape, generator=gen) * 0.05)
@@ -567,7 +782,8 @@ def check_small_forward_against_cpu(device, gen):
               for k, v in ref["outputs"].items())
     tol = 1e-3
     ok = seeds_equal and err <= tol
-    log(f"forward small config on card vs CPU plain path: seeds equal="
+    log(f"forward {route} small config on card vs CPU plain path: seeds "
+        f"equal="
         f"{seeds_equal}, max_abs_err over final outputs={err:.3e} tol={tol:.0e}"
         f" (f32 rounding through ~40 layers) -> {'ok' if ok else 'FAIL'}")
     return ok
@@ -679,64 +895,90 @@ def matcher_host_ms(trainer, batch, gen):
     return spent["ms"]
 
 
-def run_train(cfg, device, power, steps: int = 5):
-    """The published model's train step at batch 1: a warm step, then
-    `steps` timed steps, each with its launches counted."""
+def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
+    """The published model's train step at batch 1 on both routes, each
+    with its own model (the same initial weights), optimizer and dropout
+    generator (the same seed): `warm` steps, then `steps` timed steps, the
+    routes in turn on the same batch (the order alternating), so that
+    their medians share the call's conditions. Each step's launches are
+    counted."""
     from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
-    from vdetr_tpu_torch.models.vdetr import build_model
     from vdetr_tpu_torch.train.engine import Trainer
 
     ds = ScannetDatasetConfig()
-    model = build_model(cfg, ds, generator=torch.Generator().manual_seed(
-        SEED), device=device)
-    trainer = Trainer(cfg, model, ds, steps_per_epoch=1000, device=device)
-    expected = expected_launches(model, cfg, train=True)
+    trainers = {route: Trainer(cfg, published_model(cfg, device, route), ds,
+                               steps_per_epoch=1000, device=device)
+                for route in ROUTES}
+    expected = {route: expected_launches(tr.model, cfg, train=True)
+                for route, tr in trainers.items()}
+    gens = {route: torch.Generator(device=device).manual_seed(SEED)
+            for route in ROUTES}
     counters = launch_counters()
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    batches = [train_batch(cfg, 1, first=i) for i in range(steps + 1)]
-    ok, bad, times, launches = True, [], [], None
-    torch.cuda.reset_peak_memory_stats(device)
+    batches = [train_batch(cfg, 1, first=i) for i in range(warm + steps)]
+    ok, launches = True, {}
+    times = {route: [] for route in ROUTES}
+    all_times = {route: [] for route in ROUTES}
+    peak = {route: 0.0 for route in ROUTES}
     for i, batch in enumerate(batches):
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, parts = trainer.train_step(batch, gen)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        counts = {k: fn.launches for k, fn in counters.items()}
-        nonfinite = grads_finite(model)
-        step_ok = (math.isfinite(loss) and not nonfinite
-                   and counts == expected)
-        ok &= step_ok
-        if i == 0:
-            launches = counts
-        else:
-            times.append(dt)
-        log(f"train step {i}{' (warm)' if i == 0 else ''}: loss {loss:.4f}, "
-            f"{dt:.1f} ms, grads {'finite' if not nonfinite else nonfinite[:3]}"
-            f", launches " + ", ".join(f"{k} {counts[k]} (expected "
-                                       f"{expected[k]})" for k in expected)
-            + f" -> {'ok' if step_ok else 'FAIL'}")
-    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    med = statistics.median(times)
-    log(f"train B=1 N={cfg.num_points} matcher={cfg.matcher_impl}: median "
-        f"{med:.1f} ms/step over {len(times)} steps "
-        f"[{', '.join(f'{t:.1f}' for t in times)}]; peak memory {peak:.2f} "
-        f"GiB; card {power}")
-    brk = step_breakdown(trainer, batches[1], gen)
-    brk["matcher: cost copy and JV on the host"] = matcher_host_ms(
-        trainer, batches[1], gen)
-    log("train step breakdown (ms): " + "; ".join(
-        f"{k} {v:.1f}" for k, v in brk.items()))
-    return ok, launches, dict(ms_per_step=med, steps=times,
-                              peak_gib=peak, breakdown=brk)
+        for route in (ROUTES if i % 2 == 0 else ROUTES[::-1]):
+            trainer = trainers[route]
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, parts = trainer.train_step(batch, gens[route])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            counts = {k: fn.launches for k, fn in counters.items()}
+            peak[route] = max(
+                peak[route], torch.cuda.max_memory_allocated(device) / 2 ** 30)
+            nonfinite = grads_finite(trainer.model)
+            step_ok = (math.isfinite(loss) and not nonfinite
+                       and counts == expected[route])
+            ok &= step_ok
+            all_times[route].append(dt)
+            if i == 0:
+                launches[route] = counts
+            if i >= warm:
+                times[route].append(dt)
+            log(f"train {route} step {i}{' (warm)' if i < warm else ''}: "
+                f"loss {loss:.4f}, {dt:.1f} ms, grads "
+                f"{'finite' if not nonfinite else nonfinite[:3]}, launches "
+                + fmt_counts(counts, expected[route])
+                + f" -> {'ok' if step_ok else 'FAIL'}")
+    stats = {}
+    for route, trainer in trainers.items():
+        med = statistics.median(times[route])
+        log(f"train {route} B=1 N={cfg.num_points} matcher="
+            f"{cfg.matcher_impl}: median {med:.1f} ms/step over "
+            f"{len(times[route])} steps after {warm} warm, in turn with the "
+            f"other route [{', '.join(f'{t:.1f}' for t in times[route])}]; "
+            f"all steps [{', '.join(f'{t:.1f}' for t in all_times[route])}];"
+            f" peak memory {peak[route]:.2f} GiB (both routes' weights and "
+            f"optimizer states resident); card {power}")
+        brk = step_breakdown(trainer, batches[1], gens[route])
+        brk["matcher: cost copy and JV on the host"] = matcher_host_ms(
+            trainer, batches[1], gens[route])
+        log(f"train {route} step breakdown (ms): " + "; ".join(
+            f"{k} {v:.1f}" for k, v in brk.items()))
+        stats[route] = dict(ms_per_step=med, steps=times[route],
+                            all_steps=all_times[route], peak_gib=peak[route],
+                            breakdown=brk)
+    # the same batch on both routes: the paired difference cancels the
+    # scene-to-scene variation of the step
+    diff = [m - k for k, m in zip(times["keyed"], times["mapped"])]
+    stats["mapped_minus_keyed_ms"] = diff
+    log(f"train mapped minus keyed, paired by step: median "
+        f"{statistics.median(diff):.1f} ms ["
+        + ", ".join(f"{d:.1f}" for d in diff) + "]")
+    return ok, launches, stats
 
 
-def check_small_train_against_cpu(device):
-    """One train step of a small model (dropout 0) on the card against
-    the same step on the CPU through the plain versions: same weights,
-    same batch."""
+def check_small_train_against_cpu(device, route):
+    """One train step of a small model (dropout 0) on `route` on the card
+    against the same step on the CPU through the plain versions: same
+    weights, same batch."""
     import copy
 
     from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
@@ -750,7 +992,7 @@ def check_small_train_against_cpu(device):
                                 base_lr=1e-3)
     ds = ScannetDatasetConfig()
     cpu = build_model(cfg, ds, generator=torch.Generator().manual_seed(SEED),
-                      device="cpu")
+                      device="cpu", conv_route=route)
     card = copy.deepcopy(cpu).to(device)
     before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
     batch = train_batch(cfg, 2, first=3)
@@ -779,7 +1021,7 @@ def check_small_train_against_cpu(device):
     u_err = float((u_card - u_cpu).norm() / u_cpu.norm())
     l_err = abs(l_card - l_cpu) / abs(l_cpu)
     ok = l_err <= 1e-4 and g_err <= 1e-3 and worst <= 5e-2 and u_err <= 1e-3
-    log(f"train step small config on card vs CPU plain path: loss "
+    log(f"train {route} step small config on card vs CPU plain path: loss "
         f"{l_card:.6f} vs {l_cpu:.6f} (rel err {l_err:.2e}, tol 1e-4); "
         f"gradients rel L2 err {g_err:.2e} (tol 1e-3), worst tensor "
         f"{worst:.2e} of its max (tol 5e-2); updates rel L2 err {u_err:.2e}"
@@ -824,48 +1066,69 @@ def main() -> int:
     cfg = VDETRConfig()
     gen = torch.Generator(device=device).manual_seed(SEED)
     grids = level_grids(cfg, device)
+    res = {"kernel_map": check_kernel_map(grids)}
     cases = conv_cases(cfg, grids, gen)
-    res = {"keyed_conv": check_keyed_conv(cases),
-           "keyed_conv_dw": check_keyed_conv_dw(cases)}
+    res["keyed_conv"] = check_keyed_conv(cases)
+    res["keyed_conv_dw"] = check_keyed_conv_dw(cases)
+    res["mapped_conv"] = check_mapped_conv(cases)
+    res["mapped_conv_dw"] = check_mapped_conv_dw(cases)
     del cases
     res["fps"] = check_fps(cfg, grids)
     res["rpe_cross_attention"], case = check_rpe(cfg, device, gen)
     res["rpe_cross_attention_bwd"] = check_rpe_bwd(cfg, case)
     del case, grids
 
-    # 4. the published forward, then a small one against the CPU
-    ok_f, fwd_launches, per_scene = run_forward(
-        cfg, device, torch.Generator().manual_seed(SEED), smi)
-    ok_s = check_small_forward_against_cpu(
-        device, torch.Generator().manual_seed(SEED + 1))
+    # 4. the published forward on both routes, then a small one on each
+    # against the CPU
+    models = {route: published_model(cfg, device, route) for route in ROUTES}
+    ok_f, fwd_launches, per_scene = run_forward(models, cfg, device, smi)
+    ok_fpn, fpn_err = compare_fpn(models, cfg, device)
+    del models
+    ok_s = all(check_small_forward_against_cpu(
+        device, torch.Generator().manual_seed(SEED + 1), route)
+        for route in ROUTES)
 
-    # 5. the published train step, then a small one against the CPU
-    ok_t, train_launches, train = run_train(
-        cfg.replace(matcher_impl="jv"), device, smi)
-    ok_ts = check_small_train_against_cpu(device)
+    # 5. the published train step on both routes, then a small one on each
+    # against the CPU
+    ok_t, train_launches, train = run_train(cfg.replace(matcher_impl="jv"),
+                                            device, smi)
+    ok_ts = all(check_small_train_against_cpu(device, route)
+                for route in ROUTES)
+    log("keyed vs mapped route (ms): forward/scene B=1 "
+        f"{per_scene['keyed'][1]:.2f} vs {per_scene['mapped'][1]:.2f}, B=4 "
+        f"{per_scene['keyed'][4]:.2f} vs {per_scene['mapped'][4]:.2f}; "
+        f"train step {train['keyed']['ms_per_step']:.1f} vs "
+        f"{train['mapped']['ms_per_step']:.1f}; card {smi}")
 
     record = {"kernels": []}
     for kname, r in res.items():
         src, repl = REPO_SOURCES[kname]
+        route = "mapped" if kname in ("kernel_map", "mapped_conv",
+                                      "mapped_conv_dw") else "keyed"
         entry = {"name": kname, "route": "cuda", "source": src,
-                 "replaces": repl, "launches": train_launches[kname],
+                 "replaces": repl, "launches": train_launches[route][kname],
                  "max_abs_err": r["err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": None,
-                 "library": "none: " + LIBRARY_NONE[kname]}
-        if kname in fwd_launches:
-            entry["forward_launches"] = fwd_launches[kname]
-        for extra in ("cases", "train_ms"):
+                 "library": "none: " + LIBRARY_NONE[kname],
+                 "forward_launches": fwd_launches[route][kname],
+                 "launches_by_route": {
+                     rt: {"forward": fwd_launches[rt][kname],
+                          "train_step": train_launches[rt][kname]}
+                     for rt in ROUTES}}
+        for extra in ("cases", "train_ms", "gather_matmul_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         record["kernels"].append(entry)
-    record["forward_ms_per_scene"] = {f"B={b}": t for b, t in
-                                      per_scene.items()}
+    record["forward_ms_per_scene"] = {
+        route: {f"B={b}": t for b, t in per_scene[route].items()}
+        for route in ROUTES}
+    record["fpn_mapped_vs_keyed_max_abs_err"] = fpn_err
     record["train"] = train
     record["card"] = smi
     log(json.dumps(record))
-    if not (all(r["ok"] for r in res.values()) and ok_f and ok_s and ok_t
-            and ok_ts):
+    if not (all(r["ok"] for r in res.values()) and ok_f and ok_fpn and ok_s
+            and ok_t and ok_ts):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

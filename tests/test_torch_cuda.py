@@ -2,7 +2,8 @@
 card, at small shapes chosen for their edges: channel widths off the
 kernel tiles, the 3-channel stem, tiles with no valid row, FPS past the
 on-chip distance buffer, ragged query and key counts, corners that do
-not pair up, a fully masked batch row, dropout; and the two autograd
+not pair up, a fully masked batch row, dropout; the neighbour map (G)
+bit for bit, also on the stem's 131072-row table; and the three autograd
 Functions on the card against the same Functions on the CPU.
 chip_smoke.py checks the published shapes.
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from vdetr_tpu_torch.ops import fps as tfps
+from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
 from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
                                                rpe_cross_attention_ad,
                                                rpe_cross_attention_bwd,
@@ -27,6 +29,11 @@ from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                    keyed_conv_dw,
                                                    keyed_conv_dw_plain,
                                                    keyed_conv_plain)
+from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
+                                                    mapped_conv_ad,
+                                                    mapped_conv_dw,
+                                                    mapped_conv_dw_plain,
+                                                    mapped_conv_plain)
 from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +113,88 @@ def test_keyed_conv_function_gradients_kernel_vs_plain(rng, cuda, stride):
         out = keyed_conv_ad(f, args[1].to(dev), args[2].to(dev),
                             args[3].to(dev), args[4], w,
                             submanifold=stride == 1)
+        res.append([x.cpu() for x in (out.detach(),) + torch.autograd.grad(
+            out, (f, w), dout.to(dev))])
+    for got, ref in zip(*res):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def map_args(args):
+    """Kernel G's arguments for a conv case's sites."""
+    return args[1], args[2], args[3], args[4]
+
+
+@pytest.mark.parametrize("stride", [1, 2], ids=["submanifold", "stride-2"])
+def test_kernel_map_equals_plain(rng, cuda, stride):
+    """Kernel G's map bit for bit, two batch rows, tiles with no valid
+    row."""
+    args, _ = conv_case(rng, cuda, 3, 8, stride)
+    before = kernel_map.launches
+    got = kernel_map(*map_args(args))
+    assert kernel_map.launches == before + 1
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  neighbour_map(*map_args(args)).cpu().numpy())
+
+
+def test_kernel_map_on_the_stem_table(rng, cuda):
+    """The published stem's table: 131072 keys at 1 cm, queries 2 * the
+    stem's 65536 sites, and the raw level's own sites; the extent's
+    borders are reached (points at both ends of each axis)."""
+    pts = (rng.rand(1, 120000, 3) * [4.0, 4.0, 1.5]).astype(np.float32)
+    pts[0, :8] = [[0, 0, 0], [4, 4, 1.5], [0, 4, 0], [4, 0, 1.5],
+                  [0, 0, 1.5], [4, 4, 0], [2, 0, 0], [0, 2, 1.5]]
+    g = voxelize(t(pts, cuda), t(pts, cuda),
+                 torch.ones(1, 120000, dtype=bool, device=cuda),
+                 voxel_size=0.01, capacity=131072)
+    go = downsample_grid(g, 65536)
+    assert int(g.valid.sum()) > 100000
+    for q, qv in ((go.coords * 2, go.valid), (g.coords, g.valid)):
+        margs = (g.keys, q.contiguous(), qv, g.extent)
+        np.testing.assert_array_equal(kernel_map(*margs).cpu().numpy(),
+                                      neighbour_map(*margs).cpu().numpy())
+
+
+@pytest.mark.parametrize("cin,cout,stride", [(3, 64, 2), (64, 64, 1),
+                                             (64, 128, 2), (512, 512, 1),
+                                             (40, 8, 1)],
+                         ids=["stem", "64-64", "stride-2", "512-512",
+                              "ragged"])
+def test_mapped_conv_and_dw_kernels_match_plain(rng, cuda, cin, cout,
+                                                stride):
+    """Kernels H and I at the published convs' channel widths (and widths
+    off their 64 x 64 tiles) over kernel G's map; H also against kernel A,
+    which runs the same tile GEMM."""
+    args, dout = conv_case(rng, cuda, cin, cout, stride)
+    nbr = kernel_map(*map_args(args))
+    before = (mapped_conv.launches, mapped_conv_dw.launches)
+    got = mapped_conv(args[0], nbr, args[5])
+    dw = mapped_conv_dw(args[0], nbr, dout)
+    assert (mapped_conv.launches, mapped_conv_dw.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = mapped_conv_plain(args[0], nbr, args[5])
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               keyed_conv(*args).cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    dw_ref = mapped_conv_dw_plain(args[0], nbr, dout)
+    np.testing.assert_allclose(dw.cpu().numpy(), dw_ref.cpu().numpy(),
+                               atol=1e-5 * float(dw_ref.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("stride", [1, 2], ids=["submanifold", "stride-2"])
+def test_mapped_conv_function_gradients_kernel_vs_plain(rng, cuda, stride):
+    """The mapped autograd Function on the card (kernels H and I, the
+    scatter dFeats) against the same Function on the CPU."""
+    args, dout = conv_case(rng, cuda, 24, 40, stride)
+    nbr = neighbour_map(*map_args(args))
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        f = args[0].to(dev).requires_grad_()
+        w = args[5].to(dev).requires_grad_()
+        out = mapped_conv_ad(f, nbr.to(dev), w, submanifold=stride == 1)
         res.append([x.cpu() for x in (out.detach(),) + torch.autograd.grad(
             out, (f, w), dout.to(dev))])
     for got, ref in zip(*res):
@@ -259,3 +348,19 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # a strided dout
         keyed_conv_dw(f, keys, coords, valid, (4, 4, 4),
                       torch.rand(1, 16, 5, device=cuda)[..., :4])
+    with pytest.raises(ValueError):  # int64 queries
+        kernel_map(keys, coords.long(), valid, (4, 4, 4))
+    with pytest.raises(ValueError):  # keys past int32
+        kernel_map(keys, coords, valid, (2048, 2048, 1024))
+    nbr = kernel_map(keys, coords, valid, (4, 4, 4))
+    w = torch.rand(27, 8, 4, device=cuda)
+    with pytest.raises(ValueError):  # an int64 map
+        mapped_conv(f, nbr.long(), w)
+    with pytest.raises(ValueError):  # a map of 26 offsets
+        mapped_conv(f, nbr[:, :26].contiguous(), w)
+    with pytest.raises(ValueError):  # weights of another width
+        mapped_conv(f, nbr, torch.rand(27, 9, 4, device=cuda))
+    with pytest.raises(ValueError):  # a dout of another length
+        mapped_conv_dw(f, nbr, torch.rand(1, 15, 4, device=cuda))
+    with pytest.raises(ValueError):  # a CPU map with CUDA features
+        mapped_conv(f, nbr.cpu(), w)

@@ -1,0 +1,154 @@
+"""The port's neighbour map (kernel G's plain version,
+`vdetr_tpu_torch/ops/map_kernel.py`) against the JAX package's two maps.
+
+The map must be BIT-IDENTICAL to JAX's: a wrong row silently drops or
+corrupts a conv tap. References, on the CPU: `sparse_conv._zrun_neighbors`
+(the map the JAX package builds off the TPU) and `map_kernel.stencil_map`
+in interpret mode (the TPU kernel with its exact fix-up patch), on the
+layouts of tests/test_map_kernel.py: clustered sites at B = 2, the comb
+wall whose rows the TPU kernel must patch, isolated sites; submanifold
+(a level's own sites) and stride 2 (queries 2 * out_coords).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_window_conv import _comb_wall_grid, _grid
+from vdetr_tpu.ops import map_kernel as jmk
+from vdetr_tpu.ops import sparse_conv as jsc
+from vdetr_tpu.ops.voxelize import downsample_grid as jax_downsample
+from vdetr_tpu.ops.voxelize import voxelize as jax_voxelize
+from vdetr_tpu_torch.ops import sparse_conv as tsc
+from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
+from vdetr_tpu_torch.ops.voxelize import VoxelGrid
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _isolated_grid():
+    """Voxels with no neighbour but themselves (tests/test_map_kernel.py)."""
+    V = 256
+    pts = (np.arange(V)[:, None] * np.array([1.0, 0.7, 0.3]))[None]
+    return jax_voxelize(jnp.asarray(pts, jnp.float32),
+                        jnp.asarray(pts, jnp.float32),
+                        jnp.ones((1, V), bool), voxel_size=0.05, capacity=V)
+
+
+# one batch of every layout (so the interpret-mode TPU kernel compiles
+# once per query shape): the clustered sites twice (B = 2 of one scene),
+# the comb wall, the isolated sites
+LAYOUTS = ("clustered-0", "clustered-1", "comb-wall", "isolated")
+CAPACITY = 1152  # the comb wall's
+
+
+def _pad(grid, capacity):
+    """grid's per-row arrays padded to `capacity` empty slots."""
+    n = capacity - grid.keys.shape[1]
+    return (jnp.pad(grid.keys, ((0, 0), (0, n)), constant_values=2 ** 31 - 1),
+            jnp.pad(grid.coords, ((0, 0), (0, n), (0, 0))),
+            jnp.pad(grid.valid, ((0, 0), (0, n))))
+
+
+@pytest.fixture(scope="module")
+def maps():
+    """Per stride, (query validity, port map, _zrun_neighbors map,
+    stencil_map map) of the batch of layouts."""
+    grids = [_grid(np.random.RandomState(11), V=512, B=2), _comb_wall_grid(),
+             _isolated_grid()]
+    keys, coords, valid = (jnp.concatenate(a) for a in
+                           zip(*(_pad(g, CAPACITY) for g in grids)))
+    extent = grids[0].extent
+    assert all(g.extent == extent for g in grids)
+    table = grids[0].replace(keys=keys, coords=coords, valid=valid,
+                             features=jnp.zeros(keys.shape + (1,)),
+                             origin=jnp.zeros((len(LAYOUTS), 3), jnp.int32))
+    out = {}
+    for stride in (1, 2):
+        if stride == 1:
+            q, qv = coords, valid
+        else:
+            down = jax_downsample(table, CAPACITY // 256 * 128)
+            q, qv = down.coords * 2, down.valid
+        zrun = jax.vmap(lambda k, c, v: jsc._zrun_neighbors(
+            k, c, v, extent, 1))(keys, q, qv)
+        stencil, n_unpatched = jmk.stencil_map(keys, q, qv, extent,
+                                               interpret=True)
+        assert int(n_unpatched) == 0  # the TPU kernel's map is exact here
+        got = kernel_map(t(keys), t(q), t(qv), extent)
+        out[stride] = (np.asarray(qv), got, np.asarray(zrun),
+                       np.asarray(stencil))
+    return out
+
+
+@pytest.mark.parametrize("stride", [1, 2], ids=["submanifold", "stride-2"])
+@pytest.mark.parametrize("row", range(len(LAYOUTS)), ids=LAYOUTS)
+def test_map_equals_jax_zrun_and_stencil_map(maps, row, stride):
+    valid, got, zrun, stencil = maps[stride]
+    assert got.dtype == torch.int32 and got.shape == zrun.shape
+    assert valid[row].sum() > 50  # the layout has sites at this level
+    np.testing.assert_array_equal(got[row].numpy(), zrun[row])
+    np.testing.assert_array_equal(got[row].numpy(), stencil[row])
+
+
+def test_isolated_sites_hit_only_themselves(maps):
+    valid, got, _, _ = maps[1]
+    row = LAYOUTS.index("isolated")
+    nbr, v = got[row].numpy(), valid[row]
+    np.testing.assert_array_equal(nbr[13][v], np.arange(CAPACITY)[v])
+    assert (np.delete(nbr, 13, axis=0)[:, v] == CAPACITY).all()
+
+
+def test_attach_kernel_map_equals_jax():
+    """The grid-level entry: the port's `attach_kernel_map` on the same
+    sites as JAX's (which builds its map with `_zrun_neighbors` off the
+    TPU); `replace` keeps the map."""
+    jg = _grid(np.random.RandomState(3), V=512, B=2)
+    ref = jsc.attach_kernel_map(jg).nbr_idx
+    tg = VoxelGrid(coords=t(jg.coords), keys=t(jg.keys),
+                   features=t(jg.features), valid=t(jg.valid),
+                   origin=t(jg.origin), stride=jg.stride,
+                   extent=tuple(jg.extent), voxel_size=jg.voxel_size)
+    assert tg.nbr_idx is None
+    got = tsc.attach_kernel_map(tg)
+    np.testing.assert_array_equal(got.nbr_idx.numpy(), np.asarray(ref))
+    assert got.replace(features=got.features * 2).nbr_idx is got.nbr_idx
+
+
+def test_map_at_lattice_borders_and_invalid_rows():
+    """Sites on every face of a small lattice: a neighbour one past a face
+    must be a miss, not the key of the next z row or y slice, and an
+    invalid query row misses everywhere (the table's empty slots hold
+    KEY_SENTINEL)."""
+    ext = (4, 3, 5)
+    cells = np.array([(x, y, z) for x in range(4) for y in range(3)
+                      for z in range(5)], np.int32)
+    keep = np.random.RandomState(5).rand(len(cells)) < 0.7
+    c = cells[keep]
+    V_in = 64
+    keys = np.full((1, V_in), 2 ** 31 - 1, np.int32)
+    keys[0, :len(c)] = (c[:, 0] * ext[1] + c[:, 1]) * ext[2] + c[:, 2]
+    q = np.zeros((1, V_in, 3), np.int32)
+    q[0, :len(c)] = c
+    qv = np.zeros((1, V_in), bool)
+    qv[0, :len(c)] = True
+    qv[0, 3] = False  # a valid site queried as an invalid row
+    ref = jax.vmap(lambda k, cc, v: jsc._zrun_neighbors(k, cc, v, ext, 1))(
+        jnp.asarray(keys), jnp.asarray(q), jnp.asarray(qv))
+    got = neighbour_map(t(keys), t(q), t(qv), ext)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert (got[0, :, 3] == V_in).all()
+    assert (got[0, :, len(c):] == V_in).all()
+
+
+def test_kernel_map_takes_plain_path_on_cpu():
+    jg = _grid(np.random.RandomState(4), V=256)
+    args = (t(jg.keys), t(jg.coords), t(jg.valid), jg.extent)
+    before = kernel_map.launches
+    np.testing.assert_array_equal(kernel_map(*args).numpy(),
+                                  neighbour_map(*args).numpy())
+    assert kernel_map.launches == before  # no kernel launch on the CPU

@@ -88,10 +88,11 @@ def _random_tree(tree, rng, stats=False):
     return jax.tree_util.tree_map_with_path(one, tree)
 
 
-def jax_and_port(cfg):
+def jax_and_port(cfg, conv_route="keyed"):
     """(jax model, its variables as numpy, the port model with the same
-    weights through the bridge). The flax tree's structure comes from
-    `jax.eval_shape` (no compile); its values from a numpy seed."""
+    weights through the bridge, its sparse convs on `conv_route`). The
+    flax tree's structure comes from `jax.eval_shape` (no compile); its
+    values from a numpy seed."""
     jm = build_jax_model(cfg, ScannetDatasetConfig())
     inp = jax.tree.map(jnp.asarray, make_inputs())
     shapes = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
@@ -99,7 +100,8 @@ def jax_and_port(cfg):
     rng = np.random.RandomState(1)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)
-    port = build_port_model(cfg, PortScannetConfig(), device="cpu")
+    port = build_port_model(cfg, PortScannetConfig(), device="cpu",
+                            conv_route=conv_route)
     load_jax_params(port, params, stats, cfg)
     return jm, {"params": params, "batch_stats": stats}, port
 

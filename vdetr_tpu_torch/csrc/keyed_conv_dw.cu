@@ -24,7 +24,8 @@
 // its 64-row tiles hold valid voxels at batch 1; the block walks its rows
 // 16 at a time, skips groups with no hit, stages the gathered input rows
 // and the matching dout rows in shared memory and accumulates a 64 x 64
-// register-tiled f32 outer-product sum. Where the tiles are too few to
+// register-tiled f32 outer-product sum (`dw_kernel` in sparse_conv.cuh,
+// shared with mapped_conv_dw.cu). Where the tiles are too few to
 // fill the card (the stem and the 64-wide levels, 27 tiles), the rows are
 // split over `splits` blocks whose partial dW a second kernel adds in a
 // fixed order: the result is deterministic. No tensor cores yet: the
@@ -33,22 +34,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sparse_conv.cuh"
+
 namespace {
 
-constexpr int BC = 64;   // input channels per block (dW rows)
-constexpr int BO = 64;   // output channels per block (dW columns)
-constexpr int BR = 16;   // voxel rows per stage
-constexpr int NT = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int KV = 27;
-
-__device__ __forceinline__ int lower_bound(const int* keys, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (keys[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
+using namespace sparse_conv;
 
 // nbr[k, b * V + v] = b * V_in + row of the neighbour, or -1
 __global__ void neighbour_map_kernel(const int* __restrict__ in_keys,
@@ -81,93 +71,6 @@ __global__ void neighbour_map_kernel(const int* __restrict__ in_keys,
   }
 }
 
-__global__ void __launch_bounds__(NT)
-keyed_conv_dw_kernel(const float* __restrict__ feats,  // (B * V_in, C)
-                     const float* __restrict__ dout,   // (B * V, Co)
-                     const int* __restrict__ nbr,      // (27, B * V)
-                     float* __restrict__ dw,           // (splits, 27, C, Co)
-                     int rows, int C, int Co, int rows_per_split) {
-  __shared__ __align__(16) float As[BR][BC + 4];
-  __shared__ __align__(16) float Bs[BR][BO + 4];
-  __shared__ int s_src[BR];
-
-  const int n_otiles = (Co + BO - 1) / BO;
-  const int c0 = (blockIdx.x / n_otiles) * BC;
-  const int o0 = (blockIdx.x % n_otiles) * BO;
-  const int k = blockIdx.y;
-  const int split = blockIdx.z;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(rows, r_begin + rows_per_split);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int* nbr_k = nbr + (size_t)k * rows;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BR) {
-    int hit = 0;
-    if (tid < BR) {
-      const int r = r0 + tid;
-      const int src = r < r_end ? nbr_k[r] : -1;
-      s_src[tid] = src;
-      hit = src >= 0;
-    }
-    if (!__syncthreads_or(hit)) continue;
-    for (int i = tid; i < BR * BC; i += NT) {
-      const int r = i / BC, c = i % BC;
-      const int src = s_src[r];
-      As[r][c] = (src >= 0 && c0 + c < C) ? feats[(size_t)src * C + c0 + c]
-                                          : 0.f;
-    }
-    for (int i = tid; i < BR * BO; i += NT) {
-      const int r = i / BO, o = i % BO;
-      Bs[r][o] = (s_src[r] >= 0 && o0 + o < Co)
-                     ? dout[(size_t)(r0 + r) * Co + o0 + o] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < BR; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[r][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-  float* out = dw + ((size_t)split * KV + k) * C * Co;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tx * 4 + j;
-      if (o < Co) out[(size_t)c * Co + o] = acc[i][j];
-    }
-  }
-}
-
-// out = sum of the `splits` partials, in split order
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, size_t n,
-                                  int splits) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = part[i];
-    for (int s = 1; s < splits; ++s) acc += part[(size_t)s * n + i];
-    out[i] = acc;
-  }
-}
-
 }  // namespace
 
 // nbr: (27, B * V) int32 scratch; scratch: (splits, 27, C, Co) floats
@@ -191,14 +94,11 @@ extern "C" int keyed_conv_dw_f32(const void* feats, const void* in_keys,
           (const uint8_t*)q_valid, (int*)nbr, B, V_in, V, gx, gy, gz);
     }
     float* dst = splits > 1 ? (float*)scratch : (float*)dw;
-    dim3 grid(((C + BC - 1) / BC) * ((Co + BO - 1) / BO), KV, splits);
-    keyed_conv_dw_kernel<<<grid, NT, 0, st>>>(
-        (const float*)feats, (const float*)dout, (const int*)nbr, dst, rows,
-        C, Co, rows_per_split);
-    if (splits > 1) {
-      sum_splits_kernel<<<264, 512, 0, st>>>(dst, (float*)dw,
-                                             (size_t)KV * C * Co, splits);
-    }
+    dw_kernel<<<dw_grid(C, Co, splits), NT, 0, st>>>(
+        (const float*)feats, (const float*)dout,
+        FlatMap{(const int*)nbr, rows}, dst, rows, C, Co, rows_per_split);
+    if (splits > 1)
+      sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,95 @@
+// 3x3x3 sparse convolution over a given neighbour map (Hopper).
+//
+// Replaces the TPU kernel vdetr_tpu/ops/sparse_conv_kernel.py:window_conv
+// (_conv_kernel). Function, per batch row b, query row v, offset k:
+//   out[b, v] = sum_k feats[b, nbr[b, k, v]] @ W[k], f32, where an entry
+//   outside [0, V_in) (the map's miss, V_in) contributes 0.
+// The map is kernel G's (map_kernel.cu): a level's own sites for a
+// submanifold conv, 2 * out_coords for a stride-2 conv, so rows of invalid
+// queries, all misses, give 0. Its contract in the JAX package is
+// sparse_conv._gather_matmul.
+//
+// The TPU kernel consumes the map as window anchors, window-local `le`
+// indices and one-hot selection matmuls on bf16 (build_window_map),
+// because Mosaic cannot gather rows, and patches the rows its windows do
+// not cover. Here a block gathers feats[nbr] directly, in f32.
+//
+// What bounds it on the H100: f32 multiply-adds on the CUDA cores,
+// 2 * C * Co per (row, offset) hit (the 512-wide convs dominate), then the
+// gather of neighbour rows from L2/HBM. Design: kernel A's (keyed_conv.cu)
+// with its binary searches replaced by a coalesced read of the tile's map
+// columns: one block per 64 query rows x 64 output channels x a share of
+// the 27 offsets stages the map in shared memory, skips offsets with no
+// hit in the tile (so tiles with no valid row), and runs the 64x64x16
+// register-tiled f32 GEMM over gathered rows staged in shared memory
+// (`conv_tile` in sparse_conv.cuh). From 256 input channels, where few
+// 64-row tiles are live at batch 1, the caller splits the offsets over
+// `splits` blocks whose partial sums a second kernel adds in a fixed
+// order. No tensor cores yet: the operands are f32, as in the plain
+// version.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sparse_conv.cuh"
+
+namespace {
+
+using namespace sparse_conv;
+
+__global__ void __launch_bounds__(NT)
+mapped_conv_kernel(const float* __restrict__ feats,  // (B, V_in, C)
+                   const int* __restrict__ nbr,      // (B, 27, V)
+                   const float* __restrict__ w,      // (27, C, Co)
+                   float* __restrict__ out,          // (splits, B, V, Co)
+                   int V_in, int V, int C, int Co, int splits) {
+  __shared__ int s_nbr[KV][BM];
+
+  const int B = gridDim.z / splits;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int k_begin = split * KV / splits;
+  const int nk = (split + 1) * KV / splits - k_begin;
+  out += (size_t)split * B * V * Co;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+
+  // the tile's map columns for its offsets (-1 = miss)
+  for (int i = threadIdx.x; i < nk * BM; i += NT) {
+    const int kk = i / BM, m = i % BM;
+    const int row = m0 + m;
+    int idx = -1;
+    if (row < V) {
+      const int r = nbr[((size_t)b * KV + k_begin + kk) * V + row];
+      if (r >= 0 && r < V_in) idx = r;
+    }
+    s_nbr[kk][m] = idx;
+  }
+  __syncthreads();
+
+  float acc[4][4] = {};
+  conv_tile(feats + (size_t)b * V_in * C, w, s_nbr, k_begin, nk, C, Co, n0,
+            acc);
+  store_tile(out + (size_t)b * V * Co, V, Co, m0, n0, acc);
+}
+
+}  // namespace
+
+// scratch: (splits, B, V, Co) floats when splits > 1, else unused.
+extern "C" int mapped_conv_f32(const void* feats, const void* nbr,
+                               const void* weights, void* out, void* scratch,
+                               int B, int V_in, int V, int C, int Co,
+                               int splits, void* stream) {
+  if (splits < 1 || splits > KV) return (int)cudaErrorInvalidValue;
+  if (B > 0 && V > 0 && Co > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    float* dst = splits > 1 ? (float*)scratch : (float*)out;
+    dim3 grid((V + BM - 1) / BM, (Co + BN - 1) / BN, B * splits);
+    mapped_conv_kernel<<<grid, NT, 0, st>>>(
+        (const float*)feats, (const int*)nbr, (const float*)weights, dst,
+        V_in, V, C, Co, splits);
+    if (splits > 1)
+      sum_splits(dst, (float*)out, (size_t)B * V * Co, splits, st);
+  }
+  return (int)cudaGetLastError();
+}

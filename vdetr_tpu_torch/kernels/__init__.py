@@ -39,6 +39,13 @@ _SIGNATURES = {
     "keyed_conv_dw": ("keyed_conv_dw_f32",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P]),
+    "map_kernel": ("kernel_map_i32",
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "mapped_conv": ("mapped_conv_f32",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "mapped_conv_dw": ("mapped_conv_dw_f32",
+                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P]),
     "fps": ("fps_f32", [_P, _P, _P, _I, _I, _I, _P]),
     "rpe_attention": ("rpe_cross_attention_f32",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -2,7 +2,8 @@
 `vdetr_tpu/models/vdetr.py`; reference models/model_vdetr.py). In train
 mode its batch norms take batch statistics and its dropout draws from
 the generator given to `forward`; gradients reach every parameter, the
-sparse convs' through the keyed-conv autograd Function.
+sparse convs' through the autograd Function of their route (`conv_route`:
+the keyed conv, or the neighbour map and the mapped conv).
 
 Pipeline: voxelize @ 1 cm -> SparseResNet34 -> FPN top-down to stride 4
 -> furthest-point-sample 4096 seeds -> seed class head + anchor boxes ->
@@ -37,16 +38,17 @@ def _gather(x, idx):
 
 class VDETR(nn.Module):
     def __init__(self, cfg: VDETRConfig, num_semcls: int, num_angle_bin: int,
-                 mean_size_arr):
+                 mean_size_arr, conv_route: str = "keyed"):
         super().__init__()
         c = cfg
         self.cfg = c
         self.num_semcls = num_semcls
+        self.conv_route = conv_route
         caps = c.stage_capacities()
         self.pre_encoder = SparseResNet(
             c.backbone_in_dim, depth=c.depth, inplanes=c.inplanes,
             num_stages=c.num_stages, stem_bn=c.stem_bn,
-            stage_capacities=caps[1:])
+            stage_capacities=caps[1:], conv_route=conv_route)
         channels = [c.inplanes * 2 ** i for i in range(c.num_stages)]
         for i in range(c.num_stages - 1, c.layer_idx, -1):
             if c.use_fpn:
@@ -54,9 +56,9 @@ class VDETR(nn.Module):
                 self.add_module(f"up_block_{i}", FPNUpBlock(
                     channels[i], channels[i - 1],
                     woexpand_conv=c.woexpand_conv,
-                    generative_capacity=caps[i]))
+                    generative_capacity=caps[i], conv_route=conv_route))
         self.add_module(f"out_block_{c.layer_idx}", FPNOutBlock(
-            channels[c.layer_idx], c.enc_dim))
+            channels[c.layer_idx], c.enc_dim, conv_route=conv_route))
         self.encoder_to_decoder_projection = GenericMLP(
             c.enc_dim, [] if c.proj_nohid else [c.enc_dim], c.dec_dim,
             output_use_activation=True, output_use_norm=True,
@@ -241,12 +243,19 @@ def resolve_device(device=None) -> torch.device:
 
 def build_model(cfg: VDETRConfig, dataset_config,
                 generator: Optional[torch.Generator] = None,
-                device=None) -> VDETR:
+                device=None, conv_route: str = "keyed") -> VDETR:
     """The model of `cfg` in eval mode on `device` (default: the CUDA
     card; raises without one), its weights drawn on the CPU from
     `generator` (default: a generator seeded with cfg.seed). Load trained
     or JAX weights over it with `load_state_dict` or
-    `convert.load_jax_params`."""
+    `convert.load_jax_params`; both routes take the same weights.
+
+    `conv_route` picks how the sparse 3^3 convs run, the counterpart of
+    the JAX package's choice (on the TPU the keyed window kernel; on any
+    other backend, or under VDETR_DISABLE_WINDOW_KERNEL, the gather path
+    over attached kernel maps): "keyed" (kernel A; the default) or
+    "mapped" (kernel G builds each level's neighbour map once, kernel H
+    convolves over it, kernel I gives its weight gradient)."""
     device = resolve_device(device)
     cfg.validate()
     missing = _unsupported(cfg)
@@ -254,7 +263,7 @@ def build_model(cfg: VDETRConfig, dataset_config,
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
     model = VDETR(cfg, dataset_config.num_semcls,
                   dataset_config.num_angle_bin,
-                  dataset_config.mean_size_arr)
+                  dataset_config.mean_size_arr, conv_route=conv_route)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

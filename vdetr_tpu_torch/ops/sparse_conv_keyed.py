@@ -29,39 +29,17 @@ from __future__ import annotations
 import torch
 
 from vdetr_tpu_torch import kernels
-from vdetr_tpu_torch.ops.voxelize import (KEY_SENTINEL, gather_rows, lookup,
-                                          pack_keys)
-
-_SMS = 132  # streaming multiprocessors of an H100
-
-
-def kernel_offsets(kernel_size: int, device=None) -> torch.Tensor:
-    """(k^3, 3) int32 offsets of an odd kernel, x-major / z-fastest."""
-    r = kernel_size // 2
-    rng = range(-r, r + 1)
-    return torch.tensor([(i, j, k) for i in rng for j in rng for k in rng],
-                        dtype=torch.int32, device=device)
-
-
-def neighbour_map(in_keys, q_coords, q_valid, extent):
-    """(B, 27, V) int64 rows of each query's 27 neighbours in the input
-    table; V_in for a miss or an invalid query row."""
-    B, V, _ = q_coords.shape
-    offs = kernel_offsets(3, q_coords.device)
-    q = q_coords[:, None, :, :] + offs[None, :, None, :]      # (B, 27, V, 3)
-    qk = torch.where(q_valid[:, None, :], pack_keys(q, extent), KEY_SENTINEL)
-    return lookup(in_keys, qk.reshape(B, 27 * V)).reshape(B, 27, V)
+from vdetr_tpu_torch.ops.map_kernel import neighbour_map
+from vdetr_tpu_torch.ops.sparse_conv_kernel import (
+    dw_row_splits, flip_weights, mapped_conv_dfeats_scatter,
+    mapped_conv_dw_plain, mapped_conv_plain)
 
 
 def keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent, weights):
-    """Plain version: one `searchsorted` lookup per offset, then a row
+    """Plain version: the neighbour map by `searchsorted`, then a row
     gather and a matmul per offset, accumulated in float32."""
-    nbr = neighbour_map(in_keys, q_coords, q_valid, extent)
-    out = feats.new_zeros(q_coords.shape[:2] + (weights.shape[-1],),
-                          dtype=torch.float32)
-    for k in range(weights.shape[0]):
-        out = out + torch.matmul(gather_rows(feats, nbr[:, k]), weights[k])
-    return out
+    return mapped_conv_plain(
+        feats, neighbour_map(in_keys, q_coords, q_valid, extent), weights)
 
 
 def keyed_conv(feats, in_keys, q_coords, q_valid, extent, weights):
@@ -104,12 +82,8 @@ keyed_conv.launches = 0
 def keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent, dout):
     """Plain version of the weight gradient: per offset, the gathered
     input rows (zero at misses and invalid rows) times dout."""
-    C, Co = feats.shape[-1], dout.shape[-1]
-    nbr = neighbour_map(in_keys, q_coords, q_valid, extent)
-    d = dout.reshape(-1, Co)
-    return torch.stack([
-        torch.matmul(gather_rows(feats, nbr[:, k]).reshape(-1, C).t(), d)
-        for k in range(27)])
+    return mapped_conv_dw_plain(
+        feats, neighbour_map(in_keys, q_coords, q_valid, extent), dout)
 
 
 def keyed_conv_dw(feats, in_keys, q_coords, q_valid, extent, dout):
@@ -127,13 +101,7 @@ def keyed_conv_dw(feats, in_keys, q_coords, q_valid, extent, dout):
     gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
     kernels.check(dout, torch.float32, (B, V, Co), "dout")
     rows = B * V
-    # one block per (offset, 64 x 64 dW tile); the rows are split over
-    # more blocks until two waves of the card's SMs have work, each split
-    # at least 256 rows (partials added in a fixed order)
-    tiles = 27 * -(-C // 64) * -(-Co // 64)
-    splits = max(1, min(-(-2 * _SMS // tiles), -(-rows // 256)))
-    rows_per_split = max(16, -(-rows // (splits * 16)) * 16)
-    splits = max(1, -(-rows // rows_per_split))
+    splits, rows_per_split = dw_row_splits(rows, C, Co)
     dev = feats.device
     dw = torch.empty(27, C, Co, dtype=torch.float32, device=dev)
     nbr = torch.empty(27, rows, dtype=torch.int32, device=dev)
@@ -149,22 +117,6 @@ def keyed_conv_dw(feats, in_keys, q_coords, q_valid, extent, dout):
 
 
 keyed_conv_dw.launches = 0
-
-
-def keyed_conv_dfeats_scatter(dout, in_keys, q_coords, q_valid, extent,
-                              weights, v_in: int):
-    """dFeats of a conv whose query sites are not its table's sites (the
-    stride-2 convs): each query row's dout @ W[k]^T added to its k-th
-    neighbour's row. Plain torch on every device, as in the JAX package,
-    where XLA computes it outside any Pallas kernel."""
-    B, V, Co = dout.shape
-    C = weights.shape[1]
-    nbr = neighbour_map(in_keys, q_coords, q_valid, extent)
-    dfeats = dout.new_zeros(B, v_in + 1, C)  # row v_in takes the misses
-    for k in range(27):
-        dfeats.scatter_add_(1, nbr[:, k, :, None].expand(-1, -1, C),
-                            torch.matmul(dout, weights[k].t()))
-    return dfeats[:, :v_in]
 
 
 def _check_common(feats, in_keys, q_coords, q_valid, extent):
@@ -198,13 +150,12 @@ class _KeyedConv(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             if ctx.submanifold:
-                flipped = weights.flip(0).transpose(1, 2).contiguous()
                 dfeats = keyed_conv(dout, in_keys, q_coords, q_valid,
-                                    ctx.extent, flipped)
+                                    ctx.extent, flip_weights(weights))
             else:
-                dfeats = keyed_conv_dfeats_scatter(
-                    dout, in_keys, q_coords, q_valid, ctx.extent, weights,
-                    feats.shape[1])
+                dfeats = mapped_conv_dfeats_scatter(
+                    dout, neighbour_map(in_keys, q_coords, q_valid,
+                                        ctx.extent), weights, feats.shape[1])
         if ctx.needs_input_grad[1]:
             dw = keyed_conv_dw(feats, in_keys, q_coords, q_valid, ctx.extent,
                                dout)

@@ -13,7 +13,7 @@ parity across downsampling levels matches absolute coordinates.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +33,9 @@ class VoxelGrid:
     stride: base-lattice units per level unit.
     extent: (GX, GY, GZ) at this level.
     voxel_size: metres per base-lattice unit.
+    nbr_idx: (B, 27, V) int32 neighbour map of the 3^3 stencil on these
+      sites (`ops/sparse_conv.attach_kernel_map`), or None. `replace`
+      keeps it; a grid of new sites (downsample, upsample) has none.
     """
 
     coords: torch.Tensor
@@ -43,6 +46,7 @@ class VoxelGrid:
     stride: int
     extent: Tuple[int, int, int]
     voxel_size: float
+    nbr_idx: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
