@@ -15,6 +15,12 @@ Phases, each printing its own lines:
      (C, eval and training form with dropout and the log-sum-exp) and its
      flash backward (F, dropout 0 and 0.1); prints the error, its
      tolerance, both times and the kernel's bound;
+  3b. probes of kernel C, the work of the entry points
+     `python -m vdetr_tpu_torch.tools.rpe_ablate` and `.dot_micro` at the
+     tool shapes: each stage-ablation level 0-5 against its plain version,
+     level 6 bit-equal to C, and the table of level times, stage costs and
+     bounds; each table-contraction variant against its plain version and
+     the einsum, with the einsum's time (TF32 off and on);
   4. forward, on both sparse-conv routes (conv_route "keyed", the
      default, and "mapped"): the published VDETR (VDETRConfig() defaults,
      seeded random weights, the same on both routes) on synthetic
@@ -29,9 +35,10 @@ Phases, each printing its own lines:
      the same batches: three warm steps, then timed steps with finite
      loss and gradients and the expected launches per step (A, D or G,
      H, I; B, C, F), median ms per step, peak memory and a breakdown by
-     phase; and a small model's step on each route on the card against
-     the same step on the CPU (dropout 0): loss, every gradient and the
-     updated parameters;
+     phase; one step per route under torch.profiler (device ms per
+     kernel summed over its launches, the device's busy share); and a small
+     model's step on each route on the card against the same step on the
+     CPU (dropout 0): loss, every gradient and the updated parameters;
   6. a JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}} -- printed only when every phase
      passed.
@@ -45,12 +52,13 @@ from __future__ import annotations
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from vdetr_tpu_torch.tools import bound_ms, card, time_ms
 
 SEED = 0
 REPO_SOURCES = {
@@ -69,12 +77,13 @@ REPO_SOURCES = {
                     "vdetr_tpu/ops/sparse_conv_kernel.py:202"),
     "mapped_conv_dw": ("vdetr_tpu_torch/csrc/mapped_conv_dw.cu",
                        "vdetr_tpu/ops/sparse_conv_kernel.py:293"),
+    "rpe_ablate": ("vdetr_tpu_torch/csrc/rpe_ablate.cu",
+                   "tools/rpe_ablate.py:147"),
+    "dot_micro": ("vdetr_tpu_torch/csrc/dot_micro.cu",
+                  "tools/dot_micro.py:74"),
 }
+PROBES = ("rpe_ablate", "dot_micro")
 ROUTES = ("keyed", "mapped")
-# the card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
-# f32 outside the tensor cores and device-memory bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # no single PyTorch call computes any of these kernels' functions
 LIBRARY_NONE = {
     "keyed_conv": "sparse 3^3 conv over hashed voxel keys: no torch op",
@@ -99,13 +108,6 @@ def log(*args):
     print(*args, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    """(least ms the card could take, what bounds it): bytes over the
-    memory rate against flops over the f32 CUDA-core rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _dominant(cases) -> str:
     """What bounds the case with the largest bound."""
     return max(cases, key=lambda c: c["bound_ms"])["bound_by"]
@@ -113,21 +115,6 @@ def _dominant(cases) -> str:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean ms per call on the device (CUDA events around `reps` calls)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def synthetic_batch(num_points: int, batch: int, device, first: int = 0):
@@ -428,16 +415,17 @@ def rpe_case(cfg, device, gen, B=1):
 
 
 def rpe_bound(case, train: bool, backward: bool = False):
-    """Bytes each input and output once; flops per (head, query, key):
-    the q.k and p.v products (4 hd) and the softmax's exp and sums (~4),
-    per (query, key) pair 8 corners x 8 taps x H multiply-adds for the
-    bias (or, backward, for dTables); the backward's dO.V and ds.K
-    products replace q.k and p.v."""
+    """Bytes each input and output once; flops as the ablation's
+    `attention_flops` counts them for its level 6, kernel C (8 taps per
+    corner; backward: the dO.V and ds.K products replace q.k and p.v, and
+    the taps are dTables' multiply-adds)."""
+    from vdetr_tpu_torch.tools.rpe_ablate import attention_flops
+
     q, k, v, corners, angles, key_xyz, tables, key_valid = case
     B, nQ, H, hd = q.shape
     nK = k.shape[1]
     pairs = B * nQ * nK
-    flops = pairs * H * (4 * hd + 4) + pairs * 8 * 8 * H * 2
+    flops = attention_flops(pairs, H, hd, taps=8)
     score_bytes = pairs * H * 4  # one (B, H, nQ, nK) f32 tensor
     if backward:  # reads logits, writes ds and eg; dq, dtables out
         io = (nbytes(k, v, corners, key_xyz, key_valid) + 2 * nbytes(q)
@@ -570,6 +558,140 @@ def check_rpe_bwd(cfg, case):
 
 
 # --------------------------------------------------------------------------
+# phase 3b: the probes of kernel C
+# --------------------------------------------------------------------------
+
+def check_rpe_ablate(device, reps: int = 20):
+    """The stage ablation at the tool's shapes and inputs: levels 0-5
+    against the plain version (levels 1 and 2 also on coordinates scaled
+    down, where their softmax is not saturated), level 6 bit-equal to C,
+    then each level's time, stage cost and bound, and level 0's yardstick,
+    SDPA at scale 1."""
+    from vdetr_tpu_torch.ops.rpe_attention import rpe_cross_attention
+    from vdetr_tpu_torch.tools import rpe_ablate as tra
+
+    inputs = tra.make_inputs(device=device)
+    soft = {1: 0.05, 2: 3e-4}
+    ok, errs, plain_ms = True, {}, {}
+    for level in tra.LEVELS:
+        got = tra.rpe_ablate(level, *inputs)
+        if level == 6:
+            q, k, v, corners, key_xyz, tables = inputs
+            c_out = rpe_cross_attention(q, k, v, corners, None, key_xyz,
+                                        tables, None, log_scale=tra.LOG_SCALE,
+                                        max_value=tra.MAX_VALUE)
+            same = bool(torch.equal(got, c_out))
+            ok &= same
+        ref = tra.rpe_ablate_plain(level, *inputs)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = tra.rounding_tol(level, *inputs)
+        max_logit, margin, rounding = tra.logit_stats(level, *inputs)
+        good = err <= tol
+        line = (f"check rpe_ablate level {level}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e} (max|logit| {max_logit:.1f}, min top-2 "
+                f"margin {margin:.2e} against the logit rounding allowance "
+                f"{rounding:.1e})")
+        if level == 6:
+            line += f"; bit-equal to kernel C: {same}"
+        if level in soft:
+            sin = tra.make_inputs(device=device, scale=soft[level])
+            s_err = float((tra.rpe_ablate(level, *sin)
+                           - tra.rpe_ablate_plain(level, *sin)).abs().max())
+            s_tol = tra.rounding_tol(level, *sin)
+            good &= s_err <= s_tol
+            line += (f"; coordinates x{soft[level]:g} max_abs_err "
+                     f"{s_err:.3e} tol {s_tol:.3e}")
+            del sin
+        ok &= good
+        log(line + f" -> {'ok' if good else 'FAIL'}")
+        errs[level] = err
+        plain_ms[level] = time_ms(
+            lambda: tra.rpe_ablate_plain(level, *inputs), reps=3)
+    log("  tolerance reason: softmax is 1/2-Lipschitz from the logits' max "
+        "norm to the probabilities' 1-norm, so |d out| <= 2 max|v| max|d "
+        "logit| whatever the top-2 margin, so a near tie below the "
+        "rounding allowance (16 ulps of max(1, max|logit|)) amplifies "
+        "nothing; levels 1 and 2 saturate at the tool's coordinates, hence "
+        "their second, scaled-down input")
+    rows = tra.run_levels(inputs, reps)
+    log(f"rpe_ablate stage decomposition of kernel C, B {tra.B}, nQ "
+        f"{tra.NQ}, nK {tra.NK}, H {tra.H}, hd {tra.HD}, n {tra.N}, no mask,"
+        f" mean of {reps} launches; stage = ms - the previous level's, for "
+        f"the nested levels 1-5 only; card {card()}:")
+    for line in tra.format_rows(rows):
+        log("  " + line)
+    # level 0's yardstick: f32 SDPA at scale 1 (TF32 off), timed apart
+    lay = tra.sdpa_layout(*inputs[:3])
+    sdpa_err = float((tra.flash_library(*lay).transpose(1, 2)
+                      - tra.rpe_ablate(0, *inputs)).abs().max())
+    sdpa_ms = time_ms(lambda: tra.flash_library(*lay), reps)
+    log(f"  level 0 yardstick F.scaled_dot_product_attention (f32, scale 1, "
+        f"heads on dim 1, K and V expanded beforehand): {sdpa_ms:.4f} ms, "
+        f"max |SDPA - level 0 kernel| {sdpa_err:.3e}")
+    del lay
+    cases = [dict(case=r["label"], max_abs_err=errs[r["level"]], ms=r["ms"],
+                  stage_ms=r["stage_ms"], plain_ms=plain_ms[r["level"]],
+                  bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                  library_ms=sdpa_ms if r["level"] == 0 else None)
+             for r in rows]
+    cases[0]["library_max_abs_err"] = sdpa_err
+    kernel_cases = cases[:6]  # level 6 is kernel C, reported as C
+    return dict(ok=ok, err=max(errs[lv] for lv in range(6)),
+                ms=sum(c["ms"] for c in kernel_cases),
+                plain_ms=sum(c["plain_ms"] for c in kernel_cases),
+                bound_ms=sum(c["bound_ms"] for c in kernel_cases),
+                bound_by=_dominant(kernel_cases),
+                library="per case: level 0 F.scaled_dot_product_attention(q,"
+                        " k, v, scale=1.0) in f32, its case's library_ms; "
+                        "levels 1-5 none: SDPA takes no such bias without "
+                        "materializing it", cases=cases)
+
+
+def check_dot_micro(device, reps: int = 20):
+    """The table contraction on the tool's five variants and draws: the
+    kernel against its plain version and the einsum (TF32 off), then
+    their times and the einsum's with TF32 on."""
+    from vdetr_tpu_torch.tools import dot_micro as tdm
+
+    cases = tdm.make_inputs(device)
+    ok, errs = True, []
+    for label, T, P, _ in cases:
+        got = tdm.dot_micro(T, P)
+        ref = tdm.dot_micro_plain(T, P)
+        lib = tdm.dot_micro_library(T, P)
+        torch.cuda.synchronize()
+        rtol = tdm.rounding_rtol(T)
+        rel = max(float(((got - r).abs() / r.abs()).max()) for r in (ref, lib))
+        err = max(float((got - r).abs().max()) for r in (ref, lib))
+        good = rel <= rtol
+        ok &= good
+        errs.append(err)
+        log(f"check dot_micro {label} nc={T.shape[0]}: max_abs_err={err:.3e}"
+            f" (max|ref| {float(ref.abs().max()):.1f}), elementwise relative "
+            f"{rel:.2e} tol {rtol:.2e} -> {'ok' if good else 'FAIL'}")
+    log("  tolerance reason: every term is positive, so each float32 order "
+        "of the nc K-term sum is within nc K 2^-24 of the exact sum, two "
+        "orders within twice that, elementwise")
+    rows = tdm.run_variants(cases, reps)
+    log(f"dot_micro, mean of {reps} launches each; card {card()}:")
+    for line in tdm.format_rows(rows):
+        log("  " + line)
+    for row, err in zip(rows, errs):
+        row["max_abs_err"] = err
+    return dict(ok=ok, err=max(errs), ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by=_dominant(rows),
+                library_ms=sum(r["library_ms"] for r in rows),
+                library_tf32_ms=sum(r["library_tf32_ms"] for r in rows),
+                library="torch.einsum('ckm,ke->me', T, P), TF32 off (it sums"
+                        " T over the corners before its one GEMM); "
+                        "library_tf32_ms: the same with TF32 on",
+                cases=rows)
+
+
+# --------------------------------------------------------------------------
 # phase 4: the published forward
 # --------------------------------------------------------------------------
 
@@ -580,7 +702,7 @@ def expected_launches(model, cfg, train: bool = False):
     per stride-2 3^3 conv and once per level (each stage's first block
     maps its sites; the maps are saved for the backward), H where keyed
     runs A, I where keyed runs D; no A or D. Both: C and F once per
-    decoder layer, FPS once."""
+    decoder layer, FPS once. The probes (rpe_ablate, dot_micro) never."""
     from vdetr_tpu_torch.models.backbone import (SparseBasicBlock,
                                                  SparseConv, SparseConvDown)
 
@@ -616,13 +738,16 @@ def launch_counters():
                                                        keyed_conv_dw)
     from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
                                                         mapped_conv_dw)
+    from vdetr_tpu_torch.tools.dot_micro import dot_micro
+    from vdetr_tpu_torch.tools.rpe_ablate import rpe_ablate
 
     return {"keyed_conv": keyed_conv, "fps": furthest_point_sample,
             "rpe_cross_attention": rpe_cross_attention,
             "keyed_conv_dw": keyed_conv_dw,
             "rpe_cross_attention_bwd": rpe_cross_attention_bwd,
             "kernel_map": kernel_map, "mapped_conv": mapped_conv,
-            "mapped_conv_dw": mapped_conv_dw}
+            "mapped_conv_dw": mapped_conv_dw, "rpe_ablate": rpe_ablate,
+            "dot_micro": dot_micro}
 
 
 def fmt_counts(counts, expected):
@@ -895,6 +1020,70 @@ def matcher_host_ms(trainer, batch, gen):
     return spent["ms"]
 
 
+# kernel function names (as the profiler reports them) -> the port's
+# kernels; the first match wins; "dW" is the route's weight gradient (D or
+# I, which share dw_kernel and sum_splits_kernel)
+PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw"),
+                   ("sum_splits_kernel", "dW"),
+                   ("dw_kernel", "dW"),
+                   ("keyed_conv_kernel", "keyed_conv"),
+                   ("mapped_conv_kernel", "mapped_conv"),
+                   ("map_kernel", "kernel_map"),
+                   ("fps_kernel", "fps"),
+                   ("rpe_attention_kernel", "rpe_cross_attention"),
+                   ("rpe_pair_bwd_kernel", "rpe_cross_attention_bwd"),
+                   ("rpe_table_bwd_kernel", "rpe_cross_attention_bwd"))
+
+
+def profile_step(trainer, batch, gen):
+    """One train step under torch.profiler with CUDA activity: device ms
+    and launches per kernel name summed over the step, the same per port
+    kernel, and the device's busy time (the union of device activity;
+    user annotations, which span other events, left out) over the step's
+    host-clock time with the profiler on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:  # union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    dw = ("keyed_conv_dw" if trainer.model.conv_route == "keyed"
+          else "mapped_conv_dw")
+    by_name, by_kernel = {}, {}
+    for e in dev:
+        us = e.time_range.end - e.time_range.start
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + us / 1e3, n + 1)
+        port = next((dw if k == "dW" else k for pat, k in PROFILE_KERNELS
+                     if pat in e.name), None)
+        if port is not None:
+            ms, n = by_kernel.get(port, (0.0, 0))
+            by_kernel[port] = (ms + us / 1e3, n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    port_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return dict(wall_ms=wall, device_events=len(dev),
+                device_busy_ms=busy_us / 1e3,
+                busy_share=busy_us / 1e3 / wall if wall > 0 else 0.0,
+                device_ms=device_ms, port_kernels_ms=port_ms,
+                by_kernel={k: {"ms": ms, "launches": n}
+                           for k, (ms, n) in by_kernel.items()},
+                top=[{"name": name[:120], "ms": ms, "launches": n}
+                     for name, (ms, n) in top])
+
+
 def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
     """The published model's train step at batch 1 on both routes, each
     with its own model (the same initial weights), optimizer and dropout
@@ -965,6 +1154,23 @@ def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
         stats[route] = dict(ms_per_step=med, steps=times[route],
                             all_steps=all_times[route], peak_gib=peak[route],
                             breakdown=brk)
+        prof = profile_step(trainer, batches[2], gens[route])
+        prof["busy_share_of_median_step"] = prof["device_busy_ms"] / med
+        stats[route]["profile"] = prof
+        log(f"train {route} step under torch.profiler: {prof['wall_ms']:.1f}"
+            f" ms host clock, {prof['device_events']} device events, "
+            f"device busy {prof['device_busy_ms']:.1f} ms = "
+            f"{100 * prof['busy_share']:.1f}% of the profiled step, "
+            f"{100 * prof['busy_share_of_median_step']:.1f}% of the "
+            f"median step ({med:.1f} ms, profiler off); device ms in all "
+            f"{prof['device_ms']:.1f}, in the port's kernels "
+            f"{prof['port_kernels_ms']:.1f}; card {power}")
+        log("  per port kernel (ms, launches): " + "; ".join(
+            f"{k} {v['ms']:.2f} ({v['launches']})"
+            for k, v in sorted(prof["by_kernel"].items())))
+        log("  top kernels by device ms: " + "; ".join(
+            f"{t['name'][:60]} {t['ms']:.2f} ({t['launches']})"
+            for t in prof["top"]))
     # the same batch on both routes: the paired difference cancels the
     # scene-to-scene variation of the step
     diff = [m - k for k, m in zip(times["keyed"], times["mapped"])]
@@ -1048,10 +1254,7 @@ def main() -> int:
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
 
@@ -1077,6 +1280,10 @@ def main() -> int:
     res["rpe_cross_attention"], case = check_rpe(cfg, device, gen)
     res["rpe_cross_attention_bwd"] = check_rpe_bwd(cfg, case)
     del case, grids
+
+    # 3b. the probes of kernel C
+    res["rpe_ablate"] = check_rpe_ablate(device)
+    res["dot_micro"] = check_dot_micro(device)
 
     # 4. the published forward on both routes, then a small one on each
     # against the CPU
@@ -1109,16 +1316,23 @@ def main() -> int:
                  "replaces": repl, "launches": train_launches[route][kname],
                  "max_abs_err": r["err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": None,
-                 "library": "none: " + LIBRARY_NONE[kname],
+                 "bound_by": r["bound_by"],
+                 "library_ms": r.get("library_ms"),
+                 "library": r.get("library")
+                 or "none: " + LIBRARY_NONE[kname],
                  "forward_launches": fwd_launches[route][kname],
                  "launches_by_route": {
                      rt: {"forward": fwd_launches[rt][kname],
                           "train_step": train_launches[rt][kname]}
                      for rt in ROUTES}}
-        for extra in ("cases", "train_ms", "gather_matmul_ms"):
+        for extra in ("cases", "train_ms", "gather_matmul_ms",
+                      "library_tf32_ms"):
             if extra in r:
                 entry[extra] = r[extra]
+        if kname in PROBES:
+            entry["probe"] = ("a probe of kernel C, off the main path: 0 "
+                              "launches there; ms, plain_ms and bound_ms sum "
+                              "its cases")
         record["kernels"].append(entry)
     record["forward_ms_per_scene"] = {
         route: {f"B={b}": t for b, t in per_scene[route].items()}

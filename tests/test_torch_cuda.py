@@ -3,8 +3,10 @@ card, at small shapes chosen for their edges: channel widths off the
 kernel tiles, the 3-channel stem, tiles with no valid row, FPS past the
 on-chip distance buffer, ragged query and key counts, corners that do
 not pair up, a fully masked batch row, dropout; the neighbour map (G)
-bit for bit, also on the stem's 131072-row table; and the three autograd
-Functions on the card against the same Functions on the CPU.
+bit for bit, also on the stem's 131072-row table; the three autograd
+Functions on the card against the same Functions on the CPU; and the two
+probes of kernel C, the stage ablation (levels 0-5; level 6 is C itself)
+and the table contraction.
 chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
@@ -35,6 +37,8 @@ from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
                                                     mapped_conv_dw_plain,
                                                     mapped_conv_plain)
 from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
+from vdetr_tpu_torch.tools import dot_micro as tdm
+from vdetr_tpu_torch.tools import rpe_ablate as tra
 
 pytestmark = pytest.mark.cuda
 
@@ -325,6 +329,48 @@ def test_rpe_function_gradients_kernel_vs_plain(rng, cuda):
                                    atol=2e-5 * max(1.0, float(ref.abs().max())))
 
 
+@pytest.mark.parametrize("level", range(6))
+@pytest.mark.parametrize("nq,nk,scale", [(64, 256, 1.0), (37, 257, 0.05)],
+                         ids=["tiles", "ragged-soft"])
+def test_rpe_ablate_kernel_matches_plain(cuda, level, nq, nk, scale):
+    """Each ablation level at the tool's coordinates and, with ragged
+    query and key counts, at coordinates scaled down so that the softmax
+    of levels 1 and 2 is not saturated."""
+    args = tra.make_inputs(nq, nk, cuda, scale=scale)
+    before = tra.rpe_ablate.launches
+    got = tra.rpe_ablate(level, *args)
+    assert tra.rpe_ablate.launches == before + 1
+    ref = tra.rpe_ablate_plain(level, *args)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=tra.rounding_tol(level, *args))
+
+
+def test_rpe_ablate_level6_is_kernel_c(cuda):
+    args = tra.make_inputs(64, 256, cuda)
+    before = rpe_cross_attention.launches
+    got = tra.rpe_ablate(6, *args)
+    assert rpe_cross_attention.launches == before + 1
+    q, k, v, corners, key_xyz, tables = args
+    want = rpe_cross_attention(q, k, v, corners, None, key_xyz, tables, None,
+                               log_scale=512.0, max_value=4.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nc,K,M,E", [(8, 100, 40, 512), (3, 17, 5, 70),
+                                      (1, 800, 40, 300)],
+                         ids=["tool-K", "ragged", "one-corner"])
+def test_dot_micro_kernel_matches_plain_and_einsum(cuda, nc, K, M, E):
+    T = torch.rand(nc, K, M, device=cuda)
+    P = torch.rand(K, E, device=cuda)
+    before = tdm.dot_micro.launches
+    got = tdm.dot_micro(T, P)
+    assert tdm.dot_micro.launches == before + 1
+    rtol = tdm.rounding_rtol(T)
+    for ref in (tdm.dot_micro_plain(T, P), tdm.dot_micro_library(T, P)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=rtol, atol=0)
+
+
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     """A CUDA tensor never falls back to the plain version: a layout or
     type the kernel does not take raises."""
@@ -364,3 +410,13 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
         mapped_conv_dw(f, nbr, torch.rand(1, 15, 4, device=cuda))
     with pytest.raises(ValueError):  # a CPU map with CUDA features
         mapped_conv(f, nbr.cpu(), w)
+    args = tra.make_inputs(16, 64, cuda)
+    with pytest.raises(ValueError):  # no level 7
+        tra.rpe_ablate(7, *args)
+    with pytest.raises(ValueError):  # heads of width 32: not built
+        tra.rpe_ablate(2, args[0][..., :32].contiguous(), args[1][..., :32]
+                       .contiguous(), args[2][..., :32].contiguous(),
+                       *args[3:])
+    with pytest.raises(ValueError):  # a strided P
+        tdm.dot_micro(torch.rand(2, 5, 4, device=cuda),
+                      torch.rand(5, 12, device=cuda)[:, ::2])

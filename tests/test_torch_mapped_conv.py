@@ -239,8 +239,8 @@ def test_every_kernel_source_declares_its_c_signature():
 
     from vdetr_tpu_torch import kernels
 
-    assert {"map_kernel", "mapped_conv", "mapped_conv_dw"} <= set(
-        kernels._SIGNATURES)
+    assert {"map_kernel", "mapped_conv", "mapped_conv_dw", "rpe_ablate",
+            "dot_micro"} <= set(kernels._SIGNATURES)
     for name, (fn_name, argtypes) in kernels._SIGNATURES.items():
         src = (kernels._CSRC / f"{name}.cu").read_text()
         decl = re.search(r'extern "C" int ' + fn_name + r"\(([^)]*)\)", src)

@@ -54,6 +54,10 @@ _SIGNATURES = {
                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                            _I, _F, _P]),
+    "rpe_ablate": ("rpe_ablate_f32",
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                    _F, _I, _P]),
+    "dot_micro": ("dot_micro_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
