@@ -13,8 +13,11 @@ Phases, each printing its own lines:
      map (G) on the forward's nine maps, the mapped conv (H, also held to
      A) and its weight gradient (I), FPS (B), the RPE attention forward
      (C, eval and training form with dropout and the log-sum-exp) and its
-     flash backward (F, dropout 0 and 0.1); prints the error, its
-     tolerance, both times and the kernel's bound;
+     flash backward (F, dropout 0 and 0.1, its pair and dTables table
+     kernels also timed apart); prints the error, its tolerance, both
+     times and the kernel's bound (for A and H, which multiply on the
+     tensor cores in split TF32, against the TF32 rate, with the f32
+     CUDA-core bound beside it);
   3b. probes of kernel C, the work of the entry points
      `python -m vdetr_tpu_torch.tools.rpe_ablate` and `.dot_micro` at the
      tool shapes: each stage-ablation level 0-5 against its plain version,
@@ -36,7 +39,8 @@ Phases, each printing its own lines:
      loss and gradients and the expected launches per step (A, D or G,
      H, I; B, C, F), median ms per step, peak memory and a breakdown by
      phase; one step per route under torch.profiler (device ms per
-     kernel summed over its launches, the device's busy share); and a small
+     kernel and per device function summed over its launches, the
+     device's busy share); and a small
      model's step on each route on the card against the same step on the
      CPU (dropout 0): loss, every gradient and the updated parameters;
   6. a JSON line of per-kernel results, then the last line
@@ -57,8 +61,10 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from vdetr_tpu_torch.tools import bound_ms, card, time_ms
+from vdetr_tpu_torch.tools import (bound_ms, bound_split_tf32_ms, card,
+                                   time_ms)
 
 SEED = 0
 REPO_SOURCES = {
@@ -182,13 +188,25 @@ def conv_cases(cfg, grids, gen):
     return out
 
 
+def tile_rows(nbr, capacity: int, rows: int = 64) -> int:
+    """The (row, offset) products kernels A and H compute: all `rows` rows
+    of a row tile for each offset with a hit in it."""
+    B, K, V = nbr.shape
+    hit = F.pad(nbr < capacity, (0, -V % rows)).reshape(B, K, -1, rows)
+    return int(hit.any(-1).sum()) * rows
+
+
 def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
-                      kargs_of):
+                      kargs_of, split_tf32=False):
     """A conv kernel (A, D, H or I) against its plain version on each conv
     case, called on `kargs_of(case)`; per case the error, both times and
     the bound (each tensor argument read once, the result written once;
-    2 * C_in * C_out flops per neighbour hit)."""
-    errs, ms, plain_ms, bound, out_cases = [], 0.0, 0.0, 0.0, []
+    2 * C_in * C_out flops per neighbour hit). `split_tf32`: the kernel
+    multiplies on the tensor cores in split TF32, so its bound is the
+    larger of the bytes and 3 x the flops over the TF32 rate, with the f32
+    CUDA-core bound beside it (`bound_f32_ms`)."""
+    errs, ms, plain_ms, bound, bound_f32, out_cases = [], 0.0, 0.0, 0.0, \
+        0.0, []
     for case in cases:
         label, args, hits = case[0], case[1], case[3]
         kargs = kargs_of(case)
@@ -201,30 +219,54 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
         t_k = time_ms(lambda: kernel(*kargs), reps=10)
         t_p = time_ms(lambda: plain(*kargs), reps=3)
         cin, cout = args[5].shape[1:]
-        b_ms, b_by = bound_ms(
-            nbytes(*(a for a in kargs if torch.is_tensor(a)))
-            + ref.numel() * 4, 2.0 * cin * cout * hits)
+        io = (nbytes(*(a for a in kargs if torch.is_tensor(a)))
+              + ref.numel() * 4)
+        flops = 2.0 * cin * cout * hits
+        f_ms, f_by = bound_ms(io, flops)
+        b_ms, b_by = (bound_split_tf32_ms(io, flops) if split_tf32
+                      else (f_ms, f_by))
         ok = err <= tol
-        log(f"check {name} {label}: max_abs_err={err:.3e} "
-            f"(max|ref|={scale:.3e}) tol={tol:.3e} -> {'ok' if ok else 'FAIL'};"
-            f" kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.4f} ms"
-            f" ({b_by})")
+        rec = {"case": label, "max_abs_err": err, "ms": t_k,
+               "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+               "tflops": flops / t_k * 1e-9}
+        if split_tf32:  # the share of the computed products with a hit
+            rec["hit_share"] = hits / tile_rows(case[4], args[0].shape[1])
+        line = (f"check {name} {label}: max_abs_err={err:.3e} "
+                f"(max|ref|={scale:.3e}) tol={tol:.3e} -> "
+                f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms "
+                f"({rec['tflops']:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}")
+        if split_tf32:
+            rec.update(bound_f32_ms=f_ms, bound_f32_by=f_by)
+            line += (f", split TF32 on the tensor cores; f32 CUDA cores "
+                     f"{f_ms:.4f} ms, {f_by}; {100 * rec['hit_share']:.1f}%"
+                     f" of the tile's products have a neighbour")
+        log(line + ")")
         errs.append((err, ok))
         ms += t_k
         plain_ms += t_p
         bound += b_ms
-        out_cases.append({"case": label, "max_abs_err": err, "ms": t_k,
-                          "plain_ms": t_p, "bound_ms": b_ms,
-                          "bound_by": b_by})
+        bound_f32 += f_ms
+        out_cases.append(rec)
     log("  tolerance reason: " + reason)
-    return dict(ok=all(ok for _, ok in errs), err=max(e for e, _ in errs),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=_dominant(out_cases), cases=out_cases)
+    res = dict(ok=all(ok for _, ok in errs), err=max(e for e, _ in errs),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=_dominant(out_cases), cases=out_cases)
+    if split_tf32:
+        res.update(bound_f32_ms=bound_f32,
+                   bound_note="bound_ms: split TF32 on the tensor cores "
+                              "(3 x flops / 495 TFLOP/s against bytes / "
+                              "3.35 TB/s); bound_f32_ms: flops / 67 TFLOP/s "
+                              "on the CUDA cores")
+    return res
 
 
 CONV_REASON = ("float32 sums of up to 27*C_in products taken in another "
-               "order than the plain per-offset matmuls; 1e-4 of max|ref| "
-               "is ~10x the sqrt(n)*2^-24 rounding spread at n = 27*512")
+               "order than the plain per-offset matmuls, each product in "
+               "split TF32 (hi*hi + hi*lo + lo*hi, ~2^-21 relative); the "
+               "split's emulation stays within ~3e-3 of 1e-4 of max|ref| "
+               "at n = 27*512 (tests/test_torch_kernel_premises.py), one "
+               "TF32 pass ~3x over it")
 DW_REASON = ("each dW entry is a float32 sum over up to 65536 rows, taken "
              "in 16-row register tiles and a fixed-order sum of row splits "
              "against the plain version's GEMM order; 2e-5 of max|ref| is "
@@ -237,7 +279,7 @@ def check_keyed_conv(cases):
 
     return check_conv_kernel("keyed_conv", cases, keyed_conv,
                              keyed_conv_plain, 1e-4, CONV_REASON,
-                             lambda c: c[1])
+                             lambda c: c[1], split_tf32=True)
 
 
 def check_keyed_conv_dw(cases):
@@ -270,7 +312,8 @@ def check_mapped_conv(cases):
 
     res = check_conv_kernel("mapped_conv", cases, mapped_conv,
                             mapped_conv_plain, 1e-4, CONV_REASON,
-                            lambda c: (c[1][0], c[4], c[1][5]))
+                            lambda c: (c[1][0], c[4], c[1][5]),
+                            split_tf32=True)
     worst_a, yard_ms = 0.0, 0.0
     for case, rec in zip(cases, res["cases"]):
         label, args, nbr = case[0], case[1], case[4]
@@ -284,9 +327,11 @@ def check_mapped_conv(cases):
         worst_a = max(worst_a, err_a / scale)
         t_y = time_ms(lambda: gather_matmul(args[0], nbr, args[5]), reps=3)
         yard_ms += t_y
-        rec.update(vs_keyed_err=err_a, gather_matmul_ms=t_y)
+        same = bool(torch.equal(got, ref))
+        rec.update(vs_keyed_err=err_a, vs_keyed_bit_equal=same,
+                   gather_matmul_ms=t_y)
         log(f"check mapped_conv vs keyed_conv {label}: max_abs_err="
-            f"{err_a:.3e} tol={1e-4 * scale:.3e} -> "
+            f"{err_a:.3e} (bit-equal: {same}) tol={1e-4 * scale:.3e} -> "
             f"{'ok' if err_a <= 1e-4 * scale else 'FAIL'}; gather-then-"
             f"matmul yardstick {t_y:.3f} ms (its max_abs_err vs H "
             f"{err_y:.3e})")
@@ -514,6 +559,7 @@ def check_rpe_bwd(cfg, case):
     from vdetr_tpu_torch.ops.rpe_attention import (
         rpe_cross_attention_bwd, rpe_cross_attention_bwd_plain,
         rpe_cross_attention_plain)
+    from vdetr_tpu_torch.tools.ab_kernels import profile_by_kernel
 
     q, k, v, corners, angles, key_xyz, tables, key_valid = case
     n = tables.shape[1]
@@ -543,18 +589,54 @@ def check_rpe_bwd(cfg, case):
         t_k = time_ms(lambda: rpe_cross_attention_bwd(*args, **fkw), reps=5)
         t_p = time_ms(lambda: rpe_cross_attention_bwd_plain(*args, **fkw),
                       reps=2)
-        times[rate] = (t_k, t_p)
+        parts_ms = {k: ms for k, (ms, _) in profile_by_kernel(
+            lambda: rpe_cross_attention_bwd(*args, **fkw), reps=5).items()}
+        times[rate] = (t_k, t_p, parts_ms)
         log(f"check rpe_cross_attention_bwd dropout={rate}: "
             + "; ".join(parts) + f" -> {'ok' if ok_all else 'FAIL'}; kernel "
-            f"{t_k:.3f} ms, plain {t_p:.3f} ms")
+            f"{t_k:.3f} ms (device ms per call, torch.profiler: "
+            + ", ".join(f"{kn} {v:.3f}" for kn, v in parts_ms.items())
+            + f"), plain {t_p:.3f} ms")
+    log(f"  the table kernel's items: a warp's 32 keys of one query fall in "
+        f"{distinct_cells(cfg, case):.1f} distinct lower tap cells of a "
+        "corner on average (first 64 queries, all corners)")
     b_ms, b_by = rpe_bound(case, train=True, backward=True)
-    log(f"  bound {b_ms:.4f} ms ({b_by}); tolerance reason: dq sums 4096 "
+    # the table kernel alone: ds, the corners, key positions and mask read
+    # once, dtables written once; 8 corners x 8 taps x H multiply-adds a
+    # pair
+    B, nK, H = q.shape[0], k.shape[1], q.shape[2]
+    tb_ms, tb_by = bound_ms(
+        nbytes(corners, key_xyz, key_valid, tables)
+        + B * H * q.shape[1] * nK * 4, B * q.shape[1] * nK * 8 * 8 * H * 2.0)
+    log(f"  bound {b_ms:.4f} ms ({b_by}); the table kernel's own bound "
+        f"{tb_ms:.4f} ms ({tb_by}); tolerance reason: dq sums 4096 "
         "keys, dtables ~4M pairs through atomics in no fixed order, both "
         "float32: ~1e-6 relative spread per term; 1e-4 of max|ref| leaves "
         "~10x margin over the spread measured on the card")
-    t_k, t_p = times[0.1]
+    t_k, t_p, parts_ms = times[0.1]
     return dict(ok=ok_all, err=worst, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, ms_dropout0=times[0.0][0],
+                pair_ms=parts_ms.get("F pair"),
+                table_ms=parts_ms.get("F table"),
+                table_bound_ms=tb_ms, table_bound_by=tb_by)
+
+
+def distinct_cells(cfg, case, queries: int = 64) -> float:
+    """Mean count of distinct lower tap cells among the 32 consecutive keys
+    a warp of kernel F's table kernel takes, per query and corner (no
+    rotation, as check_rpe_bwd runs it)."""
+    from vdetr_tpu_torch.ops.rpe import log_quantize
+
+    q, k, v, corners, angles, key_xyz, tables, key_valid = case
+    n = tables.shape[1]
+    d = corners[0, :queries, :, None, :] - key_xyz[0, None, None]
+    idx = ((log_quantize(d, cfg.log_scale, cfg.rpe_max_value) + 1.0) * n
+           - 1.0) * 0.5
+    c = torch.floor(idx).long() + 1
+    cell = ((c[..., 2] * 32 + c[..., 1]) * 32 + c[..., 0])
+    cell = cell[..., : cell.shape[-1] // 32 * 32].reshape(-1, 32)
+    cell = cell.sort(-1).values
+    return float((cell[:, 1:] != cell[:, :-1]).sum(-1).add(1).float().mean())
 
 
 # --------------------------------------------------------------------------
@@ -1021,18 +1103,23 @@ def matcher_host_ms(trainer, batch, gen):
 
 
 # kernel function names (as the profiler reports them) -> the port's
-# kernels; the first match wins; "dW" is the route's weight gradient (D or
-# I, which share dw_kernel and sum_splits_kernel)
-PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw"),
-                   ("sum_splits_kernel", "dW"),
-                   ("dw_kernel", "dW"),
-                   ("keyed_conv_kernel", "keyed_conv"),
-                   ("mapped_conv_kernel", "mapped_conv"),
-                   ("map_kernel", "kernel_map"),
-                   ("fps_kernel", "fps"),
-                   ("rpe_attention_kernel", "rpe_cross_attention"),
-                   ("rpe_pair_bwd_kernel", "rpe_cross_attention_bwd"),
-                   ("rpe_table_bwd_kernel", "rpe_cross_attention_bwd"))
+# kernels and the part of it; the first match wins; "conv" is the route's
+# 3^3 conv (A or H, which share conv_sum_splits_kernel), "dW" its weight
+# gradient (D or I, which share dw_kernel and dw_sum_splits_kernel); F
+# runs two kernels, the pair kernel and the dTables table kernel
+PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
+                   ("conv_sum_splits_kernel", "conv", "split sums"),
+                   ("dw_sum_splits_kernel", "dW", "split sums"),
+                   ("dw_kernel", "dW", "dW GEMM"),
+                   ("keyed_conv_kernel", "keyed_conv", "conv"),
+                   ("mapped_conv_kernel", "mapped_conv", "conv"),
+                   ("map_kernel", "kernel_map", "map"),
+                   ("fps_kernel", "fps", "fps"),
+                   ("rpe_attention_kernel", "rpe_cross_attention", "forward"),
+                   ("rpe_pair_bwd_kernel", "rpe_cross_attention_bwd",
+                    "pair kernel"),
+                   ("rpe_table_bwd_kernel", "rpe_cross_attention_bwd",
+                    "table kernel"))
 
 
 def profile_step(trainer, batch, gen):
@@ -1059,18 +1146,21 @@ def profile_step(trainer, batch, gen):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    dw = ("keyed_conv_dw" if trainer.model.conv_route == "keyed"
-          else "mapped_conv_dw")
-    by_name, by_kernel = {}, {}
+    conv = f"{trainer.model.conv_route}_conv"
+    alias = {"conv": conv, "dW": conv + "_dw"}
+    by_name, by_kernel, by_part = {}, {}, {}
     for e in dev:
         us = e.time_range.end - e.time_range.start
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + us / 1e3, n + 1)
-        port = next((dw if k == "dW" else k for pat, k in PROFILE_KERNELS
-                     if pat in e.name), None)
+        port = next(((alias.get(k, k), part)
+                     for pat, k, part in PROFILE_KERNELS if pat in e.name),
+                    None)
         if port is not None:
-            ms, n = by_kernel.get(port, (0.0, 0))
-            by_kernel[port] = (ms + us / 1e3, n + 1)
+            ms, n = by_kernel.get(port[0], (0.0, 0))
+            by_kernel[port[0]] = (ms + us / 1e3, n + 1)
+            ms, n = by_part.get(port, (0.0, 0))
+            by_part[port] = (ms + us / 1e3, n + 1)
     device_ms = sum(ms for ms, _ in by_name.values())
     port_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
@@ -1080,6 +1170,8 @@ def profile_step(trainer, batch, gen):
                 device_ms=device_ms, port_kernels_ms=port_ms,
                 by_kernel={k: {"ms": ms, "launches": n}
                            for k, (ms, n) in by_kernel.items()},
+                by_part={f"{k} {part}": {"ms": ms, "launches": n}
+                         for (k, part), (ms, n) in by_part.items()},
                 top=[{"name": name[:120], "ms": ms, "launches": n}
                      for name, (ms, n) in top])
 
@@ -1168,6 +1260,9 @@ def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
         log("  per port kernel (ms, launches): " + "; ".join(
             f"{k} {v['ms']:.2f} ({v['launches']})"
             for k, v in sorted(prof["by_kernel"].items())))
+        log("  per kernel part (ms, launches): " + "; ".join(
+            f"{k} {v['ms']:.2f} ({v['launches']})"
+            for k, v in sorted(prof["by_part"].items())))
         log("  top kernels by device ms: " + "; ".join(
             f"{t['name'][:60]} {t['ms']:.2f} ({t['launches']})"
             for t in prof["top"]))
@@ -1326,7 +1421,9 @@ def main() -> int:
                           "train_step": train_launches[rt][kname]}
                      for rt in ROUTES}}
         for extra in ("cases", "train_ms", "gather_matmul_ms",
-                      "library_tf32_ms"):
+                      "library_tf32_ms", "bound_f32_ms", "bound_note",
+                      "ms_dropout0", "pair_ms", "table_ms", "table_bound_ms",
+                      "table_bound_by"):
             if extra in r:
                 entry[extra] = r[extra]
         if kname in PROBES:

@@ -6,7 +6,8 @@ not pair up, a fully masked batch row, dropout; the neighbour map (G)
 bit for bit, also on the stem's 131072-row table; the three autograd
 Functions on the card against the same Functions on the CPU; and the two
 probes of kernel C, the stage ablation (levels 0-5; level 6 is C itself)
-and the table contraction.
+and the table contraction; the split-TF32 tile GEMM of A and H at the
+published channel widths, and F on the decoder's box corners.
 chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
@@ -19,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
+                                            convert_corners_camera2lidar)
 from vdetr_tpu_torch.ops import fps as tfps
 from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
 from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
@@ -55,14 +58,14 @@ def t(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def conv_case(rng, cuda, cin, cout, stride):
+def conv_case(rng, cuda, cin, cout, stride, capacity=4096):
     """Capacity 4096 holding ~1.4k voxels: whole tiles have no valid row."""
     pts = (rng.rand(2, 1500, 3) * [0.6, 0.5, 0.3]).astype(np.float32)
     g = voxelize(t(pts, cuda), t(pts, cuda), torch.ones(2, 1500, dtype=bool,
                                                         device=cuda),
-                 voxel_size=0.02, capacity=4096, extent=(128, 128, 64))
+                 voxel_size=0.02, capacity=capacity, extent=(128, 128, 64))
     f = torch.randn(*g.keys.shape, cin, device=cuda) * g.valid[..., None]
-    go = downsample_grid(g, 2048) if stride == 2 else g
+    go = downsample_grid(g, capacity // 2) if stride == 2 else g
     q = (go.coords * 2 if stride == 2 else go.coords).contiguous()
     w = t((rng.randn(27, cin, cout) / np.sqrt(27 * cin)).astype(np.float32),
           cuda)
@@ -75,7 +78,8 @@ def conv_case(rng, cuda, cin, cout, stride):
                                              (40, 8, 2), (64, 130, 1),
                                              (256, 72, 1), (300, 64, 2)])
 def test_keyed_conv_kernel_matches_plain(rng, cuda, cin, cout, stride):
-    """From 256 input channels the offsets are split over three blocks."""
+    """From 64 input channels the offsets are split over three blocks
+    (`conv_splits`)."""
     args, _ = conv_case(rng, cuda, cin, cout, stride)
     before = keyed_conv.launches
     got = keyed_conv(*args)
@@ -186,6 +190,30 @@ def test_mapped_conv_and_dw_kernels_match_plain(rng, cuda, cin, cout,
     dw_ref = mapped_conv_dw_plain(args[0], nbr, dout)
     np.testing.assert_allclose(dw.cpu().numpy(), dw_ref.cpu().numpy(),
                                atol=1e-5 * float(dw_ref.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("cin,cout,stride,capacity", [
+    (3, 64, 2, 4096), (64, 64, 1, 4096), (128, 128, 1, 4096),
+    (512, 512, 1, 4096), (64, 64, 1, 4001), (3, 64, 2, 4003)],
+    ids=["stem", "64", "128", "512-splits", "64-ragged-V", "stem-ragged-V"])
+def test_conv_tile_split_tf32_matches_plain(rng, cuda, cin, cout, stride,
+                                            capacity):
+    """The tensor-core tile GEMM that kernels A and H share, within
+    chip_smoke's 1e-4 of max(1, max|ref|) of the f32 plain version: the
+    stem's 3-channel rows (4-byte copies, one k8 step), 64 and 128
+    channels (16-byte copies), 512 (offsets split over six blocks),
+    tiles with no hit (~1.4k voxels in 4096 rows) and row counts off the
+    64-row tile; H bit-equal to A."""
+    args, _ = conv_case(rng, cuda, cin, cout, stride, capacity)
+    valid = args[3]
+    assert bool((~valid[:, -64:]).all())  # the last tile has no hit
+    ref = keyed_conv_plain(*args)
+    got = keyed_conv(*args)
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= tol
+    nbr = kernel_map(*map_args(args))
+    assert torch.equal(mapped_conv(args[0], nbr, args[5]), got)
+    assert float(got[~valid].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("stride", [1, 2], ids=["submanifold", "stride-2"])
@@ -303,6 +331,56 @@ def test_rpe_bwd_kernel_matches_plain(rng, cuda, rate, B, nQ, nK, rotate):
     got = rpe_cross_attention_bwd(*bargs, **kw)
     assert rpe_cross_attention_bwd.launches == before + 1
     ref = rpe_cross_attention_bwd_plain(*bargs, **kw)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=2e-5 * max(1.0, float(r.abs().max())))
+
+
+def rpe_box_args(rng, cuda, B, nQ, nK, aligned):
+    """rpe_args with the decoder's corners: boxes in a room through
+    box_parametrization_to_corners and convert_corners_camera2lidar, so
+    corners i and i + 4 share x and y and the table kernel quantizes them
+    once; a tenth of the keys masked."""
+    args = rpe_args(rng, cuda, B, nQ, nK)
+    centers = t((rng.rand(B, nQ, 3) * [4.0, 4.0, 2.0]).astype(np.float32),
+                cuda)
+    sizes = t((rng.rand(B, nQ, 3) * 1.5 + 0.1).astype(np.float32), cuda)
+    angles = (torch.zeros(B, nQ, device=cuda) if aligned else
+              t(((rng.rand(B, nQ) - 0.5) * 6.2).astype(np.float32), cuda))
+    corners = convert_corners_camera2lidar(
+        box_parametrization_to_corners(centers, sizes, angles)).contiguous()
+    assert torch.equal(corners[:, :, :4, :2], corners[:, :, 4:, :2])
+    args[3], args[4] = corners, angles
+    args[5] = t((rng.rand(B, nK, 3) * [4.0, 4.0, 2.5]).astype(np.float32),
+                cuda)
+    args[7] = t(rng.rand(B, nK) > 0.1, cuda)
+    return args
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rotate,aligned", [(False, True), (True, True),
+                                            (True, False)],
+                         ids=["aligned", "aligned-rotate", "rotated"])
+@pytest.mark.parametrize("B,nQ,nK", [(1, 40, 1000), (2, 33, 257)],
+                         ids=["key-shares", "ragged"])
+def test_rpe_bwd_kernel_on_box_corners(rng, cuda, rate, rotate, aligned, B,
+                                       nQ, nK):
+    """Kernel F on the decoder's box corners, the table kernel's shared
+    x/y quantize taken: axis-aligned boxes with and without the rotation
+    applied, rotated boxes, masked keys, dropout 0 and 0.1, the keys
+    split over many blocks; against its plain version."""
+    args = rpe_box_args(rng, cuda, B, nQ, nK, aligned)
+    seed = torch.tensor([9], dtype=torch.int64, device=cuda)
+    kw = dict(log_scale=512.0, max_value=4.0, rotate=rotate,
+              dropout_rate=rate, seed=seed)
+    out, lse, logits = rpe_cross_attention_plain(*args, return_stats=True,
+                                                 **kw)
+    dout = torch.randn_like(out)
+    bargs = (args[1], args[2], args[3], args[4], args[5], args[7], out,
+             dout, logits, lse, 10)
+    got = rpe_cross_attention_bwd(*bargs, **kw)
+    ref = rpe_cross_attention_bwd_plain(*bargs, **kw)
+    assert float(ref[1].abs().max()) > 0.0
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
                                    atol=2e-5 * max(1.0, float(r.abs().max())))

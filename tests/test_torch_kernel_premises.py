@@ -1,0 +1,109 @@
+"""The premises two Hopper kernels of the port rest on, checked on the CPU.
+
+- The sparse-conv tile GEMM (`conv_tile` in
+  `vdetr_tpu_torch/csrc/sparse_conv.cuh`, kernels A and H) runs on the
+  tensor cores in split TF32: each f32 operand x becomes hi = tf32(x) and
+  lo = tf32(x - hi), rounded to nearest (`cvt.rna.tf32.f32`), and the
+  product is hi * hi' + hi * lo' + lo * hi' with f32 sums. Emulated here
+  in torch, it stays within the conv check's 1e-4 of max|ref| of the f64
+  product at the published contraction depths (27 offsets x 64 and x 512
+  input channels), and one TF32 pass does not: the split is needed.
+- The flash-RPE backward's table kernel (kernel F in
+  `csrc/rpe_attention_bwd.cu`) quantizes x and y once for corners i and
+  i + 4 when their x and y agree bit for bit. On the main path the
+  corners come from `box_parametrization_to_corners` and
+  `convert_corners_camera2lidar`, where those corners differ in z alone,
+  rotated or not, so the shared quantize is the path the model takes.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
+                                            convert_corners_camera2lidar)
+
+CONV_RTOL = 1e-4  # chip_smoke.py's conv tolerance: 1e-4 of max|ref|
+
+
+def tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as `cvt.rna.tf32.f32` does; the low 13 bits are 0."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def conv_operands(K, seed):
+    """256 gathered rows of ReLU'd features against (K, 64) weights scaled
+    by 1/sqrt(K), as a published conv sees them."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.relu(torch.randn(256, K, generator=g))
+    w = torch.randn(K, 64, generator=g) / math.sqrt(K)
+    return a, w, a.double() @ w.double()
+
+
+def rel_err(got, ref):
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 3 * 2.0 ** -11), 3.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
+                         -(1.0 + 2.0 ** -9), 3.0])
+    assert torch.equal(tf32(x), want)
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    assert int((tf32(y).view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert float(((tf32(y) - y) / y).abs().max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("K", [27 * 64, 27 * 512], ids=["27x64", "27x512"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_meets_the_conv_tolerance(K, seed):
+    a, w, ref = conv_operands(K, seed)
+    ah, bh = tf32(a), tf32(w)
+    al, bl = tf32(a - ah), tf32(w - bh)
+    split = al @ bh + ah @ bl + ah @ bh
+    err = rel_err(split, ref)
+    assert err <= 0.05 * CONV_RTOL, err
+    # within a small factor of a plain f32 product's own error
+    assert err <= 4 * max(rel_err(a @ w, ref), 2.0 ** -24 * math.sqrt(K))
+
+
+@pytest.mark.parametrize("K", [27 * 64, 27 * 512], ids=["27x64", "27x512"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_one_tf32_pass_misses_the_conv_tolerance(K, seed):
+    a, w, ref = conv_operands(K, seed)
+    assert rel_err(tf32(a) @ tf32(w), ref) > CONV_RTOL
+
+
+def box_corners(angles, seed):
+    rng = np.random.RandomState(seed)
+    n = angles.shape[0]
+    centers = torch.from_numpy((rng.rand(n, 3) * [6.0, 6.0, 2.0])
+                               .astype(np.float32))
+    sizes = torch.from_numpy((rng.rand(n, 3) * 1.5 + 0.1).astype(np.float32))
+    return convert_corners_camera2lidar(
+        box_parametrization_to_corners(centers, sizes, angles))
+
+
+@pytest.mark.parametrize("kind", ["axis-aligned", "rotated", "quarter-turns",
+                                  "negative"])
+def test_box_corners_i_and_i4_share_world_x_and_y(kind):
+    n = 4096
+    rng = np.random.RandomState(3)
+    angles = {
+        "axis-aligned": np.zeros(n),
+        "rotated": (rng.rand(n) - 0.5) * 6.2,
+        "quarter-turns": rng.randint(-4, 5, n) * (np.pi / 2),
+        "negative": -rng.rand(n) * np.pi,
+    }[kind]
+    c = box_corners(torch.from_numpy(angles.astype(np.float32)), seed=4)
+    low, high = c[:, :4], c[:, 4:]
+    # bit for bit, as the kernel compares them
+    assert torch.equal(low[..., :2].contiguous().view(torch.int32),
+                       high[..., :2].contiguous().view(torch.int32))
+    # and the z of a box's top and bottom corners differ
+    assert bool((low[..., 2] != high[..., 2]).all())

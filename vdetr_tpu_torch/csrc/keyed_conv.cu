@@ -13,19 +13,28 @@
 // plans exist only because Mosaic has no dynamic row gather; here a block
 // gathers its neighbour rows directly.
 //
-// What bounds it on the H100: f32 multiply-adds on the CUDA cores (the
-// 512-wide convs dominate; ~27*C*Co*2 flop per output row), then the
-// gather of neighbour rows from L2/HBM. Design: one block per 64 query
-// rows x 64 output channels x a share of the 27 offsets; the block
-// resolves its neighbour rows once (binary searches, all threads), skips
-// offsets with no hit in the tile and tiles with no valid row, and runs a
-// 64x64x16 register-tiled f32 GEMM over gathered rows staged in shared
-// memory (`conv_tile` in sparse_conv.cuh, shared with mapped_conv.cu).
-// The deep levels have few live 64-row tiles (629 valid voxels of 4096
-// in stage 4 at batch 1), so there the caller splits the offsets
-// over `splits` blocks, which write partial sums that a second kernel
-// adds in a fixed order. No tensor cores yet: the operands are f32,
-// matching the plain version's f32 matmul.
+// What bounds it on the H100: the multiply-adds (the 512-wide convs
+// dominate; ~27*C*Co*2 flop per output row), then the gather of
+// neighbour rows from L2/HBM. Design: one block per 64 query rows x 64
+// output channels x a share of the 27 offsets; the block resolves its
+// neighbour rows once (binary searches, all threads), skips offsets with
+// no hit in the tile and tiles with no valid row, and runs the tile's
+// gather-GEMM on the tensor cores (`conv_tile` in sparse_conv.cuh,
+// shared with mapped_conv.cu): a cp.async ring of gathered rows (16-byte
+// copies, zero-filled for misses) and weight tiles, 32-channel stages two
+// deep (16-channel stages three deep for the stem's 3 channels), each
+// f32 operand split into two TF32 halves and multiplied in three
+// mma.sync.m16n8k8 (hi*hi + hi*lo + lo*hi, f32 accumulation), which keeps
+// the f32 plain version's accuracy where one TF32 pass would not at
+// K = 27 * 512. The CUDA-core version it replaced (64x64x16 f32 register
+// tiles) ran at 5-9% of the f32 peak, bound by its shared-memory loads
+// and the exposed gather latency. What holds this one back: a tile
+// multiplies all 64 rows for every offset with a hit, and only 36-43% of
+// those (row, offset) products have a neighbour (10% at the stem); and
+// deep levels have few live tiles (10 of 64 at 512 channels, batch 1),
+// so the caller splits the offsets over `splits` blocks
+// (`ops.sparse_conv_kernel.conv_splits`), which write partial sums that a
+// second kernel adds in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +45,8 @@ namespace {
 
 using namespace sparse_conv;
 
-__global__ void __launch_bounds__(NT)
+template <int BK, int STAGES>
+__global__ void __launch_bounds__(CONV_NT)
 keyed_conv_kernel(const float* __restrict__ feats,   // (B, V_in, C)
                   const int* __restrict__ in_keys,   // (B, V_in) ascending
                   const int* __restrict__ q_coords,  // (B, V, 3)
@@ -44,7 +54,7 @@ keyed_conv_kernel(const float* __restrict__ feats,   // (B, V_in, C)
                   const float* __restrict__ w,       // (27, C, Co)
                   float* __restrict__ out,           // (splits, B, V, Co)
                   int V_in, int V, int C, int Co, int gx, int gy, int gz,
-                  int splits) {
+                  int splits, bool a16, bool b16) {
   __shared__ int s_nbr[KV][BM];
 
   const int B = gridDim.z / splits;
@@ -58,7 +68,7 @@ keyed_conv_kernel(const float* __restrict__ feats,   // (B, V_in, C)
   const int* keys = in_keys + (size_t)b * V_in;
 
   // resolve the tile's neighbour rows for its offsets (-1 = miss)
-  for (int i = threadIdx.x; i < nk * BM; i += NT) {
+  for (int i = threadIdx.x; i < nk * BM; i += CONV_NT) {
     const int kk = i / BM, m = i % BM;
     const int k = k_begin + kk;
     const int row = m0 + m;
@@ -80,9 +90,9 @@ keyed_conv_kernel(const float* __restrict__ feats,   // (B, V_in, C)
   }
   __syncthreads();
 
-  float acc[4][4] = {};
-  conv_tile(feats + (size_t)b * V_in * C, w, s_nbr, k_begin, nk, C, Co, n0,
-            acc);
+  ConvAcc acc = {};
+  conv_tile<BK, STAGES>(feats + (size_t)b * V_in * C, w, s_nbr, k_begin, nk,
+                        C, Co, n0, a16, b16, acc);
   store_tile(out + (size_t)b * V * Co, V, Co, m0, n0, acc);
 }
 
@@ -99,13 +109,17 @@ extern "C" int keyed_conv_f32(const void* feats, const void* in_keys,
     cudaStream_t st = (cudaStream_t)stream;
     float* dst = splits > 1 ? (float*)scratch : (float*)out;
     dim3 grid((V + BM - 1) / BM, (Co + BN - 1) / BN, B * splits);
-    keyed_conv_kernel<<<grid, NT, 0, st>>>(
+    // 32-channel stages two deep; the stem's 3 channels, whose one k8
+    // step leaves little work to overlap, 16-channel stages three deep
+    auto kernel = C <= 8 ? keyed_conv_kernel<16, 3> : keyed_conv_kernel<32, 2>;
+    kernel<<<grid, CONV_NT, 0, st>>>(
         (const float*)feats, (const int*)in_keys, (const int*)q_coords,
         (const uint8_t*)q_valid, (const float*)weights, dst, V_in, V, C, Co,
-        gx, gy, gz, splits);
+        gx, gy, gz, splits, C % 4 == 0 && aligned16(feats),
+        Co % 4 == 0 && aligned16(weights));
     if (splits > 1) {
       const size_t n = (size_t)B * V * Co;
-      sum_splits(dst, (float*)out, n, splits, st);
+      conv_sum_splits(dst, (float*)out, n, splits, st);
     }
   }
   return (int)cudaGetLastError();

@@ -98,7 +98,7 @@ extern "C" int keyed_conv_dw_f32(const void* feats, const void* in_keys,
         (const float*)feats, (const float*)dout,
         FlatMap{(const int*)nbr, rows}, dst, rows, C, Co, rows_per_split);
     if (splits > 1)
-      sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
+      dw_sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
   }
   return (int)cudaGetLastError();
 }

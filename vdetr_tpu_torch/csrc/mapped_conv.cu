@@ -14,19 +14,18 @@
 // because Mosaic cannot gather rows, and patches the rows its windows do
 // not cover. Here a block gathers feats[nbr] directly, in f32.
 //
-// What bounds it on the H100: f32 multiply-adds on the CUDA cores,
-// 2 * C * Co per (row, offset) hit (the 512-wide convs dominate), then the
-// gather of neighbour rows from L2/HBM. Design: kernel A's (keyed_conv.cu)
-// with its binary searches replaced by a coalesced read of the tile's map
+// What bounds it on the H100: the multiply-adds, 2 * C * Co per (row,
+// offset) hit (the 512-wide convs dominate), then the gather of
+// neighbour rows from L2/HBM. Design: kernel A's (keyed_conv.cu) with
+// its binary searches replaced by a coalesced read of the tile's map
 // columns: one block per 64 query rows x 64 output channels x a share of
 // the 27 offsets stages the map in shared memory, skips offsets with no
-// hit in the tile (so tiles with no valid row), and runs the 64x64x16
-// register-tiled f32 GEMM over gathered rows staged in shared memory
-// (`conv_tile` in sparse_conv.cuh). From 256 input channels, where few
-// 64-row tiles are live at batch 1, the caller splits the offsets over
-// `splits` blocks whose partial sums a second kernel adds in a fixed
-// order. No tensor cores yet: the operands are f32, as in the plain
-// version.
+// hit in the tile (so tiles with no valid row), and runs A's split-TF32
+// tensor-core gather-GEMM behind a cp.async ring (`conv_tile` in
+// sparse_conv.cuh), so H and A are bit-equal. As for A, the caller
+// splits the offsets over `splits` blocks from 64 input channels
+// (`ops.sparse_conv_kernel.conv_splits`), whose partial sums a second
+// kernel adds in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,12 +36,14 @@ namespace {
 
 using namespace sparse_conv;
 
-__global__ void __launch_bounds__(NT)
+template <int BK, int STAGES>
+__global__ void __launch_bounds__(CONV_NT)
 mapped_conv_kernel(const float* __restrict__ feats,  // (B, V_in, C)
                    const int* __restrict__ nbr,      // (B, 27, V)
                    const float* __restrict__ w,      // (27, C, Co)
                    float* __restrict__ out,          // (splits, B, V, Co)
-                   int V_in, int V, int C, int Co, int splits) {
+                   int V_in, int V, int C, int Co, int splits, bool a16,
+                   bool b16) {
   __shared__ int s_nbr[KV][BM];
 
   const int B = gridDim.z / splits;
@@ -55,7 +56,7 @@ mapped_conv_kernel(const float* __restrict__ feats,  // (B, V_in, C)
   const int n0 = blockIdx.y * BN;
 
   // the tile's map columns for its offsets (-1 = miss)
-  for (int i = threadIdx.x; i < nk * BM; i += NT) {
+  for (int i = threadIdx.x; i < nk * BM; i += CONV_NT) {
     const int kk = i / BM, m = i % BM;
     const int row = m0 + m;
     int idx = -1;
@@ -67,9 +68,9 @@ mapped_conv_kernel(const float* __restrict__ feats,  // (B, V_in, C)
   }
   __syncthreads();
 
-  float acc[4][4] = {};
-  conv_tile(feats + (size_t)b * V_in * C, w, s_nbr, k_begin, nk, C, Co, n0,
-            acc);
+  ConvAcc acc = {};
+  conv_tile<BK, STAGES>(feats + (size_t)b * V_in * C, w, s_nbr, k_begin, nk,
+                        C, Co, n0, a16, b16, acc);
   store_tile(out + (size_t)b * V * Co, V, Co, m0, n0, acc);
 }
 
@@ -85,11 +86,15 @@ extern "C" int mapped_conv_f32(const void* feats, const void* nbr,
     cudaStream_t st = (cudaStream_t)stream;
     float* dst = splits > 1 ? (float*)scratch : (float*)out;
     dim3 grid((V + BM - 1) / BM, (Co + BN - 1) / BN, B * splits);
-    mapped_conv_kernel<<<grid, NT, 0, st>>>(
+    // kernel A's choice of stage width and depth (keyed_conv.cu)
+    auto kernel =
+        C <= 8 ? mapped_conv_kernel<16, 3> : mapped_conv_kernel<32, 2>;
+    kernel<<<grid, CONV_NT, 0, st>>>(
         (const float*)feats, (const int*)nbr, (const float*)weights, dst,
-        V_in, V, C, Co, splits);
+        V_in, V, C, Co, splits, C % 4 == 0 && aligned16(feats),
+        Co % 4 == 0 && aligned16(weights));
     if (splits > 1)
-      sum_splits(dst, (float*)out, (size_t)B * V * Co, splits, st);
+      conv_sum_splits(dst, (float*)out, (size_t)B * V * Co, splits, st);
   }
   return (int)cudaGetLastError();
 }

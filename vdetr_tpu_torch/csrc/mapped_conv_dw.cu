@@ -55,7 +55,7 @@ extern "C" int mapped_conv_dw_f32(const void* feats, const void* nbr,
         BatchMap{(const int*)nbr, V, V_in}, dst, rows, C, Co,
         rows_per_split);
     if (splits > 1)
-      sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
+      dw_sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
   }
   return (int)cudaGetLastError();
 }

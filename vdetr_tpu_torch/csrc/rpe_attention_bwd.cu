@@ -30,15 +30,27 @@
 //   memory (~57 KB, so three blocks fit an SM); the key shares add their
 //   dQ with atomics; ds and eg leave through shared memory in coalesced
 //   rows. The stored logits spare the bias recompute.
-// - the table kernel scatters dTables from ds: one block per (batch, 32
-//   queries, corner) keeps that corner's table (16 KB at n = 10, H = 4)
-//   in shared memory and adds its nonzero entries to the global dTables
-//   with one atomic add each at the end. The log quantization sends many
-//   keys of a query to the same cells, so a thread-per-pair scatter
-//   serializes on same-address atomics (several times slower on the
-//   card); instead each lane quantizes one (pair, corner) item
-//   and the warp walks its active items: for each, its 32 lanes take the
-//   8 taps x 4 heads, 32 distinct words in 32 distinct banks.
+// - the table kernel scatters dTables from ds as a privatized weighted
+//   histogram: one block per (batch, 32 queries, corner pair (i, i + 4),
+//   share of the keys), the keys split until ~4 blocks per SM are
+//   resident, keeps both corners' tables (32 KB at n = 10, H = 4) in
+//   shared memory and adds their nonzero entries to the global dTables
+//   with one atomic add each at the end. A warp takes one query and 32
+//   keys at a time: each lane quantizes its (pair, corner) deltas, x and
+//   y once for the pair when the two corners' x and y agree bit for bit
+//   (a box's corners i and i + 4 differ in z alone), and stages its
+//   item's ds and 8 tap weights per corner in the warp's shared buffer,
+//   with its lower tap cell and in-table tap mask in a register. Then for
+//   each item the 32 lanes (8 taps x 4 heads, 32 distinct words in 32
+//   distinct banks) add their weighted ds with one shared atomic each.
+//   On this card a shared f32 atomicAdd compiles to a compare-and-swap
+//   loop (ATOMS.CAST.SPIN in the SASS), not a native add. Grouping the
+//   warp's items by cell with __match_any_sync first, one atomic per
+//   cell, was slower (PERF.md §6): the warp's 32 keys, in FPS
+//   order, spread over most of the cells (chip_smoke prints the mean),
+//   so the per-group work cost more than the atomics it saved. The kernel it replaced (one block per corner,
+//   fewer than 2 per SM, the warp walking its items one by one through
+//   four shuffles and an atomic each) ran 3.75 ms a layer.
 
 #include "rpe_common.cuh"
 
@@ -51,6 +63,7 @@ constexpr int TPR = 4;            // threads per (query, head) row
 constexpr int NT = TQ * H * TPR;  // 128 threads
 constexpr int TQ2 = 32;           // queries per table block
 constexpr int NT2 = 256;          // threads per table block
+constexpr int NW2 = NT2 / 32;     // its warps
 
 struct Dropout {
   const long long* seed;  // device scalar; null: no dropout
@@ -190,7 +203,47 @@ rpe_pair_bwd_kernel(
   }
 }
 
-__global__ void __launch_bounds__(NT2)
+// Per pair item: ds of the 4 heads, then for each corner of the pair the
+// 8 trilinear tap weights; a warp's 32 items (one query, 32 keys).
+constexpr int ITEM_FLOATS = 32 * (H + 2 * 8);
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+
+// One corner of a pair item: its 8 tap weights to `wts`, and its key: the
+// table offset of its lower tap cell, (cd0 * n + ch0) * n + cw0 shifted
+// by n^2 + n + 1 to be >= 0, times 256, plus the mask of the taps that lie
+// in the table (bit dd * 4 + dh * 2 + dw); -1 when none does or the item
+// is inactive.
+__device__ __forceinline__ int corner_item(bool active, float iw, float ih,
+                                           float id, int n,
+                                           float* __restrict__ wts) {
+  const float w0 = floorf(iw), h0 = floorf(ih), d0 = floorf(id);
+  const float fw = iw - w0, fh = ih - h0, fd = id - d0;
+  const int cw0 = (int)w0, ch0 = (int)h0, cd0 = (int)d0;
+  // an axis's lower tap is in the table from 0, its upper one below n
+  const int tw = (cw0 >= 0 && cw0 < n ? 0x55 : 0) |
+                 (cw0 >= -1 && cw0 < n - 1 ? 0xAA : 0);
+  const int th = (ch0 >= 0 && ch0 < n ? 0x33 : 0) |
+                 (ch0 >= -1 && ch0 < n - 1 ? 0xCC : 0);
+  const int td = (cd0 >= 0 && cd0 < n ? 0x0F : 0) |
+                 (cd0 >= -1 && cd0 < n - 1 ? 0xF0 : 0);
+  const int taps = active ? tw & th & td : 0;
+  float w[8];
+#pragma unroll
+  for (int tap = 0; tap < 8; ++tap) {
+    const int tdd = tap >> 2, tdh = (tap >> 1) & 1, tdw = tap & 1;
+    w[tap] = (tdd ? fd : 1.f - fd) * (tdh ? fh : 1.f - fh) *
+             (tdw ? fw : 1.f - fw);
+  }
+  reinterpret_cast<float4*>(wts)[0] = make_float4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<float4*>(wts)[1] = make_float4(w[4], w[5], w[6], w[7]);
+  return taps ? ((cd0 * n + ch0) * n + cw0 + n * n + n + 1) << 8 | taps
+              : -1;
+}
+
+__global__ void __launch_bounds__(NT2, 4)
 rpe_table_bwd_kernel(
     const float* __restrict__ ds,       // (B, H, nQ, nK)
     const float* __restrict__ corners,  // (B, nQ, 8, 3)
@@ -198,117 +251,127 @@ rpe_table_bwd_kernel(
     const float* __restrict__ key_xyz,  // (B, nK, 3)
     const uint8_t* __restrict__ key_valid,  // (B, nK) or null
     float* __restrict__ dtables,        // (8, n, n, n, H), zeroed
-    int nQ, int nK, int n, float log_scale, float max_value) {
+    int nQ, int nK, int n, float log_scale, float max_value,
+    int keys_per_block) {
   extern __shared__ float smem[];
   const int n3 = n * n * n;
-  float* s_dt = smem;                     // n3 * H: this corner's dTable
-  float* s_ds = s_dt + n3 * H;            // TQ2 * TK * H: ds, (pair, head)
-  float* s_kxyz = s_ds + TQ2 * TK * H;    // TK * 3
-  float* s_kmask = s_kxyz + TK * 3;       // TK: 1 valid, else 0
-  float* s_corner = s_kmask + TK;         // TQ2 * 3: this corner's points
-  float* s_cs = s_corner + TQ2 * 3;       // TQ2 * 2
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  float* s_dt = smem;                          // 2 * n3 * H: both tables
+  float* s_item = s_dt + 2 * n3 * H;           // NW2 * ITEM_FLOATS
+  float* s_corner = s_item + NW2 * ITEM_FLOATS;  // TQ2 * 2 * 3
+  float* s_cs = s_corner + TQ2 * 6;            // TQ2 * 2
+  int* s_pairxy = reinterpret_cast<int*>(s_cs + TQ2 * 2);  // TQ2
+  float* s_ds = s_item + warp * ITEM_FLOATS;   // this warp's items: 32 x H
+  float* s_w = s_ds + 32 * H;                  // 2 x 32 x 8
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * TQ2;
-  const int c = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int cp = blockIdx.z % 4;  // corners cp and cp + 4
+  const int kbeg = (blockIdx.z / 4) * keys_per_block;
+  const int kend = min(nK, kbeg + keys_per_block);
   const bool rotate = cossin != nullptr;
 
-  for (int i = tid; i < n3 * H; i += NT2) s_dt[i] = 0.f;
-  for (int i = tid; i < TQ2 * 3; i += NT2) {
-    const int qq = q0 + i / 3;
-    s_corner[i] =
-        qq < nQ ? corners[(((size_t)b * nQ + qq) * 8 + c) * 3 + i % 3] : 0.f;
+  for (int i = tid; i < 2 * n3 * H; i += NT2) s_dt[i] = 0.f;
+  for (int i = tid; i < TQ2 * 6; i += NT2) {
+    const int qq = q0 + i / 6, j = (i / 3) % 2;
+    s_corner[i] = qq < nQ ? corners[(((size_t)b * nQ + qq) * 8 + cp + 4 * j)
+                                    * 3 + i % 3]
+                          : 0.f;
   }
   for (int i = tid; i < TQ2 * 2; i += NT2) {
     const int qq = q0 + i / 2;
     s_cs[i] = (rotate && qq < nQ) ? cossin[((size_t)b * nQ + qq) * 2 + i % 2]
                                   : 0.f;
   }
+  __syncthreads();
+  // corners i and i + 4 of a box differ in z alone: then the x and y
+  // quantizes of a pair item are done once (exact, as the bits agree)
+  for (int i = tid; i < TQ2; i += NT2) {
+    const float* c = s_corner + i * 6;
+    s_pairxy[i] = same_bits(c[0], c[3]) && same_bits(c[1], c[4]);
+  }
+  __syncthreads();
 
-  // each lane of the atomic phase owns one tap (dd, dh, dw) and one head
+  // each lane of the scatter owns one tap (dd, dh, dw) and one head
   const int tap_h = lane & (H - 1), tap = lane >> 2;
-  const int tdd = tap >> 2, tdh = (tap >> 1) & 1, tdw = tap & 1;
-  for (int k0 = 0; k0 < nK; k0 += TK) {
-    __syncthreads();  // previous tile fully consumed (and smem init done)
-    for (int i = tid; i < TK; i += NT2) {
-      const int kk = k0 + i;
-      s_kmask[i] = (kk < nK && (key_valid == nullptr ||
-                                key_valid[(size_t)b * nK + kk])) ? 1.f : 0.f;
-      for (int j = 0; j < 3; ++j)
-        s_kxyz[i * 3 + j] =
-            kk < nK ? key_xyz[((size_t)b * nK + kk) * 3 + j] : 0.f;
+  const int tap_off = ((tap >> 2) * n + ((tap >> 1) & 1)) * n + (tap & 1);
+  const int base0 = n * n + n + 1;  // corner_item's shift of the cell
+  const int kchunks = (kend - kbeg + 31) / 32;
+  // task = (key chunk, query): the block's warps share a key chunk
+  for (int task = warp; task < kchunks * TQ2; task += NW2) {
+    const int ql = task % TQ2;
+    const int qi = q0 + ql;
+    const int kk = kbeg + (task / TQ2) * 32 + lane;
+    bool active = qi < nQ && kk < kend &&
+                  (key_valid == nullptr || key_valid[(size_t)b * nK + kk]);
+    float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (active) {
+      const float* dsp = ds + ((size_t)b * H * nQ + qi) * nK + kk;
+      const size_t hs = (size_t)nQ * nK;
+      d4 = make_float4(dsp[0], dsp[hs], dsp[2 * hs], dsp[3 * hs]);
+      active = d4.x != 0.f || d4.y != 0.f || d4.z != 0.f || d4.w != 0.f;
     }
-    for (int i = tid; i < TQ2 * H * TK; i += NT2) {
-      const int r = i / TK, kk = i % TK;
-      const int hh = r / TQ2, qq = r % TQ2;
-      const int qg = q0 + qq, kg = k0 + kk;
-      s_ds[(qq * TK + kk) * H + hh] =
-          (qg < nQ && kg < nK)
-              ? ds[(((size_t)b * H + hh) * nQ + qg) * nK + kg] : 0.f;
-    }
-    __syncthreads();
-
-    for (int base = warp * 32; base < TQ2 * TK; base += NT2) {
-      const int p = base + lane;
-      const int pq = p / TK, pk = p % TK;
-      bool active = s_kmask[pk] > 0.f;
-      if (active) {
-        const float4 d4 = reinterpret_cast<const float4*>(s_ds)[p];
-        active = d4.x != 0.f || d4.y != 0.f || d4.z != 0.f || d4.w != 0.f;
-      }
-      int packed = 0;
-      float fw = 0.f, fh = 0.f, fd = 0.f;
-      if (active) {
-        float dx = s_corner[pq * 3 + 0] - s_kxyz[pk * 3 + 0];
-        float dy = s_corner[pq * 3 + 1] - s_kxyz[pk * 3 + 1];
-        const float dz = s_corner[pq * 3 + 2] - s_kxyz[pk * 3 + 2];
+    reinterpret_cast<float4*>(s_ds)[lane] = d4;
+    float iw[2] = {0.f, 0.f}, ih[2] = {0.f, 0.f}, id[2] = {0.f, 0.f};
+    if (active) {
+      const float* kx = key_xyz + ((size_t)b * nK + kk) * 3;
+      const float kx0 = kx[0], kx1 = kx[1], kx2 = kx[2];
+      const float* c = s_corner + ql * 6;
+      const float co = s_cs[ql * 2 + 0], si = s_cs[ql * 2 + 1];
+      // the x and y indices of corner j's delta, rotated into the box frame
+      auto quantize_xy = [&](int j, float& qx, float& qy) {
+        float dx = c[3 * j + 0] - kx0;
+        float dy = c[3 * j + 1] - kx1;
         if (rotate) {
-          const float co = s_cs[pq * 2 + 0], si = s_cs[pq * 2 + 1];
           const float rx = dx * co - dy * si;
           const float ry = dx * si + dy * co;
           dx = rx;
           dy = ry;
         }
-        const float iw = rpe::quantize(dx, log_scale, max_value, n);
-        const float ih = rpe::quantize(dy, log_scale, max_value, n);
-        const float id = rpe::quantize(dz, log_scale, max_value, n);
-        const float w0 = floorf(iw), h0 = floorf(ih), d0 = floorf(id);
-        fw = iw - w0;
-        fh = ih - h0;
-        fd = id - d0;
-        // a lower tap below -1 or at n puts both taps of an axis outside
-        const int cw0 = (int)w0, ch0 = (int)h0, cd0 = (int)d0;
-        active = cw0 >= -1 && cw0 < n && ch0 >= -1 && ch0 < n &&
-                 cd0 >= -1 && cd0 < n;
-        packed = (cw0 + 1) | (ch0 + 1) << 5 | (cd0 + 1) << 10 | p << 15;
+        qx = rpe::quantize(dx, log_scale, max_value, n);
+        qy = rpe::quantize(dy, log_scale, max_value, n);
+      };
+      quantize_xy(0, iw[0], ih[0]);
+      if (s_pairxy[ql]) {
+        iw[1] = iw[0];
+        ih[1] = ih[0];
+      } else {
+        quantize_xy(1, iw[1], ih[1]);
       }
-      unsigned todo = __ballot_sync(0xffffffffu, active);
-      while (todo) {
-        const int src = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int pk_ = __shfl_sync(0xffffffffu, packed, src);
-        const float ww = __shfl_sync(0xffffffffu, fw, src);
-        const float wh = __shfl_sync(0xffffffffu, fh, src);
-        const float wd = __shfl_sync(0xffffffffu, fd, src);
-        const int cw = (pk_ & 31) - 1 + tdw;
-        const int ch = ((pk_ >> 5) & 31) - 1 + tdh;
-        const int cd = ((pk_ >> 10) & 31) - 1 + tdd;
-        if (cw >= 0 && cw < n && ch >= 0 && ch < n && cd >= 0 && cd < n) {
-          const float wt = (tdd ? wd : 1.f - wd) * (tdh ? wh : 1.f - wh) *
-                           (tdw ? ww : 1.f - ww);
-          atomicAdd(s_dt + ((cd * n + ch) * n + cw) * H + tap_h,
-                    wt * s_ds[(pk_ >> 15) * H + tap_h]);
-        }
+      id[0] = rpe::quantize(c[2] - kx2, log_scale, max_value, n);
+      id[1] = rpe::quantize(c[5] - kx2, log_scale, max_value, n);
+    }
+    int cell[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      cell[j] = corner_item(active, iw[j], ih[j], id[j], n,
+                            s_w + (j * 32 + lane) * 8);
+    __syncwarp();
+
+    // per corner, item by item: each (tap, head) lane adds its weighted
+    // ds to its own table word, 32 distinct words in 32 distinct banks
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* wj = s_w + j * 32 * 8 + tap;
+      float* dt = s_dt + (j * n3 + tap_off) * H + tap_h;
+#pragma unroll 4
+      for (int m = 0; m < 32; ++m) {
+        const int key = __shfl_sync(0xffffffffu, cell[j], m);
+        if (key >= 0 && ((key >> tap) & 1))
+          atomicAdd(dt + ((key >> 8) - base0) * H,
+                    wj[m * 8] * s_ds[m * H + tap_h]);
       }
     }
+    __syncwarp();  // the items are read before the next task's land
   }
   __syncthreads();
-  float* dst = dtables + (size_t)c * n3 * H;
-  for (int i = tid; i < n3 * H; i += NT2) {
+  for (int i = tid; i < 2 * n3 * H; i += NT2) {
     const float val = s_dt[i];
-    if (val != 0.f) atomicAdd(dst + i, val);
+    const int j = i / (n3 * H);
+    if (val != 0.f)
+      atomicAdd(dtables + (size_t)(cp + 4 * j) * n3 * H + i - j * n3 * H,
+                val);
   }
 }
 
@@ -340,15 +403,22 @@ int launch(const float* k, const float* v, const float* corners,
       keys_per_block);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  // table kernel: one block per (32 queries, batch row, corner)
-  const size_t smem2 = ((size_t)n * n * n * H + TQ2 * TK * H + TK * 4 +
-                        TQ2 * 5) * sizeof(float);
+  // table kernel: one block per (32 queries, batch row, corner pair,
+  // share of the keys), the keys split until ~4 blocks per SM have work
+  const size_t smem2 = (2 * (size_t)n * n * n * H + NW2 * ITEM_FLOATS +
+                        TQ2 * 9) * sizeof(float);
   err = set_smem((const void*)rpe_table_bwd_kernel, smem2);
   if (err != 0) return err;
-  dim3 grid2((nQ + TQ2 - 1) / TQ2, B, 8);
+  const int qtiles2 = (nQ + TQ2 - 1) / TQ2;
+  const int kchunks = (nK + 31) / 32;
+  const int shares2 =
+      max(1, min(kchunks, (4 * 132) / (B * qtiles2 * 4)));
+  const int keys_per_block2 = ((kchunks + shares2 - 1) / shares2) * 32;
+  dim3 grid2(qtiles2, B,
+             4 * ((nK + keys_per_block2 - 1) / keys_per_block2));
   rpe_table_bwd_kernel<<<grid2, NT2, smem2, stream>>>(
       ds, corners, cossin, key_xyz, key_valid, dtables, nQ, nK, n,
-      log_scale, max_value);
+      log_scale, max_value, keys_per_block2);
   return (int)cudaGetLastError();
 }
 

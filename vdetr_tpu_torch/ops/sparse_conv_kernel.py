@@ -72,9 +72,7 @@ def mapped_conv(feats, nbr, weights):
     kernels.check(weights, torch.float32, (27, C, Co), "weights")
     dev = feats.device
     out = torch.empty(B, V, Co, dtype=torch.float32, device=dev)
-    # wide inputs are the deep levels, where few row tiles are live: three
-    # blocks share each tile's 27 offsets (partial sums added in order)
-    splits = 3 if C >= 256 else 1
+    splits = conv_splits(C)
     scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32, device=dev)
                if splits > 1 else out)
     kernels.call("mapped_conv", feats.data_ptr(), nbr.data_ptr(),
@@ -86,6 +84,15 @@ def mapped_conv(feats, nbr, weights):
 
 
 mapped_conv.launches = 0
+
+
+def conv_splits(C: int) -> int:
+    """Blocks that share each 64-row tile's 27 offsets in kernels A and H
+    (their partial sums added in a fixed order): the wider the input, the
+    deeper the level and the fewer its live row tiles, and the longer each
+    tile's (offset, 16-channel) loop. From a sweep of the published convs
+    on the card (`python -m vdetr_tpu_torch.tools.conv_splits`)."""
+    return 1 if C < 64 else 3 if C < 512 else 6
 
 
 def mapped_conv_dw_plain(feats, nbr, dout):

@@ -31,7 +31,7 @@ import torch
 from vdetr_tpu_torch import kernels
 from vdetr_tpu_torch.ops.map_kernel import neighbour_map
 from vdetr_tpu_torch.ops.sparse_conv_kernel import (
-    dw_row_splits, flip_weights, mapped_conv_dfeats_scatter,
+    conv_splits, dw_row_splits, flip_weights, mapped_conv_dfeats_scatter,
     mapped_conv_dw_plain, mapped_conv_plain)
 
 
@@ -62,9 +62,7 @@ def keyed_conv(feats, in_keys, q_coords, q_valid, extent, weights):
     gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
     kernels.check(weights, torch.float32, (27, C, Co), "weights")
     out = torch.empty(B, V, Co, dtype=torch.float32, device=feats.device)
-    # wide inputs are the deep levels, where few row tiles are live: three
-    # blocks share each tile's 27 offsets (partial sums added in order)
-    splits = 3 if C >= 256 else 1
+    splits = conv_splits(C)
     scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32,
                            device=feats.device) if splits > 1 else out)
     kernels.call("keyed_conv", feats.data_ptr(), in_keys.data_ptr(),

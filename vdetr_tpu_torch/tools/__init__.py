@@ -12,8 +12,10 @@ import subprocess
 import torch
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
-# f32 outside the tensor cores and device-memory bandwidth
+# f32 outside the tensor cores, dense TF32 on them, and device-memory
+# bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -21,6 +23,15 @@ def bound_ms(nbytes: float, flops: float):
     """(least ms the card could take, what bounds it): bytes over the
     memory rate against flops over the f32 CUDA-core rate."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_split_tf32_ms(nbytes: float, flops: float):
+    """(least ms, what bounds it) for f32 products done on the tensor
+    cores in split TF32, three TF32 products each: bytes over the memory
+    rate against 3 * flops over the dense TF32 rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

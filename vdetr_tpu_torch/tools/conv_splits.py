@@ -1,0 +1,95 @@
+"""How many blocks should share a row tile's 27 offsets in the sparse-conv
+kernels A and H: kernel A timed at each published conv shape for each
+offset split.
+
+    python -m vdetr_tpu_torch.tools.conv_splits
+
+The shapes are the published model's (`VDETRConfig()`, one synthetic
+scene, seeded random features and weights): the stem (3 -> 64, stride 2),
+the submanifold convs of stages 1-4 (64, 128, 256, 512 channels) and the
+stride-2 conv into stage 2 (64 -> 128). Per shape and split: ms per
+launch (CUDA events, mean of 20) and the error against the plain version
+relative to max(1, max|ref|); the split `ops.sparse_conv_kernel.
+conv_splits` picks is marked. Needs the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SPLITS = (1, 2, 3, 6, 9, 27)
+# (input level, output level, C_in, C_out) in chip_smoke.level_grids' list
+SHAPES = ((0, 1, 3, 64), (2, 2, 64, 64), (2, 3, 64, 128), (3, 3, 128, 128),
+          (4, 4, 256, 256), (5, 5, 512, 512))
+
+
+def sweep(reps: int = 20):
+    """Per shape (label, {splits: (ms, relative error)}, chosen split)."""
+    import chip_smoke as cs
+    from vdetr_tpu_torch import kernels
+    from vdetr_tpu_torch.config import VDETRConfig
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import conv_splits
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv_plain
+    from vdetr_tpu_torch.tools import time_ms
+
+    dev = torch.device("cuda", 0)
+    cfg = VDETRConfig()
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    grids = cs.level_grids(cfg, dev)
+    rows = []
+    for li, lo, cin, cout in SHAPES:
+        gi, go = grids[li], grids[lo]
+        feats = (torch.randn(gi.keys.shape + (cin,), generator=gen,
+                             device=dev) * gi.valid[..., None]).contiguous()
+        w = torch.randn(27, cin, cout, generator=gen, device=dev)
+        w = w * (2.0 / (27 * cin)) ** 0.5
+        q = (go.coords if li == lo else go.coords * 2).contiguous()
+        ref = keyed_conv_plain(feats, gi.keys, q, go.valid, gi.extent, w)
+        scale = max(1.0, float(ref.abs().max()))
+        B, V_in, _ = feats.shape
+        V = q.shape[1]
+        res = {}
+        for splits in SPLITS:
+            out = torch.empty(B, V, cout, device=dev)
+            scratch = (torch.empty(splits, B, V, cout, device=dev)
+                       if splits > 1 else out)
+
+            def run():
+                kernels.call(
+                    "keyed_conv", feats.data_ptr(), gi.keys.data_ptr(),
+                    q.data_ptr(), go.valid.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), scratch.data_ptr(), B, V_in, V, cin,
+                    cout, *gi.extent, splits,
+                    torch.cuda.current_stream(dev).cuda_stream)
+
+            run()
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max()) / scale
+            res[splits] = (time_ms(run, reps=reps), err)
+            del out, scratch
+        label = (f"{cin}->{cout} {'submanifold' if li == lo else 'stride-2'}"
+                 f" V={V} valid={int(go.valid.sum())}")
+        rows.append((label, res, conv_splits(cin)))
+    return rows
+
+
+def main() -> int:
+    from vdetr_tpu_torch import kernels
+    from vdetr_tpu_torch.tools import card
+
+    if not torch.cuda.is_available():
+        print("conv_splits: needs a CUDA card")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build_all()
+    print(f"kernel A ms per launch by offset split (relative error); * the "
+          f"split conv_splits picks; card {card()}")
+    for label, res, chosen in sweep():
+        print(f"  {label}: " + "; ".join(
+            f"{'*' if s == chosen else ''}{s}: {ms:.4f} ({err:.1e})"
+            for s, (ms, err) in res.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
