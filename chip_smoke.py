@@ -15,9 +15,10 @@ Phases, each printing its own lines:
      (C, eval and training form with dropout and the log-sum-exp) and its
      flash backward (F, dropout 0 and 0.1, its pair and dTables table
      kernels also timed apart); prints the error, its tolerance, both
-     times and the kernel's bound (for A and H, which multiply on the
-     tensor cores in split TF32, against the TF32 rate, with the f32
-     CUDA-core bound beside it);
+     times and the kernel's bound (for A, D, H and I, which multiply on
+     the tensor cores in split TF32, against the TF32 rate, with the f32
+     CUDA-core bound beside it); I bit for bit against D and against a
+     second call of itself;
   3b. probes of kernel C, the work of the entry points
      `python -m vdetr_tpu_torch.tools.rpe_ablate` and `.dot_micro` at the
      tool shapes: each stage-ablation level 0-5 against its plain version,
@@ -38,7 +39,10 @@ Phases, each printing its own lines:
      the same batches: three warm steps, then timed steps with finite
      loss and gradients and the expected launches per step (A, D or G,
      H, I; B, C, F), median ms per step, peak memory and a breakdown by
-     phase; one step per route under torch.profiler (device ms per
+     phase (host ms, and the backward's stream spans), the same breakdown
+     under torch.profiler (device ms per phase); the run-to-run spread of
+     the gradients (two steps from the same state, batch and seed); one
+     step per route under torch.profiler (device ms per
      kernel and per device function summed over its launches, the
      device's busy share); and a small
      model's step on each route on the card against the same step on the
@@ -53,6 +57,7 @@ when any phase fails. Imports no jax.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -197,14 +202,16 @@ def tile_rows(nbr, capacity: int, rows: int = 64) -> int:
 
 
 def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
-                      kargs_of, split_tf32=False):
+                      kargs_of, computed):
     """A conv kernel (A, D, H or I) against its plain version on each conv
     case, called on `kargs_of(case)`; per case the error, both times and
     the bound (each tensor argument read once, the result written once;
-    2 * C_in * C_out flops per neighbour hit). `split_tf32`: the kernel
+    2 * C_in * C_out flops per neighbour hit). Every one of these kernels
     multiplies on the tensor cores in split TF32, so its bound is the
     larger of the bytes and 3 x the flops over the TF32 rate, with the f32
-    CUDA-core bound beside it (`bound_f32_ms`)."""
+    CUDA-core bound beside it (`bound_f32_ms`). `computed(case)`: the
+    (row, offset) products the kernel computes, of which the hits are the
+    `hit_share`."""
     errs, ms, plain_ms, bound, bound_f32, out_cases = [], 0.0, 0.0, 0.0, \
         0.0, []
     for case in cases:
@@ -223,25 +230,21 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
               + ref.numel() * 4)
         flops = 2.0 * cin * cout * hits
         f_ms, f_by = bound_ms(io, flops)
-        b_ms, b_by = (bound_split_tf32_ms(io, flops) if split_tf32
-                      else (f_ms, f_by))
+        b_ms, b_by = bound_split_tf32_ms(io, flops)
         ok = err <= tol
+        # the share of the computed products with a hit
+        share = hits / computed(case)
         rec = {"case": label, "max_abs_err": err, "ms": t_k,
                "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-               "tflops": flops / t_k * 1e-9}
-        if split_tf32:  # the share of the computed products with a hit
-            rec["hit_share"] = hits / tile_rows(case[4], args[0].shape[1])
-        line = (f"check {name} {label}: max_abs_err={err:.3e} "
-                f"(max|ref|={scale:.3e}) tol={tol:.3e} -> "
-                f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms "
-                f"({rec['tflops']:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}")
-        if split_tf32:
-            rec.update(bound_f32_ms=f_ms, bound_f32_by=f_by)
-            line += (f", split TF32 on the tensor cores; f32 CUDA cores "
-                     f"{f_ms:.4f} ms, {f_by}; {100 * rec['hit_share']:.1f}%"
-                     f" of the tile's products have a neighbour")
-        log(line + ")")
+               "tflops": flops / t_k * 1e-9, "hit_share": share,
+               "bound_f32_ms": f_ms, "bound_f32_by": f_by}
+        log(f"check {name} {label}: max_abs_err={err:.3e} "
+            f"(max|ref|={scale:.3e}) tol={tol:.3e} -> "
+            f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms "
+            f"({rec['tflops']:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, split TF32 on the tensor cores; f32 "
+            f"CUDA cores {f_ms:.4f} ms, {f_by}; {100 * share:.1f}% of the "
+            "computed products have a neighbour)")
         errs.append((err, ok))
         ms += t_k
         plain_ms += t_p
@@ -249,16 +252,14 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
         bound_f32 += f_ms
         out_cases.append(rec)
     log("  tolerance reason: " + reason)
-    res = dict(ok=all(ok for _, ok in errs), err=max(e for e, _ in errs),
-               ms=ms, plain_ms=plain_ms, bound_ms=bound,
-               bound_by=_dominant(out_cases), cases=out_cases)
-    if split_tf32:
-        res.update(bound_f32_ms=bound_f32,
-                   bound_note="bound_ms: split TF32 on the tensor cores "
-                              "(3 x flops / 495 TFLOP/s against bytes / "
-                              "3.35 TB/s); bound_f32_ms: flops / 67 TFLOP/s "
-                              "on the CUDA cores")
-    return res
+    return dict(ok=all(ok for _, ok in errs), err=max(e for e, _ in errs),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=_dominant(out_cases), cases=out_cases,
+                bound_f32_ms=bound_f32,
+                bound_note="bound_ms: split TF32 on the tensor cores (3 x "
+                           "flops / 495 TFLOP/s against bytes / 3.35 TB/s);"
+                           " bound_f32_ms: flops / 67 TFLOP/s on the CUDA "
+                           "cores")
 
 
 CONV_REASON = ("float32 sums of up to 27*C_in products taken in another "
@@ -267,10 +268,36 @@ CONV_REASON = ("float32 sums of up to 27*C_in products taken in another "
                "split's emulation stays within ~3e-3 of 1e-4 of max|ref| "
                "at n = 27*512 (tests/test_torch_kernel_premises.py), one "
                "TF32 pass ~3x over it")
-DW_REASON = ("each dW entry is a float32 sum over up to 65536 rows, taken "
-             "in 16-row register tiles and a fixed-order sum of row splits "
-             "against the plain version's GEMM order; 2e-5 of max|ref| is "
-             "~10x the rounding spread measured on the card")
+DW_REASON = ("each dW entry is a float32 sum over up to 65536 rows, each "
+             "product in split TF32 (hi*hi + hi*lo + lo*hi), 32-row stages "
+             "summed apart and added in f32, then a fixed-order sum of row "
+             "splits, against the plain version's GEMM order; the split's "
+             "emulation stays within 0.1 of 2e-5 of max|ref| at 65536 rows "
+             "(tests/test_torch_kernel_premises.py), one TF32 pass more than "
+             "10x over 2e-5")
+
+
+def conv_tile_rows(case) -> int:
+    """The (row, offset) products kernels A and H compute on a case."""
+    return tile_rows(case[4], case[1][0].shape[1])
+
+
+def dw_rows(case) -> int:
+    """The (row, offset) products kernels D and I compute on a case: in the
+    dense form every row for all 27 offsets, else each offset's hits from
+    the rulebook, a split's last stage of 32 rows padded."""
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (
+        dw_dense, dw_row_splits, dw_rulebook)
+
+    nbr, (feats, *_, w) = case[4], case[1]
+    B, _, V = nbr.shape
+    C, Co = w.shape[1:]
+    splits, per = dw_row_splits(B * V, C, Co)
+    if dw_dense(C):
+        rows = torch.clamp(B * V - per * torch.arange(splits), 0, per)
+    else:
+        rows = dw_rulebook(nbr, feats.shape[1], splits, per)[2].long()
+    return int(((rows + 31) // 32).sum()) * 32 * (27 if dw_dense(C) else 1)
 
 
 def check_keyed_conv(cases):
@@ -279,7 +306,7 @@ def check_keyed_conv(cases):
 
     return check_conv_kernel("keyed_conv", cases, keyed_conv,
                              keyed_conv_plain, 1e-4, CONV_REASON,
-                             lambda c: c[1], split_tf32=True)
+                             lambda c: c[1], conv_tile_rows)
 
 
 def check_keyed_conv_dw(cases):
@@ -288,7 +315,7 @@ def check_keyed_conv_dw(cases):
 
     return check_conv_kernel("keyed_conv_dw", cases, keyed_conv_dw,
                              keyed_conv_dw_plain, 2e-5, DW_REASON,
-                             lambda c: c[1][:5] + (c[2],))
+                             lambda c: c[1][:5] + (c[2],), dw_rows)
 
 
 def gather_matmul(feats, nbr, weights):
@@ -313,7 +340,7 @@ def check_mapped_conv(cases):
     res = check_conv_kernel("mapped_conv", cases, mapped_conv,
                             mapped_conv_plain, 1e-4, CONV_REASON,
                             lambda c: (c[1][0], c[4], c[1][5]),
-                            split_tf32=True)
+                            conv_tile_rows)
     worst_a, yard_ms = 0.0, 0.0
     for case, rec in zip(cases, res["cases"]):
         label, args, nbr = case[0], case[1], case[4]
@@ -342,12 +369,30 @@ def check_mapped_conv(cases):
 
 
 def check_mapped_conv_dw(cases):
+    """Kernel I against its plain version, then, per case, bit for bit
+    against kernel D on the same neighbours and against a second call of
+    itself (D too): no atomics, a fixed order of sums."""
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv_dw
     from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv_dw,
                                                         mapped_conv_dw_plain)
 
-    return check_conv_kernel("mapped_conv_dw", cases, mapped_conv_dw,
-                             mapped_conv_dw_plain, 2e-5, DW_REASON,
-                             lambda c: (c[1][0], c[4], c[2]))
+    res = check_conv_kernel("mapped_conv_dw", cases, mapped_conv_dw,
+                            mapped_conv_dw_plain, 2e-5, DW_REASON,
+                            lambda c: (c[1][0], c[4], c[2]), dw_rows)
+    for case, rec in zip(cases, res["cases"]):
+        label, args, dout, nbr = case[0], case[1], case[2], case[4]
+        got = [mapped_conv_dw(args[0], nbr, dout) for _ in range(2)]
+        ref = [keyed_conv_dw(*args[:5], dout) for _ in range(2)]
+        same = {"I vs D": torch.equal(got[0], ref[0]),
+                "I twice": torch.equal(got[0], got[1]),
+                "D twice": torch.equal(ref[0], ref[1])}
+        rec.update(bit_equal=same)
+        res["ok"] &= all(same.values())
+        log(f"check mapped_conv_dw {label}: bit-equal "
+            + ", ".join(f"{k} {v}" for k, v in same.items())
+            + f" -> {'ok' if all(same.values()) else 'FAIL'}")
+        del got, ref
+    return res
 
 
 def map_cases(grids):
@@ -1017,12 +1062,24 @@ def grads_finite(model):
     return bad
 
 
-def step_breakdown(trainer, batch, gen):
+DECODER_DONE = "phase mark: gradient at the decoder's input"
+
+
+def step_breakdown(trainer, batch, gen, profiled: bool = False):
     """One train step written out phase by phase, each phase ended by a
     synchronization: forward, criterion (its matcher copies the costs to
-    the host), backward split at the decoder's input (CUDA events recorded
-    when the gradient reaches the projection's output and when the
-    backward ends), clip and AdamW. Host-clock ms per phase."""
+    the host), backward split at the decoder's input, clip and AdamW.
+    Host-clock ms per phase, and the two stream spans of the backward:
+    CUDA events recorded when it starts, when the gradient reaches the
+    projection's output and when it ends. A stream span holds the time the
+    host leaves the stream idle, so it is not device time. `profiled`: the
+    step runs under torch.profiler with a synchronization at the
+    decoder's input too, and the result also holds the device ms of each
+    phase (the union of its device intervals, and the sum of its kernels'
+    times), `device: <phase>`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     from vdetr_tpu_torch.train.engine import INPUT_KEYS
     from vdetr_tpu_torch.train.optimizer import clip_by_global_norm
 
@@ -1036,41 +1093,129 @@ def step_breakdown(trainer, batch, gen):
         e.record()
         ev[name] = e
 
+    def decoder_done(g):
+        if profiled:  # the decoder's backward ends before the mark
+            torch.cuda.synchronize()
+            with record_function(DECODER_DONE):
+                pass
+        mark("decoder_done")
+
     def on_projection(module, args, out):  # returns None: output kept
-        out.register_hook(lambda g: mark("decoder_done"))
+        out.register_hook(decoder_done)
 
     hook = model.encoder_to_decoder_projection.register_forward_hook(
         on_projection)
-    t = {}
+    host = {}
+
+    def phase(name, fn):
+        with record_function("phase: " + name):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            host[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    def backward(loss):
+        mark("backward_start")
+        loss.backward()
+        mark("backward_end")
+
+    def optimizer():
+        clip_by_global_norm(model.parameters(), trainer.cfg.clip_gradient)
+        opt.step()
+
     model.train()
     opt.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = model(inputs, generator=gen)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    loss, _ = crit(out, b)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    mark("backward_start")
-    loss.backward()
-    mark("backward_end")
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    clip_by_global_norm(model.parameters(), trainer.cfg.clip_gradient)
-    opt.step()
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
-    hook.remove()
-    t["forward"] = (t1 - t0) * 1e3
-    t["criterion incl. matcher"] = (t2 - t1) * 1e3
-    t["backward"] = (t3 - t2) * 1e3
-    t["backward: decoder and heads (device)"] = ev["backward_start"] \
+    try:
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            out = phase("forward", lambda: model(inputs, generator=gen))
+            loss, _ = phase("criterion incl. matcher", lambda: crit(out, b))
+            phase("backward", lambda: backward(loss))
+            phase("clip and AdamW", optimizer)
+    finally:
+        hook.remove()
+    t = dict(host)
+    t["backward: decoder and heads (stream span)"] = ev["backward_start"] \
         .elapsed_time(ev["decoder_done"])
-    t["backward: projection, FPN and backbone (device)"] = \
+    t["backward: projection, FPN and backbone (stream span)"] = \
         ev["decoder_done"].elapsed_time(ev["backward_end"])
-    t["clip and AdamW"] = (t4 - t3) * 1e3
+    if prof is None:
+        return t
+    # device intervals by the phase their start falls in: each phase ends
+    # in a synchronization, so none of its device work outlives it
+    windows, split = [], None
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name.startswith("phase: "):
+            windows.append((e.time_range.start, e.time_range.end,
+                            e.name[len("phase: "):]))
+        elif e.name == DECODER_DONE:
+            split = e.time_range.start
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    spans = {}
+    for e in dev:
+        a, z = e.time_range.start, e.time_range.end
+        name = next((w for lo, hi, w in windows if lo <= a < hi), None)
+        if name is None:
+            continue
+        if name == "backward" and split is not None:
+            name = ("backward: decoder and heads" if a < split else
+                    "backward: projection, FPN and backbone")
+        spans.setdefault(name, []).append((a, z))
+    for name, iv in spans.items():
+        busy, end = 0.0, -math.inf
+        for a, z in sorted(iv):  # union of the phase's device intervals
+            if z > end:
+                busy += z - max(a, end)
+                end = z
+        t[f"device: {name}"] = busy / 1e3
+        t[f"device kernel sum: {name}"] = sum(z - a for a, z in iv) / 1e3
     return t
+
+
+def grad_spread(trainer, batch, seed: int = SEED):
+    """The gradients of two train steps from the same state, batch and
+    dropout seed: forward, criterion and backward twice, the parameters,
+    buffers and optimizer untouched in between (the step's batch
+    statistics move the norms' running buffers, which are put back). Per
+    parameter group (the name's first component): max |g1 - g2| over max
+    |g1|. The spread comes from sums whose order differs between runs:
+    F's dTables and dQ atomics and the stride-2 convs' scatter_add_."""
+    from vdetr_tpu_torch.train.engine import INPUT_KEYS
+
+    model, crit = trainer.model, trainer.criterion
+    b = trainer._to_device(batch)
+    inputs = {k: b[k] for k in INPUT_KEYS if k in b}
+    buffers = {n: x.clone() for n, x in model.named_buffers()}
+    grads = []
+    model.train()
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=b["point_clouds"].device).manual_seed(
+            seed)
+        loss, _ = crit(model(inputs, generator=gen), b)
+        loss.backward()
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+        with torch.no_grad():
+            for n, x in model.named_buffers():
+                x.copy_(buffers[n])
+    model.zero_grad(set_to_none=True)
+    groups = {}
+    for n, g1 in grads[0].items():
+        d = float((grads[1][n] - g1).abs().max())
+        top = float(g1.abs().max())
+        gd, gt = groups.get(n.split(".")[0], (0.0, 0.0))
+        groups[n.split(".")[0]] = (max(gd, d), max(gt, top))
+    return {k: {"max_abs_diff": d, "max_abs": top,
+                "rel": d / top if top > 0 else 0.0}
+            for k, (d, top) in sorted(groups.items())}
 
 
 def matcher_host_ms(trainer, batch, gen):
@@ -1108,6 +1253,7 @@ def matcher_host_ms(trainer, batch, gen):
 # gradient (D or I, which share dw_kernel and dw_sum_splits_kernel); F
 # runs two kernels, the pair kernel and the dTables table kernel
 PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
+                   ("dw_rulebook_kernel", "dW", "rulebook"),
                    ("conv_sum_splits_kernel", "conv", "split sums"),
                    ("dw_sum_splits_kernel", "dW", "split sums"),
                    ("dw_kernel", "dW", "dW GEMM"),
@@ -1241,11 +1387,25 @@ def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
         brk = step_breakdown(trainer, batches[1], gens[route])
         brk["matcher: cost copy and JV on the host"] = matcher_host_ms(
             trainer, batches[1], gens[route])
-        log(f"train {route} step breakdown (ms): " + "; ".join(
-            f"{k} {v:.1f}" for k, v in brk.items()))
+        log(f"train {route} step breakdown (ms; host clock per phase, each "
+            "ended by a sync; the backward's stream spans between CUDA "
+            "events, which include the host's gaps): " + "; ".join(
+                f"{k} {v:.1f}" for k, v in brk.items()))
+        dev_brk = step_breakdown(trainer, batches[1], gens[route],
+                                 profiled=True)
+        log(f"train {route} step breakdown under torch.profiler (ms; "
+            "'device': the union of the phase's device intervals, 'device "
+            "kernel sum': their sum; host clock with the profiler on): "
+            + "; ".join(f"{k} {v:.1f}" for k, v in dev_brk.items()))
+        spread = grad_spread(trainer, batches[1])
+        log(f"train {route} run-to-run gradient spread (two steps from the "
+            "same state, batch and seed; max |g1 - g2| / max |g1| per "
+            "parameter group): " + "; ".join(
+                f"{k} {v['rel']:.2e}" for k, v in spread.items()))
         stats[route] = dict(ms_per_step=med, steps=times[route],
                             all_steps=all_times[route], peak_gib=peak[route],
-                            breakdown=brk)
+                            breakdown=brk, breakdown_profiled=dev_brk,
+                            grad_spread=spread)
         prof = profile_step(trainer, batches[2], gens[route])
         prof["busy_share_of_median_step"] = prof["device_busy_ms"] / med
         stats[route]["profile"] = prof

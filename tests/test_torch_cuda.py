@@ -7,7 +7,9 @@ bit for bit, also on the stem's 131072-row table; the three autograd
 Functions on the card against the same Functions on the CPU; and the two
 probes of kernel C, the stage ablation (levels 0-5; level 6 is C itself)
 and the table contraction; the split-TF32 tile GEMM of A and H at the
-published channel widths, and F on the decoder's box corners.
+published channel widths; D and I in both their forms, bit-equal to each
+other and from call to call; C on the decoder's box corners (its shared
+x/y quantize), and F on those corners and on C's own training outputs.
 chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
@@ -58,9 +60,13 @@ def t(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def conv_case(rng, cuda, cin, cout, stride, capacity=4096):
-    """Capacity 4096 holding ~1.4k voxels: whole tiles have no valid row."""
+def conv_case(rng, cuda, cin, cout, stride, capacity=4096, flat=False):
+    """Capacity 4096 holding ~1.4k voxels: whole tiles have no valid row.
+    `flat`: every point at one height, so the 18 offsets that step in z
+    have no hit."""
     pts = (rng.rand(2, 1500, 3) * [0.6, 0.5, 0.3]).astype(np.float32)
+    if flat:
+        pts[..., 2] = 0.1
     g = voxelize(t(pts, cuda), t(pts, cuda), torch.ones(2, 1500, dtype=bool,
                                                         device=cuda),
                  voxel_size=0.02, capacity=capacity, extent=(128, 128, 64))
@@ -190,6 +196,34 @@ def test_mapped_conv_and_dw_kernels_match_plain(rng, cuda, cin, cout,
     dw_ref = mapped_conv_dw_plain(args[0], nbr, dout)
     np.testing.assert_allclose(dw.cpu().numpy(), dw_ref.cpu().numpy(),
                                atol=1e-5 * float(dw_ref.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("cin,cout,stride,capacity,flat", [
+    (3, 64, 2, 4096, False), (3, 64, 2, 4003, True), (64, 64, 1, 4001, True),
+    (40, 8, 1, 4096, True), (512, 512, 1, 4096, False),
+    (5, 7, 2, 1000, False)],
+    ids=["stem", "stem-flat-ragged", "64-flat-ragged", "ragged-flat", "512",
+         "odd-widths"])
+def test_dw_kernels_match_plain_and_each_other_bit_for_bit(
+        rng, cuda, cin, cout, stride, capacity, flat):
+    """Kernels D and I at B = 2: the dense form (the stem's 3 channels, all
+    27 offsets in a block) and the per-offset form over the rulebook; a
+    flat layer, whose 18 offsets that step in z have no hit; row counts
+    off the 32-row stage; widths off the 16-byte copies. Each within
+    chip_smoke's 2e-5 of max|ref| of its plain version, I bit-equal to D
+    on the same neighbours, and two calls of each bit-equal."""
+    args, dout = conv_case(rng, cuda, cin, cout, stride, capacity, flat)
+    nbr = kernel_map(*map_args(args))
+    if flat:
+        hits = (nbr < args[0].shape[1]).sum((0, 2)).reshape(3, 3, 3)
+        assert int(hits.sum()) > 0 and int(hits[:, :, 0].sum()) == 0
+    d = [keyed_conv_dw(*args[:5], dout) for _ in range(2)]
+    i = [mapped_conv_dw(args[0], nbr, dout) for _ in range(2)]
+    ref = mapped_conv_dw_plain(args[0], nbr, dout)
+    tol = 2e-5 * float(ref.abs().max())
+    assert float((d[0] - ref).abs().max()) <= tol
+    assert torch.equal(d[0], d[1]) and torch.equal(i[0], i[1])
+    assert torch.equal(i[0], d[0])
 
 
 @pytest.mark.parametrize("cin,cout,stride,capacity", [
@@ -382,6 +416,55 @@ def test_rpe_bwd_kernel_on_box_corners(rng, cuda, rate, rotate, aligned, B,
     ref = rpe_cross_attention_bwd_plain(*bargs, **kw)
     assert float(ref[1].abs().max()) > 0.0
     for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=2e-5 * max(1.0, float(r.abs().max())))
+
+
+@pytest.mark.parametrize("rotate,aligned", [(False, True), (True, False)],
+                         ids=["aligned", "rotated"])
+@pytest.mark.parametrize("B,nQ,nK", [(2, 13, 257), (1, 40, 1000)],
+                         ids=["ragged", "key-groups"])
+def test_rpe_kernel_on_box_corners_matches_plain(rng, cuda, rotate, aligned,
+                                                 B, nQ, nK):
+    """Kernel C on the decoder's box corners, where corners i and i + 4
+    share x and y and the kernel quantizes them once; every third query
+    has its first pair broken (the full quantize beside the shared one in
+    a block); masked keys, key counts off the 32-key tile of each of the
+    four key groups, ragged query counts at B = 2."""
+    args = rpe_box_args(rng, cuda, B, nQ, nK, aligned)
+    args[3] = args[3].clone()
+    args[3][:, ::3, 4, 0] += 0.01
+    kw = dict(log_scale=512.0, max_value=4.0, rotate=rotate)
+    got = rpe_cross_attention(*args, **kw)
+    ref = rpe_cross_attention_plain(*args, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rotate", [False, True])
+def test_rpe_bwd_kernel_on_kernel_c_stats(rng, cuda, rotate):
+    """Kernel F from kernel C's own training outputs (dropout 0.1, box
+    corners, masked keys): C's output, lse and logits against the plain
+    forward's, then F on C's against F's plain version on the plain
+    forward's."""
+    args = rpe_box_args(rng, cuda, 2, 33, 257, aligned=False)
+    seed = torch.tensor([21], dtype=torch.int64, device=cuda)
+    kw = dict(log_scale=512.0, max_value=4.0, rotate=rotate,
+              dropout_rate=0.1, seed=seed)
+    got = rpe_cross_attention(*args, return_stats=True, **kw)
+    ref = rpe_cross_attention_plain(*args, return_stats=True, **kw)
+    valid = args[7][:, None, None, :].expand_as(ref[2])
+    for g, r in ((got[0], ref[0]), (got[1], ref[1]),
+                 (got[2][valid], ref[2][valid])):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   atol=2e-5, rtol=1e-4)
+    dout = torch.randn_like(ref[0])
+    common = (args[1], args[2], args[3], args[4], args[5], args[7])
+    bwd = rpe_cross_attention_bwd(*common, got[0], dout, got[2], got[1], 10,
+                                  **kw)
+    bwd_ref = rpe_cross_attention_bwd_plain(*common, ref[0], dout, ref[2],
+                                            ref[1], 10, **kw)
+    for g, r in zip(bwd, bwd_ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
                                    atol=2e-5 * max(1.0, float(r.abs().max())))
 

@@ -8,6 +8,12 @@
   in torch, it stays within the conv check's 1e-4 of max|ref| of the f64
   product at the published contraction depths (27 offsets x 64 and x 512
   input channels), and one TF32 pass does not: the split is needed.
+- The sparse-conv weight gradient (`dw_kernel` in `sparse_conv.cuh`,
+  kernels D and I) runs the same split on the tensor cores over reduction
+  depths of up to 65536 rows, each 32-row stage's products summed apart
+  and the stage sums added in f32. Emulated here, it stays within a tenth
+  of the dW check's 2e-5 of max|ref| at 4096 and 65536 rows, and one TF32
+  pass does not meet 2e-5 itself.
 - The flash-RPE backward's table kernel (kernel F in
   `csrc/rpe_attention_bwd.cu`) quantizes x and y once for corners i and
   i + 4 when their x and y agree bit for bit. On the main path the
@@ -77,6 +83,54 @@ def test_split_tf32_meets_the_conv_tolerance(K, seed):
 def test_one_tf32_pass_misses_the_conv_tolerance(K, seed):
     a, w, ref = conv_operands(K, seed)
     assert rel_err(tf32(a) @ tf32(w), ref) > CONV_RTOL
+
+
+DW_RTOL = 2e-5  # chip_smoke.py's weight-gradient tolerance
+DW_STAGE = 32  # rows per stage of dw_kernel
+
+
+def dw_operands(rows, seed):
+    """ReLU'd features of 16 input channels and a signed gradient of 16
+    output channels over `rows` rows, and their f64 product dW = a^T d."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.relu(torch.randn(rows, 16, generator=g))
+    d = torch.randn(rows, 16, generator=g)
+    return a, d, a.double().t() @ d.double()
+
+
+def staged_dw(a, d, product):
+    """sum over 32-row stages of product(A_s, D_s) (each stage's (16, 16)
+    f32 sum), the stage sums added one by one in f32."""
+    n = a.shape[0] // DW_STAGE
+    parts = product(a.reshape(n, DW_STAGE, -1).transpose(1, 2),
+                    d.reshape(n, DW_STAGE, -1))
+    acc = torch.zeros_like(parts[0])
+    for p in parts:
+        acc = acc + p
+    return acc
+
+
+def split_product(a, d):
+    ah, dh = tf32(a), tf32(d)
+    al, dl = tf32(a - ah), tf32(d - dh)
+    return al @ dh + ah @ dl + ah @ dh
+
+
+@pytest.mark.parametrize("rows", [4096, 65536])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_dw_in_stages_meets_a_tenth_of_the_dw_tolerance(rows,
+                                                                   seed):
+    a, d, ref = dw_operands(rows, seed)
+    err = rel_err(staged_dw(a, d, split_product), ref)
+    assert err <= 0.1 * DW_RTOL, err
+
+
+@pytest.mark.parametrize("rows", [4096, 65536])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_one_tf32_pass_dw_misses_the_dw_tolerance(rows, seed):
+    a, d, ref = dw_operands(rows, seed)
+    err = rel_err(staged_dw(a, d, lambda x, y: tf32(x) @ tf32(y)), ref)
+    assert err > DW_RTOL, err
 
 
 def box_corners(angles, seed):

@@ -1,5 +1,7 @@
 """The port's neighbour map (kernel G's plain version,
-`vdetr_tpu_torch/ops/map_kernel.py`) against the JAX package's two maps.
+`vdetr_tpu_torch/ops/map_kernel.py`) against the JAX package's two maps,
+and the rulebook that kernels D and I compact a map into (`dw_rulebook`)
+against JAX's map.
 
 The map must be BIT-IDENTICAL to JAX's: a wrong row silently drops or
 corrupts a conv tap. References, on the CPU: `sparse_conv._zrun_neighbors`
@@ -23,6 +25,9 @@ from vdetr_tpu.ops.voxelize import downsample_grid as jax_downsample
 from vdetr_tpu.ops.voxelize import voxelize as jax_voxelize
 from vdetr_tpu_torch.ops import sparse_conv as tsc
 from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
+from vdetr_tpu_torch.ops.sparse_conv_kernel import (dw_dense, dw_row_splits,
+                                                    dw_rulebook,
+                                                    mapped_conv_dw_plain)
 from vdetr_tpu_torch.ops.voxelize import VoxelGrid
 
 
@@ -152,3 +157,70 @@ def test_kernel_map_takes_plain_path_on_cpu():
     np.testing.assert_array_equal(kernel_map(*args).numpy(),
                                   neighbour_map(*args).numpy())
     assert kernel_map.launches == before  # no kernel launch on the CPU
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("stride", [1, 2], ids=["submanifold", "stride-2"])
+def test_dw_rulebook_holds_the_zrun_maps_hits_in_row_order(maps, stride,
+                                                           splits):
+    """The plain rulebook of kernels D and I built from JAX's
+    `_zrun_neighbors` map of the batch of layouts: per (offset, row
+    split), exactly the map's hits as (b * V_in + row, b * V + v) pairs,
+    ascending in the query row, -1 past the count; and dW summed over the
+    pairs equals the plain dW over the whole map."""
+    _, _, zrun, _ = maps[stride]
+    B, _, V = zrun.shape
+    per = -(-B * V // (splits * 32)) * 32
+    src, row, count = dw_rulebook(t(zrun), CAPACITY, splits, per)
+    assert src.shape == row.shape == (27, splits, per)
+    rng = np.random.RandomState(7)
+    feats = torch.from_numpy(rng.randn(B, CAPACITY, 5).astype(np.float32))
+    dout = torch.from_numpy(rng.randn(B, V, 3).astype(np.float32))
+    dw = torch.zeros(27, 5, 3, dtype=torch.float64)
+    for k in range(27):
+        b, v = np.nonzero(zrun[:, k] < CAPACITY)  # ascending in b * V + v
+        r, i = b * V + v, b * CAPACITY + zrun[:, k][b, v]
+        for sp in range(splits):
+            sel = r // per == sp
+            n = int(count[k, sp])
+            assert n == sel.sum()
+            np.testing.assert_array_equal(row[k, sp, :n].numpy(), r[sel])
+            np.testing.assert_array_equal(src[k, sp, :n].numpy(), i[sel])
+            assert (row[k, sp, n:] == -1).all()
+            assert (src[k, sp, n:] == -1).all()
+            dw[k] += (feats.reshape(-1, 5)[src[k, sp, :n].long()].double().t()
+                      @ dout.reshape(-1, 3)[row[k, sp, :n].long()].double())
+    ref = mapped_conv_dw_plain(feats, t(zrun), dout)
+    np.testing.assert_allclose(dw.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def test_dw_rulebook_of_isolated_sites_has_empty_offsets(maps):
+    """The isolated sites hit only themselves: the rulebook's 26 other
+    offsets are empty lists in every split, the centre offset lists every
+    valid row, and a split past the rows is empty too."""
+    valid, _, zrun, _ = maps[1]
+    row = LAYOUTS.index("isolated")
+    src, rows, count = dw_rulebook(t(zrun[row:row + 1]), CAPACITY, 3, 512)
+    assert (np.delete(count.numpy(), 13, axis=0) == 0).all()
+    assert (np.delete(src.numpy(), 13, axis=0) == -1).all()
+    assert int(count[13].sum()) == int(valid[row].sum())
+    got = rows[13][rows[13] >= 0].numpy()
+    np.testing.assert_array_equal(got, np.nonzero(valid[row])[0])
+    np.testing.assert_array_equal(src[13][src[13] >= 0].numpy(), got)
+    src, _, count = dw_rulebook(t(zrun[row:row + 1]), CAPACITY, 4, 512)
+    assert int(count[:, 3].sum()) == 0 and (src[:, 3] == -1).all()
+
+
+@pytest.mark.parametrize("rows,C,Co", [
+    (65536, 3, 64), (32768, 64, 64), (16384, 64, 128), (4096, 512, 512),
+    (2 * 4003, 40, 8), (1, 3, 16)])
+def test_dw_row_splits_cover_the_rows_in_32_row_stages(rows, C, Co):
+    """The launch plan of kernels D and I at the published convs' shapes
+    and off them: each split a multiple of the 32-row stage, the splits
+    cover every row and none is empty; the dense form (all 27 offsets in
+    a block) exactly for the stem's 3 channels."""
+    splits, per = dw_row_splits(rows, C, Co)
+    assert per % 32 == 0
+    assert splits * per >= rows > (splits - 1) * per
+    assert dw_dense(C) == (C == 3)

@@ -15,21 +15,26 @@
 // here a block gathers its rows directly and the accumulator lives in
 // registers, so one kernel covers both.
 //
-// What bounds it on the H100: f32 multiply-adds on the CUDA cores,
-// 2 * C * Co per (row, offset) hit; the deep 512-wide levels dominate.
-// Design: a first kernel resolves every (offset, row) neighbour once by
-// binary search into a (27, B*V) map (-1 = miss or invalid row). The
-// GEMM kernel gives each block one offset and one 64 x 64 (C, Co) tile of
-// dW, so the 512 -> 512 conv has 27 * 64 blocks even though only ~80 of
-// its 64-row tiles hold valid voxels at batch 1; the block walks its rows
-// 16 at a time, skips groups with no hit, stages the gathered input rows
-// and the matching dout rows in shared memory and accumulates a 64 x 64
-// register-tiled f32 outer-product sum (`dw_kernel` in sparse_conv.cuh,
-// shared with mapped_conv_dw.cu). Where the tiles are too few to
-// fill the card (the stem and the 64-wide levels, 27 tiles), the rows are
-// split over `splits` blocks whose partial dW a second kernel adds in a
-// fixed order: the result is deterministic. No tensor cores yet: the
-// operands are f32, as in the plain version.
+// What bounds it on the H100: the multiply-adds, 2 * C * Co per (row,
+// offset) hit (the deep 512-wide levels dominate), and, where C is small,
+// the reads of dout. Only 36-43% of a deep level's rows hit a given
+// offset (11% at the stem). Design (launch_dw in sparse_conv.cuh, shared
+// with mapped_conv_dw.cu):
+// - where 27 C fits one 96-row tile (the stem's C = 3), a first kernel
+//   resolves every (offset, row) neighbour once by binary search into a
+//   (27, B*V) map (-1 = miss or invalid row), and the GEMM block takes all
+//   27 offsets of its rows: dW is one (27 C, Co) matrix, and dout is read
+//   once instead of once per offset;
+// - otherwise the first kernel builds the rulebook instead: per (offset,
+//   row split) the ordered list of (input row, query row) pairs that hit,
+//   by binary search and a block-wide scan (no atomics), and the GEMM
+//   block, one per (offset, 64 x 64 dW tile, row split), walks its list,
+//   hits only.
+// The GEMM is split TF32 on the tensor cores (three m16n8k8 MMAs per f32
+// product, each 32-row stage summed apart and added with f32 adds) behind
+// a 3-deep cp.async ring. Where the tiles are too few to fill the card,
+// the rows are split over blocks whose partial dW a last kernel adds in a
+// fixed order. Every step is deterministic: two calls give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,41 +45,44 @@ namespace {
 
 using namespace sparse_conv;
 
-// nbr[k, b * V + v] = b * V_in + row of the neighbour, or -1
-__global__ void neighbour_map_kernel(const int* __restrict__ in_keys,
-                                     const int* __restrict__ q_coords,
-                                     const uint8_t* __restrict__ q_valid,
-                                     int* __restrict__ nbr, int B, int V_in,
-                                     int V, int gx, int gy, int gz) {
-  const size_t rows = (size_t)B * V;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < rows * KV; i += (size_t)gridDim.x * blockDim.x) {
-    const int k = (int)(i / rows);
-    const size_t r = i % rows;
-    const int b = (int)(r / V);
-    int idx = -1;
-    if (q_valid[r]) {
-      const int* qc = q_coords + r * 3;
-      const int x = qc[0] + k / 9 - 1;
-      const int y = qc[1] + (k / 3) % 3 - 1;
-      const int z = qc[2] + k % 3 - 1;
-      // bounds check first: an out-of-range neighbour must not alias a
-      // key of the next x or y slice
-      if (x >= 0 && x < gx && y >= 0 && y < gy && z >= 0 && z < gz) {
-        const int key = (x * gy + y) * gz + z;
-        const int* keys = in_keys + (size_t)b * V_in;
-        const int pos = lower_bound(keys, V_in, key);
-        if (pos < V_in && keys[pos] == key) idx = b * V_in + pos;
-      }
-    }
-    nbr[i] = idx;
+// The neighbour of offset k of query row r = b * V + v, by binary search:
+// b * V_in + its row in b's sorted keys, or -1
+struct SearchMap {
+  const int* in_keys;
+  const int* q_coords;
+  const uint8_t* q_valid;
+  int V_in, V, gx, gy, gz;
+  __device__ __forceinline__ int operator()(int k, int r) const {
+    if (!q_valid[r]) return -1;
+    const int* qc = q_coords + (size_t)r * 3;
+    const int x = qc[0] + k / 9 - 1;
+    const int y = qc[1] + (k / 3) % 3 - 1;
+    const int z = qc[2] + k % 3 - 1;
+    // bounds check first: an out-of-range neighbour must not alias a key
+    // of the next x or y slice
+    if (x < 0 || x >= gx || y < 0 || y >= gy || z < 0 || z >= gz) return -1;
+    const int key = (x * gy + y) * gz + z;
+    const int b = r / V;
+    const int* keys = in_keys + (size_t)b * V_in;
+    const int pos = lower_bound(keys, V_in, key);
+    return (pos < V_in && keys[pos] == key) ? b * V_in + pos : -1;
   }
+};
+
+// nbr[k * rows + r] = search(k, r): the dense form's flat map
+__global__ void neighbour_map_kernel(SearchMap search, int* __restrict__ nbr,
+                                     int rows) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (size_t)rows * KV; i += (size_t)gridDim.x * blockDim.x)
+    nbr[i] = search((int)(i / rows), (int)(i % rows));
 }
 
 }  // namespace
 
-// nbr: (27, B * V) int32 scratch; scratch: (splits, 27, C, Co) floats
-// when splits > 1, else unused. rows_per_split must be a multiple of 16.
+// nbr: int32 scratch, the dense form's (27, B * V) map when 27 C <= 96,
+// else the rulebook (dw_rulebook_ints(splits, rows_per_split) ints);
+// scratch: (splits, 27, C, Co) floats when splits > 1, else unused.
+// rows_per_split must be a multiple of 32.
 extern "C" int keyed_conv_dw_f32(const void* feats, const void* in_keys,
                                  const void* q_coords, const void* q_valid,
                                  const void* dout, void* dw, void* nbr,
@@ -83,20 +91,21 @@ extern "C" int keyed_conv_dw_f32(const void* feats, const void* in_keys,
                                  int splits, int rows_per_split,
                                  void* stream) {
   const int rows = B * V;
-  if (splits < 1 || rows_per_split % BR != 0 ||
+  if (splits < 1 || rows_per_split % DW_BR != 0 ||
       (long long)splits * rows_per_split < rows)
     return (int)cudaErrorInvalidValue;
   if (C > 0 && Co > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (rows > 0) {
-      neighbour_map_kernel<<<528, 256, 0, st>>>(
-          (const int*)in_keys, (const int*)q_coords,
-          (const uint8_t*)q_valid, (int*)nbr, B, V_in, V, gx, gy, gz);
-    }
+    const SearchMap search{(const int*)in_keys, (const int*)q_coords,
+                           (const uint8_t*)q_valid, V_in, V, gx, gy, gz};
+    if (dw_dense(C) && rows > 0)
+      neighbour_map_kernel<<<528, 256, 0, st>>>(search, (int*)nbr, rows);
     float* dst = splits > 1 ? (float*)scratch : (float*)dw;
-    dw_kernel<<<dw_grid(C, Co, splits), NT, 0, st>>>(
-        (const float*)feats, (const float*)dout,
-        FlatMap{(const int*)nbr, rows}, dst, rows, C, Co, rows_per_split);
+    const cudaError_t err = launch_dw(
+        (const float*)feats, (const float*)dout, search,
+        FlatMap{(const int*)nbr, rows}, (int*)nbr, dst, rows, C, Co, splits,
+        rows_per_split, st);
+    if (err != cudaSuccess) return (int)err;
     if (splits > 1)
       dw_sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
   }

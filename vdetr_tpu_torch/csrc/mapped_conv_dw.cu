@@ -15,19 +15,15 @@
 // across its sequential grid. Hopper's blocks run in parallel, so blocks
 // own the reduction over rows instead.
 //
-// What bounds it on the H100: f32 multiply-adds on the CUDA cores,
-// 2 * C * Co per (row, offset) hit; the deep 512-wide levels dominate.
-// Design: kernel D's (keyed_conv_dw.cu), fed by the map instead of its
-// own binary searches: `dw_kernel` in sparse_conv.cuh gives each block one
-// offset and one 64 x 64 (C, Co) tile of dW, walks its rows 16 at a time
-// (their map entries are consecutive, so the read is coalesced), skips
-// groups with no hit, stages the gathered input rows and the matching
-// dout rows in shared memory and accumulates a register-tiled f32
-// outer-product sum. Where the tiles are too few to fill the card, the
-// caller splits the rows until two waves of the 132 SMs have work, and a
-// second kernel adds the partials in a fixed order: the result is
-// deterministic. No tensor cores yet: the operands are f32, as in the
-// plain version.
+// What bounds it on the H100: as kernel D (keyed_conv_dw.cu), whose
+// design it shares (launch_dw in sparse_conv.cuh): where 27 C fits one
+// tile (the stem) the GEMM blocks read the map directly and take all 27
+// offsets of their rows; otherwise a first kernel compacts the map into
+// the rulebook, each offset's ordered (input row, query row) hits per row
+// split (no atomics), and the GEMM blocks walk it, hits only; split TF32
+// on the tensor cores, partials of row splits added in a fixed order. On
+// the same neighbours D and I run the same GEMM over the same lists, so
+// they give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,24 +32,31 @@
 
 using namespace sparse_conv;
 
-// scratch: (splits, 27, C, Co) floats when splits > 1, else unused.
-// rows_per_split must be a multiple of 16.
+// scratch: (splits, 27, C, Co) floats when splits > 1, then, from the
+// next multiple of 4 floats and when 27 C > 96, the rulebook
+// (dw_rulebook_ints(splits, rows_per_split) ints).
+// rows_per_split must be a multiple of 32.
 extern "C" int mapped_conv_dw_f32(const void* feats, const void* nbr,
                                   const void* dout, void* dw, void* scratch,
                                   int B, int V_in, int V, int C, int Co,
                                   int splits, int rows_per_split,
                                   void* stream) {
   const int rows = B * V;
-  if (splits < 1 || rows_per_split % BR != 0 ||
+  if (splits < 1 || rows_per_split % DW_BR != 0 ||
       (long long)splits * rows_per_split < rows)
     return (int)cudaErrorInvalidValue;
   if (C > 0 && Co > 0) {
     cudaStream_t st = (cudaStream_t)stream;
+    const BatchMap map{(const int*)nbr, V, V_in};
+    // the rulebook starts 16-byte aligned, for its 16-byte copies
+    const size_t part =
+        splits > 1 ? ((size_t)splits * KV * C * Co + 3) / 4 * 4 : 0;
     float* dst = splits > 1 ? (float*)scratch : (float*)dw;
-    dw_kernel<<<dw_grid(C, Co, splits), NT, 0, st>>>(
-        (const float*)feats, (const float*)dout,
-        BatchMap{(const int*)nbr, V, V_in}, dst, rows, C, Co,
-        rows_per_split);
+    const cudaError_t err = launch_dw(
+        (const float*)feats, (const float*)dout, map, map,
+        (int*)((float*)scratch + part), dst, rows, C, Co, splits,
+        rows_per_split, st);
+    if (err != cudaSuccess) return (int)err;
     if (splits > 1)
       dw_sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
   }

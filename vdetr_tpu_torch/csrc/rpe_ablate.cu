@@ -12,12 +12,14 @@
 //
 // Design: the levels are rpe_attention_fwd.cuh's kernel body instantiated
 // at BIAS_NONE .. BIAS_PLANE_X0, so each keeps C's grid (one block per
-// batch and 8 queries), block (128 threads), shared-memory footprint (the
-// 128 KB of tables are staged at every level, so the occupancy does not
-// change with the level) and K/V/key staging; only the per-pair bias loop
-// differs. Levels 1-5 nest (each keeps the lower levels' values live), so
-// the difference between two of them is the cost of the work the higher
-// one adds, inside C's own schedule.
+// batch and 8 queries), block (four key groups of 128 threads), shared-
+// memory footprint (the 128 KB of tables are staged at every level, so
+// the occupancy does not change with the level), K/V/key staging and its
+// shared x/y quantize of paired corners (the tool's random corners do not
+// pair, so the probe times the full quantize); only the per-pair bias
+// loop differs. Levels 1-5 nest (each keeps the lower levels' values
+// live), so the difference between two of them is the cost of the work
+// the higher one adds, inside C's own schedule.
 //
 // What bounds it on the H100: the QK^T and PV products, 4 hd + 4 flops per
 // (head, query, key) on the CUDA cores, and at level 5 four table

@@ -28,17 +28,27 @@
 // the tables in shared memory, for any corners.
 //
 // What bounds it on the H100: the bias, 8 corners x 8 taps of H floats
-// per (query, key) pair read from shared memory (~4x the flops of the
-// QK^T and PV products at H = 4, hd = 64). Design: one block per (batch,
-// 8 queries); all 8 * n^3 * H table values (128 KB at n = 10, H = 4) sit
-// in dynamic shared memory for the block's whole sweep over the keys; per
-// 64-key tile the block stages K, V and key positions in shared memory,
-// computes the tile's bias for all heads at once (one float4 read per tap
-// when H = 4), and four threads per (query, head) row form the logits,
-// run the streaming softmax and accumulate P.V in registers. K and V are
-// read once per tile for all H heads. Keys past nK get weight exactly 0;
-// masked keys get -1e9, so a fully masked row averages V uniformly, as in
-// the reference.
+// per (query, key) pair read from shared memory after a log2 quantize of
+// each delta component (~4x the flops of the QK^T and PV products at H =
+// 4, hd = 64), all latency-bound unless many warps are resident. Design:
+// one block per (batch, 8 queries); all 8 * n^3 * H table values (128 KB
+// at n = 10, H = 4) sit in dynamic shared memory for the block's whole
+// sweep over the keys, so one block fits an SM. To keep 16 warps resident
+// under that, the block is four key groups of 128 threads (fewer where
+// the tables leave less room): group g sweeps key tiles g, g + 4, ... of
+// 32 keys (hd = 64) with its own staging and named barriers, so the
+// groups drift apart and one group's bias loop overlaps another's flash
+// loop. Per tile a group stages K, V and key positions, computes the
+// tile's bias for all heads at once (one float4 read per tap when H = 4),
+// and four threads per (query, head) row form the logits, run the
+// streaming softmax and accumulate P.V in registers. At the end the
+// groups' (max, sum, P.V) states merge in group order: deterministic.
+// Corners i and i + 4 whose x and y agree bit for bit (a box's bottom and
+// top corners, the decoder's case) quantize x and y once for both: 16
+// log2 per pair instead of 24; other corners take the full path. K and V
+// are read once per tile for all H heads. Keys past nK get weight exactly
+// 0; masked keys get -1e9, so a fully masked row averages V uniformly, as
+// in the reference.
 
 // The kernel body is rpe_attention_fwd.cuh's, at its full bias level; the
 // stage-ablation probe (rpe_ablate.cu) runs the same body at its lower

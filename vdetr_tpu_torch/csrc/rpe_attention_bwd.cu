@@ -207,10 +207,6 @@ rpe_pair_bwd_kernel(
 // 8 trilinear tap weights; a warp's 32 items (one query, 32 keys).
 constexpr int ITEM_FLOATS = 32 * (H + 2 * 8);
 
-__device__ __forceinline__ bool same_bits(float a, float b) {
-  return __float_as_uint(a) == __float_as_uint(b);
-}
-
 // One corner of a pair item: its 8 tap weights to `wts`, and its key: the
 // table offset of its lower tap cell, (cd0 * n + ch0) * n + cw0 shifted
 // by n^2 + n + 1 to be >= 0, times 256, plus the mask of the taps that lie
@@ -289,7 +285,7 @@ rpe_table_bwd_kernel(
   // quantizes of a pair item are done once (exact, as the bits agree)
   for (int i = tid; i < TQ2; i += NT2) {
     const float* c = s_corner + i * 6;
-    s_pairxy[i] = same_bits(c[0], c[3]) && same_bits(c[1], c[4]);
+    s_pairxy[i] = rpe::same_bits(c[0], c[3]) && rpe::same_bits(c[1], c[4]);
   }
   __syncthreads();
 

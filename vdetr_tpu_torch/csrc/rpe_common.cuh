@@ -1,6 +1,7 @@
 // Pieces shared by the vertex-RPE attention kernels (rpe_attention.cu,
 // rpe_attention_bwd.cu): the log-quantized table index, the trilinear
-// taps of one corner, and the attention-dropout hash. The plain PyTorch
+// taps of a table index, the same-bits test of the shared x/y quantize,
+// and the attention-dropout hash. The plain PyTorch
 // versions in vdetr_tpu_torch/ops/rpe_attention.py compute the same.
 #pragma once
 
@@ -20,17 +21,19 @@ __device__ __forceinline__ float quantize(float d, float log_scale,
   return ((q + 1.0f) * n - 1.0f) * 0.5f;
 }
 
-// Calls fn(cell, weight) for each in-range trilinear tap of one corner's
-// delta (dx, dy, dz) (already rotated into the object frame); cell
-// indexes the (d=z, h=y, w=x) table of n^3 cells, component 0 (x) the
-// last axis, as torch grid_sample does.
+// Whether two floats are the same bits: corners i and i + 4 of a box
+// differ in z alone, so their x and y quantizes may be done once
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+
+// Calls fn(cell, weight) for each in-range trilinear tap of the continuous
+// table index (iw, ih, id) (quantize of the x, y, z delta); cell indexes
+// the (d=z, h=y, w=x) table of n^3 cells, component 0 (x) the last axis,
+// as torch grid_sample does.
 template <typename Fn>
-__device__ __forceinline__ void corner_taps(float dx, float dy, float dz,
-                                            float log_scale, float max_value,
-                                            int n, Fn fn) {
-  const float iw = quantize(dx, log_scale, max_value, n);
-  const float ih = quantize(dy, log_scale, max_value, n);
-  const float id = quantize(dz, log_scale, max_value, n);
+__device__ __forceinline__ void index_taps(float iw, float ih, float id,
+                                           int n, Fn fn) {
   const float fw = floorf(iw), fh = floorf(ih), fd = floorf(id);
   const float ww = iw - fw, wh = ih - fh, wd = id - fd;
   const int cw0 = (int)fw, ch0 = (int)fh, cd0 = (int)fd;

@@ -122,8 +122,11 @@ def mapped_conv_dw(feats, nbr, dout):
     splits, rows_per_split = dw_row_splits(B * V, C, Co)
     dev = feats.device
     dw = torch.empty(27, C, Co, dtype=torch.float32, device=dev)
-    scratch = (torch.empty(splits, 27, C, Co, dtype=torch.float32,
-                           device=dev) if splits > 1 else dw)
+    # the partials (from a multiple of 4 floats), then the rulebook
+    part = -(-splits * 27 * C * Co // 4) * 4 if splits > 1 else 0
+    rulebook = 0 if dw_dense(C) else dw_rulebook_ints(splits, rows_per_split)
+    scratch = (torch.empty(part + rulebook, dtype=torch.float32, device=dev)
+               if part + rulebook > 0 else dw)
     kernels.call("mapped_conv_dw", feats.data_ptr(), nbr.data_ptr(),
                  dout.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, V_in,
                  V, C, Co, splits, rows_per_split,
@@ -135,15 +138,66 @@ def mapped_conv_dw(feats, nbr, dout):
 mapped_conv_dw.launches = 0
 
 
-def dw_row_splits(rows: int, C: int, Co: int):
+def dw_dense(C: int) -> bool:
+    """Whether kernels D and I take their dense form (`dw_dense` in
+    `csrc/sparse_conv.cuh`): 27 C fits one 96-row tile (the stem's 3
+    channels), so a block takes all 27 offsets of its rows and dW is one
+    (27 C, Co) matrix; otherwise a block takes one offset's hits from the
+    rulebook (`dw_rulebook`)."""
+    return 27 * C <= 96
+
+
+def dw_row_splits(rows: int, C: int, Co: int, waves: int = 8,
+                  min_rows: int = 256):
     """(splits, rows_per_split) of a weight-gradient launch: one block per
-    (offset, 64 x 64 dW tile); the rows are split over more blocks until
-    two waves of the card's SMs have work, each split at least 256 rows
-    and a multiple of 16 (partials added in a fixed order)."""
-    tiles = 27 * -(-C // 64) * -(-Co // 64)
-    splits = max(1, min(-(-2 * _SMS // tiles), -(-rows // 256)))
-    rows_per_split = max(16, -(-rows // (splits * 16)) * 16)
+    dW tile (dense form: 64 output channels of the (27 C, Co) matrix;
+    else an offset's 64 x 64 tile) and row split; the rows are split over
+    more blocks until `waves` x the card's SMs have work (8: two rounds
+    of four resident blocks an SM), each split at least `min_rows` rows
+    and a multiple of 32 (partials added in a fixed order). From a sweep
+    of the published convs on the card (`python -m
+    vdetr_tpu_torch.tools.conv_splits`)."""
+    tiles = -(-Co // 64) * (1 if dw_dense(C) else 27 * -(-C // 64))
+    splits = max(1, min(-(-waves * _SMS // tiles), -(-rows // min_rows)))
+    rows_per_split = max(32, -(-rows // (splits * 32)) * 32)
     return max(1, -(-rows // rows_per_split)), rows_per_split
+
+
+def dw_rulebook_ints(splits: int, rows_per_split: int) -> int:
+    """int32 entries of a rulebook: src and row, (27, splits,
+    rows_per_split) each, then count (27, splits)."""
+    return 27 * splits * (2 * rows_per_split + 1)
+
+
+def dw_rulebook(nbr, v_in: int, splits: int, rows_per_split: int):
+    """Plain version of the rulebook that kernels D and I build in their
+    per-offset form (`dw_rulebook_kernel`): for each offset k and row
+    split s, the pairs (input row, query row) of the map's hits, ascending
+    in the query row. Rows are global: query row b * V + v, input row
+    b * V_in + nbr[b, k, v]. nbr (B, 27, V), V_in or any row outside
+    [0, V_in) for a miss. Returns (src, row, count): src and row (27,
+    splits, rows_per_split) int32, -1 past the count (the kernel leaves
+    those entries unwritten); count (27, splits) int32."""
+    B, K, V = nbr.shape
+    rows, cap = B * V, splits * rows_per_split
+    if cap < rows:
+        raise ValueError(f"{splits} splits of {rows_per_split} rows hold "
+                         f"fewer than {rows} rows")
+    idx = nbr.long().transpose(0, 1)                            # (27, B, V)
+    hit = ((idx >= 0) & (idx < v_in)).reshape(K, rows)
+    src = (idx + torch.arange(B, device=nbr.device)[:, None] * v_in
+           ).reshape(K, rows)
+    pad = (0, cap - rows)
+    hit = torch.nn.functional.pad(hit, pad).reshape(K, splits, -1)
+    src = torch.nn.functional.pad(src, pad).reshape(K, splits, -1)
+    row = torch.arange(cap, device=nbr.device).reshape(splits, -1).expand(
+        K, -1, -1)
+    # a stable sort puts each segment's hits first, in row order
+    order = torch.sort((~hit).to(torch.uint8), dim=-1, stable=True).indices
+    first = hit.gather(-1, order)
+    src = torch.where(first, src.gather(-1, order), -1).to(torch.int32)
+    row = torch.where(first, row.gather(-1, order), -1).to(torch.int32)
+    return src, row, hit.sum(-1).to(torch.int32)
 
 
 def mapped_conv_dfeats_scatter(dout, nbr, weights, v_in: int):

@@ -31,8 +31,8 @@ import torch
 from vdetr_tpu_torch import kernels
 from vdetr_tpu_torch.ops.map_kernel import neighbour_map
 from vdetr_tpu_torch.ops.sparse_conv_kernel import (
-    conv_splits, dw_row_splits, flip_weights, mapped_conv_dfeats_scatter,
-    mapped_conv_dw_plain, mapped_conv_plain)
+    conv_splits, dw_dense, dw_row_splits, dw_rulebook_ints, flip_weights,
+    mapped_conv_dfeats_scatter, mapped_conv_dw_plain, mapped_conv_plain)
 
 
 def keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent, weights):
@@ -102,7 +102,10 @@ def keyed_conv_dw(feats, in_keys, q_coords, q_valid, extent, dout):
     splits, rows_per_split = dw_row_splits(rows, C, Co)
     dev = feats.device
     dw = torch.empty(27, C, Co, dtype=torch.float32, device=dev)
-    nbr = torch.empty(27, rows, dtype=torch.int32, device=dev)
+    # the dense form's (27, rows) map, or the rulebook
+    nbr = torch.empty(27 * rows if dw_dense(C) else
+                      dw_rulebook_ints(splits, rows_per_split),
+                      dtype=torch.int32, device=dev)
     scratch = (torch.empty(splits, 27, C, Co, dtype=torch.float32,
                            device=dev) if splits > 1 else dw)
     kernels.call("keyed_conv_dw", feats.data_ptr(), in_keys.data_ptr(),

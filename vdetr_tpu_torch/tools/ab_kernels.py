@@ -10,9 +10,14 @@ within one call. A tree is a checkout of the repository, e.g. the parent
 commit unpacked with `git archive` into an ignored directory. Per tree,
 on the published shapes and model (`VDETRConfig()`, seeded random
 weights, synthetic scenes):
-- the sparse-conv kernels A (keyed) and H (mapped) on chip_smoke's four
-  conv cases: ms per launch (CUDA events, mean of 20) and the error
-  against the plain version;
+- the sparse-conv kernels A (keyed) and H (mapped) and their weight
+  gradients D (keyed) and I (mapped) on chip_smoke's four conv cases: ms
+  per launch (CUDA events, mean of 20), the error against the plain
+  version, and the device ms of each kernel the call launches
+  (torch.profiler, per call);
+- the RPE forward C in its eval form and its train form (dropout 0.1,
+  lse and logits) on chip_smoke's decoder-shaped case: ms per launch
+  (mean of 10) and the error against the plain version;
 - the flash-RPE backward F at dropout 0 and 0.1: ms per launch, and its
   pair and table kernels apart (torch.profiler, device ms per call);
 - one eval forward per route at batch 1 under torch.profiler: device ms
@@ -33,6 +38,7 @@ from pathlib import Path
 
 # device kernel names -> what they are, for every tree measured
 KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
+                ("dw_rulebook_kernel", "D/I rulebook"),
                 ("conv_sum_splits_kernel", "A/H split sums"),
                 ("dw_sum_splits_kernel", "D/I split sums"),
                 ("sum_splits_kernel", "split sums"),
@@ -85,12 +91,12 @@ def measure() -> dict:
     from vdetr_tpu_torch import kernels
     from vdetr_tpu_torch.config import VDETRConfig
     from vdetr_tpu_torch.ops.rpe_attention import (
-        rpe_cross_attention_bwd, rpe_cross_attention_bwd_plain,
-        rpe_cross_attention_plain)
-    from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
-                                                        mapped_conv_plain)
-    from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
-                                                       keyed_conv_plain)
+        rpe_cross_attention, rpe_cross_attention_bwd,
+        rpe_cross_attention_bwd_plain, rpe_cross_attention_plain)
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (
+        mapped_conv, mapped_conv_dw, mapped_conv_dw_plain, mapped_conv_plain)
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import (
+        keyed_conv, keyed_conv_dw, keyed_conv_dw_plain, keyed_conv_plain)
     from vdetr_tpu_torch.tools import card, time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,26 +104,46 @@ def measure() -> dict:
     dev = torch.device("cuda", 0)
     kernels.build_all()
     smi = card()
-    res = {"tree": os.getcwd(), "card": smi, "conv": {}, "rpe_bwd": {}}
+    res = {"tree": os.getcwd(), "card": smi, "conv": {}, "rpe_fwd": {},
+           "rpe_bwd": {}}
     cfg = VDETRConfig()
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     grids = cs.level_grids(cfg, dev)
     for case in cs.conv_cases(cfg, grids, gen):
-        label, args, nbr = case[0], case[1], case[4]
+        label, args, dout, nbr = case[0], case[1], case[2], case[4]
         row = {}
         for name, fn, plain, a in (
                 ("A", keyed_conv, keyed_conv_plain, args),
                 ("H", mapped_conv, mapped_conv_plain,
-                 (args[0], nbr, args[5]))):
+                 (args[0], nbr, args[5])),
+                ("D", keyed_conv_dw, keyed_conv_dw_plain,
+                 args[:5] + (dout,)),
+                ("I", mapped_conv_dw, mapped_conv_dw_plain,
+                 (args[0], nbr, dout))):
             ref = plain(*a)
             err = float((fn(*a) - ref).abs().max())
             row[name] = {"ms": time_ms(lambda: fn(*a), reps=20),
                          "max_abs_err": err,
-                         "max_ref": float(ref.abs().max())}
+                         "max_ref": float(ref.abs().max()),
+                         "parts": profile_by_kernel(lambda: fn(*a), reps=5)}
         res["conv"][label] = row
     del grids
     case = cs.rpe_case(cfg, dev, gen)
     q, k, v, corners, angles, key_xyz, tables, key_valid = case
+    for form, extra in (("eval", {}),
+                        ("train", dict(dropout_rate=0.1, return_stats=True,
+                                       seed=torch.tensor(
+                                           [12345], dtype=torch.int64,
+                                           device=dev)))):
+        ckw = dict(log_scale=cfg.log_scale, max_value=cfg.rpe_max_value,
+                   **extra)
+        got = rpe_cross_attention(*case, **ckw)
+        ref = rpe_cross_attention_plain(*case, **ckw)
+        got, ref = (x[0] if isinstance(x, tuple) else x for x in (got, ref))
+        res["rpe_fwd"][form] = {
+            "ms": time_ms(lambda: rpe_cross_attention(*case, **ckw), reps=10),
+            "max_abs_err": float((got - ref).abs().max())}
+        del got, ref
     seed = torch.tensor([777], dtype=torch.int64, device=dev)
     dout = torch.randn(q.shape, generator=torch.Generator(
         device=dev).manual_seed(cs.SEED + 7), device=dev)
@@ -178,9 +204,17 @@ def summary(runs) -> list:
     lines = ["| quantity | " + " | ".join(
         Path(r["tree"]).name or r["tree"] for r in runs) + " |"]
     for label in runs[0]["conv"]:
-        for k in ("A", "H"):
+        for k in ("A", "H", "D", "I"):
             lines.append(f"| {k} ms {label} | "
                          + col(lambda r: r["conv"][label][k]["ms"]) + " |")
+            parts = sorted({p for r in runs
+                            for p in r["conv"][label][k]["parts"]})
+            for part in parts:
+                lines.append(f"| {k} {label}: {part} device ms | " + col(
+                    lambda r: r["conv"][label][k]["parts"][part][0]) + " |")
+    for form in ("eval", "train"):
+        lines.append(f"| C ms {form} form | "
+                     + col(lambda r: r["rpe_fwd"][form]["ms"]) + " |")
     for rate in ("0.0", "0.1"):
         lines.append(f"| F ms dropout {rate} | "
                      + col(lambda r: r["rpe_bwd"][rate]["ms"]) + " |")
@@ -188,7 +222,7 @@ def summary(runs) -> list:
             lines.append(f"| {part} device ms dropout {rate} | " + col(
                 lambda r: r["rpe_bwd"][rate]["parts"][part][0]) + " |")
     for route in ("keyed", "mapped"):
-        for lab in ("A", "H", "C", "B", "G"):
+        for lab in ("A", "H", "C", "B", "G"):  # C: one launch per layer
             lines.append(f"| forward {route} B=1 {lab} device ms | " + col(
                 lambda r: r["forward_profile"][route][lab][0]) + " |")
         for b in (1, 4):

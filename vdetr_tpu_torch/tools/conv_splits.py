@@ -1,6 +1,9 @@
 """How many blocks should share a row tile's 27 offsets in the sparse-conv
 kernels A and H: kernel A timed at each published conv shape for each
-offset split.
+offset split; and over how many blocks the weight gradients D and I
+should split their rows: kernel D timed at the same shapes for each
+row-split plan of `ops.sparse_conv_kernel.dw_row_splits` (blocks for
+`waves` x 132 SMs, each split at least `min_rows` rows).
 
     python -m vdetr_tpu_torch.tools.conv_splits
 
@@ -73,6 +76,69 @@ def sweep(reps: int = 20):
     return rows
 
 
+DW_PLANS = tuple((waves, min_rows) for waves in (2, 4, 8, 16)
+                 for min_rows in (128, 256, 512))
+
+
+def dw_sweep(reps: int = 20):
+    """Per shape (label, {(waves, min_rows): (splits, ms, relative
+    error)}) of kernel D; the error against the plain version relative to
+    its max|ref|."""
+    import chip_smoke as cs
+    from vdetr_tpu_torch import kernels
+    from vdetr_tpu_torch.config import VDETRConfig
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (dw_dense,
+                                                        dw_row_splits,
+                                                        dw_rulebook_ints)
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv_dw_plain
+    from vdetr_tpu_torch.tools import time_ms
+
+    dev = torch.device("cuda", 0)
+    cfg = VDETRConfig()
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    grids = cs.level_grids(cfg, dev)
+    rows = []
+    for li, lo, cin, cout in SHAPES:
+        gi, go = grids[li], grids[lo]
+        feats = (torch.randn(gi.keys.shape + (cin,), generator=gen,
+                             device=dev) * gi.valid[..., None]).contiguous()
+        q = (go.coords if li == lo else go.coords * 2).contiguous()
+        dout = (torch.randn(go.keys.shape + (cout,), generator=gen,
+                            device=dev) * go.valid[..., None]).contiguous()
+        args = (feats, gi.keys, q, go.valid, gi.extent)
+        ref = keyed_conv_dw_plain(*args, dout)
+        scale = float(ref.abs().max())
+        B, V_in, _ = feats.shape
+        V = q.shape[1]
+        res = {}
+        for waves, min_rows in DW_PLANS:
+            splits, per = dw_row_splits(B * V, cin, cout, waves, min_rows)
+            dw = torch.empty(27, cin, cout, device=dev)
+            nbr = torch.empty(27 * B * V if dw_dense(cin) else
+                              dw_rulebook_ints(splits, per),
+                              dtype=torch.int32, device=dev)
+            scratch = (torch.empty(splits, 27, cin, cout, device=dev)
+                       if splits > 1 else dw)
+
+            def run():
+                kernels.call(
+                    "keyed_conv_dw", feats.data_ptr(), gi.keys.data_ptr(),
+                    q.data_ptr(), go.valid.data_ptr(), dout.data_ptr(),
+                    dw.data_ptr(), nbr.data_ptr(), scratch.data_ptr(), B,
+                    V_in, V, cin, cout, *gi.extent, splits, per,
+                    torch.cuda.current_stream(dev).cuda_stream)
+
+            run()
+            torch.cuda.synchronize()
+            err = float((dw - ref).abs().max()) / scale
+            res[(waves, min_rows)] = (splits, time_ms(run, reps=reps), err)
+            del dw, nbr, scratch
+        label = (f"{cin}->{cout} {'submanifold' if li == lo else 'stride-2'}"
+                 f" V={V} valid={int(go.valid.sum())}")
+        rows.append((label, res))
+    return rows
+
+
 def main() -> int:
     from vdetr_tpu_torch import kernels
     from vdetr_tpu_torch.tools import card
@@ -88,6 +154,13 @@ def main() -> int:
         print(f"  {label}: " + "; ".join(
             f"{'*' if s == chosen else ''}{s}: {ms:.4f} ({err:.1e})"
             for s, (ms, err) in res.items()))
+    print("kernel D ms per launch by row-split plan (waves x 132 SMs of "
+          "blocks, min rows a split): splits, ms (relative error); * the "
+          f"default plan of dw_row_splits; card {card()}")
+    for label, res in dw_sweep():
+        print(f"  {label}: " + "; ".join(
+            f"{'*' if plan == (8, 256) else ''}{plan[0]}x/{plan[1]}: "
+            f"{s} {ms:.4f} ({err:.1e})" for plan, (s, ms, err) in res.items()))
     return 0
 
 
