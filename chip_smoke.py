@@ -11,10 +11,12 @@ Phases, each printing its own lines:
      the card, at the shapes the published model gives it, with TF32
      off: the keyed conv (A) and its weight gradient (D), the neighbour
      map (G) on the forward's nine maps, the mapped conv (H, also held to
-     A) and its weight gradient (I), FPS (B), the RPE attention forward
-     (C, eval and training form with dropout and the log-sum-exp) and its
-     flash backward (F, dropout 0 and 0.1, its pair and dTables table
-     kernels also timed apart); prints the error, its tolerance, both
+     A) and its weight gradient (I), FPS (B, on one scene and on the
+     four rows of an eval batch, with its exchange floor and ns a step
+     beside the bound), the RPE attention forward (C, eval and training
+     form with dropout and the log-sum-exp) and its flash backward (F,
+     dropout 0 and 0.1, its pair and dTables table kernels also timed
+     apart); prints the error, its tolerance, both
      times and the kernel's bound (for A, D, H and I, which multiply on
      the tensor cores in split TF32, against the TF32 rate, with the f32
      CUDA-core bound beside it); I bit for bit against D and against a
@@ -145,12 +147,12 @@ def synthetic_batch(num_points: int, batch: int, device, first: int = 0):
 # phase 3: each kernel against its plain version
 # --------------------------------------------------------------------------
 
-def level_grids(cfg, device):
-    """The voxel levels of one synthetic scene at the published
+def level_grids(cfg, device, batch: int = 1):
+    """The voxel levels of `batch` synthetic scenes at the published
     capacities: [raw 1 cm, stem, stage 1 .. 4]."""
     from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
 
-    inp = synthetic_batch(cfg.num_points, 1, device)
+    inp = synthetic_batch(cfg.num_points, batch, device)
     caps = cfg.stage_capacities()
     g = voxelize(inp["point_clouds"], inp["point_clouds"],
                  inp["point_validity"], voxel_size=cfg.voxel_size,
@@ -448,33 +450,63 @@ def check_kernel_map(grids):
                 bound_by=_dominant(out_cases), cases=out_cases)
 
 
-def check_fps(cfg, grids):
-    from vdetr_tpu_torch.ops.fps import furthest_point_sample, fps_plain
+def fps_input(grids):
+    """FPS's input on the main path: the stride-4 level's voxel centres,
+    zeroed where invalid (B, 32768, 3 at the published capacities)."""
+    level = grids[2]
+    return (level.world_xyz() * level.valid[..., None]).contiguous()
 
-    out_level = grids[2]  # the FPN output level (stride 4)
-    xyz = (out_level.world_xyz() * out_level.valid[..., None]).contiguous()
-    got = furthest_point_sample(xyz, cfg.preenc_npoints)
-    t0 = time.perf_counter()
-    ref = fps_plain(xyz, cfg.preenc_npoints)
-    torch.cuda.synchronize()
-    t_p = (time.perf_counter() - t0) * 1e3
-    mism = int((got != ref).sum())
-    err = float((got - ref).abs().max())
-    ok = mism == 0
-    t_k = time_ms(lambda: furthest_point_sample(xyz, cfg.preenc_npoints),
-                  reps=5)
-    # per step and point: 3 differences, a product and two fused
-    # multiply-adds, a min and a compare: 10 flops
-    n = xyz.shape[0] * xyz.shape[1]
-    b_ms, b_by = bound_ms(nbytes(xyz) + got.numel() * 8,
-                          10.0 * n * cfg.preenc_npoints)
-    log(f"check fps N={xyz.shape[1]} (valid={int(out_level.valid.sum())}) "
-        f"npoint={cfg.preenc_npoints}: {mism} indices differ, tolerance 0 "
-        f"(both round fma(dz,dz,fma(dy,dy,dx*dx)) exactly) -> "
-        f"{'ok' if ok else 'FAIL'}; kernel {t_k:.3f} ms, plain {t_p:.1f} ms"
-        f" (one timed call), bound {b_ms:.4f} ms ({b_by})")
-    return dict(ok=ok, err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                bound_by=b_by)
+
+def check_fps(cfg, grids):
+    """Kernel B on one scene (B = 1) and on the four rows of an eval batch
+    (B = 4), each against the plain version (tolerance 0), with ns a
+    step, the roofline bound and the exchange floor (the same form with
+    the pass over the points left out) side by side."""
+    from vdetr_tpu_torch.ops.fps import (CLUSTER, THREADS, TRANSPORT,
+                                         fps_launch, fps_plain,
+                                         furthest_point_sample)
+
+    npoint = cfg.preenc_npoints
+    steps = npoint - 1
+    cases, ok_all = [], True
+    for batch, g in ((1, grids), (4, level_grids(cfg, grids[0].keys.device,
+                                                   4))):
+        xyz = fps_input(g)
+        got = furthest_point_sample(xyz, npoint)
+        t0 = time.perf_counter()
+        ref = fps_plain(xyz, npoint)
+        torch.cuda.synchronize()
+        t_p = (time.perf_counter() - t0) * 1e3
+        mism = int((got != ref).sum())
+        ok = mism == 0
+        ok_all &= ok
+        t_k = time_ms(lambda: furthest_point_sample(xyz, npoint), reps=5)
+        t_f = time_ms(lambda: fps_launch(xyz, npoint, floor=True), reps=5)
+        # per step and point: 3 differences, a product and two fused
+        # multiply-adds, a min and a compare: 10 flops
+        n = xyz.shape[0] * xyz.shape[1]
+        b_ms, b_by = bound_ms(nbytes(xyz) + got.numel() * 8,
+                              10.0 * n * npoint)
+        valid = int(g[2].valid.sum())
+        log(f"check fps B={batch} N={xyz.shape[1]} (valid={valid}) "
+            f"npoint={npoint}, form {CLUSTER} CTAs x {THREADS} threads, "
+            f"{TRANSPORT}: {mism} indices differ, tolerance 0 (both round "
+            f"fma(dz,dz,fma(dy,dy,dx*dx)) exactly) -> "
+            f"{'ok' if ok else 'FAIL'}; kernel {t_k:.3f} ms = "
+            f"{t_k * 1e6 / steps:.0f} ns a step; exchange floor {t_f:.3f} "
+            f"ms = {t_f * 1e6 / steps:.0f} ns a step; bound {b_ms:.4f} ms "
+            f"({b_by}) = {b_ms * 1e6 / steps:.1f} ns a step; plain "
+            f"{t_p:.1f} ms (one timed call)")
+        cases.append({"case": f"B={batch}", "max_abs_err": float(
+            (got - ref).abs().max()), "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "exchange_floor_ms": t_f,
+            "ns_per_step": t_k * 1e6 / steps,
+            "floor_ns_per_step": t_f * 1e6 / steps})
+    one = cases[0]
+    return dict(ok=ok_all, err=max(c["max_abs_err"] for c in cases),
+                ms=one["ms"], plain_ms=one["plain_ms"],
+                bound_ms=one["bound_ms"], bound_by=one["bound_by"],
+                exchange_floor_ms=one["exchange_floor_ms"], cases=cases)
 
 
 def rpe_case(cfg, device, gen, B=1):
@@ -1583,7 +1615,7 @@ def main() -> int:
         for extra in ("cases", "train_ms", "gather_matmul_ms",
                       "library_tf32_ms", "bound_f32_ms", "bound_note",
                       "ms_dropout0", "pair_ms", "table_ms", "table_bound_ms",
-                      "table_bound_by"):
+                      "table_bound_by", "exchange_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         if kname in PROBES:

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at small shapes chosen for their edges: channel widths off the
-kernel tiles, the 3-channel stem, tiles with no valid row, FPS past the
-on-chip distance buffer, ragged query and key counts, corners that do
+kernel tiles, the 3-channel stem, tiles with no valid row, FPS in each
+register tier and past the registers and the shared memory, ragged query and key counts, corners that do
 not pair up, a fully masked batch row, dropout; the neighbour map (G)
 bit for bit, also on the stem's 131072-row table; the three autograd
 Functions on the card against the same Functions on the CPU; and the two
@@ -268,21 +268,74 @@ def test_mapped_conv_function_gradients_kernel_vs_plain(rng, cuda, stride):
                                    atol=1e-5 * float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("N", [5, 300, 50000, 120000],
-                         ids=["few", "small", "on-chip", "spilled"])
-def test_fps_kernel_equals_plain(rng, cuda, N):
-    """Fewer points than CTAs, points in the cluster's shared memory, and
-    past ~115k points in device memory; lattice points, so exact distance
-    ties decide."""
-    xyz = (rng.randint(0, 60, size=(2, N, 3)) * 4).astype(np.float32)
+_FPS_SPAN = tfps.CLUSTER * tfps.THREADS  # points a register tier adds
+_FPS_TIERS = [t for t in tfps.TIERS
+              if tfps.fps_plan(t * _FPS_SPAN) == (t, False)]
+
+
+def _fps_case(rng, case):
+    """(xyz, npoint) of a kernel-B case: lattice points (exact distance
+    ties decide), N off every multiple of the cluster's threads."""
+    top = _FPS_TIERS[-1]
+    B, npoint, n_valid = 2, 256, None
+    if case.startswith("tier-"):
+        tier = int(case[5:])
+        N = (_FPS_SPAN - 37 if tier == 1
+             else (tier // 2) * _FPS_SPAN + _FPS_SPAN // 3)
+        assert tfps.fps_plan(N) == (tier, False)
+    else:
+        N = {"few": 5, "fewer-valid": 3000, "zero-row": 2000,
+             "on-chip": top * _FPS_SPAN + 1234,
+             "spilled": (tfps._POINT_BYTES_MAX // (16 * tfps.THREADS) + 1)
+             * _FPS_SPAN + 7,
+             "published-512": 32768}[case]
+        if case == "fewer-valid":
+            n_valid = 100
+        if case == "published-512":
+            B, npoint = 1, 512
+        want = {"on-chip": (0, False), "spilled": (0, True)}.get(case)
+        assert want is None or tfps.fps_plan(N) == want
+    xyz = (rng.randint(0, 60, size=(B, N, 3)) * 4).astype(np.float32)
     xyz = (xyz * np.float32(0.01)).astype(np.float32)
     xyz[:, -7:] = 0.0
+    if n_valid is not None:
+        xyz[:, n_valid:] = 0.0
+    if case == "zero-row":
+        xyz[1] = 0.0
+    return xyz, npoint
+
+
+@pytest.mark.parametrize("case", [f"tier-{t}" for t in _FPS_TIERS] + [
+    "few", "fewer-valid", "zero-row", "on-chip", "spilled", "published-512"])
+def test_fps_kernel_equals_plain(rng, cuda, case):
+    """Each register tier of the wrapper's form; fewer points than CTAs;
+    fewer valid points than npoint; a batch row of zeros (index 0 every
+    step, as fps_jax picks); past the registers, the points in shared
+    memory, and past that in device memory; the published N at npoint
+    512. Tolerance 0."""
+    xyz, npoint = _fps_case(rng, case)
     x = t(xyz, cuda)
     before = tfps.furthest_point_sample.launches
-    got = tfps.furthest_point_sample(x, 256)
+    got = tfps.furthest_point_sample(x, npoint)
     assert tfps.furthest_point_sample.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
-                                  tfps.fps_plain(x, 256).cpu().numpy())
+                                  tfps.fps_plain(x, npoint).cpu().numpy())
+    if case == "zero-row":
+        assert int(got[1].abs().sum()) == 0
+
+
+def test_fps_kernel_refuses_what_it_cannot_take(rng, cuda):
+    """No fallback: a form that does not exist raises, and so does the
+    exchange floor off the published shape."""
+    x = t(rng.rand(1, 1000, 3).astype(np.float32) + 0.1, cuda)
+    with pytest.raises(RuntimeError):
+        tfps.fps_launch(x, 16, threads=64)
+    with pytest.raises(RuntimeError):
+        tfps.fps_launch(x, 16, cluster=4)
+    with pytest.raises(RuntimeError):
+        tfps.fps_launch(x, 16, floor=True)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(x[:, :0].contiguous(), 16)
 
 
 @pytest.mark.parametrize("rotate", [False, True])

@@ -20,16 +20,27 @@
   corners come from `box_parametrization_to_corners` and
   `convert_corners_camera2lidar`, where those corners differ in z alone,
   rotated or not, so the shared quantize is the path the model takes.
+- Furthest-point sampling (kernel B, `csrc/fps.cu`) picks each step's
+  point by a packed u32 key (0 for a point never picked, else the
+  running distance's float bits + 1) reduced in two levels: each warp's
+  largest key and, among its lanes holding it, the smallest index, into
+  one slot per warp; then the same over the slots. Emulated here in
+  torch, with the kernel's layout of points over threads, it picks
+  `fps_jax`'s indices on lattice ties, on an all-zero row and on a row
+  with fewer valid points than npoint.
 """
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vdetr_tpu.ops import fps as jfps
 from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
                                             convert_corners_camera2lidar)
+from vdetr_tpu_torch.ops import fps as tfps
 
 CONV_RTOL = 1e-4  # chip_smoke.py's conv tolerance: 1e-4 of max|ref|
 
@@ -161,3 +172,80 @@ def test_box_corners_i_and_i4_share_world_x_and_y(kind):
                        high[..., :2].contiguous().view(torch.int32))
     # and the z of a box's top and bottom corners differ
     assert bool((low[..., 2] != high[..., 2]).all())
+
+
+NONE = 2 ** 32 - 1  # an index that loses every min (the kernel's 0xffffffff)
+
+
+def first_of_max(key, idx, dim):
+    """The largest key along `dim` and, among the entries holding it, the
+    smallest index: redux.sync max, then redux.sync min."""
+    top = key.max(dim).values
+    held = key == top.unsqueeze(dim)
+    return top, torch.where(held, idx, NONE).min(dim).values
+
+
+def packed_key_fps(xyz, npoint, cluster, threads):
+    """Kernel B's selection emulated: point g = k * cluster * threads +
+    rank * threads + tid, padded to the plan's tier; per thread the first
+    slot of the largest key, per warp the two redux into its slot, then
+    each lane's slots (lane, lane + 32, ...) and the two redux over the
+    lanes; the winner's coordinates read back from the slot its index
+    names."""
+    B, N, _ = xyz.shape
+    span = cluster * threads
+    ppt = tfps.fps_plan(N, cluster, threads)[0] or -(-N // span)
+    cap = ppt * span
+    x = torch.cat([xyz, xyz.new_zeros(B, cap - N, 3)], 1)
+    g = torch.arange(cap, dtype=torch.int64)
+    never = (tfps._sq_norm(x[..., 0], x[..., 1], x[..., 2]) <= 1e-3) | (
+        g >= N)
+    dist = torch.where(never, -1.0, 1e10).float()
+    warps = threads // 32
+    g4 = g.view(ppt, cluster, threads).expand(B, -1, -1, -1)
+    cur = x[:, 0]
+    out = torch.zeros(B, npoint, dtype=torch.int64)
+    for j in range(1, npoint):
+        d = x - cur[:, None]
+        dist = torch.minimum(dist, tfps._sq_norm(d[..., 0], d[..., 1],
+                                                 d[..., 2]))
+        bits = dist.view(torch.int32).long()
+        key = torch.where(bits < 0, 0, bits + 1).view(B, ppt, cluster,
+                                                     threads)
+        tkey, tidx = first_of_max(key, g4, 1)              # per thread
+        wkey, widx = first_of_max(tkey.view(B, cluster, warps, 32),
+                                  tidx.view(B, cluster, warps, 32), -1)
+        slots = cluster * warps                            # slot r * W + w
+        lkey, lidx = first_of_max(wkey.view(B, slots // 32, 32),
+                                  widx.view(B, slots // 32, 32), 1)
+        _, cidx = first_of_max(lkey, lidx, -1)
+        slot = (cidx // threads) % cluster * warps + cidx % threads // 32
+        assert torch.equal(widx.view(B, slots).gather(1, slot[:, None])[:, 0],
+                           cidx)
+        cur = x[torch.arange(B), cidx]
+        out[:, j] = cidx
+    return out
+
+
+def fps_rows(kind, seed):
+    rng = np.random.RandomState(seed)
+    xyz = (rng.randint(0, 30, size=(2, 3000, 3)) * 4 + 32).astype(
+        np.float32) * np.float32(0.01)
+    if kind == "zero-row":
+        xyz[1] = 0.0
+    elif kind == "fewer-valid":
+        xyz[:, 40:] = 0.0  # 40 valid points, npoint 128
+    return xyz.astype(np.float32)
+
+
+@pytest.mark.parametrize("form", [(tfps.CLUSTER, tfps.THREADS), (8, 128)],
+                         ids=["wrapper-form", "8x128"])
+@pytest.mark.parametrize("kind", ["lattice-ties", "zero-row",
+                                  "fewer-valid"])
+def test_packed_key_two_level_reduction_picks_fps_jax(kind, form):
+    xyz = fps_rows(kind, seed=5)
+    want = np.asarray(jfps.fps_jax(jnp.asarray(xyz), 128))
+    got = packed_key_fps(torch.from_numpy(xyz), 128, *form)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "zero-row":
+        assert not want[1].any()

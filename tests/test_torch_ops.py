@@ -195,6 +195,34 @@ def test_fps_matches_jax(rng, ref):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("kind", ["zero-row", "fewer-valid"])
+def test_fps_plain_matches_jax_on_edge_rows(rng, kind):
+    """A batch row of zeros (fps_jax picks index 0 every step) and rows
+    with fewer valid points than npoint (the rest ties at distance 0 and
+    -1)."""
+    xyz = _padded_cloud(rng)
+    if kind == "zero-row":
+        xyz[1] = 0.0
+    else:
+        xyz[:, 20:] = 0.0  # 20 valid points, npoint 64
+    want = jfps.fps_jax(jnp.asarray(xyz), 64)
+    got = tfps.fps_plain(t(xyz), 64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_fps_plan_picks_the_smallest_register_tier():
+    span = tfps.CLUSTER * tfps.THREADS
+    assert tfps.fps_plan(1) == (1, False)
+    assert tfps.fps_plan(span) == (1, False)
+    assert tfps.fps_plan(span + 1) == (2, False)
+    assert tfps.fps_plan(3 * span) == (4, False)
+    assert tfps.fps_plan(32768, 8, 512) == (8, False)
+    assert tfps.fps_plan(32768, 16, 512) == (4, False)
+    assert tfps.fps_plan(17 * 8 * 512, 8, 512) == (0, False)  # 16 at most
+    assert tfps.fps_plan(33 * 8 * 256, 8, 256) == (0, False)
+    assert tfps.fps_plan(300000, 8, 256) == (0, True)
+
+
 def test_fps_matches_jax_on_lattice_ties(rng):
     """Voxel lattice points have many exactly tied distances; the
     selection only matches fps_jax if the squared distances round the

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "mapped_conv_dw": ("mapped_conv_dw_f32",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P]),
-    "fps": ("fps_f32", [_P, _P, _P, _I, _I, _I, _P]),
+    "fps": ("fps_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "rpe_attention": ("rpe_cross_attention_f32",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P]),

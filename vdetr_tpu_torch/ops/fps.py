@@ -70,23 +70,71 @@ def fps_plain(xyz, npoint: int):
     return idxs
 
 
-def furthest_point_sample(xyz, npoint: int):
-    """xyz (B, N, 3) float32 -> (B, npoint) int64 indices.
+# The form of kernel B on the main path, chosen by measurement
+# (`python -m vdetr_tpu_torch.tools.fps_sweep`, PERF.md §6): CTAs per
+# cluster, threads per CTA, and the exchange transport ("barrier": a
+# cluster barrier; "push": st.async into the receivers' mbarriers). One
+# rule for every N.
+CLUSTER = 8
+THREADS = 128
+TRANSPORT = "push"
+TRANSPORTS = ("barrier", "push")
+# points a thread holds in registers, the kernel's template tiers; 512
+# threads cap a thread's registers at 128, and so its points at 16
+TIERS = (1, 2, 4, 8, 16, 32)
+# shared-memory bytes of a CTA's float4 points on the memory path, past
+# which they spill to device memory (`csrc/fps.cu` POINT_BYTES_MAX)
+_POINT_BYTES_MAX = 200 * 1024
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    `fps_plain`."""
-    if not xyz.is_cuda:
-        return fps_plain(xyz, npoint)
+
+def fps_plan(N: int, cluster: int = CLUSTER, threads: int = THREADS):
+    """(points per thread in registers, or 0 for the memory path; whether
+    that path spills to device memory) for N points of a batch row: the
+    smallest tier that holds N over `cluster` x `threads` threads."""
+    per = -(-N // (cluster * threads))
+    top = 16 if threads == 512 else 32
+    for tier in TIERS:
+        if tier <= top and per <= tier:
+            return tier, False
+    return 0, per * threads * 16 > _POINT_BYTES_MAX
+
+
+def fps_launch(xyz, npoint: int, cluster: int = CLUSTER,
+               threads: int = THREADS, transport: str = TRANSPORT,
+               floor: bool = False):
+    """Launch kernel B in one form on a CUDA (B, N, 3) float32 tensor and
+    return the (B, npoint) int64 indices. `floor` times the exchange
+    alone (its indices are no sample; it exists only at 32768 points).
+    Raises if the form does not exist, cannot hold N, or its cluster does
+    not fit the card. Counts nothing: `furthest_point_sample` is the
+    main path's entry."""
     B, N, _ = xyz.shape
     kernels.check(xyz, torch.float32, (B, N, 3), "xyz")
     if N < 1:
         raise ValueError("furthest_point_sample needs at least one point")
+    if transport not in TRANSPORTS:
+        raise ValueError(f"unknown transport {transport!r}")
+    ppt, spills = fps_plan(N, cluster, threads)
     out = torch.empty(B, npoint, dtype=torch.int64, device=xyz.device)
-    # scratch for the running distances, used only past ~115k points,
-    # where they no longer fit in the cluster's shared memory
-    temp = torch.empty(B, N, dtype=torch.float32, device=xyz.device)
-    kernels.call("fps", xyz.data_ptr(), temp.data_ptr(), out.data_ptr(), B, N,
-                 npoint, torch.cuda.current_stream(xyz.device).cuda_stream)
+    # the running distances' scratch, only where they leave the chip
+    temp = (torch.empty(B, N, dtype=torch.float32, device=xyz.device)
+            if spills else None)
+    kernels.call("fps", xyz.data_ptr(),
+                 0 if temp is None else temp.data_ptr(), out.data_ptr(), B,
+                 N, npoint, cluster, threads, ppt,
+                 int(transport == "push"), int(floor),
+                 torch.cuda.current_stream(xyz.device).cuda_stream)
+    return out
+
+
+def furthest_point_sample(xyz, npoint: int):
+    """xyz (B, N, 3) float32 -> (B, npoint) int64 indices.
+
+    CUDA tensors launch the Hopper kernel in the main path's form (or
+    raise); CPU tensors take `fps_plain`."""
+    if not xyz.is_cuda:
+        return fps_plain(xyz, npoint)
+    out = fps_launch(xyz, npoint)
     furthest_point_sample.launches += 1
     return out
 

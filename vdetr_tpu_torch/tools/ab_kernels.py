@@ -20,6 +20,10 @@ weights, synthetic scenes):
   (mean of 10) and the error against the plain version;
 - the flash-RPE backward F at dropout 0 and 0.1: ms per launch, and its
   pair and table kernels apart (torch.profiler, device ms per call);
+- FPS, kernel B, on its main-path input (the stride-4 level's 32768
+  voxel centres sampled to 4096) of one scene (B = 1) and of the four
+  rows of an eval batch (B = 4): ms per launch (mean of 10) and the
+  indices that differ from the plain version;
 - one eval forward per route at batch 1 under torch.profiler: device ms
   and launches per port kernel;
 - chip_smoke's `run_forward` (ms per scene at batch 1 and 4) and
@@ -166,6 +170,7 @@ def measure() -> dict:
             "max_abs_err": errs}
         del got, ref, out, lse, logits
     del case, dout
+    res["fps"] = measure_fps(cfg, dev, cs)
     torch.cuda.empty_cache()
 
     models = {r: cs.published_model(cfg, dev, r) for r in cs.ROUTES}
@@ -188,6 +193,36 @@ def measure() -> dict:
             "by_kernel": train[r]["profile"]["by_kernel"]}
         for r in cs.ROUTES}
     return res
+
+
+def measure_fps(cfg, dev, cs) -> dict:
+    """Kernel B at B = 1 and B = 4 on its main-path input. Builds the
+    input from `cs.synthetic_batch` and the voxel ops, which every tree
+    has (a parent's `chip_smoke.level_grids` may take no batch)."""
+    import torch
+
+    from vdetr_tpu_torch.ops.fps import fps_plain, furthest_point_sample
+    from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
+    from vdetr_tpu_torch.tools import time_ms
+
+    out = {}
+    for batch in (1, 4):
+        inp = cs.synthetic_batch(cfg.num_points, batch, dev)
+        caps = cfg.stage_capacities()
+        g = voxelize(inp["point_clouds"], inp["point_clouds"],
+                     inp["point_validity"], voxel_size=cfg.voxel_size,
+                     capacity=caps[0], extent=cfg.grid_extent)
+        for cap in caps[1:3]:
+            g = downsample_grid(g, cap)
+        xyz = (g.world_xyz() * g.valid[..., None]).contiguous()
+        npoint = cfg.preenc_npoints
+        got = furthest_point_sample(xyz, npoint)
+        ref = fps_plain(xyz, npoint)
+        out[str(batch)] = {
+            "ms": time_ms(lambda: furthest_point_sample(xyz, npoint),
+                          reps=10),
+            "mismatches": int((got != ref).sum())}
+    return out
 
 
 def summary(runs) -> list:
@@ -221,6 +256,11 @@ def summary(runs) -> list:
         for part in ("F pair", "F table"):
             lines.append(f"| {part} device ms dropout {rate} | " + col(
                 lambda r: r["rpe_bwd"][rate]["parts"][part][0]) + " |")
+    for batch in ("1", "4"):
+        lines.append(f"| B ms B={batch} | "
+                     + col(lambda r: r["fps"][batch]["ms"]) + " |")
+        lines.append(f"| B indices differing B={batch} | "
+                     + col(lambda r: r["fps"][batch]["mismatches"]) + " |")
     for route in ("keyed", "mapped"):
         for lab in ("A", "H", "C", "B", "G"):  # C: one launch per layer
             lines.append(f"| forward {route} B=1 {lab} device ms | " + col(
