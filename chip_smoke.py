@@ -15,8 +15,11 @@ Phases, each printing its own lines:
      four rows of an eval batch, with its exchange floor and ns a step
      beside the bound), the RPE attention forward (C, eval and training
      form with dropout and the log-sum-exp) and its flash backward (F,
-     dropout 0 and 0.1, its pair and dTables table kernels also timed
-     apart); prints the error, its tolerance, both
+     dropout 0 and 0.1, its pair kernel, the sum of the pair kernel's
+     key shares and its dTables table kernel also timed apart, the pair
+     kernel's dq, ds and eg bit for bit from a second launch, its SASS
+     read for tensor-core MMAs and atomics, its two products as
+     torch.matmul beside it); prints the error, its tolerance, both
      times and the kernel's bound (for A, D, H and I, which multiply on
      the tensor cores in split TF32, against the TF32 rate, with the f32
      CUDA-core bound beside it); I bit for bit against D and against a
@@ -70,8 +73,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vdetr_tpu_torch.tools import (bound_ms, bound_split_tf32_ms, card,
-                                   time_ms)
+from vdetr_tpu_torch.tools import (PEAK_BYTES, PEAK_F32_FLOPS,
+                                   PEAK_TF32_FLOPS, bound_ms,
+                                   bound_split_tf32_ms, card, time_ms)
 
 SEED = 0
 REPO_SOURCES = {
@@ -536,11 +540,15 @@ def rpe_case(cfg, device, gen, B=1):
     return q, k, v, corners, angles, key_xyz, tables, key_valid
 
 
-def rpe_bound(case, train: bool, backward: bool = False):
+def rpe_bound(case, train: bool, backward: bool = False,
+              tensor_core_products: bool = False):
     """Bytes each input and output once; flops as the ablation's
     `attention_flops` counts them for its level 6, kernel C (8 taps per
     corner; backward: the dO.V and ds.K products replace q.k and p.v, and
-    the taps are dTables' multiply-adds)."""
+    the taps are dTables' multiply-adds). `tensor_core_products`: the two
+    products (4 hd flops a head and pair) on the tensor cores in split
+    TF32 (3 x over 495 TFLOP/s), the rest on the f32 CUDA cores, the two
+    pipes overlapping (the larger of the two times)."""
     from vdetr_tpu_torch.tools.rpe_ablate import attention_flops
 
     q, k, v, corners, angles, key_xyz, tables, key_valid = case
@@ -556,7 +564,109 @@ def rpe_bound(case, train: bool, backward: bool = False):
         io = nbytes(*case) + nbytes(q)
         if train:
             io += score_bytes + B * nQ * H * 4
+    if tensor_core_products:
+        products = pairs * H * 4 * hd
+        t_ops = max(3 * products / PEAK_TF32_FLOPS,
+                    (flops - products) / PEAK_F32_FLOPS) * 1e3
+        t_bytes = io / PEAK_BYTES * 1e3
+        return ((t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations"))
     return bound_ms(io, flops)
+
+
+def pair_work(case):
+    """(bytes, flops) of F's pair kernel alone: the logits read once, ds
+    and eg written once, K, V, the key mask, dO, O and lse read and dq
+    written once; dp = dO V^T and dQ = ds K, 2 flops a multiply-add."""
+    q, k, v, corners, angles, key_xyz, tables, key_valid = case
+    B, nQ, H, hd = q.shape
+    nK = k.shape[1]
+    io = (3 * B * H * nQ * nK * 4 + nbytes(k, v, key_valid) + 3 * nbytes(q)
+          + B * nQ * H * 4)
+    return io, 2 * 2.0 * B * nQ * H * nK * hd
+
+
+def sass_counts(name: str, kernel: str, instance: str = "ILi64E"):
+    """{"hmma": n, "atomics": n}: the tensor-core MMA and the atomic
+    (RED, ATOM, ATOMG, ATOMS) instructions in the SASS of `kernel`'s
+    `instance` (the mangled template argument; default head width 64) in
+    kernel library `name`, read with cuobjdump; None without cuobjdump."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from vdetr_tpu_torch import kernels
+
+    try:
+        tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    except RuntimeError:  # no CUDA toolkit
+        return None
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(kernels._lib_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, inside = {"hmma": 0, "atomics": 0}, False
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            inside = kernel in fn.group(1) and instance in fn.group(1)
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and op:
+            if op.group(1) == "HMMA":
+                counts["hmma"] += 1
+            elif op.group(1) in ("RED", "ATOM", "ATOMG", "ATOMS"):
+                counts["atomics"] += 1
+    return counts
+
+
+def ptxas_usage(name: str, kernel: str) -> dict:
+    """{template argument: {"registers", "stack", "spill_stores",
+    "spill_loads"}} of `kernel`'s instances in kernel library `name`, read
+    from ptxas's report in its build log (`kernels.build_log`); empty if
+    the library was not built in this run."""
+    import re
+
+    from vdetr_tpu_torch import kernels
+
+    usage, current = {}, None
+    for line in kernels.build_log(name).splitlines():
+        fn = re.search(r"(?:entry function '|Function properties for )"
+                       r"(\w+)", line)
+        if fn:
+            inst = re.search(r"ILi(\d+)E", fn.group(1))
+            current = (usage.setdefault(int(inst.group(1)), {})
+                       if kernel in fn.group(1) and inst else None)
+            continue
+        if current is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            m = re.search(pat, line)
+            if m:
+                current[key] = int(m.group(1))
+    return usage
+
+
+def pair_products_ms(case, dout, ds, reps: int = 10) -> float:
+    """A yardstick for F's pair kernel, not the same function: its two
+    products alone, dp = dO V^T and dQ = ds K, as two torch.matmul calls
+    with TF32 off (cuBLAS); the softmax, dropout and ds elementwise work
+    is left out, so this bounds the kernel from below as cuBLAS does the
+    products."""
+    k, v = case[1], case[2]
+    do = dout.permute(0, 2, 1, 3).contiguous()  # (B, H, nQ, hd)
+    vt = v.transpose(1, 2).contiguous()[:, None]  # (B, 1, hd, nK)
+    kk = k[:, None]
+
+    def run():
+        torch.matmul(do, vt)
+        torch.matmul(ds, kk)
+
+    return time_ms(run, reps=reps)
 
 
 def check_rpe(cfg, device, gen):
@@ -632,7 +742,10 @@ def check_rpe_train(cfg, case, rate: float = 0.1):
 
 def check_rpe_bwd(cfg, case):
     """Kernel F against its plain version at dropout 0 and 0.1, from the
-    plain training forward's logits and lse."""
+    plain training forward's logits and lse; its pair kernel's dq, ds and
+    eg bit for bit from a second launch; the pair kernel's SASS (tensor-core
+    MMAs, no atomics); the bounds of F, its pair kernel and its table
+    kernel; the pair kernel's two products as torch.matmul."""
     from vdetr_tpu_torch.ops.rpe_attention import (
         rpe_cross_attention_bwd, rpe_cross_attention_bwd_plain,
         rpe_cross_attention_plain)
@@ -652,6 +765,7 @@ def check_rpe_bwd(cfg, case):
         args = (k, v, corners, angles, key_xyz, key_valid, out, dout, logits,
                 lse, n)
         got = rpe_cross_attention_bwd(*args, **fkw)
+        again = rpe_cross_attention_bwd(*args, **fkw)
         ref = rpe_cross_attention_bwd_plain(*args, **fkw)
         torch.cuda.synchronize()
         parts = []
@@ -663,21 +777,35 @@ def check_rpe_bwd(cfg, case):
             worst = max(worst, err)
             parts.append(f"{name} {err:.3e} (max|ref| {scale:.2e}, tol "
                          f"{tol:.1e})")
+        same = {name: bool(torch.equal(got[i], again[i]))
+                for i, name in ((0, "dq"), (2, "ds"), (3, "eg"))}
+        ok_all &= all(same.values())
         t_k = time_ms(lambda: rpe_cross_attention_bwd(*args, **fkw), reps=5)
         t_p = time_ms(lambda: rpe_cross_attention_bwd_plain(*args, **fkw),
                       reps=2)
         parts_ms = {k: ms for k, (ms, _) in profile_by_kernel(
             lambda: rpe_cross_attention_bwd(*args, **fkw), reps=5).items()}
-        times[rate] = (t_k, t_p, parts_ms)
+        lib_ms = pair_products_ms(case, dout, got[2])
+        times[rate] = (t_k, t_p, parts_ms, lib_ms)
         log(f"check rpe_cross_attention_bwd dropout={rate}: "
-            + "; ".join(parts) + f" -> {'ok' if ok_all else 'FAIL'}; kernel "
-            f"{t_k:.3f} ms (device ms per call, torch.profiler: "
-            + ", ".join(f"{kn} {v:.3f}" for kn, v in parts_ms.items())
-            + f"), plain {t_p:.3f} ms")
+            + "; ".join(parts) + f" -> {'ok' if ok_all else 'FAIL'}; "
+            "a second launch bit for bit: "
+            + ", ".join(f"{nm} {'equal' if eq else 'DIFFERS'}"
+                        for nm, eq in same.items())
+            + f"; kernel {t_k:.3f} ms (device ms per call, torch.profiler: "
+            + ", ".join(f"{kn} {v:.4f}" for kn, v in parts_ms.items())
+            + f"), plain {t_p:.3f} ms; the pair kernel's two products as "
+            f"torch.matmul (TF32 off) {lib_ms:.4f} ms")
+        del got, again, ref, out, lse, logits
     log(f"  the table kernel's items: a warp's 32 keys of one query fall in "
         f"{distinct_cells(cfg, case):.1f} distinct lower tap cells of a "
         "corner on average (first 64 queries, all corners)")
-    b_ms, b_by = rpe_bound(case, train=True, backward=True)
+    b_ms, b_by = rpe_bound(case, train=True, backward=True,
+                           tensor_core_products=True)
+    f32_ms, f32_by = rpe_bound(case, train=True, backward=True)
+    pio, pflops = pair_work(case)
+    pb_ms, pb_by = bound_split_tf32_ms(pio, pflops)
+    pf_ms, _ = bound_ms(pio, pflops)
     # the table kernel alone: ds, the corners, key positions and mask read
     # once, dtables written once; 8 corners x 8 taps x H multiply-adds a
     # pair
@@ -685,16 +813,53 @@ def check_rpe_bwd(cfg, case):
     tb_ms, tb_by = bound_ms(
         nbytes(corners, key_xyz, key_valid, tables)
         + B * H * q.shape[1] * nK * 4, B * q.shape[1] * nK * 8 * 8 * H * 2.0)
-    log(f"  bound {b_ms:.4f} ms ({b_by}); the table kernel's own bound "
-        f"{tb_ms:.4f} ms ({tb_by}); tolerance reason: dq sums 4096 "
-        "keys, dtables ~4M pairs through atomics in no fixed order, both "
-        "float32: ~1e-6 relative spread per term; 1e-4 of max|ref| leaves "
-        "~10x margin over the spread measured on the card")
-    t_k, t_p, parts_ms = times[0.1]
+    sass = sass_counts("rpe_attention_bwd", "rpe_pair_bwd_kernel")
+    if sass is not None:
+        ok_all &= sass["hmma"] > 0 and sass["atomics"] == 0
+    ptxas = ptxas_usage("rpe_attention_bwd", "rpe_pair_bwd_kernel")
+    log(f"  bound {b_ms:.4f} ms ({b_by}; the products on the tensor cores in "
+        f"split TF32; all f32 on the CUDA cores {f32_ms:.4f} ms, {f32_by}); "
+        f"the pair kernel's own bound {pb_ms:.4f} ms ({pb_by}: bytes "
+        f"{pio / PEAK_BYTES * 1e3:.4f} ms, split-TF32 operations "
+        f"{3 * pflops / PEAK_TF32_FLOPS * 1e3:.4f} ms, f32 operations "
+        f"{pflops / PEAK_F32_FLOPS * 1e3:.4f} ms); the table kernel's own "
+        f"bound {tb_ms:.4f} ms ({tb_by}); the pair kernel's SASS at head "
+        "width 64: " + ("not measured (no cuobjdump)" if sass is None else
+                  f"{sass['hmma']} HMMA, {sass['atomics']} atomic "
+                  "instructions")
+        + "; its ptxas report per head width: " + (", ".join(
+            f"{hd}: {u.get('registers')} registers, {u.get('stack')} B "
+            f"stack, {u.get('spill_stores')} B spill stores, "
+            f"{u.get('spill_loads')} B spill loads"
+            for hd, u in sorted(ptxas.items())) or "not read (not built in "
+            "this run)")
+        + "; tolerance reason: dq sums 4096 keys in split TF32 (three TF32 "
+        "MMAs per f32 product, each stage summed from 0, the key shares "
+        "added in a fixed order), dtables ~4M pairs through atomics in no "
+        "fixed order, both float32: ~1e-6 relative spread per term; 1e-4 "
+        "of max|ref| leaves ~10x margin over the spread measured on the "
+        "card")
+    t_k, t_p, parts_ms, lib_ms = times[0.1]
     return dict(ok=ok_all, err=worst, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                bound_by=b_by, ms_dropout0=times[0.0][0],
+                bound_by=b_by, bound_f32_ms=f32_ms,
+                bound_note="bound_ms: the dp and dQ products on the tensor "
+                           "cores in split TF32 (3 x flops / 495 TFLOP/s), "
+                           "the softmax and dTables work on the f32 CUDA "
+                           "cores, overlapping, against the bytes; "
+                           "bound_f32_ms: every flop / 67 TFLOP/s",
+                library_ms=lib_ms,
+                library="yardstick, not the same function: the pair "
+                        "kernel's two products (dp = dO V^T, dQ = ds K) as "
+                        "two torch.matmul calls with TF32 off, the "
+                        "elementwise work and the table kernel left out",
+                ms_dropout0=times[0.0][0],
                 pair_ms=parts_ms.get("F pair"),
+                pair_ms_dropout0=times[0.0][2].get("F pair"),
+                dq_sum_ms=parts_ms.get("F dq sum"),
                 table_ms=parts_ms.get("F table"),
+                pair_bound_ms=pb_ms, pair_bound_by=pb_by,
+                pair_bound_f32_ms=pf_ms, pair_sass=sass,
+                pair_ptxas={str(hd): u for hd, u in sorted(ptxas.items())},
                 table_bound_ms=tb_ms, table_bound_by=tb_by)
 
 
@@ -1217,7 +1382,8 @@ def grad_spread(trainer, batch, seed: int = SEED):
     statistics move the norms' running buffers, which are put back). Per
     parameter group (the name's first component): max |g1 - g2| over max
     |g1|. The spread comes from sums whose order differs between runs:
-    F's dTables and dQ atomics and the stride-2 convs' scatter_add_."""
+    F's dTables atomics and the stride-2 convs' scatter_add_ (F's dQ adds
+    its key shares in a fixed order)."""
     from vdetr_tpu_torch.train.engine import INPUT_KEYS
 
     model, crit = trainer.model, trainer.criterion
@@ -1283,7 +1449,8 @@ def matcher_host_ms(trainer, batch, gen):
 # kernels and the part of it; the first match wins; "conv" is the route's
 # 3^3 conv (A or H, which share conv_sum_splits_kernel), "dW" its weight
 # gradient (D or I, which share dw_kernel and dw_sum_splits_kernel); F
-# runs two kernels, the pair kernel and the dTables table kernel
+# runs the pair kernel, the sum of its key shares' dQ and the dTables
+# table kernel
 PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
                    ("dw_rulebook_kernel", "dW", "rulebook"),
                    ("conv_sum_splits_kernel", "conv", "split sums"),
@@ -1296,6 +1463,8 @@ PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
                    ("rpe_attention_kernel", "rpe_cross_attention", "forward"),
                    ("rpe_pair_bwd_kernel", "rpe_cross_attention_bwd",
                     "pair kernel"),
+                   ("rpe_dq_sum_kernel", "rpe_cross_attention_bwd",
+                    "dq sum"),
                    ("rpe_table_bwd_kernel", "rpe_cross_attention_bwd",
                     "table kernel"))
 
@@ -1614,8 +1783,11 @@ def main() -> int:
                      for rt in ROUTES}}
         for extra in ("cases", "train_ms", "gather_matmul_ms",
                       "library_tf32_ms", "bound_f32_ms", "bound_note",
-                      "ms_dropout0", "pair_ms", "table_ms", "table_bound_ms",
-                      "table_bound_by", "exchange_floor_ms"):
+                      "ms_dropout0", "pair_ms", "pair_ms_dropout0",
+                      "dq_sum_ms", "pair_bound_ms", "pair_bound_by",
+                      "pair_bound_f32_ms", "pair_sass", "table_ms",
+                      "table_bound_ms", "table_bound_by",
+                      "exchange_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         if kname in PROBES:

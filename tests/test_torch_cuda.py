@@ -9,8 +9,10 @@ probes of kernel C, the stage ablation (levels 0-5; level 6 is C itself)
 and the table contraction; the split-TF32 tile GEMM of A and H at the
 published channel widths; D and I in both their forms, bit-equal to each
 other and from call to call; C on the decoder's box corners (its shared
-x/y quantize), and F on those corners and on C's own training outputs.
-chip_smoke.py checks the published shapes.
+x/y quantize), and F on those corners and on C's own training outputs;
+F's pair kernel at every head width, on partial bands and tiles, at the
+published shape, and its dq, ds and eg bit for bit from launch to
+launch. chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports no jax, so it runs where only PyTorch is installed:
@@ -520,6 +522,104 @@ def test_rpe_bwd_kernel_on_kernel_c_stats(rng, cuda, rotate):
     for g, r in zip(bwd, bwd_ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
                                    atol=2e-5 * max(1.0, float(r.abs().max())))
+
+
+def rpe_bwd_run(rng, cuda, B, nQ, nK, rate, hd=64, repeat=False):
+    """Kernel F and its plain version from the plain forward's logits and
+    lse on rpe_args (a fully masked batch row); with `repeat`, F twice."""
+    args = rpe_args(rng, cuda, B, nQ, nK, hd=hd)
+    seed = torch.tensor([17], dtype=torch.int64, device=cuda)
+    kw = dict(log_scale=512.0, max_value=4.0, rotate=True,
+              dropout_rate=rate, seed=seed)
+    out, lse, logits = rpe_cross_attention_plain(*args, return_stats=True,
+                                                 **kw)
+    dout = torch.randn_like(out)
+    bargs = (args[1], args[2], args[3], args[4], args[5], args[7], out,
+             dout, logits, lse, 10)
+    got = [rpe_cross_attention_bwd(*bargs, **kw)
+           for _ in range(2 if repeat else 1)]
+    return got, rpe_cross_attention_bwd_plain(*bargs, **kw)
+
+
+def assert_bwd_close(got, ref):
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=2e-5 * max(1.0, float(r.abs().max())))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+def test_rpe_pair_kernel_every_head_width(rng, cuda, rate, hd):
+    """F's pair kernel at every head width it is built for (dO split in
+    registers, one or two dQ partial sums), with a query count off its
+    16-query band, a key count off its 32-key tile and odd (one-by-one
+    logit reads), a fully masked batch row, several key shares."""
+    (got,), ref = rpe_bwd_run(rng, cuda, 2, 21, 203, rate, hd=hd)
+    assert float(ref[0][0].abs().max()) == 0.0  # the masked row: ds = 0
+    np.testing.assert_array_equal(got[3][0].cpu().numpy(),
+                                  ref[3][0].cpu().numpy())
+    assert_bwd_close(got, ref)
+
+
+@pytest.mark.parametrize("B,nQ,nK", [(1, 5, 7), (2, 16, 32), (1, 33, 96),
+                                     (3, 48, 1000)],
+                         ids=["under-one-tile", "one-band-one-tile",
+                              "even-off-band", "three-rows-shares"])
+def test_rpe_pair_kernel_bands_tiles_and_shares(rng, cuda, B, nQ, nK):
+    """F's pair kernel on whole and partial bands and tiles, eight-byte
+    logit reads (even key counts) and one key share or several."""
+    (got,), ref = rpe_bwd_run(rng, cuda, B, nQ, nK, 0.1)
+    assert_bwd_close(got, ref)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rpe_bwd_kernel_at_the_published_shape(rng, cuda, rate):
+    """Kernel F at the decoder's shape (B 1, nQ 1024, nK 4096, 4 heads of
+    64): six key shares added by the fixed-order sum."""
+    (got,), ref = rpe_bwd_run(rng, cuda, 1, 1024, 4096, rate)
+    assert_bwd_close(got, ref)
+
+
+@pytest.mark.parametrize("B,nQ,nK", [(1, 64, 4096), (2, 21, 203)],
+                         ids=["eight-shares", "ragged"])
+def test_rpe_bwd_dq_ds_eg_repeat_bit_for_bit(rng, cuda, B, nQ, nK):
+    """Two launches on the same inputs give the same dq, ds and eg bit for
+    bit: the key shares' dQ is added in share order, with no atomics
+    (dTables keeps its atomics and is compared with a tolerance)."""
+    (first, second), ref = rpe_bwd_run(rng, cuda, B, nQ, nK, 0.1,
+                                       repeat=True)
+    for i in (0, 2, 3):
+        assert torch.equal(first[i], second[i]), i
+    assert_bwd_close(first, ref)
+    assert_bwd_close(second, ref)
+
+
+def test_rpe_bwd_with_no_keys_gives_zero_dq(rng, cuda):
+    """Kernel F with no keys: dq is the empty sum, zeros, though its
+    buffer comes from torch.empty (here over a block just freed full of
+    NaN); ds and eg are empty and dtables stays zero."""
+    B, nQ, H, hd, n = 2, 21, 4, 64, 10
+
+    def rnd(*shape):
+        return t(rng.randn(*shape).astype(np.float32), cuda)
+
+    out, dout = rnd(B, nQ, H, hd), rnd(B, nQ, H, hd)
+    k, v = rnd(B, 0, hd), rnd(B, 0, hd)
+    corners = t((rng.rand(B, nQ, 8, 3) * 4).astype(np.float32), cuda)
+    angles = rnd(B, nQ)
+    key_xyz = rnd(B, 0, 3)
+    key_valid = torch.zeros(B, 0, dtype=torch.bool, device=cuda)
+    logits = rnd(B, H, nQ, 0)
+    lse = torch.zeros(B, nQ, H, device=cuda)
+    nan_block = torch.full_like(dout, float("nan"))
+    del nan_block
+    dq, dtables, ds, eg = rpe_cross_attention_bwd(
+        k, v, corners, angles, key_xyz, key_valid, out, dout, logits, lse, n,
+        log_scale=512.0, max_value=4.0, rotate=True, dropout_rate=0.1,
+        seed=torch.tensor([3], dtype=torch.int64, device=cuda))
+    assert torch.equal(dq, torch.zeros_like(dq))
+    assert torch.equal(dtables, torch.zeros_like(dtables))
+    assert ds.shape == eg.shape == (B, H, nQ, 0)
 
 
 def test_rpe_function_gradients_kernel_vs_plain(rng, cuda):

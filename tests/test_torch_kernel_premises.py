@@ -1,4 +1,4 @@
-"""The premises two Hopper kernels of the port rest on, checked on the CPU.
+"""The premises the port's Hopper kernels rest on, checked on the CPU.
 
 - The sparse-conv tile GEMM (`conv_tile` in
   `vdetr_tpu_torch/csrc/sparse_conv.cuh`, kernels A and H) runs on the
@@ -20,6 +20,19 @@
   corners come from `box_parametrization_to_corners` and
   `convert_corners_camera2lidar`, where those corners differ in z alone,
   rotated or not, so the shared quantize is the path the model takes.
+- The flash-RPE backward's pair kernel (kernel F's `rpe_pair_bwd_kernel`)
+  multiplies dp = dO V^T and dQ = ds K on the tensor cores in split TF32,
+  every m16n8k8 MMA accumulating with truncation (emulated: the exact sum
+  rounded toward zero to f32), dp chained from 0 over the head width,
+  dQ chained from 0 over each 32-key tile and the tiles' and key shares'
+  sums added in f32, ds formed in f32 from dp as the kernel forms it.
+  Emulated here at hd 64 up to nK 4096, ds and dq stay within a tenth of
+  F's card-test tolerance (2e-5 of max(1, max|ref|)) of the f64 result,
+  and one TF32 pass misses it. The kernel feeds dp's accumulator
+  fragment to dQ as its A fragment unchanged, column t standing for key
+  2t and column t + 4 for key 2t + 1, with K's rows 2t and 2t + 1 as the
+  B fragment: the fragment layouts of PTX, emulated lane by lane, give
+  ds K.
 - Furthest-point sampling (kernel B, `csrc/fps.cu`) picks each step's
   point by a packed u32 key (0 for a point never picked, else the
   running distance's float bits + 1) reduced in two levels: each warp's
@@ -142,6 +155,140 @@ def test_one_tf32_pass_dw_misses_the_dw_tolerance(rows, seed):
     a, d, ref = dw_operands(rows, seed)
     err = rel_err(staged_dw(a, d, lambda x, y: tf32(x) @ tf32(y)), ref)
     assert err > DW_RTOL, err
+
+
+BWD_RTOL = 2e-5  # F's card-test tolerance: 2e-5 of max(1, max|ref|)
+PAIR_TILE = 32  # keys per tile of the pair kernel
+PAIR_SHARE = 704  # keys per block at the published shape (6 shares)
+
+
+def rz_f32(x):
+    """float64 -> float32 rounded toward zero."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mma(acc, a, b):
+    """One m16n8k8 step: acc + a b^T with the 8 products summed exactly
+    and the result truncated to f32; a (.., M, 8), b (.., N, 8)."""
+    return rz_f32(acc.double() + a.double() @ b.double().transpose(-1, -2))
+
+
+def split_mma(acc, a, b, one_pass):
+    """acc + a b^T in split TF32 (lo hi, hi lo, then hi hi, each an MMA),
+    or in one TF32 pass."""
+    if one_pass:
+        return mma(acc, tf32(a), tf32(b))
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return mma(mma(mma(acc, al, bh), ah, bl), ah, bh)
+
+
+def pair_dp(dout, v, one_pass):
+    """dp = dO V^T (rows, keys) chained from 0 over the head width."""
+    acc = torch.zeros(dout.shape[0], v.shape[0])
+    for c in range(0, dout.shape[1], 8):
+        acc = split_mma(acc, dout[:, c:c + 8], v[:, c:c + 8], one_pass)
+    return acc
+
+
+def pair_dq(ds, k, one_pass):
+    """dQ = ds K: each 32-key tile chained from 0, its sum added to its
+    key share's in f32, the shares added in order in f32."""
+    nK = ds.shape[1]
+    shares = []
+    for s0 in range(0, nK, PAIR_SHARE):
+        acc = torch.zeros(ds.shape[0], k.shape[1])
+        for t0 in range(s0, min(nK, s0 + PAIR_SHARE), PAIR_TILE):
+            part = torch.zeros_like(acc)
+            for c in range(t0, min(nK, t0 + PAIR_TILE), 8):
+                part = split_mma(part, ds[:, c:c + 8], k[c:c + 8].t(),
+                                 one_pass)
+            acc = acc + part
+        shares.append(acc)
+    dq = shares[0]
+    for part in shares[1:]:
+        dq = dq + part
+    return dq
+
+
+def pair_errors(nK, logit_scale, one_pass, rows=256, hd=64, seed=0):
+    """(ds error, dq error) of the emulated pair kernel against float64,
+    each over its tolerance, on decoder-like operands: unit-normal dO, K
+    and V, an output of a tenth of V's variance, logits of the given
+    spread, a tenth of the keys masked and dropout 0.1."""
+    g = torch.Generator().manual_seed(seed)
+    dout = torch.randn(rows, hd, generator=g)
+    out = torch.randn(rows, hd, generator=g) * 0.3
+    k = torch.randn(nK, hd, generator=g)
+    v = torch.randn(nK, hd, generator=g)
+    logits = torch.randn(rows, nK, generator=g) * logit_scale
+    valid = torch.rand(nK, generator=g) > 0.1
+    keep = torch.where(torch.rand(rows, nK, generator=g) > 0.1, 1 / 0.9,
+                       0.0).float()
+    lse = torch.logsumexp(torch.where(valid, logits.double(), -1e30), -1,
+                          keepdim=True)
+    e64 = torch.where(valid, torch.exp(logits.double() - lse), 0.0)
+    D64 = (dout.double() * out.double()).sum(-1, keepdim=True)
+    ds64 = torch.where(valid, e64 * (keep.double() * (dout.double()
+                                                      @ v.double().t())
+                                     - D64), 0.0)
+    dq64 = ds64 @ k.double()
+    e = torch.where(valid, torch.exp(logits - lse.float()), 0.0)
+    D = (dout * out).sum(-1, keepdim=True)
+    ds = torch.where(valid, e * (keep * pair_dp(dout, v, one_pass) - D), 0.0)
+    dq = pair_dq(ds, k, one_pass)
+    return tuple(float((x.double() - ref).abs().max())
+                 / (BWD_RTOL * max(1.0, float(ref.abs().max())))
+                 for x, ref in ((ds, ds64), (dq, dq64)))
+
+
+PAIR_CASES = [(64, 1.0), (4096, 1.0), (4096, 6.0)]
+PAIR_IDS = ["64-keys", "4096-keys", "4096-keys-peaked"]
+
+
+@pytest.mark.parametrize("nK,logit_scale", PAIR_CASES, ids=PAIR_IDS)
+def test_split_tf32_pair_products_meet_a_tenth_of_the_bwd_tolerance(
+        nK, logit_scale):
+    ds_err, dq_err = pair_errors(nK, logit_scale, one_pass=False)
+    assert ds_err <= 0.1 and dq_err <= 0.1, (ds_err, dq_err)
+
+
+@pytest.mark.parametrize("nK,logit_scale", PAIR_CASES, ids=PAIR_IDS)
+def test_one_tf32_pass_pair_products_miss_the_bwd_tolerance(nK,
+                                                            logit_scale):
+    ds_err, dq_err = pair_errors(nK, logit_scale, one_pass=True)
+    assert ds_err > 1 and dq_err > 1, (ds_err, dq_err)
+
+
+def mma_fragments(a_frag, b_frag):
+    """m16n8k8 on per-lane fragments as PTX lays them out for TF32: lane
+    4g + t holds A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) and B
+    (t, g), (t + 4, g); returns the 16 x 8 product."""
+    A, B = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a_frag[lane]
+        B[t, g], B[t + 4, g] = b_frag[lane]
+    return A @ B
+
+
+def test_dp_accumulator_fragment_is_dq_a_fragment_with_k_rows_2t():
+    """dp's accumulator fragment (lane 4g + t: row g keys 2t, 2t + 1, row
+    g + 8 the same keys) handed to dQ's MMA as the A fragment (c0, c2, c1,
+    c3), with K's rows 2t and 2t + 1 as the B fragment, gives ds K."""
+    rng = np.random.RandomState(7)
+    ds = rng.randint(-8, 9, (16, 8)).astype(np.float64)  # 16 rows, 8 keys
+    k = rng.randint(-8, 9, (8, 8)).astype(np.float64)  # 8 keys, 8 dims
+    a_frag, b_frag = [], []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        c = (ds[g, 2 * t], ds[g, 2 * t + 1], ds[g + 8, 2 * t],
+             ds[g + 8, 2 * t + 1])
+        a_frag.append((c[0], c[2], c[1], c[3]))
+        b_frag.append((k[2 * t, g], k[2 * t + 1, g]))
+    np.testing.assert_array_equal(mma_fragments(a_frag, b_frag), ds @ k)
 
 
 def box_corners(angles, seed):

@@ -4,7 +4,8 @@ On the CPU the port's wrapper takes its plain version, which is held to
 `rpe_cross_attention_reference` and to the Pallas kernel run in
 interpret mode, with rotation on and off, masked keys, a fully masked
 batch row and several key tiles. The Hopper kernel itself is held to the
-plain version by tests/test_torch_cuda.py and by chip_smoke.py.
+plain version by tests/test_torch_cuda.py and by chip_smoke.py. The
+backward's key split, which sizes its dQ scratch, is checked here too.
 """
 
 import jax.numpy as jnp
@@ -14,7 +15,8 @@ import torch
 
 from vdetr_tpu.ops.rpe_attention import (rpe_cross_attention_pallas,
                                          rpe_cross_attention_reference)
-from vdetr_tpu_torch.ops.rpe_attention import rpe_cross_attention
+from vdetr_tpu_torch.ops.rpe_attention import (pair_key_split,
+                                               rpe_cross_attention)
 
 KW = dict(log_scale=512.0, max_value=4.0)
 # the JAX package's own tolerance for its kernel against the reference
@@ -83,3 +85,24 @@ def test_no_mask_equals_all_valid(rng):
         rpe_cross_attention(*args[:7], None, **KW).numpy(),
         rpe_cross_attention(*args, **KW).numpy())
 
+
+
+@pytest.mark.parametrize("B,nQ,nK,hd,want", [
+    (1, 1024, 4096, 64, (704, 6)),   # the decoder: 384 blocks, one wave
+    (1, 1024, 4096, 128, (2048, 2)),  # one block an SM: 128 blocks
+    (1, 64, 4096, 64, (512, 8)),     # few queries: the most shares
+    (1, 5, 7, 64, (32, 1)),          # under one tile: no scratch
+    (2, 21, 203, 8, (32, 7)),        # one tile a share
+    (3, 1024, 1000, 64, (512, 2)),
+    (1, 1024, 0, 64, (32, 0)),       # no keys: dQ is zeros, no share
+], ids=["published", "hd128", "few-queries", "one-tile", "tile-shares",
+        "three-rows", "no-keys"])
+def test_pair_key_split_covers_the_keys_in_whole_tiles(B, nQ, nK, hd, want):
+    """The backward pair kernel's key split: whole 32-key tiles a block,
+    at most 8 shares that cover the keys with none empty (the wrapper
+    allocates scratch for exactly these shares, none for one), and the
+    published shape's six shares fill one wave of 3 x 132 blocks."""
+    per_block, shares = pair_key_split(B, nQ, nK, hd)
+    assert (per_block, shares) == want
+    assert per_block % 32 == 0 and 0 <= shares <= 8
+    assert (shares - 1) * per_block < nK <= shares * per_block or nK == 0

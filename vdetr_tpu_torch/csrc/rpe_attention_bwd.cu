@@ -19,17 +19,37 @@
 // the JAX package (rpe_attention.py:626-631). Corners, angles and key
 // positions get no gradient: the decoder feeds detached boxes.
 //
-// What bounds it on the H100: the dTables scatter, 8 corners x 8 taps x H
-// per (query, key) pair, then the dO.V and ds.K products; both are
-// latency-bound unless many warps are resident. The TPU kernel builds
-// hat-product matrices and accumulates dTables in a VMEM block the
-// sequential grid carries. Here two kernels run back to back:
-// - the pair kernel forms dp, ds, eg and dQ: one block per (batch, 8
-//   queries, share of the keys), four threads per (query, head) row,
-//   64-key tiles of K, V, key positions and logits staged in shared
-//   memory (~57 KB, so three blocks fit an SM); the key shares add their
-//   dQ with atomics; ds and eg leave through shared memory in coalesced
-//   rows. The stored logits spare the bias recompute.
+// Two kernels run back to back (and a third adds dQ's key shares):
+// - the pair kernel forms dp, ds, eg and dQ as the two GEMMs of a
+//   FlashAttention-2 backward, dp = dO . V^T and dQ += ds . K, on the
+//   tensor cores in split TF32 (tensor_core.cuh: three m16n8k8 MMAs per
+//   f32 product, each stage chained from 0 and added in f32; one TF32
+//   pass misses the test tolerance, tests/test_torch_kernel_premises.py).
+//   A block owns 16 queries x 4 heads and one share of the keys; warp h
+//   owns head h's 16 queries, one m16 slab, whose dO fragments it splits
+//   once and keeps in registers. It walks its keys in 32-key tiles: K,
+//   V and the block's 64 logits rows, double-buffered in shared memory
+//   by cp.async (K and V rows padded to HD + 4 floats, logits rows to 40,
+//   so that every fragment and logits read is free of bank conflicts).
+//   V feeds dp's B fragments as stored (row-major by key is .col for
+//   V^T). e, the dropout keep and ds are formed in registers on dp's
+//   accumulator fragment: a thread holds keys 2t and 2t + 1 of rows g and
+//   g + 8, hashes exactly those pairs, and writes their ds and eg as
+//   8-byte pieces (whole 32-byte sectors per warp); the key mask is one
+//   ballot a tile. The same registers are dQ's A fragment when the k8
+//   step's column t stands for key 2t and column t + 4 for key 2t + 1,
+//   so dQ's B fragment reads K's rows 2t and 2t + 1: ds never leaves the
+//   registers on its way to dQ. Each key share writes its dQ to its own
+//   slice of a scratch buffer and rpe_dq_sum_kernel adds the shares in
+//   share order: no atomics, and dQ repeats bit for bit. The wrapper
+//   picks the key split (ops/rpe_attention.py:pair_key_split: the fewest
+//   waves x tiles a block over the card's SMs at 3 blocks an SM, the
+//   launch bounds for 3 blocks of 128 threads at head widths up to 64)
+//   and sizes the scratch to it. Its bound is the bytes (the logits in,
+//   ds and eg out); what holds it is instruction issue: the TF32 splits
+//   of every K and V value in each of the 4 warps (integer rounding,
+//   tc::split_tf32), the hash and the exp of every pair, with 12 warps an
+//   SM to hide the MMA and shared-memory latencies.
 // - the table kernel scatters dTables from ds as a privatized weighted
 //   histogram: one block per (batch, 32 queries, corner pair (i, i + 4),
 //   share of the keys), the keys split until ~4 blocks per SM are
@@ -53,17 +73,31 @@
 //   four shuffles and an atomic each) ran 3.75 ms a layer.
 
 #include "rpe_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
+using tc::aligned16;
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_commit;
+using tc::cp_wait;
+using tc::mma_tf32;
+using tc::split_tf32;
+
 constexpr int H = 4;              // heads (the published model's 4)
-constexpr int TQ = 8;             // queries per pair block
-constexpr int TK = 64;            // keys per tile
-constexpr int TPR = 4;            // threads per (query, head) row
-constexpr int NT = TQ * H * TPR;  // 128 threads
+constexpr int PQ = 16;            // queries per pair block: one m16 slab
+constexpr int PK = 32;            // keys per pair tile: one a lane
+static_assert(PK == 32, "the pair kernel's key masks take one key a lane");
+constexpr int NT = 32 * H;        // 128 threads: warp h takes head h
+constexpr int SMS = 132;          // the H100 SXM's SMs
 constexpr int TQ2 = 32;           // queries per table block
 constexpr int NT2 = 256;          // threads per table block
 constexpr int NW2 = NT2 / 32;     // its warps
+
+// pair blocks resident per SM: registers for 3 at a head width of 64
+// (ops/rpe_attention.py:pair_key_split counts the same)
+constexpr int pair_blocks_per_sm(int hd) { return hd <= 64 ? 3 : 1; }
 
 struct Dropout {
   const long long* seed;  // device scalar; null: no dropout
@@ -71,8 +105,21 @@ struct Dropout {
   float scale;
 };
 
+// this thread's two adjacent keys of one row of ds or eg: 8 bytes when
+// `vec` (even row length, 8-byte aligned base), else one by one; none
+// past `n`
+__device__ __forceinline__ void store_pair(float* p, float2 x, int n,
+                                           bool vec) {
+  if (vec && n >= 2) {
+    __stcs(reinterpret_cast<float2*>(p), x);
+    return;
+  }
+  if (n >= 1) __stcs(p, x.x);
+  if (n >= 2) __stcs(p + 1, x.y);
+}
+
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, pair_blocks_per_sm(HD))
 rpe_pair_bwd_kernel(
     const float* __restrict__ k,        // (B, nK, HD)
     const float* __restrict__ v,        // (B, nK, HD)
@@ -81,33 +128,28 @@ rpe_pair_bwd_kernel(
     const float* __restrict__ dout,     // (B, nQ, H, HD)
     const float* __restrict__ logits,   // (B, H, nQ, nK)
     const float* __restrict__ lse,      // (B, nQ, H)
-    float* __restrict__ dq,             // (B, nQ, H, HD), zeroed
+    float* __restrict__ dq,             // (shares, B, nQ, H, HD): share z's
+                                        // dQ at z * share_elems
     float* __restrict__ ds_out,         // (B, H, nQ, nK)
     float* __restrict__ eg_out,         // (B, H, nQ, nK)
-    Dropout drop, int nQ, int nK, int keys_per_block) {
-  constexpr int DPT = HD / TPR;
-  extern __shared__ float smem[];
-  float* s_k = smem;                     // TK * HD
-  float* s_v = s_k + TK * HD;            // TK * HD
-  float* s_ds = s_v + TK * HD;           // TQ * TK * H: ds, (pair, head)
-  float* s_eg = s_ds + TQ * TK * H;      // TQ * TK * H: eg, (pair, head)
-  float* s_l = s_eg + TQ * TK * H;       // TQ * H * TK: logits, (row, key)
-  float* s_kmask = s_l + TQ * H * TK;    // TK: 1 valid, 0 masked, -1 past
+    Dropout drop, int nQ, int nK, int keys_per_block, size_t share_elems,
+    bool vec, bool kv16, bool l16) {
+  constexpr int KS = HD + 4;       // K, V row stride in shared memory
+  constexpr int LS = PK + 8;       // logits row stride in shared memory
+  constexpr int NKS = HD / 8;      // k8 steps of dp, n8 tiles of dQ
+  constexpr int NJ = PK / 8;       // n8 tiles of dp, k8 steps of dQ
+  constexpr int NG = NKS < 8 ? NKS : 8;  // dQ tiles per partial sum
+  constexpr int SLOT = 2 * PK * KS + H * PQ * LS;  // K, V, logits tiles
+  extern __shared__ __align__(16) float smem[];  // 2 slots
 
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * TQ;
+  const int q0 = blockIdx.x * PQ;
   const int kbeg = blockIdx.z * keys_per_block;
   const int kend = min(nK, kbeg + keys_per_block);
   const int tid = threadIdx.x;
-  const int row = tid / TPR, g = tid % TPR;
-  const int ql = row / H, h = row % H;
-  const int qi = q0 + ql;
-  const bool qvalid = qi < nQ;
+  const int lane = tid & 31, h = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const bool dropout = drop.seed != nullptr;
-  const uint32_t rowh =
-      dropout ? rpe::row_hash((uint32_t)*drop.seed,
-                              (uint32_t)((b * H + h) * nQ + qi))
-              : 0u;
 
   int any_valid = key_valid == nullptr;
   if (!any_valid) {
@@ -117,89 +159,247 @@ rpe_pair_bwd_kernel(
   any_valid = __syncthreads_or(any_valid);
   const float uniform = any_valid ? 0.f : 1.f / nK;
 
-  // this row's dO, D = dO . O and lse
-  float dor[DPT], dqa[DPT];
-  const size_t qrow = (((size_t)b * nQ + (qvalid ? qi : 0)) * H + h) * HD;
-  float D = 0.f;
+  // the thread's rows g and g + 8 of the slab: dO's A fragments split
+  // once (a[r + 2c] is row g + 8r, column t + 4c), D = dO . O, lse, and
+  // the dropout row hash
+  uint32_t doh[NKS][4], dol[NKS][4];
+  float D[2], lse_r[2];
+  uint32_t rowh[2];
+  bool rv[2];
+  size_t orow[2];  // the rows' offsets in logits, ds and eg
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    dor[i] = qvalid ? dout[qrow + g + TPR * i] : 0.f;
-    D += dor[i] * (qvalid ? out[qrow + g + TPR * i] : 0.f);
-    dqa[i] = 0.f;
-  }
-  D += __shfl_xor_sync(0xffffffffu, D, 1);
-  D += __shfl_xor_sync(0xffffffffu, D, 2);
-  const float lse_r =
-      qvalid ? lse[((size_t)b * nQ + qi) * H + h] : 0.f;
-
-  const float* kb = k + (size_t)b * nK * HD;
-  const float* vb = v + (size_t)b * nK * HD;
-  for (int k0 = kbeg; k0 < kend; k0 += TK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < TK * HD; i += NT) {
-      const int kk = k0 + i / HD;
-      s_k[i] = kk < kend ? kb[(size_t)k0 * HD + i] : 0.f;
-      s_v[i] = kk < kend ? vb[(size_t)k0 * HD + i] : 0.f;
-    }
-    for (int i = tid; i < TK; i += NT) {
-      const int kk = k0 + i;
-      float mk = -1.f;
-      if (kk < kend) mk = (key_valid == nullptr ||
-                           key_valid[(size_t)b * nK + kk]) ? 1.f : 0.f;
-      s_kmask[i] = mk;
-    }
-    // logits tile: rows (h, q) of 64 contiguous keys
-    for (int i = tid; i < TQ * H * TK; i += NT) {
-      const int r = i / TK, kk = i % TK;
-      const int hh = r / TQ, qq = r % TQ;
-      const int qg = q0 + qq, kg = k0 + kk;
-      s_l[(qq * H + hh) * TK + kk] =
-          (qg < nQ && kg < kend)
-              ? logits[(((size_t)b * H + hh) * nQ + qg) * nK + kg] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < TK; ++kk) {
-      float dp = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + g + 8 * r;
+    rv[r] = qi < nQ;
+    const size_t base = (((size_t)b * nQ + (rv[r] ? qi : 0)) * H + h) * HD;
+    float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) dp += dor[i] * s_v[kk * HD + g + TPR * i];
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 2);
-      const float mk = s_kmask[kk];
-      float e = 0.f;
-      if (qvalid && mk > 0.f) e = expf(s_l[row * TK + kk] - lse_r);
-      else if (qvalid && mk == 0.f) e = uniform;
-      const float gs =
-          dropout ? (rpe::keep(rowh, (uint32_t)(k0 + kk), drop.threshold)
-                         ? drop.scale : 0.f)
-                  : 1.f;
-      const float ds = mk > 0.f ? e * (gs * dp - D) : 0.f;
+    for (int ks = 0; ks < NKS; ++ks)
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) dqa[i] += ds * s_k[kk * HD + g + TPR * i];
-      if (g == 0) {
-        s_ds[(ql * TK + kk) * H + h] = ds;
-        s_eg[(ql * TK + kk) * H + h] = e * gs;
+      for (int c = 0; c < 2; ++c) {
+        const int dim = 8 * ks + t + 4 * c;
+        const float x = rv[r] ? dout[base + dim] : 0.f;
+        d += x * (rv[r] ? out[base + dim] : 0.f);
+        split_tf32(x, doh[ks][r + 2 * c], dol[ks][r + 2 * c]);
       }
-    }
-    __syncthreads();
-
-    // ds and eg out, rows (h, q) of contiguous keys
-    for (int i = tid; i < TQ * H * TK; i += NT) {
-      const int r = i / TK, kk = i % TK;
-      const int hh = r / TQ, qq = r % TQ;
-      const int qg = q0 + qq, kg = k0 + kk;
-      if (qg < nQ && kg < kend) {
-        const size_t o = (((size_t)b * H + hh) * nQ + qg) * nK + kg;
-        ds_out[o] = s_ds[(qq * TK + kk) * H + hh];
-        eg_out[o] = s_eg[(qq * TK + kk) * H + hh];
-      }
-    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    D[r] = d;
+    lse_r[r] = rv[r] ? lse[((size_t)b * nQ + qi) * H + h] : 0.f;
+    rowh[r] = dropout ? rpe::row_hash((uint32_t)*drop.seed,
+                                      (uint32_t)((b * H + h) * nQ + qi))
+                      : 0u;
+    orow[r] = (((size_t)b * H + h) * nQ + qi) * nK;
   }
 
-  if (qvalid) {
+  float acc[NKS][4];  // dQ: rows g, g + 8; columns 8 n + 2t, + 1
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) atomicAdd(dq + qrow + g + TPR * i, dqa[i]);
+  for (int n = 0; n < NKS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // issue the copies of tile `it` into ring slot `slot`: K and V rows,
+  // and the block's logits rows (h, q0 + i) of the tile's keys
+  auto load = [&](int it, int slot) {
+    const int k0 = kbeg + it * PK;
+    float* sk = smem + slot * SLOT;
+    float* sv = sk + PK * KS;
+    float* sl = sv + PK * KS;
+    const size_t row0 = (size_t)b * nK + k0;
+    const size_t lrow0 = ((size_t)b * H * nQ + q0) * nK + k0;
+    if (kv16) {
+      for (int i = tid; i < PK * HD / 4; i += NT) {
+        const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+        const bool p = k0 + r < kend;
+        const size_t o = (row0 + r) * HD + c;
+        cp_async16(sk + r * KS + c, p ? k + o : k, p);
+        cp_async16(sv + r * KS + c, p ? v + o : v, p);
+      }
+    } else {
+      for (int i = tid; i < PK * HD; i += NT) {
+        const int r = i / HD, c = i % HD;
+        const bool p = k0 + r < kend;
+        const size_t o = (row0 + r) * HD + c;
+        cp_async4(sk + r * KS + c, p ? k + o : k, p);
+        cp_async4(sv + r * KS + c, p ? v + o : v, p);
+      }
+    }
+    constexpr int W = 4;  // floats a 16-byte copy
+    for (int i = tid; i < H * PQ * PK / (l16 ? W : 1); i += NT) {
+      const int row = l16 ? i / (PK / W) : i / PK;
+      const int c = l16 ? (i % (PK / W)) * W : i % PK;
+      const int hh = row / PQ, qq = row % PQ;
+      // a 16-byte copy lies inside [0, kend) or outside it: kend and k0
+      // are multiples of 4 when l16
+      const bool p = q0 + qq < nQ && k0 + c < kend;
+      const float* src = logits + lrow0 + ((size_t)hh * nQ + qq) * nK + c;
+      if (l16)
+        cp_async16(sl + row * LS + c, p ? src : logits, p);
+      else
+        cp_async4(sl + row * LS + c, p ? src : logits, p);
+    }
+  };
+
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  const int ntiles = (kend - kbeg + PK - 1) / PK;
+  load(0, 0);
+  cp_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    cp_wait<0>();
+    __syncthreads();  // tile `it` landed; tile it - 1's slot is free
+    if (it + 1 < ntiles) load(it + 1, (it + 1) & 1);
+    cp_commit();
+    const float* sk = smem + (it & 1) * SLOT;
+    const float* sv = sk + PK * KS;
+    const float* sl = sv + PK * KS + (h * PQ + g) * LS + 2 * t;
+    const int k0 = kbeg + it * PK;
+
+    // the tile's key masks, bit i for key k0 + i: inside the share, and
+    // valid (one key a lane), shifted so that bit 8j + c is the thread's
+    // key k0 + 8j + 2t + c
+    const int kin = kend - k0;
+    uint32_t inside = kin >= PK ? 0xffffffffu : (1u << kin) - 1u;
+    uint32_t valid = inside;
+    if (key_valid != nullptr)
+      valid = __ballot_sync(
+          0xffffffffu,
+          lane < kin && key_valid[(size_t)b * nK + min(k0 + lane, nK - 1)]);
+    inside >>= 2 * t;
+    valid >>= 2 * t;
+
+    // dp = dO . V^T over the tile's keys: B fragment (k = dim, n = key)
+    // is V[key][dim] as stored
+    float dp[NJ][4];
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* v0 = sv + (8 * j + g) * KS + 8 * ks + t;
+        uint32_t bh[2], bl[2];
+        split_tf32(v0[0], bh[0], bl[0]);
+        split_tf32(v0[4], bh[1], bl[1]);
+        if (ks == 0)
+          mma_tf32(dp[j], dol[ks], bh, zero);
+        else
+          mma_tf32(dp[j], dol[ks], bh, dp[j]);
+        mma_tf32(dp[j], doh[ks], bl, dp[j]);
+        mma_tf32(dp[j], doh[ks], bh, dp[j]);
+      }
+
+    // e, the dropout keep, ds and eg on the accumulator fragment; ds
+    // replaces dp in place. The logits rows' stride LS puts the warp's
+    // 8-byte reads in distinct banks.
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int key = k0 + 8 * j + 2 * t;
+      const int left = kend - key;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(sl + 8 * r * LS + 8 * j);
+        const float l[2] = {l2.x, l2.y};
+        float egv[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int bit = 8 * j + c;
+          const bool kv = (valid >> bit) & 1;  // implies inside
+          const float ex = expf(l[c] - lse_r[r]);
+          const float e = (rv[r] && ((inside >> bit) & 1))
+                              ? (kv ? ex : uniform) : 0.f;
+          const float gs =
+              dropout ? (rpe::keep(rowh[r], (uint32_t)(key + c),
+                                   drop.threshold) ? drop.scale : 0.f)
+                      : 1.f;
+          const float dsv =
+              (rv[r] && kv) ? e * (gs * dp[j][2 * r + c] - D[r]) : 0.f;
+          dp[j][2 * r + c] = dsv;
+          egv[c] = e * gs;
+        }
+        if (rv[r]) {
+          const size_t o = orow[r] + key;
+          store_pair(ds_out + o, make_float2(dp[j][2 * r], dp[j][2 * r + 1]),
+                     left, vec);
+          store_pair(eg_out + o, make_float2(egv[0], egv[1]), left, vec);
+        }
+      }
+    }
+
+    // dQ += ds . K over the tile's keys. The accumulator fragment of dp
+    // tile j is the A fragment of k8 step j when column t stands for key
+    // 2t and column t + 4 for key 2t + 1; the B fragment (k = key, n =
+    // dim) then reads K's rows 2t and 2t + 1. Each partial sum starts at
+    // 0 and is added to acc in f32.
+#pragma unroll
+    for (int n0 = 0; n0 < NKS; n0 += NG) {
+      float part[NG][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ah[4], al[4];
+        split_tf32(dp[j][0], ah[0], al[0]);
+        split_tf32(dp[j][2], ah[1], al[1]);
+        split_tf32(dp[j][1], ah[2], al[2]);
+        split_tf32(dp[j][3], ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const float* k0p = sk + (8 * j + 2 * t) * KS + 8 * (n0 + n) + g;
+          uint32_t bh[2], bl[2];
+          split_tf32(k0p[0], bh[0], bl[0]);
+          split_tf32(k0p[KS], bh[1], bl[1]);
+          if (j == 0)
+            mma_tf32(part[n], al, bh, zero);
+          else
+            mma_tf32(part[n], al, bh, part[n]);
+          mma_tf32(part[n], ah, bl, part[n]);
+          mma_tf32(part[n], ah, bh, part[n]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+    }
+  }
+  cp_wait<0>();  // no copy may outlive the block's shared memory
+
+  float* dst = dq + blockIdx.z * share_elems;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!rv[r]) continue;
+    float* o = dst + (((size_t)b * nQ + q0 + g + 8 * r) * H + h) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NKS; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// dq = the key shares' dQ added in share order (dq[i] = ((s_0 + s_1) +
+// s_2) + ...): the same sum in every run. `vec4`: n a multiple of 4 and
+// both bases 16-byte aligned.
+__global__ void __launch_bounds__(256)
+rpe_dq_sum_kernel(const float* __restrict__ parts, float* __restrict__ dq,
+                  size_t n, int shares, bool vec4) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec4) {
+    const float4* p4 = reinterpret_cast<const float4*>(parts);
+    for (; i < n / 4; i += stride) {
+      float4 s = p4[i];
+      for (int z = 1; z < shares; ++z) {
+        const float4 x = p4[z * (n / 4) + i];
+        s.x += x.x;
+        s.y += x.y;
+        s.z += x.z;
+        s.w += x.w;
+      }
+      reinterpret_cast<float4*>(dq)[i] = s;
+    }
+    return;
+  }
+  for (; i < n; i += stride) {
+    float s = parts[i];
+    for (int z = 1; z < shares; ++z) s += parts[z * n + i];
+    dq[i] = s;
   }
 }
 
@@ -380,25 +580,36 @@ template <int HD>
 int launch(const float* k, const float* v, const float* corners,
            const float* cossin, const float* key_xyz,
            const uint8_t* key_valid, const float* out, const float* dout,
-           const float* logits, const float* lse, float* dq, float* dtables,
-           float* ds, float* eg, Dropout drop, int B, int nQ, int nK, int n,
-           float log_scale, float max_value, cudaStream_t stream) {
-  // pair kernel: split the keys until ~3 blocks per SM have work
+           const float* logits, const float* lse, float* dq, float* dq_parts,
+           float* dtables, float* ds, float* eg, Dropout drop, int B, int nQ,
+           int nK, int n, float log_scale, float max_value,
+           int keys_per_block, cudaStream_t stream) {
+  // pair kernel: two slots of K, V and logits tiles in shared memory
   const size_t smem1 =
-      (2 * TK * HD + 3 * TQ * TK * H + TK) * sizeof(float);
+      2 * (2 * PK * (HD + 4) + H * PQ * (PK + 8)) * sizeof(float);
   int err = set_smem((const void*)rpe_pair_bwd_kernel<HD>, smem1);
   if (err != 0) return err;
-  const int qtiles = (nQ + TQ - 1) / TQ;
-  const int ktiles = (nK + TK - 1) / TK;
-  const int splits =
-      max(1, min(ktiles, (3 * 132 + B * qtiles - 1) / (B * qtiles)));
-  const int keys_per_block = ((ktiles + splits - 1) / splits) * TK;
-  dim3 grid1(qtiles, B, (nK + keys_per_block - 1) / keys_per_block);
+  const int bands = (nQ + PQ - 1) / PQ;
+  const int shares = (nK + keys_per_block - 1) / keys_per_block;
+  const size_t elems = (size_t)B * nQ * H * HD;
+  const bool vec = nK % 2 == 0 && ((uintptr_t)ds & 7) == 0 &&
+                   ((uintptr_t)eg & 7) == 0;
+  dim3 grid1(bands, B, shares);
   rpe_pair_bwd_kernel<HD><<<grid1, NT, smem1, stream>>>(
-      k, v, key_valid, out, dout, logits, lse, dq, ds, eg, drop, nQ, nK,
-      keys_per_block);
+      k, v, key_valid, out, dout, logits, lse, shares > 1 ? dq_parts : dq,
+      ds, eg, drop, nQ, nK, keys_per_block, shares > 1 ? elems : 0, vec,
+      aligned16(k) && aligned16(v), nK % 4 == 0 && aligned16(logits));
   err = (int)cudaGetLastError();
   if (err != 0) return err;
+  if (shares > 1) {
+    const int blocks =
+        (int)min((elems / 4 + 255) / 256, (size_t)SMS * 8);
+    rpe_dq_sum_kernel<<<blocks, 256, 0, stream>>>(
+        dq_parts, dq, elems, shares,
+        aligned16(dq_parts) && aligned16(dq));
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
   // table kernel: one block per (32 queries, batch row, corner pair,
   // share of the keys), the keys split until ~4 blocks per SM have work
   const size_t smem2 = (2 * (size_t)n * n * n * H + NW2 * ITEM_FLOATS +
@@ -408,7 +619,7 @@ int launch(const float* k, const float* v, const float* corners,
   const int qtiles2 = (nQ + TQ2 - 1) / TQ2;
   const int kchunks = (nK + 31) / 32;
   const int shares2 =
-      max(1, min(kchunks, (4 * 132) / (B * qtiles2 * 4)));
+      max(1, min(kchunks, (4 * SMS) / (B * qtiles2 * 4)));
   const int keys_per_block2 = ((kchunks + shares2 - 1) / shares2) * 32;
   dim3 grid2(qtiles2, B,
              4 * ((nK + keys_per_block2 - 1) / keys_per_block2));
@@ -420,19 +631,31 @@ int launch(const float* k, const float* v, const float* corners,
 
 }  // namespace
 
-// dq and dtables must be zero on entry (the kernels add into them). A
-// null seed means no dropout. Returns cudaErrorInvalidValue (1) for a
-// head count, head width or table size the kernels are not built for.
+// dtables must be zero on entry (the table kernel adds into it); every
+// element of dq is written (zeros when there are no keys). A pair block
+// takes keys_per_block keys (a multiple of 32), so the pair kernel runs
+// shares = ceil(nK / keys_per_block) key shares; dq_parts is scratch for
+// them, room for shares x (B, nQ, H, hd) floats, and may be null when
+// shares is 1. A null seed means no dropout. Returns
+// cudaErrorInvalidValue (1) for a head count, head width or table size
+// the kernels are not built for, or a keys_per_block they cannot take.
 extern "C" int rpe_cross_attention_bwd_f32(
     const void* k, const void* v, const void* corners, const void* cossin,
     const void* key_xyz, const void* key_valid, const void* out,
     const void* dout, const void* logits, const void* lse, const void* seed,
-    void* dq, void* dtables, void* ds, void* eg, int B, int nQ, int nK,
-    int heads, int hd, int n, float log_scale, float max_value, int rotate,
-    int keep_threshold, float drop_scale, void* stream) {
+    void* dq, void* dq_parts, void* dtables, void* ds, void* eg, int B,
+    int nQ, int nK, int heads, int hd, int n, float log_scale,
+    float max_value, int rotate, int keep_threshold, float drop_scale,
+    int keys_per_block, void* stream) {
   // the item packing holds table indices up to 31
-  if (heads != H || n > 31) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || nQ <= 0 || nK <= 0) return (int)cudaGetLastError();
+  if (heads != H || n > 31 || keys_per_block <= 0 || keys_per_block % PK)
+    return (int)cudaErrorInvalidValue;
+  if (nK > keys_per_block && dq_parts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || nQ <= 0) return (int)cudaGetLastError();
+  if (nK <= 0)  // no keys: dQ is an empty sum
+    return (int)cudaMemsetAsync(dq, 0, (size_t)B * nQ * H * hd * sizeof(float),
+                                (cudaStream_t)stream);
   const float* cs = rotate ? (const float*)cossin : nullptr;
   const Dropout drop{(const long long*)seed, (uint32_t)keep_threshold,
                      drop_scale};
@@ -440,9 +663,9 @@ extern "C" int rpe_cross_attention_bwd_f32(
     return fn((const float*)k, (const float*)v, (const float*)corners, cs,
               (const float*)key_xyz, (const uint8_t*)key_valid,
               (const float*)out, (const float*)dout, (const float*)logits,
-              (const float*)lse, (float*)dq, (float*)dtables, (float*)ds,
-              (float*)eg, drop, B, nQ, nK, n, log_scale, max_value,
-              (cudaStream_t)stream);
+              (const float*)lse, (float*)dq, (float*)dq_parts,
+              (float*)dtables, (float*)ds, (float*)eg, drop, B, nQ, nK, n,
+              log_scale, max_value, keys_per_block, (cudaStream_t)stream);
   };
   switch (hd) {
     case 8: return args(launch<8>);

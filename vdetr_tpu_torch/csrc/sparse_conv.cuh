@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace sparse_conv {
 
 constexpr int KV = 27;   // kernel volume
@@ -33,9 +35,6 @@ constexpr int BM = 64;      // query rows per block
 constexpr int BN = 64;      // output channels per block
 constexpr int BS = BN + 8;  // Bs row stride: B fragments conflict-free
 
-// whether a pointer may be read in 16-byte pieces
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 __device__ __forceinline__ int lower_bound(const int* keys, int n, int key) {
   int lo = 0, hi = n;
   while (lo < hi) {
@@ -45,56 +44,15 @@ __device__ __forceinline__ int lower_bound(const int* keys, int n, int key) {
   return lo;
 }
 
-// --- tensor-core pieces of conv_tile (PTX, sm_80 and later) ---
-
-// 16 bytes global -> shared, in flight until cp_wait; zero-filled when
-// !pred (src-size 0: nothing is read, src need only be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-// 4 bytes global -> shared, zero-filled when !pred
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = hi + lo with hi = tf32(x), lo = tf32(x - hi), both rounded to
-// nearest: hi * hi' + hi * lo' + lo * hi' carries ~21 bits of each
-// operand, the f32 product's ~24 less the dropped lo * lo' (~2^-22)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// d = a (16 x 8, row-major) . b (8 x 8, column-major) + c, TF32 in, f32
-// out; fragments as PTX lays them out for m16n8k8
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2],
-                                         const float (&c)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
+// the TF32 tensor-core and cp.async pieces, shared with the flash-RPE
+// backward's pair kernel (rpe_attention_bwd.cu)
+using tc::aligned16;
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_commit;
+using tc::cp_wait;
+using tc::mma_tf32;
+using tc::split_tf32;
 
 // A thread's share of a 64 x 64 conv tile: warp w holds rows 32 (w & 1)
 // + 16 mi + {g, g + 8} and columns 32 (w >> 1) + 8 ni + {2t, 2t + 1},

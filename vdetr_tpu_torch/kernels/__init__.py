@@ -5,7 +5,9 @@ code shared by several sources sits in `csrc/*.cuh` headers. At first
 use it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 under `build/kernels/` at the repository root and loaded with ctypes.
 The library name carries a hash of the source, the headers and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+flags, so an edited source is rebuilt and an unchanged one is reused;
+ptxas's report of each kernel's registers and spills is kept beside it
+(`build_log`).
 
 Nothing here runs at import time: the package imports on machines
 without nvcc or a GPU, where only the plain PyTorch versions run.
@@ -25,7 +27,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+               "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,8 +55,8 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P]),
     "rpe_attention_bwd": ("rpe_cross_attention_bwd_f32",
                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                           _I, _F, _P]),
+                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                           _I, _I, _F, _I, _P]),
     "rpe_ablate": ("rpe_ablate_f32",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                     _F, _I, _P]),
@@ -108,10 +111,18 @@ def build_all() -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out.decode(errors='replace')}")
             continue
+        paths[name].with_suffix(".log").write_bytes(out)
         os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from building kernel `name` (ptxas's registers, stack
+    and spill bytes per kernel); empty if it was not built here."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text(errors="replace") if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

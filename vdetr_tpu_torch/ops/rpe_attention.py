@@ -35,6 +35,12 @@ from vdetr_tpu_torch.ops.rpe import (log_quantize, trilinear_sample,
 NEG_INF = -1e9
 _KERNEL_HEADS = 4
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+# the backward's pair kernel (csrc/rpe_attention_bwd.cu): a block takes
+# 16 queries and its keys in 32-key tiles; at most 8 key shares, whose
+# partial dQ a second kernel adds in share order
+_PAIR_QUERIES = 16
+_PAIR_KEYS = 32
+_PAIR_MAX_SHARES = 8
 _U32 = 0xFFFFFFFF
 
 
@@ -252,6 +258,24 @@ def rpe_cross_attention_bwd_plain(k, v, corners, angles, key_xyz, key_valid,
     return dq, torch.stack(dtables), ds, eg
 
 
+def pair_key_split(B: int, nQ: int, nK: int, hd: int, sms: int = 132):
+    """(keys a block, key shares) of the backward's pair kernel: of 1 to
+    8 shares, the one with the fewest waves (over `sms` SMs at the blocks
+    resident an SM, 3 at head widths up to 64 and 1 above, as the
+    kernel's launch bounds give) times 32-key tiles a block, the fewer
+    shares on ties."""
+    blocks = B * -(-nQ // _PAIR_QUERIES)
+    ktiles = max(1, -(-nK // _PAIR_KEYS))
+    slots = sms * (3 if hd <= 64 else 1)
+    best, best_cost = 1, None
+    for s in range(1, min(ktiles, _PAIR_MAX_SHARES) + 1):
+        cost = -(-blocks * s // slots) * -(-ktiles // s)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    per_block = -(-ktiles // best) * _PAIR_KEYS
+    return per_block, -(-nK // per_block)
+
+
 def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
                             dout, logits, lse, n: int, *, log_scale: float,
                             max_value: float, rotate: bool = False,
@@ -261,8 +285,9 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
     nQ, nK), with dK = sum_h ds^T q and dV = sum_h eg^T dout left to the
     caller.
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    `rpe_cross_attention_bwd_plain`."""
+    CUDA tensors launch the Hopper kernels (or raise): dq, ds and eg are
+    the same bits from call to call (dtables, a sum of atomic adds, is
+    not); CPU tensors take `rpe_cross_attention_bwd_plain`."""
     kw = dict(log_scale=log_scale, max_value=max_value, rotate=rotate,
               dropout_rate=dropout_rate, seed=seed)
     if not dout.is_cuda:
@@ -286,8 +311,12 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
     cossin = _cossin(angles, rotate)
     seed_ptr, threshold, scale = _dropout_args(dropout_rate, seed)
     dev = dout.device
-    dq = torch.zeros_like(dout)  # both are sums of atomic adds
-    dtables = torch.zeros(8, n, n, n, H, dtype=f32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_block, shares = pair_key_split(B, nQ, nK, hd, sms)
+    dq = torch.empty_like(dout)
+    dq_parts = (torch.empty(shares, B, nQ, H, hd, dtype=f32, device=dev)
+                if shares > 1 else None)
+    dtables = torch.zeros(8, n, n, n, H, dtype=f32, device=dev)  # atomics
     ds = torch.empty(B, H, nQ, nK, dtype=f32, device=dev)
     eg = torch.empty(B, H, nQ, nK, dtype=f32, device=dev)
     kernels.call(
@@ -295,9 +324,11 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
         None if cossin is None else cossin.data_ptr(), key_xyz.data_ptr(),
         None if key_valid is None else key_valid.data_ptr(), out.data_ptr(),
         dout.data_ptr(), logits.data_ptr(), lse.data_ptr(), seed_ptr,
-        dq.data_ptr(), dtables.data_ptr(), ds.data_ptr(), eg.data_ptr(),
-        B, nQ, nK, H, hd, n, float(log_scale), float(max_value), int(rotate),
-        threshold, scale, torch.cuda.current_stream(dev).cuda_stream)
+        dq.data_ptr(), None if dq_parts is None else dq_parts.data_ptr(),
+        dtables.data_ptr(), ds.data_ptr(), eg.data_ptr(), B, nQ, nK, H, hd,
+        n, float(log_scale), float(max_value), int(rotate), threshold, scale,
+        per_block,
+        torch.cuda.current_stream(dev).cuda_stream)
     rpe_cross_attention_bwd.launches += 1
     return dq, dtables, ds, eg
 

@@ -13,13 +13,15 @@ weights, synthetic scenes):
 - the sparse-conv kernels A (keyed) and H (mapped) and their weight
   gradients D (keyed) and I (mapped) on chip_smoke's four conv cases: ms
   per launch (CUDA events, mean of 20), the error against the plain
-  version, and the device ms of each kernel the call launches
-  (torch.profiler, per call);
+  version, the device ms of each kernel the call launches
+  (torch.profiler, per call), and a digest of the output's bits (equal
+  digests: two trees computed the same bits on the same seeded inputs);
 - the RPE forward C in its eval form and its train form (dropout 0.1,
   lse and logits) on chip_smoke's decoder-shaped case: ms per launch
   (mean of 10) and the error against the plain version;
 - the flash-RPE backward F at dropout 0 and 0.1: ms per launch, and its
-  pair and table kernels apart (torch.profiler, device ms per call);
+  pair kernel, the sum of the pair kernel's key shares (a tree that has
+  it) and its table kernel apart (torch.profiler, device ms per call);
 - FPS, kernel B, on its main-path input (the stride-4 level's 32768
   voxel centres sampled to 4096) of one scene (B = 1) and of the four
   rows of an eval batch (B = 4): ms per launch (mean of 10) and the
@@ -27,13 +29,15 @@ weights, synthetic scenes):
 - one eval forward per route at batch 1 under torch.profiler: device ms
   and launches per port kernel;
 - chip_smoke's `run_forward` (ms per scene at batch 1 and 4) and
-  `run_train` (median train step, one profiled step per route).
+  `run_train` (median train step, one profiled step per route, F's
+  kernels apart).
 Prints one JSON line per tree (`ab_kernels {...}`) and a summary table
 last; the card's name and power limit beside it. Needs the card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -53,6 +57,7 @@ KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
                 ("fps_kernel", "B"),
                 ("rpe_attention_kernel", "C"),
                 ("rpe_pair_bwd_kernel", "F pair"),
+                ("rpe_dq_sum_kernel", "F dq sum"),
                 ("rpe_table_bwd_kernel", "F table"))
 
 
@@ -125,9 +130,12 @@ def measure() -> dict:
                 ("I", mapped_conv_dw, mapped_conv_dw_plain,
                  (args[0], nbr, dout))):
             ref = plain(*a)
-            err = float((fn(*a) - ref).abs().max())
+            got = fn(*a)
+            err = float((got - ref).abs().max())
             row[name] = {"ms": time_ms(lambda: fn(*a), reps=20),
                          "max_abs_err": err,
+                         "sha256": hashlib.sha256(
+                             got.cpu().numpy().tobytes()).hexdigest()[:16],
                          "max_ref": float(ref.abs().max()),
                          "parts": profile_by_kernel(lambda: fn(*a), reps=5)}
         res["conv"][label] = row
@@ -190,7 +198,8 @@ def measure() -> dict:
             "steps": train[r]["steps"],
             "device_busy_ms": train[r]["profile"]["device_busy_ms"],
             "busy_share": train[r]["profile"]["busy_share"],
-            "by_kernel": train[r]["profile"]["by_kernel"]}
+            "by_kernel": train[r]["profile"]["by_kernel"],
+            "by_part": train[r]["profile"]["by_part"]}
         for r in cs.ROUTES}
     return res
 
@@ -247,13 +256,17 @@ def summary(runs) -> list:
             for part in parts:
                 lines.append(f"| {k} {label}: {part} device ms | " + col(
                     lambda r: r["conv"][label][k]["parts"][part][0]) + " |")
+    for label in runs[0]["conv"]:
+        for k in ("A", "H", "D", "I"):
+            lines.append(f"| {k} output sha256 {label} | " + " | ".join(
+                r["conv"][label][k].get("sha256", "-") for r in runs) + " |")
     for form in ("eval", "train"):
         lines.append(f"| C ms {form} form | "
                      + col(lambda r: r["rpe_fwd"][form]["ms"]) + " |")
     for rate in ("0.0", "0.1"):
         lines.append(f"| F ms dropout {rate} | "
                      + col(lambda r: r["rpe_bwd"][rate]["ms"]) + " |")
-        for part in ("F pair", "F table"):
+        for part in ("F pair", "F dq sum", "F table"):
             lines.append(f"| {part} device ms dropout {rate} | " + col(
                 lambda r: r["rpe_bwd"][rate]["parts"][part][0]) + " |")
     for batch in ("1", "4"):
@@ -277,6 +290,10 @@ def summary(runs) -> list:
                    "fps"):
             lines.append(f"| train {route} {kn} device ms/step | " + col(
                 lambda r: r["train"][route]["by_kernel"][kn]["ms"]) + " |")
+        for part in ("pair kernel", "dq sum", "table kernel"):
+            kp = f"rpe_cross_attention_bwd {part}"
+            lines.append(f"| train {route} F {part} device ms/step | " + col(
+                lambda r: r["train"][route]["by_part"][kp]["ms"]) + " |")
     return lines
 
 
