@@ -10,20 +10,25 @@ Phases, each printing its own lines:
   3. kernels: each kernel's wrapper against its plain PyTorch version on
      the card, at the shapes the published model gives it, with TF32
      off: the keyed conv (A) and its weight gradient (D), the neighbour
-     map (G) on the forward's nine maps, the mapped conv (H, also held to
-     A) and its weight gradient (I), FPS (B, on one scene and on the
-     four rows of an eval batch, with its exchange floor and ns a step
-     beside the bound), the RPE attention forward (C, eval and training
-     form with dropout and the log-sum-exp) and its flash backward (F,
-     dropout 0 and 0.1, its pair kernel, the sum of the pair kernel's
-     key shares and its dTables table kernel also timed apart, the pair
-     kernel's dq, ds and eg bit for bit from a second launch, its SASS
-     read for tensor-core MMAs and atomics, its two products as
-     torch.matmul beside it); prints the error, its tolerance, both
-     times and the kernel's bound (for A, D, H and I, which multiply on
-     the tensor cores in split TF32, against the TF32 rate, with the f32
-     CUDA-core bound beside it); I bit for bit against D and against a
-     second call of itself;
+     map (G) on the forward's nine maps at batch 1 and 4, alone and as
+     the mapped forward launches them (the stem's map, then each stage's
+     two maps in one launch), with the set's event time and device gaps,
+     the mapped conv (H, also held to A) and its weight gradient (I), FPS
+     (B, on one scene and on the four rows of an eval batch, with its
+     exchange floor and ns a step beside the bound), the RPE attention
+     forward (C, eval and training form with dropout and the
+     log-sum-exp) and its flash backward (F, dropout 0 and 0.1, its pair
+     kernel, the sum of the pair kernel's key shares, its dTables table
+     kernel and the sum of the table kernel's slices also timed apart,
+     its dq, dtables, ds and eg bit for bit from a second launch, the
+     pair kernel's SASS read for tensor-core MMAs and atomics and the
+     table kernel's for global atomics and compare-and-swap loops, the
+     pair kernel's two products as torch.matmul beside it), and the
+     slices' sum (bit for bit against its plain version); prints the
+     error, its tolerance, both times and the kernel's bound (for A, D, H
+     and I, which multiply on the tensor cores in split TF32, against the
+     TF32 rate, with the f32 CUDA-core bound beside it); I bit for bit
+     against D and against a second call of itself;
   3b. probes of kernel C, the work of the entry points
      `python -m vdetr_tpu_torch.tools.rpe_ablate` and `.dot_micro` at the
      tool shapes: each stage-ablation level 0-5 against its plain version,
@@ -43,13 +48,16 @@ Phases, each printing its own lines:
      matcher "jv", batch 1, dropout on), the two routes' steps in turn on
      the same batches: three warm steps, then timed steps with finite
      loss and gradients and the expected launches per step (A, D or G,
-     H, I; B, C, F), median ms per step, peak memory and a breakdown by
-     phase (host ms, and the backward's stream spans), the same breakdown
-     under torch.profiler (device ms per phase); the run-to-run spread of
-     the gradients (two steps from the same state, batch and seed); one
-     step per route under torch.profiler (device ms per
-     kernel and per device function summed over its launches, the
-     device's busy share); and a small
+     H, I; B, C, F and its slices' sum), median ms per step, peak memory
+     and a breakdown by phase (host ms, and the backward's stream spans),
+     the same breakdown under torch.profiler (device ms per phase); the
+     run-to-run spread of the gradients (two backwards from the same
+     state, batch and seed), which must be exactly 0 for every
+     parameter, and two whole steps from one state, which must leave the
+     same parameters bit for bit (`vdetr_tpu_torch/tools/determinism.py`);
+     one step per route under torch.profiler (device ms per kernel and
+     per device function summed over its launches, the device's busy
+     share); and a small
      model's step on each route on the card against the same step on the
      CPU (dropout 0): loss, every gradient and the updated parameters;
   6. a JSON line of per-kernel results, then the last line
@@ -88,6 +96,8 @@ REPO_SOURCES = {
                       "vdetr_tpu/ops/sparse_conv_keyed.py:513"),
     "rpe_cross_attention_bwd": ("vdetr_tpu_torch/csrc/rpe_attention_bwd.cu",
                                 "vdetr_tpu/ops/rpe_attention.py:561"),
+    "rpe_table_sum": ("vdetr_tpu_torch/csrc/rpe_table_sum.cu",
+                      "vdetr_tpu/ops/rpe_attention.py:561"),
     "kernel_map": ("vdetr_tpu_torch/csrc/map_kernel.cu",
                    "vdetr_tpu/ops/map_kernel.py:185"),
     "mapped_conv": ("vdetr_tpu_torch/csrc/mapped_conv.cu",
@@ -419,39 +429,77 @@ def map_cases(grids):
     return out
 
 
-def check_kernel_map(grids):
-    """Kernel G against its plain version on the forward's nine maps:
-    bit-identical. Bound: the keys, queries and validity read once and the
-    map written once; the operations (per valid query row and (dx, dy)
-    group a binary search of log2(V_in) steps and three compares) are far
-    below it."""
-    from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
+def check_kernel_map(cfg, grids):
+    """Kernel G against its plain version on the forward's nine maps at B =
+    1 and B = 4, bit for bit: each map by `kernel_map` alone, and as the
+    mapped forward launches them (the stem's stride-2 map alone, each
+    stage's stride-2 and level maps in one `kernel_map_pair` launch).
+    Per map at B = 1: both times and the bound (the keys, queries and
+    validity read once, the map written once; the operations, per valid
+    query row and (dx, dy) group a binary search of log2(V_in) steps and
+    three compares, are far below it). Then the forward's set of launches
+    (`tools/ab_kernels.py:measure_maps`): ms for the set by CUDA events,
+    device us per launch and the gaps between launches (torch.profiler)."""
+    from vdetr_tpu_torch.ops.map_kernel import (kernel_map, kernel_map_pair,
+                                                neighbour_map,
+                                                neighbour_map_pair)
+    from vdetr_tpu_torch.tools.ab_kernels import measure_maps
 
-    ok_all, ms, plain_ms, bound, out_cases = True, 0.0, 0.0, 0.0, []
-    for label, args in map_cases(grids):
-        got = kernel_map(*args)
-        ref = neighbour_map(*args)
-        torch.cuda.synchronize()
-        mism = int((got != ref).sum())
-        t_k = time_ms(lambda: kernel_map(*args), reps=10)
-        t_p = time_ms(lambda: neighbour_map(*args), reps=3)
-        keys, q, qv, _ = args
-        ops = int(qv.sum()) * 9 * (math.log2(keys.shape[1]) + 3)
-        b_ms, b_by = bound_ms(nbytes(keys, q, qv) + got.numel() * 4, ops)
-        ok = mism == 0
-        ok_all &= ok
-        log(f"check kernel_map {label} valid={int(qv.sum())}: {mism} entries"
-            f" differ, tolerance 0 -> {'ok' if ok else 'FAIL'}; kernel "
-            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-        ms += t_k
-        plain_ms += t_p
-        bound += b_ms
-        out_cases.append({"case": label, "max_abs_err": float(mism),
-                          "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
-                          "bound_by": b_by})
+    ok_all, plain_ms, bound, out_cases = True, 0.0, 0.0, []
+    for batch, g in ((1, grids), (4, level_grids(cfg, grids[0].keys.device,
+                                                   4))):
+        mism_pairs = 0
+        for fine, coarse in zip(g[1:-1], g[2:]):
+            pargs = (fine.keys, fine.extent, coarse.keys, coarse.coords,
+                     coarse.valid, coarse.extent)
+            for got, ref in zip(kernel_map_pair(*pargs),
+                                neighbour_map_pair(*pargs)):
+                mism_pairs += int((got != ref).sum())
+        ok_all &= mism_pairs == 0
+        for label, args in map_cases(g):
+            got = kernel_map(*args)
+            ref = neighbour_map(*args)
+            torch.cuda.synchronize()
+            mism = int((got != ref).sum())
+            ok = mism == 0
+            ok_all &= ok
+            keys, q, qv, _ = args
+            line = (f"check kernel_map B={batch} {label} valid="
+                    f"{int(qv.sum())}: {mism} entries differ, tolerance 0 -> "
+                    f"{'ok' if ok else 'FAIL'}")
+            if batch == 1:
+                t_k = time_ms(lambda: kernel_map(*args), reps=10)
+                t_p = time_ms(lambda: neighbour_map(*args), reps=3)
+                ops = int(qv.sum()) * 9 * (math.log2(keys.shape[1]) + 3)
+                b_ms, b_by = bound_ms(nbytes(keys, q, qv) + got.numel() * 4,
+                                      ops)
+                line += (f"; kernel {t_k:.4f} ms (one launch alone), plain "
+                         f"{t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+                plain_ms += t_p
+                bound += b_ms
+                out_cases.append({"case": label, "max_abs_err": float(mism),
+                                  "ms": t_k, "plain_ms": t_p,
+                                  "bound_ms": b_ms, "bound_by": b_by})
+            log(line)
+        log(f"check kernel_map B={batch} the four stages' pair launches: "
+            f"{mism_pairs} entries differ, tolerance 0 -> "
+            f"{'ok' if mism_pairs == 0 else 'FAIL'}")
+    maps = measure_maps(cfg, grids[0].keys.device, sys.modules[__name__])
+    for batch, m in maps.items():
+        log(f"kernel_map the mapped forward's {m['launches']} launches, B="
+            f"{batch}: {m['event_ms']:.4f} ms a set by CUDA events; device "
+            f"{m['device_us_sum']:.1f} us in all ("
+            + ", ".join(f"{us:.1f}" for us in m["device_us_per_launch"])
+            + f" us a launch), mean gap between launches "
+            f"{m['gap_us_mean']:.1f} us, device span {m['span_us']:.1f} us; "
+            f"card {card()}")
     return dict(ok=ok_all, err=max(c["max_abs_err"] for c in out_cases),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=_dominant(out_cases), cases=out_cases)
+                ms=maps["1"]["event_ms"], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=_dominant(out_cases), cases=out_cases,
+                forward_maps=maps,
+                ms_note="ms: the mapped forward's map launches as a set at "
+                        "B=1 (CUDA events), plain_ms and bound_ms: the nine "
+                        "maps' sums")
 
 
 def fps_input(grids):
@@ -587,10 +635,12 @@ def pair_work(case):
 
 
 def sass_counts(name: str, kernel: str, instance: str = "ILi64E"):
-    """{"hmma": n, "atomics": n}: the tensor-core MMA and the atomic
-    (RED, ATOM, ATOMG, ATOMS) instructions in the SASS of `kernel`'s
-    `instance` (the mangled template argument; default head width 64) in
-    kernel library `name`, read with cuobjdump; None without cuobjdump."""
+    """{"hmma": n, "atomics": n, "global_atomics": n, "shared_atomics": n,
+    "shared_cas": n}: the tensor-core MMA and the atomic instructions
+    (RED, ATOM, ATOMG global; ATOMS shared, of which the compare-and-swap
+    loops ATOMS.CAS*) in the SASS of `kernel`'s `instance` (the mangled
+    template argument; default head width 64; "" for any) in kernel
+    library `name`, read with cuobjdump; None without cuobjdump."""
     import re
     import subprocess
     from pathlib import Path
@@ -606,18 +656,27 @@ def sass_counts(name: str, kernel: str, instance: str = "ILi64E"):
     sass = subprocess.run([str(tool), "-sass", str(kernels._lib_path(name))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts, inside = {"hmma": 0, "atomics": 0}, False
+    counts = {"hmma": 0, "atomics": 0, "global_atomics": 0,
+              "shared_atomics": 0, "shared_cas": 0}
+    inside = False
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             inside = kernel in fn.group(1) and instance in fn.group(1)
             continue
-        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if inside and op:
-            if op.group(1) == "HMMA":
-                counts["hmma"] += 1
-            elif op.group(1) in ("RED", "ATOM", "ATOMG", "ATOMS"):
-                counts["atomics"] += 1
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if not (inside and op):
+            continue
+        base = op.group(1).split(".")[0]
+        if base == "HMMA":
+            counts["hmma"] += 1
+        elif base in ("RED", "ATOM", "ATOMG", "ATOMS"):
+            counts["atomics"] += 1
+            if base == "ATOMS":
+                counts["shared_atomics"] += 1
+                counts["shared_cas"] += ".CAS" in op.group(1)
+            else:
+                counts["global_atomics"] += 1
     return counts
 
 
@@ -742,10 +801,11 @@ def check_rpe_train(cfg, case, rate: float = 0.1):
 
 def check_rpe_bwd(cfg, case):
     """Kernel F against its plain version at dropout 0 and 0.1, from the
-    plain training forward's logits and lse; its pair kernel's dq, ds and
-    eg bit for bit from a second launch; the pair kernel's SASS (tensor-core
-    MMAs, no atomics); the bounds of F, its pair kernel and its table
-    kernel; the pair kernel's two products as torch.matmul."""
+    plain training forward's logits and lse; its dq, dtables, ds and eg
+    bit for bit from a second launch; the pair kernel's SASS (tensor-core
+    MMAs, no atomics) and the table kernel's (no global atomic, no shared
+    compare-and-swap loop); the bounds of F, its pair kernel and its
+    table kernel; the pair kernel's two products as torch.matmul."""
     from vdetr_tpu_torch.ops.rpe_attention import (
         rpe_cross_attention_bwd, rpe_cross_attention_bwd_plain,
         rpe_cross_attention_plain)
@@ -778,7 +838,7 @@ def check_rpe_bwd(cfg, case):
             parts.append(f"{name} {err:.3e} (max|ref| {scale:.2e}, tol "
                          f"{tol:.1e})")
         same = {name: bool(torch.equal(got[i], again[i]))
-                for i, name in ((0, "dq"), (2, "ds"), (3, "eg"))}
+                for i, name in enumerate(("dq", "dtables", "ds", "eg"))}
         ok_all &= all(same.values())
         t_k = time_ms(lambda: rpe_cross_attention_bwd(*args, **fkw), reps=5)
         t_p = time_ms(lambda: rpe_cross_attention_bwd_plain(*args, **fkw),
@@ -816,6 +876,11 @@ def check_rpe_bwd(cfg, case):
     sass = sass_counts("rpe_attention_bwd", "rpe_pair_bwd_kernel")
     if sass is not None:
         ok_all &= sass["hmma"] > 0 and sass["atomics"] == 0
+    table_sass = sass_counts("rpe_attention_bwd", "rpe_table_bwd_kernel", "")
+    if table_sass is not None:
+        ok_all &= (table_sass["global_atomics"] == 0
+                   and table_sass["shared_cas"] == 0
+                   and table_sass["shared_atomics"] > 0)
     ptxas = ptxas_usage("rpe_attention_bwd", "rpe_pair_bwd_kernel")
     log(f"  bound {b_ms:.4f} ms ({b_by}; the products on the tensor cores in "
         f"split TF32; all f32 on the CUDA cores {f32_ms:.4f} ms, {f32_by}); "
@@ -827,6 +892,11 @@ def check_rpe_bwd(cfg, case):
         "width 64: " + ("not measured (no cuobjdump)" if sass is None else
                   f"{sass['hmma']} HMMA, {sass['atomics']} atomic "
                   "instructions")
+        + "; the table kernel's SASS: " + (
+            "not measured (no cuobjdump)" if table_sass is None else
+            f"{table_sass['shared_atomics']} shared atomics, of them "
+            f"{table_sass['shared_cas']} compare-and-swap, "
+            f"{table_sass['global_atomics']} global atomics")
         + "; its ptxas report per head width: " + (", ".join(
             f"{hd}: {u.get('registers')} registers, {u.get('stack')} B "
             f"stack, {u.get('spill_stores')} B spill stores, "
@@ -835,10 +905,12 @@ def check_rpe_bwd(cfg, case):
             "this run)")
         + "; tolerance reason: dq sums 4096 keys in split TF32 (three TF32 "
         "MMAs per f32 product, each stage summed from 0, the key shares "
-        "added in a fixed order), dtables ~4M pairs through atomics in no "
-        "fixed order, both float32: ~1e-6 relative spread per term; 1e-4 "
-        "of max|ref| leaves ~10x margin over the spread measured on the "
-        "card")
+        "added in a fixed order); dtables sums ~4M pairs in 64-bit fixed "
+        "point per block (each term rounded to 2^-30 of max|ds|), each "
+        "block's table rounded to f32 once and the slices added in f32 in "
+        "order, against the plain version's f32 index_add_: ~1e-6 relative "
+        "per term; 1e-4 of max|ref| leaves ~10x margin over the spread "
+        "measured on the card")
     t_k, t_p, parts_ms, lib_ms = times[0.1]
     return dict(ok=ok_all, err=worst, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
                 bound_by=b_by, bound_f32_ms=f32_ms,
@@ -859,8 +931,48 @@ def check_rpe_bwd(cfg, case):
                 table_ms=parts_ms.get("F table"),
                 pair_bound_ms=pb_ms, pair_bound_by=pb_by,
                 pair_bound_f32_ms=pf_ms, pair_sass=sass,
+                table_sass=table_sass, table_sum_ms=parts_ms.get(
+                    "F table sum"),
                 pair_ptxas={str(hd): u for hd, u in sorted(ptxas.items())},
                 table_bound_ms=tb_ms, table_bound_by=tb_by)
+
+
+def check_rpe_table_sum(cfg, device, gen):
+    """The sum of F's table slices at the published shape (B = 1: 32
+    query tiles x the table kernel's key shares, `table_key_split`)
+    against its plain version, which adds in the same order: bit for bit.
+    Bound: the slices read once and dtables written once. Yardstick: one
+    `torch.sum(slices, 0)`, the same function in its own order. Both
+    timed by CUDA events around the calls, host-bound at this size
+    (device times: `tools/ab_kernels.py:measure_table_sum`)."""
+    from vdetr_tpu_torch.ops.rpe_attention import (rpe_table_sum,
+                                                   rpe_table_sum_plain,
+                                                   table_key_split)
+
+    nQ, nK, H, n = (cfg.nqueries, cfg.preenc_npoints, cfg.dec_nhead,
+                    cfg.rpe_table_size)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    count = -(-nQ // 32) * table_key_split(1, nQ, nK, sms)[1]
+    slices = torch.randn(count, 8, n, n, n, H, generator=gen, device=device)
+    got = rpe_table_sum(slices)
+    ref = rpe_table_sum_plain(slices)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, ref))
+    t_k = time_ms(lambda: rpe_table_sum(slices), reps=20)
+    t_p = time_ms(lambda: rpe_table_sum_plain(slices), reps=5)
+    t_l = time_ms(lambda: torch.sum(slices, 0), reps=20)
+    b_ms, b_by = bound_ms(nbytes(slices, got), count * got.numel())
+    log(f"check rpe_table_sum {count} slices of (8, {n}, {n}, {n}, {H}): "
+        f"bit-equal to the plain sum in slice order: {same} -> "
+        f"{'ok' if same else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} "
+        f"ms, torch.sum(slices, 0) {t_l:.4f} ms (CUDA events, host-bound), "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(ok=same, err=float((got - ref).abs().max()), ms=t_k,
+                plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+                library="torch.sum(slices, 0): the same sum in its own order",
+                slices=count,
+                ms_note="CUDA events around the calls, host-bound at this "
+                        "size; device times: tools/ab_kernels.py")
 
 
 def distinct_cells(cfg, case, queries: int = 64) -> float:
@@ -997,8 +1109,9 @@ def check_dot_micro(device, reps: int = 20):
     log("  tolerance reason: every term is positive, so each float32 order "
         "of the nc K-term sum is within nc K 2^-24 of the exact sum, two "
         "orders within twice that, elementwise")
-    rows = tdm.run_variants(cases, reps)
-    log(f"dot_micro, mean of {reps} launches each; card {card()}:")
+    rows = tdm.run_variants(cases, reps, device_times=False)
+    log(f"dot_micro, mean of {reps} launches each (CUDA events); card "
+        f"{card()}:")
     for line in tdm.format_rows(rows):
         log("  " + line)
     for row, err in zip(rows, errs):
@@ -1012,6 +1125,9 @@ def check_dot_micro(device, reps: int = 20):
                 library="torch.einsum('ckm,ke->me', T, P), TF32 off (it sums"
                         " T over the corners before its one GEMM); "
                         "library_tf32_ms: the same with TF32 on",
+                ms_note="CUDA events around the calls, host-bound at these "
+                        "sizes; device times: python -m "
+                        "vdetr_tpu_torch.tools.dot_micro",
                 cases=rows)
 
 
@@ -1023,12 +1139,13 @@ def expected_launches(model, cfg, train: bool = False):
     """Kernel launches of one forward, or of one train step, on the
     model's conv route. Keyed: A once per 3^3 conv forward and again for
     each submanifold conv's dFeats, D once per 3^3 conv. Mapped: G once
-    per stride-2 3^3 conv and once per level (each stage's first block
-    maps its sites; the maps are saved for the backward), H where keyed
-    runs A, I where keyed runs D; no A or D. Both: C and F once per
-    decoder layer, FPS once. The probes (rpe_ablate, dot_micro) never."""
-    from vdetr_tpu_torch.models.backbone import (SparseBasicBlock,
-                                                 SparseConv, SparseConvDown)
+    launch per stride-2 3^3 conv: the stem's map alone, and each stage's
+    first block's stride-2 map with the level's own map in one launch
+    (the maps are saved for the backward); H where keyed runs A, I where
+    keyed runs D; no A or D. Both: C, and F with the sum of its table
+    slices, once per decoder layer, FPS once. The probes (rpe_ablate,
+    dot_micro) never."""
+    from vdetr_tpu_torch.models.backbone import SparseConv, SparseConvDown
 
     k3 = [m for m in model.modules()
           if isinstance(m, (SparseConv, SparseConvDown))
@@ -1041,15 +1158,13 @@ def expected_launches(model, cfg, train: bool = False):
     if model.conv_route == "keyed":
         out["keyed_conv"] = conv
     else:
-        out["kernel_map"] = (
-            sum(isinstance(m, SparseConvDown) for m in k3)
-            + sum(isinstance(m, SparseBasicBlock) and m.stride == 2
-                  for m in model.modules()))
+        out["kernel_map"] = sum(isinstance(m, SparseConvDown) for m in k3)
         out["mapped_conv"] = conv
     if train:
         out["keyed_conv_dw" if model.conv_route == "keyed"
             else "mapped_conv_dw"] = len(k3)
         out["rpe_cross_attention_bwd"] = layers
+        out["rpe_table_sum"] = layers
     return out
 
 
@@ -1057,7 +1172,8 @@ def launch_counters():
     from vdetr_tpu_torch.ops.fps import furthest_point_sample
     from vdetr_tpu_torch.ops.map_kernel import kernel_map
     from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
-                                                   rpe_cross_attention_bwd)
+                                                   rpe_cross_attention_bwd,
+                                                   rpe_table_sum)
     from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                        keyed_conv_dw)
     from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
@@ -1069,7 +1185,7 @@ def launch_counters():
             "rpe_cross_attention": rpe_cross_attention,
             "keyed_conv_dw": keyed_conv_dw,
             "rpe_cross_attention_bwd": rpe_cross_attention_bwd,
-            "kernel_map": kernel_map, "mapped_conv": mapped_conv,
+            "rpe_table_sum": rpe_table_sum, "kernel_map": kernel_map, "mapped_conv": mapped_conv,
             "mapped_conv_dw": mapped_conv_dw, "rpe_ablate": rpe_ablate,
             "dot_micro": dot_micro}
 
@@ -1375,47 +1491,6 @@ def step_breakdown(trainer, batch, gen, profiled: bool = False):
     return t
 
 
-def grad_spread(trainer, batch, seed: int = SEED):
-    """The gradients of two train steps from the same state, batch and
-    dropout seed: forward, criterion and backward twice, the parameters,
-    buffers and optimizer untouched in between (the step's batch
-    statistics move the norms' running buffers, which are put back). Per
-    parameter group (the name's first component): max |g1 - g2| over max
-    |g1|. The spread comes from sums whose order differs between runs:
-    F's dTables atomics and the stride-2 convs' scatter_add_ (F's dQ adds
-    its key shares in a fixed order)."""
-    from vdetr_tpu_torch.train.engine import INPUT_KEYS
-
-    model, crit = trainer.model, trainer.criterion
-    b = trainer._to_device(batch)
-    inputs = {k: b[k] for k in INPUT_KEYS if k in b}
-    buffers = {n: x.clone() for n, x in model.named_buffers()}
-    grads = []
-    model.train()
-    for _ in range(2):
-        model.zero_grad(set_to_none=True)
-        gen = torch.Generator(device=b["point_clouds"].device).manual_seed(
-            seed)
-        loss, _ = crit(model(inputs, generator=gen), b)
-        loss.backward()
-        grads.append({n: p.grad.detach().clone()
-                      for n, p in model.named_parameters()
-                      if p.grad is not None})
-        with torch.no_grad():
-            for n, x in model.named_buffers():
-                x.copy_(buffers[n])
-    model.zero_grad(set_to_none=True)
-    groups = {}
-    for n, g1 in grads[0].items():
-        d = float((grads[1][n] - g1).abs().max())
-        top = float(g1.abs().max())
-        gd, gt = groups.get(n.split(".")[0], (0.0, 0.0))
-        groups[n.split(".")[0]] = (max(gd, d), max(gt, top))
-    return {k: {"max_abs_diff": d, "max_abs": top,
-                "rel": d / top if top > 0 else 0.0}
-            for k, (d, top) in sorted(groups.items())}
-
-
 def matcher_host_ms(trainer, batch, gen):
     """Host ms of the criterion's solve: the costs' copy to the host
     (after a synchronization, so the copy alone) and the JV solves."""
@@ -1466,7 +1541,9 @@ PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
                    ("rpe_dq_sum_kernel", "rpe_cross_attention_bwd",
                     "dq sum"),
                    ("rpe_table_bwd_kernel", "rpe_cross_attention_bwd",
-                    "table kernel"))
+                    "table kernel"),
+                   ("rpe_table_sum_kernel", "rpe_cross_attention_bwd",
+                    "table sum"))
 
 
 def profile_step(trainer, batch, gen):
@@ -1531,6 +1608,7 @@ def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
     their medians share the call's conditions. Each step's launches are
     counted."""
     from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.tools.determinism import grad_spread, step_twice
     from vdetr_tpu_torch.train.engine import Trainer
 
     ds = ScannetDatasetConfig()
@@ -1599,14 +1677,27 @@ def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
             "kernel sum': their sum; host clock with the profiler on): "
             + "; ".join(f"{k} {v:.1f}" for k, v in dev_brk.items()))
         spread = grad_spread(trainer, batches[1])
-        log(f"train {route} run-to-run gradient spread (two steps from the "
-            "same state, batch and seed; max |g1 - g2| / max |g1| per "
-            "parameter group): " + "; ".join(
-                f"{k} {v['rel']:.2e}" for k, v in spread.items()))
+        repeat_ok = not spread["differing"] and all(
+            v["max_abs_diff"] == 0 for v in spread["groups"].values())
+        log(f"train {route} run-to-run gradient spread (two backwards from "
+            "the same state, batch and seed; max |g1 - g2| / max |g1| per "
+            "parameter group, tolerance 0): " + "; ".join(
+                f"{k} {v['rel']:.2e}" for k, v in spread["groups"].items())
+            + f"; {len(spread['differing'])} parameters differ "
+            f"{[n for n, _ in spread['differing'][:5]]} -> "
+            f"{'ok' if repeat_ok else 'FAIL'}")
+        differ, count = step_twice(trainer, batches[1])
+        log(f"train {route} two whole steps (clip and AdamW included) from "
+            f"the same state, batch and seed: {len(differ)} of {count} "
+            f"parameters differ {differ[:5]} -> "
+            f"{'ok' if not differ else 'FAIL'}")
+        ok &= repeat_ok and not differ
         stats[route] = dict(ms_per_step=med, steps=times[route],
                             all_steps=all_times[route], peak_gib=peak[route],
                             breakdown=brk, breakdown_profiled=dev_brk,
-                            grad_spread=spread)
+                            grad_spread=spread["groups"],
+                            grad_spread_differing=spread["differing"],
+                            step_twice_differing=differ)
         prof = profile_step(trainer, batches[2], gens[route])
         prof["busy_share_of_median_step"] = prof["device_busy_ms"] / med
         stats[route]["profile"] = prof
@@ -1725,7 +1816,7 @@ def main() -> int:
     cfg = VDETRConfig()
     gen = torch.Generator(device=device).manual_seed(SEED)
     grids = level_grids(cfg, device)
-    res = {"kernel_map": check_kernel_map(grids)}
+    res = {"kernel_map": check_kernel_map(cfg, grids)}
     cases = conv_cases(cfg, grids, gen)
     res["keyed_conv"] = check_keyed_conv(cases)
     res["keyed_conv_dw"] = check_keyed_conv_dw(cases)
@@ -1735,6 +1826,7 @@ def main() -> int:
     res["fps"] = check_fps(cfg, grids)
     res["rpe_cross_attention"], case = check_rpe(cfg, device, gen)
     res["rpe_cross_attention_bwd"] = check_rpe_bwd(cfg, case)
+    res["rpe_table_sum"] = check_rpe_table_sum(cfg, device, gen)
     del case, grids
 
     # 3b. the probes of kernel C
@@ -1786,7 +1878,8 @@ def main() -> int:
                       "ms_dropout0", "pair_ms", "pair_ms_dropout0",
                       "dq_sum_ms", "pair_bound_ms", "pair_bound_by",
                       "pair_bound_f32_ms", "pair_sass", "table_ms",
-                      "table_bound_ms", "table_bound_by",
+                      "table_bound_ms", "table_bound_by", "table_sass",
+                      "table_sum_ms", "forward_maps", "ms_note", "slices",
                       "exchange_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]

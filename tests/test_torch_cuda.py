@@ -27,12 +27,15 @@ import torch
 from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
                                             convert_corners_camera2lidar)
 from vdetr_tpu_torch.ops import fps as tfps
-from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
+from vdetr_tpu_torch.ops.map_kernel import (kernel_map, kernel_map_pair,
+                                            neighbour_map, neighbour_map_pair)
 from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
                                                rpe_cross_attention_ad,
                                                rpe_cross_attention_bwd,
                                                rpe_cross_attention_bwd_plain,
-                                               rpe_cross_attention_plain)
+                                               rpe_cross_attention_plain,
+                                               rpe_table_sum,
+                                               rpe_table_sum_plain)
 from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                    keyed_conv_ad,
                                                    keyed_conv_dw,
@@ -168,6 +171,42 @@ def test_kernel_map_on_the_stem_table(rng, cuda):
     assert int(g.valid.sum()) > 100000
     for q, qv in ((go.coords * 2, go.valid), (g.coords, g.valid)):
         margs = (g.keys, q.contiguous(), qv, g.extent)
+        np.testing.assert_array_equal(kernel_map(*margs).cpu().numpy(),
+                                      neighbour_map(*margs).cpu().numpy())
+
+
+def test_kernel_map_pair_equals_plain(rng, cuda):
+    """Both maps of a stride-2 step in one launch (the level's own map and
+    the stride-2 map of 2 * its coords in the finer table), bit for bit,
+    two batch rows; one launch counted."""
+    pts = t((rng.rand(2, 1500, 3) * [0.6, 0.5, 0.3]).astype(np.float32),
+            cuda)
+    g = voxelize(pts, pts, torch.ones(2, 1500, dtype=bool, device=cuda),
+                 voxel_size=0.02, capacity=4096, extent=(128, 128, 64))
+    go = downsample_grid(g, 2048)
+    pargs = (g.keys, g.extent, go.keys, go.coords, go.valid, go.extent)
+    before = kernel_map.launches
+    got = kernel_map_pair(*pargs)
+    assert kernel_map.launches == before + 1
+    for a, b in zip(got, neighbour_map_pair(*pargs)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_kernel_map_windows_that_overflow(rng, cuda):
+    """Queries spread thinly over a dense table (every 64th site of a
+    16384-site level, so a block's rows span the whole table): the
+    block's window overflows the kernel's 8192-key staging and the search
+    runs on the table in global memory; the map is still exact. Also a level's
+    own map and a stride-2 map on the same table, whose windows fit."""
+    pts = (rng.rand(1, 40000, 3) * [1.6, 1.6, 0.6]).astype(np.float32)
+    g = voxelize(t(pts, cuda), t(pts, cuda),
+                 torch.ones(1, 40000, dtype=bool, device=cuda),
+                 voxel_size=0.02, capacity=16384, extent=(128, 128, 64))
+    assert int(g.valid.sum()) == 16384
+    go = downsample_grid(g, 8192)
+    for q, qv in ((g.coords[:, ::64], g.valid[:, ::64]),
+                  (g.coords, g.valid), (go.coords * 2, go.valid)):
+        margs = (g.keys, q.contiguous(), qv.contiguous(), g.extent)
         np.testing.assert_array_equal(kernel_map(*margs).cpu().numpy(),
                                       neighbour_map(*margs).cpu().numpy())
 
@@ -580,18 +619,30 @@ def test_rpe_bwd_kernel_at_the_published_shape(rng, cuda, rate):
     assert_bwd_close(got, ref)
 
 
-@pytest.mark.parametrize("B,nQ,nK", [(1, 64, 4096), (2, 21, 203)],
-                         ids=["eight-shares", "ragged"])
+@pytest.mark.parametrize("B,nQ,nK", [(1, 64, 4096), (2, 21, 203),
+                                     (1, 1024, 4096)],
+                         ids=["eight-shares", "ragged", "published"])
 def test_rpe_bwd_dq_ds_eg_repeat_bit_for_bit(rng, cuda, B, nQ, nK):
-    """Two launches on the same inputs give the same dq, ds and eg bit for
-    bit: the key shares' dQ is added in share order, with no atomics
-    (dTables keeps its atomics and is compared with a tolerance)."""
+    """Two launches on the same inputs give the same dq, dtables, ds and
+    eg bit for bit: the key shares' dQ is added in share order, each
+    table block sums in integers and the blocks' slices are added in
+    slice order, with no global atomics."""
     (first, second), ref = rpe_bwd_run(rng, cuda, B, nQ, nK, 0.1,
                                        repeat=True)
-    for i in (0, 2, 3):
+    for i in range(4):
         assert torch.equal(first[i], second[i]), i
     assert_bwd_close(first, ref)
     assert_bwd_close(second, ref)
+
+
+def test_rpe_table_sum_equals_plain_bit_for_bit(rng, cuda):
+    """The slices' sum in slice order: the plain version adds them in the
+    same order, so the two agree bit for bit; one launch counted."""
+    slices = t(rng.randn(37, 8, 10, 10, 10, 4).astype(np.float32), cuda)
+    before = rpe_table_sum.launches
+    got = rpe_table_sum(slices)
+    assert rpe_table_sum.launches == before + 1
+    assert torch.equal(got, rpe_table_sum_plain(slices))
 
 
 def test_rpe_bwd_with_no_keys_gives_zero_dq(rng, cuda):
@@ -671,8 +722,10 @@ def test_rpe_ablate_level6_is_kernel_c(cuda):
 
 
 @pytest.mark.parametrize("nc,K,M,E", [(8, 100, 40, 512), (3, 17, 5, 70),
-                                      (1, 800, 40, 300)],
-                         ids=["tool-K", "ragged", "one-corner"])
+                                      (1, 800, 40, 300), (8, 128, 128, 256),
+                                      (2, 33, 131, 67)],
+                         ids=["tool-K", "ragged", "one-corner", "tool-M128",
+                              "two-block-rows"])
 def test_dot_micro_kernel_matches_plain_and_einsum(cuda, nc, K, M, E):
     T = torch.rand(nc, K, M, device=cuda)
     P = torch.rand(K, E, device=cuda)
@@ -734,3 +787,38 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # a strided P
         tdm.dot_micro(torch.rand(2, 5, 4, device=cuda),
                       torch.rand(5, 12, device=cuda)[:, ::2])
+
+
+@pytest.mark.parametrize("route", ["keyed", "mapped"])
+def test_small_train_steps_repeat_bit_for_bit(cuda, route):
+    """A small model's train step on the card, dropout on: two backwards
+    from one state, batch and seed give the same gradients bit for bit,
+    and two whole steps (clip and AdamW included) the same parameters
+    (`vdetr_tpu_torch.tools.determinism`)."""
+    from vdetr_tpu_torch.config import VDETRConfig
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
+                                                collate)
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.tools.determinism import grad_spread, step_twice
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    cfg = VDETRConfig(
+        voxel_capacity=2048, min_stage_capacity=128,
+        grid_extent=(128, 128, 64), preenc_npoints=128, nqueries=32,
+        dec_nlayers=3, dec_dim=32, dec_ffn_dim=32, dec_nhead=4, rpe_dim=16,
+        inplanes=8, enc_dim=32, num_points=1024, voxel_size=0.05,
+        repeat_num=2, matcher_impl="jv", warm_lr_epochs=0, max_epoch=10,
+        base_lr=1e-3)
+    ds = ScannetDatasetConfig()
+    model = build_model(cfg, ds, generator=torch.Generator().manual_seed(0),
+                        device=cuda, conv_route=route)
+    trainer = Trainer(cfg, model, ds, steps_per_epoch=10, device=cuda)
+    data = SyntheticDetectionDataset(ds, cfg.num_points, seed=0)
+    trainer.train_step(collate([data[0], data[1]]),
+                       torch.Generator(device=cuda).manual_seed(0))
+    batch = collate([data[2], data[3]])
+    spread = grad_spread(trainer, batch)
+    assert spread["differing"] == []
+    differ, count = step_twice(trainer, batch)
+    assert count > 100 and differ == []

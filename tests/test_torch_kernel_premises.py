@@ -396,3 +396,313 @@ def test_packed_key_two_level_reduction_picks_fps_jax(kind, form):
     np.testing.assert_array_equal(got.numpy(), want)
     if kind == "zero-row":
         assert not want[1].any()
+
+
+# --------------------------------------------------------------------------
+# kernel G: the windowed search of `csrc/map_kernel.cu`
+# --------------------------------------------------------------------------
+
+MAP_ROWS = 1024  # query rows per block of the map kernel
+
+
+def map_levels(seed):
+    """A voxel level of a small scene and the next coarser one: the
+    queries of a level map (the coarse level on itself) and of a
+    stride-2 map (2 * the coarse coords in the fine table)."""
+    from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
+
+    rng = np.random.RandomState(seed)
+    pts = torch.from_numpy((rng.rand(2, 3000, 3) * [0.9, 0.7, 0.4])
+                           .astype(np.float32))
+    fine = voxelize(pts, pts, torch.ones(2, 3000, dtype=torch.bool),
+                    voxel_size=0.02, capacity=4096, extent=(128, 128, 64))
+    return fine, downsample_grid(fine, 2048)
+
+
+def map_queries(kind, seed):
+    """(table keys, query coords, query validity, extent) of a map."""
+    fine, coarse = map_levels(seed)
+    if kind == "level":
+        return coarse.keys, coarse.coords, coarse.valid, coarse.extent
+    return fine.keys, coarse.coords * 2, coarse.valid, fine.extent
+
+
+def group_targets(q, qv, extent, g):
+    """(want, lo, hi): per query row, whether its (dx, dy) group g has an
+    in-range neighbour column, and the key range [lo, hi] of its z run,
+    as the kernel computes them."""
+    gx, gy, gz = extent
+    x = q[..., 0] + g // 3 - 1
+    y = q[..., 1] + g % 3 - 1
+    zlo = (q[..., 2] - 1).clamp(min=0)
+    zhi = (q[..., 2] + 1).clamp(max=gz - 1)
+    want = qv & (x >= 0) & (x < gx) & (y >= 0) & (y < gy) & (zlo <= zhi)
+    base = (x.long() * gy + y) * gz
+    return want, base + zlo, base + zhi
+
+
+def windowed_map(keys, q, qv, extent, window):
+    """The map kernel emulated block by block: per (batch row, 1024-row
+    tile, group) the window [lower_bound(least target), upper_bound(
+    largest target)) of the table, staged when it holds at most `window`
+    keys (else the whole table is searched), and each row's lower_bound
+    and <= 3 compares run on it. Returns (map, staged blocks, blocks that
+    overflowed)."""
+    B, V = qv.shape
+    V_in = keys.shape[1]
+    nbr = torch.full((B, 27, V), V_in, dtype=torch.int32)
+    staged = overflowed = 0
+    sizes = []
+    for b in range(B):
+        kb = keys[b].long()
+        for g in range(9):
+            want, lo, hi = group_targets(q[b], qv[b], extent, g)
+            for r0 in range(0, V, MAP_ROWS):
+                rows = torch.arange(r0, min(V, r0 + MAP_ROWS))
+                w = want[rows]
+                if not bool(w.any()):
+                    continue
+                w0 = int(torch.searchsorted(kb, lo[rows][w].min()))
+                w1 = int(torch.searchsorted(kb, hi[rows][w].max(),
+                                            right=True))
+                sizes.append(w1 - w0)
+                if w1 - w0 <= window:
+                    tab, off = kb[w0:w1], w0
+                    staged += 1
+                else:
+                    tab, off = kb, 0
+                    overflowed += 1
+                for v in rows[w].tolist():
+                    z = int(q[b, v, 2])
+                    base = int(lo[v]) - max(z - 1, 0)  # key of (x, y, 0)
+                    pos = int(torch.searchsorted(tab, lo[v]))
+                    for s in range(3):
+                        if pos + s >= len(tab) or tab[pos + s] > hi[v]:
+                            break
+                        slot = 3 * g + int(tab[pos + s]) - base - z + 1
+                        nbr[b, slot, v] = off + pos + s
+    return nbr, sizes, staged, overflowed
+
+
+@pytest.mark.parametrize("kind", ["level", "stride-2"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_map_queries_ascend_within_each_group(kind, seed):
+    """Within each (dx, dy) group the target key runs [lo, hi] of the
+    query rows that have one ascend with the row (both ends, not
+    decreasing): a level's coords are in key order, 2 o keeps it, and the
+    group's shift keeps it among in-range rows. So the window of a
+    block's consecutive rows, which holds all their hits, spans only the
+    table keys between its first and last rows' runs."""
+    keys, q, qv, extent = map_queries(kind, seed)
+    for b in range(q.shape[0]):
+        for g in range(9):
+            want, lo, hi = group_targets(q[b], qv[b], extent, g)
+            assert int(want.sum()) > 100
+            for ends in (lo[want], hi[want]):
+                assert bool((ends[1:] >= ends[:-1]).all()), (b, g)
+
+
+@pytest.mark.parametrize("kind", ["level", "stride-2"])
+def test_windowed_search_gives_neighbour_map(kind):
+    """The kernel's windowed search, emulated, equals `neighbour_map` bit
+    for bit, with the kernel's staging size (8192 keys: every window
+    fits) and with one of the median window's size, so that about half
+    of the blocks overflow to the whole table."""
+    from vdetr_tpu_torch.ops.map_kernel import neighbour_map
+
+    keys, q, qv, extent = map_queries(kind, 0)
+    ref = neighbour_map(keys, q, qv, extent)
+    got, sizes, staged, overflowed = windowed_map(keys, q, qv, extent, 8192)
+    assert torch.equal(got, ref)
+    assert staged == len(sizes) and overflowed == 0
+    window = int(np.median(sizes))
+    got, _, staged, overflowed = windowed_map(keys, q, qv, extent, window)
+    assert torch.equal(got, ref)
+    assert staged > 0 and overflowed > 0
+
+
+# --------------------------------------------------------------------------
+# probe J2: the corner-first split-TF32 contraction of `csrc/dot_micro.cu`
+# --------------------------------------------------------------------------
+
+def corner_first_split_tf32(T, P):
+    """T summed over the corners in f32 in corner order, then Tsum^T P on
+    the emulated tensor cores in split TF32: each chunk's k8 MMAs (the
+    kernel's chunk depth, `kernel_chunk`) chained from 0, each truncated
+    to f32, the chunk's sum added in f32."""
+    from vdetr_tpu_torch.tools.dot_micro import kernel_chunk
+
+    chunk = kernel_chunk(T.shape[0])
+    s = T[0].clone()
+    for c in range(1, T.shape[0]):
+        s = s + T[c]
+    a, b = s.t(), P.t()  # (M, K), (E, K)
+    K = a.shape[1]
+    pad = -K % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, pad))
+    acc = torch.zeros(a.shape[0], b.shape[0])
+    for k0 in range(0, K, chunk):
+        part = torch.zeros_like(acc)
+        for k in range(k0, min(K, k0 + chunk), 8):
+            part = split_mma(part, a[:, k:k + 8], b[:, k:k + 8], False)
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("K,M,nc", [(100, 40, 8), (128, 40, 8),
+                                    (128, 128, 8), (800, 40, 1)],
+                         ids=["K100-M40", "K128-M40", "K128-M128",
+                              "K800-M40-x1"])
+def test_corner_first_split_tf32_meets_the_probe_tolerance(K, M, nc):
+    """The probe's five variants (the two at E 4096 and 8192 share K and
+    M; E cut to 64 columns here): the kernel's arithmetic, emulated, stays
+    within the probe check's elementwise `rounding_rtol` of the f64
+    result, on the tool's positive rand inputs."""
+    from vdetr_tpu_torch.tools.dot_micro import rounding_rtol
+
+    g = torch.Generator().manual_seed(K + M + nc)
+    T = torch.rand(nc, K, M, generator=g)
+    P = torch.rand(K, 64, generator=g)
+    ref = torch.einsum("ckm,ke->me", T.double(), P.double())
+    got = corner_first_split_tf32(T, P)
+    rel = float(((got.double() - ref) / ref).abs().max())
+    assert rel <= rounding_rtol(T), rel
+
+
+# --------------------------------------------------------------------------
+# kernel F: dTables in fixed point, summed in slice order
+# --------------------------------------------------------------------------
+
+TABLE_QUERIES = 32  # queries per table block
+
+
+def fixed_point_tables(ds, corners, key_xyz, n, keys_per_block, kw):
+    """The table kernel and `rpe_table_sum`, emulated: every weighted ds
+    of the launch rounded to an integer multiple of 2^-k (k = 30 - e for
+    the largest |ds| < 2^e), summed exactly in int64 per block (32
+    queries, one corner, a share of the keys), each block's table rounded
+    once to f32, then the slices (batch row, query tile, key share) added
+    in order in f32. Returns (dtables, largest |term| in units 2^-k,
+    largest |block word| in those units)."""
+    from vdetr_tpu_torch.ops.rpe_attention import _corner_taps
+
+    B, H, nQ, nK = ds.shape
+    _, e = math.frexp(float(ds.abs().max()))
+    k = min(30 - e, 126)
+    slices, top_term, top_word = [], 0, 0
+    for b in range(B):
+        for q0 in range(0, nQ, TABLE_QUERIES):
+            for k0 in range(0, nK, keys_per_block):
+                sl = torch.zeros(8, n ** 3, H)
+                d = ds[b, :, q0:q0 + TABLE_QUERIES, k0:k0 + keys_per_block]
+                d = d.permute(1, 2, 0).reshape(-1, H)
+                for c in range(8):
+                    acc = torch.zeros(n ** 3, H, dtype=torch.int64)
+                    for cell, w in _corner_taps(
+                            corners[b:b + 1, q0:q0 + TABLE_QUERIES],
+                            None, key_xyz[b:b + 1, k0:k0 + keys_per_block],
+                            c, False, kw["log_scale"], kw["max_value"], n):
+                        x = torch.round((d * w.reshape(-1, 1)) * 2.0 ** k)
+                        top_term = max(top_term, float(x.abs().max()))
+                        acc.index_add_(0, cell.reshape(-1), x.long())
+                    top_word = max(top_word, int(acc.abs().max()))
+                    sl[c] = acc.float() * 2.0 ** -k
+                slices.append(sl)
+    out = slices[0]
+    for sl in slices[1:]:
+        out = out + sl
+    return out.reshape(8, n, n, n, H), top_term, top_word
+
+
+def test_fixed_point_table_sums_meet_the_bwd_tolerance():
+    """At the decoder's key count and head shape (nK 4096, 4 heads of 64,
+    n 10) and the table kernel's largest block at the published shape
+    (32 queries x 4096 keys, B = 4), on ds from the plain forward and
+    backward with the decoder's box corners: the fixed-point sums in
+    slice order stay within a tenth of F's tolerance (2e-5 of max(1,
+    max|ref|)) of the f64 sums, closer than the plain f32 index_add_;
+    every term stays below 2^30 and every block word far inside int64."""
+    from vdetr_tpu_torch.ops.rpe_attention import (
+        _corner_taps, rpe_cross_attention_bwd_plain, rpe_cross_attention_plain)
+
+    B, nQ, nK, H, hd, n = 1, 64, 4096, 4, 64, 10
+    kw = dict(log_scale=512.0, max_value=4.0)
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(B, nQ, H, hd, generator=g) * hd ** -0.5
+    kv = [torch.randn(B, nK, hd, generator=g) for _ in range(2)]
+    corners = box_corners(torch.zeros(nQ), seed=6)[None].contiguous()
+    key_xyz = torch.rand(B, nK, 3, generator=g) * torch.tensor([6.0, 6.0,
+                                                                2.5])
+    tables = torch.randn(8, n, n, n, H, generator=g)
+    valid = torch.rand(B, nK, generator=g) > 0.1
+    out, lse, logits = rpe_cross_attention_plain(
+        q, kv[0], kv[1], corners, None, key_xyz, tables, valid,
+        return_stats=True, **kw)
+    dout = torch.randn(out.shape, generator=g)
+    _, ref, ds, _ = rpe_cross_attention_bwd_plain(
+        kv[0], kv[1], corners, None, key_xyz, valid, out, dout, logits, lse,
+        n, **kw)
+    got, top_term, top_word = fixed_point_tables(ds, corners, key_xyz, n,
+                                                 nK, kw)
+    exact = torch.zeros(8, n ** 3, H, dtype=torch.float64)
+    d = ds[0].permute(1, 2, 0).reshape(-1, H).double()
+    for c in range(8):
+        for cell, w in _corner_taps(corners, None, key_xyz, c, False,
+                                    kw["log_scale"], kw["max_value"], n):
+            exact[c].index_add_(0, cell.reshape(-1), d * w.reshape(-1, 1))
+    exact = exact.reshape(got.shape)
+    tol = BWD_RTOL * max(1.0, float(exact.abs().max()))
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((ref.double() - exact).abs().max())
+    assert err <= 0.1 * tol, (err, tol)
+    assert err <= max(plain_err, 1e-3 * tol), (err, plain_err)
+    assert top_term < 2 ** 30
+    assert top_word < 2 ** 62
+
+
+def test_fixed_point_term_rounds_without_a_conversion():
+    """`add_fixed` of the table kernel rounds a scaled term s (|s| < 2^30)
+    to the integer x = hi 2^15 + lo, hi = round(s 2^-15) and lo = round(s
+    - hi 2^15), both rounded to nearest even by float adds: x is round(s)
+    and |x| < 2^31. Exact in float64 here (s has 24 bits)."""
+    rng = np.random.RandomState(7)
+    s = np.concatenate([
+        (rng.rand(20000) * 2 - 1) * 2.0 ** rng.randint(-20, 30, 20000),
+        np.arange(-40, 41) * 0.5,  # halves: ties to even
+        np.arange(-8, 9) * 2.0 ** 14 + 2.0 ** 13,  # ties in the high part
+        [2.0 ** 30 - 64, -(2.0 ** 30 - 64)]]).astype(np.float32)
+    s64 = s.astype(np.float64)
+    hi = np.rint(s64 / 2 ** 15)
+    lo = np.rint(s64 - hi * 2 ** 15)
+    x = hi * 2 ** 15 + lo
+    np.testing.assert_array_equal(x, np.rint(s64))
+    assert np.abs(hi).max() <= 2 ** 15 and np.abs(lo).max() <= 2 ** 14
+    assert np.abs(x).max() < 2 ** 31
+
+
+def test_low_high_halves_with_carry_sum_exactly():
+    """`add_fixed`'s 64-bit add from two 32-bit atomics, emulated in three
+    orders of arrival: each signed term (|x| < 2^31) is added to the low
+    half with wrap-around, and its sign extension plus the carry out of
+    the low half to the high half; the halves then hold the exact int64
+    sum, whatever the order (the words are sums of commuting integer
+    adds)."""
+    rng = np.random.RandomState(7)
+    terms = (rng.standard_cauchy(20000) * 2 ** 22).clip(-2 ** 30, 2 ** 30)
+    terms = terms.astype(np.int64)
+    terms[:5000] = np.abs(terms[:5000])  # long positive runs: many carries
+    want = int(terms.sum())
+    for order in (np.arange(len(terms)), rng.permutation(len(terms)),
+                  rng.permutation(len(terms))):
+        lo, hi, high_adds = 0, 0, 0
+        for x in terms[order].tolist():
+            old = lo
+            lo = (old + (x & 0xFFFFFFFF)) & 0xFFFFFFFF
+            c = (-1 if x < 0 else 0) + (1 if lo < old else 0)
+            high_adds += c != 0
+            hi += c
+        total = (hi & 0xFFFFFFFF) << 32 | lo
+        total = total - (1 << 64) if total >= 1 << 63 else total
+        assert total == want
+        assert 0 < high_adds < len(terms)

@@ -188,12 +188,13 @@ def test_mapped_model_forward_matches_jax(mapped_models):
 def test_mapped_route_counts_and_equals_keyed_route(mapped_models,
                                                     monkeypatch):
     """Per forward the mapped route builds 9 maps (5 stride-2, 4 levels)
-    and runs 37 mapped convs and no keyed conv; with a backward from the
-    FPN output, 69 mapped convs (37 + 32 submanifold dFeats) and 37 weight
-    gradients, no map rebuilt. On the CPU both routes take the same plain
-    ops, so their outputs are equal."""
+    in 5 launches of kernel G (the stem's stride-2 map alone, each stage's
+    stride-2 map and level map together) and runs 37 mapped convs and no
+    keyed conv; with a backward from the FPN output, 69 mapped convs (37 +
+    32 submanifold dFeats) and 37 weight gradients, no map rebuilt. On the
+    CPU both routes take the same plain ops, so their outputs are equal."""
     cfg, _, _, mapped = mapped_models
-    calls = {"map": 0, "conv": 0, "dw": 0, "keyed": 0}
+    calls = {"map": 0, "pair": 0, "conv": 0, "dw": 0, "keyed": 0}
 
     def counted(name, fn):
         def wrapper(*args):
@@ -202,6 +203,8 @@ def test_mapped_route_counts_and_equals_keyed_route(mapped_models,
         return wrapper
 
     monkeypatch.setattr(tsc, "kernel_map", counted("map", tmk.kernel_map))
+    monkeypatch.setattr(tsc, "kernel_map_pair",
+                        counted("pair", tmk.kernel_map_pair))
     monkeypatch.setattr(tsk, "mapped_conv", counted("conv", tsk.mapped_conv))
     monkeypatch.setattr(tsk, "mapped_conv_dw",
                         counted("dw", tsk.mapped_conv_dw))
@@ -211,18 +214,18 @@ def test_mapped_route_counts_and_equals_keyed_route(mapped_models,
     keyed.load_state_dict(mapped.state_dict())
     with torch.no_grad():
         ref = keyed(inputs, debug_stop=3)["digest"]
-        calls.update(map=0, conv=0, dw=0, keyed=0)
+        calls.update(map=0, pair=0, conv=0, dw=0, keyed=0)
         got = mapped(inputs, debug_stop=3)["digest"]
-    assert calls == {"map": 9, "conv": 37, "dw": 0, "keyed": 0}
+    assert calls == {"map": 1, "pair": 4, "conv": 37, "dw": 0, "keyed": 0}
     assert float(got) == float(ref)
-    calls.update(map=0, conv=0, dw=0, keyed=0)
+    calls.update(map=0, pair=0, conv=0, dw=0, keyed=0)
     mapped.train()
     try:
         mapped(inputs, debug_stop=3)["digest"].backward()
     finally:
         mapped.eval()
         mapped.zero_grad(set_to_none=True)
-    assert calls == {"map": 9, "conv": 69, "dw": 37, "keyed": 0}
+    assert calls == {"map": 1, "pair": 4, "conv": 69, "dw": 37, "keyed": 0}
 
 
 def test_build_model_refuses_unknown_route():
@@ -240,7 +243,7 @@ def test_every_kernel_source_declares_its_c_signature():
     from vdetr_tpu_torch import kernels
 
     assert {"map_kernel", "mapped_conv", "mapped_conv_dw", "rpe_ablate",
-            "dot_micro"} <= set(kernels._SIGNATURES)
+            "dot_micro", "rpe_table_sum"} <= set(kernels._SIGNATURES)
     for name, (fn_name, argtypes) in kernels._SIGNATURES.items():
         src = (kernels._CSRC / f"{name}.cu").read_text()
         decl = re.search(r'extern "C" int ' + fn_name + r"\(([^)]*)\)", src)

@@ -130,6 +130,91 @@ def test_keyed_conv_gradients_match_jax_vjp(rng, stride, cin, cout):
                                    atol=1e-5 * max(1.0, np.abs(ref).max()))
 
 
+@pytest.mark.parametrize("kind", ["skip-grid", "generative"])
+def test_transpose_conv_gradients_match_jax_vjp(rng, kind):
+    """dFeats (the coarse features) and dW of the kernel-2 transpose conv,
+    whose parent gather differentiates by adding each coarse row's up to
+    8 children in slot order (`_ParentGather`), against jax.vjp of the
+    JAX package's `sparse_conv_transpose` (at the skip grid's sites, or
+    at all 8 children of every coarse site); and the same bits from a
+    second backward. f32 sums of <= 8 rows per entry, then 8 masked
+    matmuls: 1e-5 of the largest."""
+    import importlib
+
+    from vdetr_tpu.ops import sparse_conv as jsc
+    from vdetr_tpu_torch.ops import sparse_conv as tsc
+
+    jvox = importlib.import_module("vdetr_tpu.ops.voxelize")
+    pts = (rng.rand(2, 900, 3) * [0.5, 0.4, 0.3]).astype(np.float32)
+    valid = rng.rand(2, 900) > 0.05
+    jg = jvox.voxelize(pts, pts, valid, voxel_size=0.02, capacity=1024,
+                       extent=(64, 64, 32))
+    tg = voxelize(T(pts), T(pts), T(valid), voxel_size=0.02, capacity=1024,
+                  extent=(64, 64, 32))
+    jc, tc = jvox.downsample_grid(jg, 512), downsample_grid(tg, 512)
+    cin, cout = 6, 5
+    feats = (rng.randn(2, 512, cin) * tc.valid.numpy()[..., None]
+             ).astype(np.float32)
+    w = (rng.randn(8, cin, cout) / np.sqrt(8 * cin)).astype(np.float32)
+    fine_cap = 1024 if kind == "skip-grid" else 2048
+    dout = rng.randn(2, fine_cap, cout).astype(np.float32)
+
+    def jax_fn(f, ww):
+        c = jc.replace(features=f)
+        out = (jsc.sparse_conv_transpose(c, jg, ww) if kind == "skip-grid"
+               else jsc.sparse_conv_transpose_generative(c, ww, fine_cap))
+        return out.features
+
+    out_j, vjp = jax.vjp(jax_fn, jnp.asarray(feats), jnp.asarray(w))
+    df_j, dw_j = vjp(jnp.asarray(dout))
+    grads = []
+    for _ in range(2):
+        f_t, w_t = T(feats).requires_grad_(), T(w).requires_grad_()
+        c = tc.replace(features=f_t)
+        out = (tsc.sparse_conv_transpose(c, tg, w_t) if kind == "skip-grid"
+               else tsc.sparse_conv_transpose_generative(c, w_t, fine_cap))
+        grads.append(torch.autograd.grad(out.features, (f_t, w_t),
+                                         T(dout)))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    assert float(grads[0][0].abs().max()) > 0
+    for got, ref in ((out.features.detach(), out_j), (grads[0][0], df_j),
+                     (grads[0][1], dw_j)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()))
+
+
+def test_parent_gather_backward_sums_children_in_slot_order(rng):
+    """`_ParentGather`'s backward equals autograd's gather backward (a
+    scatter-add) exactly where each coarse row has at most one child with
+    a nonzero gradient, and every coarse row with children gets their
+    sum: the child lookup finds exactly the fine rows whose parent lookup
+    found the row."""
+    from vdetr_tpu_torch.ops import sparse_conv as tsc
+    from vdetr_tpu_torch.ops.voxelize import (KEY_SENTINEL, gather_rows,
+                                              lookup, pack_keys)
+
+    pts = (rng.rand(1, 900, 3) * [0.5, 0.4, 0.3]).astype(np.float32)
+    fine = voxelize(T(pts), T(pts), torch.ones(1, 900, dtype=torch.bool),
+                    voxel_size=0.02, capacity=1024, extent=(64, 64, 32))
+    coarse = downsample_grid(fine, 512)
+    feats = torch.randn(1, 512, 3, requires_grad=True)
+    pk = torch.where(fine.valid, pack_keys(fine.coords // 2, coarse.extent),
+                     KEY_SENTINEL)
+    parent = lookup(coarse.keys, pk)
+    dx = torch.randn(1, 1024, 3)
+    ref, = torch.autograd.grad(gather_rows(feats, parent), feats, dx)
+    got, = torch.autograd.grad(
+        tsc._ParentGather.apply(feats, parent, coarse, fine), feats, dx)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    children = tsc.child_rows(coarse, fine)
+    hit = children < 1024
+    assert int(hit.sum()) == int((parent < 512).sum())
+    # each child's parent lookup finds the coarse row that lists it
+    rows = torch.arange(512).expand(8, -1)[None]
+    assert torch.equal(parent[0, children[hit]], rows[hit])
+
+
 # --------------------------------------------------------------------------
 # RPE attention gradients and dropout
 # --------------------------------------------------------------------------

@@ -19,7 +19,8 @@
 // the JAX package (rpe_attention.py:626-631). Corners, angles and key
 // positions get no gradient: the decoder feeds detached boxes.
 //
-// Two kernels run back to back (and a third adds dQ's key shares):
+// Two kernels run back to back (a third adds dQ's key shares, and
+// rpe_table_sum.cu the table kernel's slices):
 // - the pair kernel forms dp, ds, eg and dQ as the two GEMMs of a
 //   FlashAttention-2 backward, dp = dO . V^T and dQ += ds . K, on the
 //   tensor cores in split TF32 (tensor_core.cuh: three m16n8k8 MMAs per
@@ -52,25 +53,38 @@
 //   SM to hide the MMA and shared-memory latencies.
 // - the table kernel scatters dTables from ds as a privatized weighted
 //   histogram: one block per (batch, 32 queries, corner pair (i, i + 4),
-//   share of the keys), the keys split until ~4 blocks per SM are
-//   resident, keeps both corners' tables (32 KB at n = 10, H = 4) in
-//   shared memory and adds their nonzero entries to the global dTables
-//   with one atomic add each at the end. A warp takes one query and 32
-//   keys at a time: each lane quantizes its (pair, corner) deltas, x and
-//   y once for the pair when the two corners' x and y agree bit for bit
-//   (a box's corners i and i + 4 differ in z alone), and stages its
-//   item's ds and 8 tap weights per corner in the warp's shared buffer,
-//   with its lower tap cell and in-table tap mask in a register. Then for
-//   each item the 32 lanes (8 taps x 4 heads, 32 distinct words in 32
-//   distinct banks) add their weighted ds with one shared atomic each.
-//   On this card a shared f32 atomicAdd compiles to a compare-and-swap
-//   loop (ATOMS.CAST.SPIN in the SASS), not a native add. Grouping the
+//   share of the keys), the keys split until TABLE_BLOCKS_PER_SM blocks
+//   per SM have work (ops/rpe_attention.py:table_key_split). A warp takes
+//   one query and 32 keys at a time: each lane quantizes its (pair,
+//   corner) deltas, x and y once for the pair when the two corners' x and
+//   y agree bit for bit (a box's corners i and i + 4 differ in z alone),
+//   and stages its item's ds and 8 tap weights per corner in the warp's
+//   shared buffer, with its lower tap cell and in-table tap mask in a
+//   register. Then for each item the 32 lanes (8 taps x 4 heads, 32
+//   distinct words in 32 distinct banks) add their weighted ds to the
+//   block's two tables in shared memory. The tables hold 64-bit
+//   fixed-point integers: w * ds times 2^k (2^k folded into the staged
+//   weights), rounded to an integer below 2^30 in magnitude (k from the
+//   launch's largest |ds|, which the pair blocks record), added by one
+//   native 32-bit shared atomic on the low half and, on a carry out of
+//   it, one on the high half (add_fixed). Integer adds commute, so the 16 warps' order of arrival
+//   changes no bit; a shared f32 atomicAdd would be a compare-and-swap
+//   loop (ATOMS.CAST.SPIN) in an order that varies from run to run. Two
+//   atomics for every term, each half's sum kept below 2^31 by splitting
+//   the term at 2^15, ran 1.89 ms a launch against this form's (PERF.md
+//   §6): nearly every term has a high part. Each block
+//   then writes its tables whole, zeros included, as floats to its own
+//   slice, and rpe_table_sum.cu adds the slices in slice order: dTables
+//   repeats bit for bit, with no global atomics. Rounding each term to
+//   a multiple of 2^-k costs at most 2^-30 of the largest |ds| a term
+//   (tests/test_torch_kernel_premises.py holds the sums to the plain
+//   index_add_ within F's tolerance at the published shape). Grouping the
 //   warp's items by cell with __match_any_sync first, one atomic per
-//   cell, was slower (PERF.md §6): the warp's 32 keys, in FPS
-//   order, spread over most of the cells (chip_smoke prints the mean),
-//   so the per-group work cost more than the atomics it saved. The kernel it replaced (one block per corner,
-//   fewer than 2 per SM, the warp walking its items one by one through
-//   four shuffles and an atomic each) ran 3.75 ms a layer.
+//   cell, was slower (PERF.md §6): the warp's 32 keys, in FPS order,
+//   spread over most of the cells (chip_smoke prints the mean). The
+//   kernel it replaced (one block per corner, fewer than 2 per SM, the
+//   warp walking its items one by one through four shuffles and an
+//   atomic each) ran 3.75 ms a layer.
 
 #include "rpe_common.cuh"
 #include "tensor_core.cuh"
@@ -92,8 +106,12 @@ static_assert(PK == 32, "the pair kernel's key masks take one key a lane");
 constexpr int NT = 32 * H;        // 128 threads: warp h takes head h
 constexpr int SMS = 132;          // the H100 SXM's SMs
 constexpr int TQ2 = 32;           // queries per table block
-constexpr int NT2 = 256;          // threads per table block
+constexpr int NT2 = 512;          // threads per table block
 constexpr int NW2 = NT2 / 32;     // its warps
+// table blocks resident per SM: each holds its two tables as 64-bit
+// integer words (64 KB at n = 10, H = 4) and its 16 warps' items (40 KB)
+// (ops/rpe_attention.py:table_key_split counts the same)
+constexpr int TABLE_BLOCKS_PER_SM = 2;
 
 // pair blocks resident per SM: registers for 3 at a head width of 64
 // (ops/rpe_attention.py:pair_key_split counts the same)
@@ -132,6 +150,7 @@ rpe_pair_bwd_kernel(
                                         // dQ at z * share_elems
     float* __restrict__ ds_out,         // (B, H, nQ, nK)
     float* __restrict__ eg_out,         // (B, H, nQ, nK)
+    float* __restrict__ ds_absmax,      // one per block: max |ds|
     Dropout drop, int nQ, int nK, int keys_per_block, size_t share_elems,
     bool vec, bool kv16, bool l16) {
   constexpr int KS = HD + 4;       // K, V row stride in shared memory
@@ -192,6 +211,7 @@ rpe_pair_bwd_kernel(
     orow[r] = (((size_t)b * H + h) * nQ + qi) * nK;
   }
 
+  float amax = 0.f;   // max |ds| of the thread's pairs
   float acc[NKS][4];  // dQ: rows g, g + 8; columns 8 n + 2t, + 1
 #pragma unroll
   for (int n = 0; n < NKS; ++n)
@@ -313,6 +333,7 @@ rpe_pair_bwd_kernel(
           const float dsv =
               (rv[r] && kv) ? e * (gs * dp[j][2 * r + c] - D[r]) : 0.f;
           dp[j][2 * r + c] = dsv;
+          amax = fmaxf(amax, fabsf(dsv));
           egv[c] = e * gs;
         }
         if (rv[r]) {
@@ -361,6 +382,19 @@ rpe_pair_bwd_kernel(
   }
   cp_wait<0>();  // no copy may outlive the block's shared memory
 
+  // the block's max |ds| (the table kernel's fixed-point scale): an
+  // order-free max over the bits of non-negative floats
+  __shared__ uint32_t s_amax[H];
+  const uint32_t wmax = __reduce_max_sync(0xffffffffu, __float_as_uint(amax));
+  if (lane == 0) s_amax[h] = wmax;
+  __syncthreads();
+  if (tid == 0) {
+    uint32_t m = s_amax[0];
+    for (int i = 1; i < H; ++i) m = max(m, s_amax[i]);
+    ds_absmax[((size_t)blockIdx.z * gridDim.y + b) * gridDim.x + blockIdx.x] =
+        __uint_as_float(m);
+  }
+
   float* dst = dq + blockIdx.z * share_elems;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -373,47 +407,25 @@ rpe_pair_bwd_kernel(
   }
 }
 
-// dq = the key shares' dQ added in share order (dq[i] = ((s_0 + s_1) +
-// s_2) + ...): the same sum in every run. `vec4`: n a multiple of 4 and
-// both bases 16-byte aligned.
+// dq = the key shares' dQ added in share order (rpe::slices_sum)
 __global__ void __launch_bounds__(256)
 rpe_dq_sum_kernel(const float* __restrict__ parts, float* __restrict__ dq,
                   size_t n, int shares, bool vec4) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (vec4) {
-    const float4* p4 = reinterpret_cast<const float4*>(parts);
-    for (; i < n / 4; i += stride) {
-      float4 s = p4[i];
-      for (int z = 1; z < shares; ++z) {
-        const float4 x = p4[z * (n / 4) + i];
-        s.x += x.x;
-        s.y += x.y;
-        s.z += x.z;
-        s.w += x.w;
-      }
-      reinterpret_cast<float4*>(dq)[i] = s;
-    }
-    return;
-  }
-  for (; i < n; i += stride) {
-    float s = parts[i];
-    for (int z = 1; z < shares; ++z) s += parts[z * n + i];
-    dq[i] = s;
-  }
+  rpe::slices_sum(parts, dq, n, shares, vec4);
 }
 
 // Per pair item: ds of the 4 heads, then for each corner of the pair the
 // 8 trilinear tap weights; a warp's 32 items (one query, 32 keys).
 constexpr int ITEM_FLOATS = 32 * (H + 2 * 8);
 
-// One corner of a pair item: its 8 tap weights to `wts`, and its key: the
+// One corner of a pair item: its 8 tap weights times `scale` (a power of
+// 2, so the products are exact) to `wts`, and its key: the
 // table offset of its lower tap cell, (cd0 * n + ch0) * n + cw0 shifted
 // by n^2 + n + 1 to be >= 0, times 256, plus the mask of the taps that lie
 // in the table (bit dd * 4 + dh * 2 + dw); -1 when none does or the item
 // is inactive.
 __device__ __forceinline__ int corner_item(bool active, float iw, float ih,
-                                           float id, int n,
+                                           float id, int n, float scale,
                                            float* __restrict__ wts) {
   const float w0 = floorf(iw), h0 = floorf(ih), d0 = floorf(id);
   const float fw = iw - w0, fh = ih - h0, fd = id - d0;
@@ -431,7 +443,7 @@ __device__ __forceinline__ int corner_item(bool active, float iw, float ih,
   for (int tap = 0; tap < 8; ++tap) {
     const int tdd = tap >> 2, tdh = (tap >> 1) & 1, tdw = tap & 1;
     w[tap] = (tdd ? fd : 1.f - fd) * (tdh ? fh : 1.f - fh) *
-             (tdw ? fw : 1.f - fw);
+             (tdw ? fw : 1.f - fw) * scale;
   }
   reinterpret_cast<float4*>(wts)[0] = make_float4(w[0], w[1], w[2], w[3]);
   reinterpret_cast<float4*>(wts)[1] = make_float4(w[4], w[5], w[6], w[7]);
@@ -439,36 +451,77 @@ __device__ __forceinline__ int corner_item(bool active, float iw, float ih,
               : -1;
 }
 
-__global__ void __launch_bounds__(NT2, 4)
+// The fixed-point scale of the table sums, 2^k: every weighted ds w * ds
+// (|w| <= 1) of the launch becomes s = w * ds * 2^k of magnitude < 2^30,
+// from the largest |ds| M < 2^e (k = 30 - e, at most 126 so 2^k and 2^-k
+// are normal floats). 0 when M is not finite (the tables are then NaN).
+__device__ __forceinline__ int table_scale_exp(float m) {
+  if (!isfinite(m)) return 0;
+  int e;
+  frexpf(m, &e);  // m = f 2^e, f in [0.5, 1); e = 0 for m = 0
+  return min(30 - e, 126);
+}
+
+// A block's two tables are 64-bit integer sums, each word kept as a low
+// and a high 32-bit half in two shared arrays. add_fixed adds x (|x| <
+// 2^31) to word w: the low half by one native shared atomic add, whose
+// old value gives the carry out (add.cc), then the high half, when the
+// sign extension plus the carry is not 0 (for a small x, mostly not).
+// Integer adds commute, so the block's final words are the same bits
+// whatever order its warps add in.
+__device__ __forceinline__ void add_fixed(uint32_t* lo, int* hi, int w,
+                                          int x) {
+  const uint32_t old = atomicAdd(lo + w, (uint32_t)x);
+  int carry;
+  asm("{\n\t.reg .u32 t;\n\tadd.cc.u32 t, %1, %2;\n\t"
+      "addc.s32 %0, %3, 0;\n\t}"
+      : "=r"(carry)
+      : "r"(old), "r"((uint32_t)x), "r"(x >> 31));
+  if (carry != 0) atomicAdd(hi + w, carry);
+}
+
+__global__ void __launch_bounds__(NT2, TABLE_BLOCKS_PER_SM)
 rpe_table_bwd_kernel(
     const float* __restrict__ ds,       // (B, H, nQ, nK)
     const float* __restrict__ corners,  // (B, nQ, 8, 3)
     const float* __restrict__ cossin,   // (B, nQ, 2) or null
     const float* __restrict__ key_xyz,  // (B, nK, 3)
     const uint8_t* __restrict__ key_valid,  // (B, nK) or null
-    float* __restrict__ dtables,        // (8, n, n, n, H), zeroed
+    const float* __restrict__ ds_absmax,  // (n_absmax,) pair blocks' max|ds|
+    int n_absmax,
+    float* __restrict__ slices,  // (B, qtiles, shares, 8, n, n, n, H)
     int nQ, int nK, int n, float log_scale, float max_value,
     int keys_per_block) {
   extern __shared__ float smem[];
   const int n3 = n * n * n;
+  const int words = 2 * n3 * H;  // both tables
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  float* s_dt = smem;                          // 2 * n3 * H: both tables
-  float* s_item = s_dt + 2 * n3 * H;           // NW2 * ITEM_FLOATS
+  uint32_t* s_lo = reinterpret_cast<uint32_t*>(smem);  // words
+  int* s_hi = reinterpret_cast<int*>(s_lo + words);    // words
+  float* s_item = reinterpret_cast<float*>(s_hi + words);  // NW2 * ITEM
   float* s_corner = s_item + NW2 * ITEM_FLOATS;  // TQ2 * 2 * 3
   float* s_cs = s_corner + TQ2 * 6;            // TQ2 * 2
   int* s_pairxy = reinterpret_cast<int*>(s_cs + TQ2 * 2);  // TQ2
   float* s_ds = s_item + warp * ITEM_FLOATS;   // this warp's items: 32 x H
   float* s_w = s_ds + 32 * H;                  // 2 x 32 x 8
+  __shared__ uint32_t s_max[NW2];
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * TQ2;
   const int cp = blockIdx.z % 4;  // corners cp and cp + 4
-  const int kbeg = (blockIdx.z / 4) * keys_per_block;
+  const int share = blockIdx.z / 4;
+  const int kbeg = share * keys_per_block;
   const int kend = min(nK, kbeg + keys_per_block);
   const bool rotate = cossin != nullptr;
 
-  for (int i = tid; i < 2 * n3 * H; i += NT2) s_dt[i] = 0.f;
+  // the launch's max |ds| from the pair blocks' maxima: the scale 2^k
+  uint32_t m = 0;
+  for (int i = tid; i < n_absmax; i += NT2)
+    m = max(m, __float_as_uint(ds_absmax[i]));
+  m = __reduce_max_sync(0xffffffffu, m);
+  if (lane == 0) s_max[warp] = m;
+  for (int i = tid; i < 2 * words; i += NT2) s_lo[i] = 0u;  // and s_hi
   for (int i = tid; i < TQ2 * 6; i += NT2) {
     const int qq = q0 + i / 6, j = (i / 3) % 2;
     s_corner[i] = qq < nQ ? corners[(((size_t)b * nQ + qq) * 8 + cp + 4 * j)
@@ -481,6 +534,10 @@ rpe_table_bwd_kernel(
                                   : 0.f;
   }
   __syncthreads();
+  for (int w = 0; w < NW2; ++w) m = max(m, s_max[w]);
+  const float amax = __uint_as_float(m);
+  const int k = table_scale_exp(amax);
+  const float scale = __int_as_float((127 + k) << 23);  // 2^k
   // corners i and i + 4 of a box differ in z alone: then the x and y
   // quantizes of a pair item are done once (exact, as the bits agree)
   for (int i = tid; i < TQ2; i += NT2) {
@@ -541,33 +598,40 @@ rpe_table_bwd_kernel(
     int cell[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      cell[j] = corner_item(active, iw[j], ih[j], id[j], n,
+      cell[j] = corner_item(active, iw[j], ih[j], id[j], n, scale,
                             s_w + (j * 32 + lane) * 8);
     __syncwarp();
 
     // per corner, item by item: each (tap, head) lane adds its weighted
-    // ds to its own table word, 32 distinct words in 32 distinct banks
+    // ds, in fixed point, to its own table word, 32 distinct words in 32
+    // distinct banks
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const float* wj = s_w + j * 32 * 8 + tap;
-      float* dt = s_dt + (j * n3 + tap_off) * H + tap_h;
+      const int w0 = (j * n3 + tap_off) * H + tap_h;
 #pragma unroll 4
-      for (int m = 0; m < 32; ++m) {
-        const int key = __shfl_sync(0xffffffffu, cell[j], m);
+      for (int mm = 0; mm < 32; ++mm) {
+        const int key = __shfl_sync(0xffffffffu, cell[j], mm);
         if (key >= 0 && ((key >> tap) & 1))
-          atomicAdd(dt + ((key >> 8) - base0) * H,
-                    wj[m * 8] * s_ds[m * H + tap_h]);
+          add_fixed(s_lo, s_hi, w0 + ((key >> 8) - base0) * H,
+                    __float2int_rn(wj[mm * 8] * s_ds[mm * H + tap_h]));
       }
     }
     __syncwarp();  // the items are read before the next task's land
   }
   __syncthreads();
-  for (int i = tid; i < 2 * n3 * H; i += NT2) {
-    const float val = s_dt[i];
+  // the block's slice: both tables whole, zeros included, as floats
+  const float inv = __int_as_float((127 - k) << 23);  // 2^-k
+  const bool finite = isfinite(amax);
+  float* dst = slices +
+               (((size_t)b * gridDim.x + blockIdx.x) * (gridDim.z / 4) +
+                share) * 8 * n3 * H;
+  for (int i = tid; i < words; i += NT2) {
     const int j = i / (n3 * H);
-    if (val != 0.f)
-      atomicAdd(dtables + (size_t)(cp + 4 * j) * n3 * H + i - j * n3 * H,
-                val);
+    const long long v = (long long)(((unsigned long long)(uint32_t)s_hi[i]
+                                     << 32) | s_lo[i]);
+    dst[(size_t)(cp + 4 * j) * n3 * H + i - j * n3 * H] =
+        finite ? __ll2float_rn(v) * inv : __int_as_float(0x7fc00000);
   }
 }
 
@@ -581,9 +645,10 @@ int launch(const float* k, const float* v, const float* corners,
            const float* cossin, const float* key_xyz,
            const uint8_t* key_valid, const float* out, const float* dout,
            const float* logits, const float* lse, float* dq, float* dq_parts,
-           float* dtables, float* ds, float* eg, Dropout drop, int B, int nQ,
-           int nK, int n, float log_scale, float max_value,
-           int keys_per_block, cudaStream_t stream) {
+           float* ds_absmax, float* slices, float* ds, float* eg,
+           Dropout drop, int B, int nQ, int nK, int n, float log_scale,
+           float max_value, int keys_per_block, int table_keys_per_block,
+           cudaStream_t stream) {
   // pair kernel: two slots of K, V and logits tiles in shared memory
   const size_t smem1 =
       2 * (2 * PK * (HD + 4) + H * PQ * (PK + 8)) * sizeof(float);
@@ -597,8 +662,9 @@ int launch(const float* k, const float* v, const float* corners,
   dim3 grid1(bands, B, shares);
   rpe_pair_bwd_kernel<HD><<<grid1, NT, smem1, stream>>>(
       k, v, key_valid, out, dout, logits, lse, shares > 1 ? dq_parts : dq,
-      ds, eg, drop, nQ, nK, keys_per_block, shares > 1 ? elems : 0, vec,
-      aligned16(k) && aligned16(v), nK % 4 == 0 && aligned16(logits));
+      ds, eg, ds_absmax, drop, nQ, nK, keys_per_block,
+      shares > 1 ? elems : 0, vec, aligned16(k) && aligned16(v),
+      nK % 4 == 0 && aligned16(logits));
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   if (shares > 1) {
@@ -611,44 +677,46 @@ int launch(const float* k, const float* v, const float* corners,
     if (err != 0) return err;
   }
   // table kernel: one block per (32 queries, batch row, corner pair,
-  // share of the keys), the keys split until ~4 blocks per SM have work
-  const size_t smem2 = (2 * (size_t)n * n * n * H + NW2 * ITEM_FLOATS +
+  // share of the keys), each writing its slice of `slices`
+  const size_t smem2 = (2 * 2 * (size_t)n * n * n * H + NW2 * ITEM_FLOATS +
                         TQ2 * 9) * sizeof(float);
   err = set_smem((const void*)rpe_table_bwd_kernel, smem2);
   if (err != 0) return err;
   const int qtiles2 = (nQ + TQ2 - 1) / TQ2;
-  const int kchunks = (nK + 31) / 32;
-  const int shares2 =
-      max(1, min(kchunks, (4 * SMS) / (B * qtiles2 * 4)));
-  const int keys_per_block2 = ((kchunks + shares2 - 1) / shares2) * 32;
   dim3 grid2(qtiles2, B,
-             4 * ((nK + keys_per_block2 - 1) / keys_per_block2));
+             4 * ((nK + table_keys_per_block - 1) / table_keys_per_block));
   rpe_table_bwd_kernel<<<grid2, NT2, smem2, stream>>>(
-      ds, corners, cossin, key_xyz, key_valid, dtables, nQ, nK, n,
-      log_scale, max_value, keys_per_block2);
+      ds, corners, cossin, key_xyz, key_valid, ds_absmax, bands * B * shares,
+      slices, nQ, nK, n, log_scale, max_value, table_keys_per_block);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtables must be zero on entry (the table kernel adds into it); every
-// element of dq is written (zeros when there are no keys). A pair block
-// takes keys_per_block keys (a multiple of 32), so the pair kernel runs
-// shares = ceil(nK / keys_per_block) key shares; dq_parts is scratch for
-// them, room for shares x (B, nQ, H, hd) floats, and may be null when
-// shares is 1. A null seed means no dropout. Returns
-// cudaErrorInvalidValue (1) for a head count, head width or table size
-// the kernels are not built for, or a keys_per_block they cannot take.
+// Every element of dq is written (zeros when there are no keys). A pair
+// block takes keys_per_block keys (a multiple of 32), so the pair kernel
+// runs shares = ceil(nK / keys_per_block) key shares; dq_parts is scratch
+// for them, room for shares x (B, nQ, H, hd) floats, and may be null when
+// shares is 1. ds_absmax is scratch for one float per pair block
+// (ceil(nQ / 16) x B x shares). A table block takes table_keys_per_block
+// keys (a multiple of 32): `slices` receives (B, ceil(nQ / 32),
+// ceil(nK / table_keys_per_block)) slices of the 8 tables, each written
+// whole, and rpe_table_sum.cu adds them into dtables. With no keys
+// (nK = 0) nothing is written to them. A null seed means no dropout.
+// Returns cudaErrorInvalidValue (1) for a head count, head width or table
+// size the kernels are not built for, or key splits they cannot take.
 extern "C" int rpe_cross_attention_bwd_f32(
     const void* k, const void* v, const void* corners, const void* cossin,
     const void* key_xyz, const void* key_valid, const void* out,
     const void* dout, const void* logits, const void* lse, const void* seed,
-    void* dq, void* dq_parts, void* dtables, void* ds, void* eg, int B,
-    int nQ, int nK, int heads, int hd, int n, float log_scale,
-    float max_value, int rotate, int keep_threshold, float drop_scale,
-    int keys_per_block, void* stream) {
+    void* dq, void* dq_parts, void* ds_absmax, void* slices, void* ds,
+    void* eg, int B, int nQ, int nK, int heads, int hd, int n,
+    float log_scale, float max_value, int rotate, int keep_threshold,
+    float drop_scale, int keys_per_block, int table_keys_per_block,
+    void* stream) {
   // the item packing holds table indices up to 31
-  if (heads != H || n > 31 || keys_per_block <= 0 || keys_per_block % PK)
+  if (heads != H || n > 31 || keys_per_block <= 0 || keys_per_block % PK ||
+      table_keys_per_block <= 0 || table_keys_per_block % 32)
     return (int)cudaErrorInvalidValue;
   if (nK > keys_per_block && dq_parts == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -664,8 +732,9 @@ extern "C" int rpe_cross_attention_bwd_f32(
               (const float*)key_xyz, (const uint8_t*)key_valid,
               (const float*)out, (const float*)dout, (const float*)logits,
               (const float*)lse, (float*)dq, (float*)dq_parts,
-              (float*)dtables, (float*)ds, (float*)eg, drop, B, nQ, nK, n,
-              log_scale, max_value, keys_per_block, (cudaStream_t)stream);
+              (float*)ds_absmax, (float*)slices, (float*)ds, (float*)eg, drop,
+              B, nQ, nK, n, log_scale, max_value, keys_per_block,
+              table_keys_per_block, (cudaStream_t)stream);
   };
   switch (hd) {
     case 8: return args(launch<8>);
@@ -676,3 +745,4 @@ extern "C" int rpe_cross_attention_bwd_f32(
     default: return (int)cudaErrorInvalidValue;
   }
 }
+

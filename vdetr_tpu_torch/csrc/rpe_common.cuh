@@ -1,7 +1,8 @@
 // Pieces shared by the vertex-RPE attention kernels (rpe_attention.cu,
-// rpe_attention_bwd.cu): the log-quantized table index, the trilinear
-// taps of a table index, the same-bits test of the shared x/y quantize,
-// and the attention-dropout hash. The plain PyTorch
+// rpe_attention_bwd.cu, rpe_table_sum.cu): the log-quantized table index,
+// the trilinear taps of a table index, the same-bits test of the shared
+// x/y quantize, the attention-dropout hash, and the fixed-order sum of
+// per-block slices. The plain PyTorch
 // versions in vdetr_tpu_torch/ops/rpe_attention.py compute the same.
 #pragma once
 
@@ -77,6 +78,38 @@ __device__ __forceinline__ uint32_t row_hash(uint32_t seed, uint32_t row) {
 __device__ __forceinline__ bool keep(uint32_t rowh, uint32_t key,
                                      uint32_t threshold) {
   return (hash32(rowh ^ (key * 0x9E3779B1u)) >> 8) >= threshold;
+}
+
+// out[i] = the slices of `parts` (slices x n floats) added in slice order,
+// ((p_0 + p_1) + p_2) + ...: the same sum in every run. The caller's grid
+// strides over the n outputs; `vec4`: n a multiple of 4 and both bases
+// 16-byte aligned.
+__device__ __forceinline__ void slices_sum(const float* __restrict__ parts,
+                                           float* __restrict__ out, size_t n,
+                                           int slices, bool vec4) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec4) {
+    const float4* p4 = reinterpret_cast<const float4*>(parts);
+    for (; i < n / 4; i += stride) {
+      float4 s = p4[i];
+      for (int z = 1; z < slices; ++z) {
+        const float4 x = p4[z * (n / 4) + i];
+        s.x += x.x;
+        s.y += x.y;
+        s.z += x.z;
+        s.w += x.w;
+      }
+      reinterpret_cast<float4*>(out)[i] = s;
+    }
+    return;
+  }
+  for (; i < n; i += stride) {
+    float s = parts[i];
+#pragma unroll 8
+    for (int z = 1; z < slices; ++z) s += parts[z * n + i];
+    out[i] = s;
+  }
 }
 
 }  // namespace rpe

@@ -43,7 +43,8 @@ _SIGNATURES = {
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P]),
     "map_kernel": ("kernel_map_i32",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "mapped_conv": ("mapped_conv_f32",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "mapped_conv_dw": ("mapped_conv_dw_f32",
@@ -55,8 +56,9 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P]),
     "rpe_attention_bwd": ("rpe_cross_attention_bwd_f32",
                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                           _I, _I, _F, _I, _P]),
+                           _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _F, _I, _I, _F, _I, _I, _P]),
+    "rpe_table_sum": ("rpe_table_sum_f32", [_P, _P, _I, _I, _P]),
     "rpe_ablate": ("rpe_ablate_f32",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                     _F, _I, _P]),

@@ -10,9 +10,9 @@ package's (K, C_in, C_out) layout with z-fastest offsets.
 `conv_route` ("keyed" or "mapped", `ops/sparse_conv.py`) picks how the
 3^3 convs run; the weights are the same on both routes. On the mapped
 route each stage's first block attaches its level's neighbour map once,
-on the downsampled grid (JAX `backbone.py:127-142`); every later conv on
-those sites shares it, the FPN's included, whose grids are the encoder
-grids' `replace`s.
+on the downsampled grid (JAX `backbone.py:127-142`), built in one launch
+with its stride-2 conv's map; every later conv on those sites shares it,
+the FPN's included, whose grids are the encoder grids' `replace`s.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from torch import nn
 from vdetr_tpu_torch.models.norm import MaskedBatchNorm, MaskedInstanceNorm
 from vdetr_tpu_torch.ops.sparse_conv import (
     attach_kernel_map,
+    attach_kernel_maps,
     check_route,
     sparse_conv,
     sparse_conv_down,
@@ -69,11 +70,11 @@ class SparseConvDown(nn.Module):
         self.kernel = nn.Parameter(
             torch.empty(kernel_size ** 3, in_channels, out_channels))
 
-    def forward(self, grid: VoxelGrid,
-                out_grid: Optional[VoxelGrid] = None) -> VoxelGrid:
+    def forward(self, grid: VoxelGrid, out_grid: Optional[VoxelGrid] = None,
+                nbr=None) -> VoxelGrid:
         return sparse_conv_down(grid, self.kernel, self.out_capacity,
                                 self.kernel_size, out_grid=out_grid,
-                                route=self.conv_route)
+                                route=self.conv_route, nbr=nbr)
 
 
 class SparseConvTranspose(nn.Module):
@@ -123,12 +124,14 @@ class SparseBasicBlock(nn.Module):
         out_grid = None
         if self.stride == 2:
             # one site computation shared by conv1 and the downsample; on
-            # the mapped route also the level's one neighbour map, which
-            # conv2 and every later block on these sites share
+            # the mapped route also conv1's stride-2 map and the level's
+            # one neighbour map, which conv2 and every later block on these
+            # sites share, built in one launch
             out_grid = downsample_grid(grid, self.out_capacity)
+            nbr = None
             if self.conv_route == "mapped":
-                out_grid = attach_kernel_map(out_grid)
-            out = self.conv1(grid, out_grid)
+                out_grid, nbr = attach_kernel_maps(grid, out_grid)
+            out = self.conv1(grid, out_grid, nbr)
         else:
             out = self.conv1(grid)
         f = F.relu(self.norm1(out.features, out.valid))

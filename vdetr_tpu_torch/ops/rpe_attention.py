@@ -41,6 +41,10 @@ _KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 _PAIR_QUERIES = 16
 _PAIR_KEYS = 32
 _PAIR_MAX_SHARES = 8
+# its table kernel: a block takes 32 queries, one corner pair and a share
+# of the keys, 2 blocks an SM
+_TABLE_QUERIES = 32
+_TABLE_BLOCKS_PER_SM = 2
 _U32 = 0xFFFFFFFF
 
 
@@ -276,6 +280,50 @@ def pair_key_split(B: int, nQ: int, nK: int, hd: int, sms: int = 132):
     return per_block, -(-nK // per_block)
 
 
+def table_key_split(B: int, nQ: int, nK: int, sms: int = 132):
+    """(keys a block, key shares) of the backward's table kernel: the
+    keys split in 32-key chunks over as many shares as fill the card's
+    `sms` SMs at 2 blocks an SM, with 4 corner pairs per (batch row,
+    32-query tile); at least one share, at least one chunk a share."""
+    chunks = max(1, -(-nK // 32))
+    blocks = B * -(-nQ // _TABLE_QUERIES) * 4
+    shares = max(1, min(chunks, _TABLE_BLOCKS_PER_SM * sms // blocks))
+    per_block = -(-chunks // shares) * 32
+    return per_block, -(-max(nK, 1) // per_block)
+
+
+def rpe_table_sum_plain(slices):
+    """Plain version of `rpe_table_sum`: the slices added in order."""
+    out = slices[0].clone()
+    for s in slices[1:]:
+        out = out + s
+    return out
+
+
+def rpe_table_sum(slices):
+    """dTables (8, n, n, n, H) from the table kernel's slices (count, 8,
+    n, n, n, H): added in slice order, the same bits in every run.
+
+    CUDA tensors launch the Hopper kernel `csrc/rpe_table_sum.cu` (or
+    raise); CPU tensors take `rpe_table_sum_plain`."""
+    if not slices.is_cuda:
+        return rpe_table_sum_plain(slices)
+    kernels.check(slices, torch.float32, slices.shape, "slices")
+    if slices.dim() != 6 or slices.shape[1] != 8 or slices.shape[0] < 1:
+        raise ValueError(f"slices: want (count, 8, n, n, n, H), got "
+                         f"{tuple(slices.shape)}")
+    out = torch.empty(slices.shape[1:], dtype=torch.float32,
+                      device=slices.device)
+    kernels.call("rpe_table_sum", slices.data_ptr(), out.data_ptr(),
+                 out.numel(), slices.shape[0],
+                 torch.cuda.current_stream(slices.device).cuda_stream)
+    rpe_table_sum.launches += 1
+    return out
+
+
+rpe_table_sum.launches = 0
+
+
 def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
                             dout, logits, lse, n: int, *, log_scale: float,
                             max_value: float, rotate: bool = False,
@@ -285,9 +333,10 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
     nQ, nK), with dK = sum_h ds^T q and dV = sum_h eg^T dout left to the
     caller.
 
-    CUDA tensors launch the Hopper kernels (or raise): dq, ds and eg are
-    the same bits from call to call (dtables, a sum of atomic adds, is
-    not); CPU tensors take `rpe_cross_attention_bwd_plain`."""
+    CUDA tensors launch the Hopper kernels (or raise), the table kernel's
+    slices added by `rpe_table_sum`: dq, dtables, ds and eg are the same
+    bits from call to call; CPU tensors take
+    `rpe_cross_attention_bwd_plain`."""
     kw = dict(log_scale=log_scale, max_value=max_value, rotate=rotate,
               dropout_rate=dropout_rate, seed=seed)
     if not dout.is_cuda:
@@ -313,10 +362,16 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
     dev = dout.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_block, shares = pair_key_split(B, nQ, nK, hd, sms)
+    table_per_block, table_shares = table_key_split(B, nQ, nK, sms)
     dq = torch.empty_like(dout)
     dq_parts = (torch.empty(shares, B, nQ, H, hd, dtype=f32, device=dev)
                 if shares > 1 else None)
-    dtables = torch.zeros(8, n, n, n, H, dtype=f32, device=dev)  # atomics
+    # one max |ds| per pair block, one slice of the tables per table block
+    # row (batch row, 32-query tile, key share)
+    ds_absmax = torch.empty(-(-nQ // _PAIR_QUERIES) * B * shares, dtype=f32,
+                            device=dev)
+    slices = torch.empty(B * -(-nQ // _TABLE_QUERIES) * table_shares, 8, n,
+                         n, n, H, dtype=f32, device=dev)
     ds = torch.empty(B, H, nQ, nK, dtype=f32, device=dev)
     eg = torch.empty(B, H, nQ, nK, dtype=f32, device=dev)
     kernels.call(
@@ -325,11 +380,13 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
         None if key_valid is None else key_valid.data_ptr(), out.data_ptr(),
         dout.data_ptr(), logits.data_ptr(), lse.data_ptr(), seed_ptr,
         dq.data_ptr(), None if dq_parts is None else dq_parts.data_ptr(),
-        dtables.data_ptr(), ds.data_ptr(), eg.data_ptr(), B, nQ, nK, H, hd,
-        n, float(log_scale), float(max_value), int(rotate), threshold, scale,
-        per_block,
+        ds_absmax.data_ptr(), slices.data_ptr(), ds.data_ptr(), eg.data_ptr(),
+        B, nQ, nK, H, hd, n, float(log_scale), float(max_value), int(rotate),
+        threshold, scale, per_block, table_per_block,
         torch.cuda.current_stream(dev).cuda_stream)
     rpe_cross_attention_bwd.launches += 1
+    dtables = (rpe_table_sum(slices) if nK > 0 and B > 0 and nQ > 0 else
+               torch.zeros(8, n, n, n, H, dtype=f32, device=dev))
     return dq, dtables, ds, eg
 
 

@@ -2,7 +2,8 @@
 vdetr_tpu_torch.tools.<name>`, and the timing and bound helpers they share
 with `chip_smoke.py`.
 
-Nothing here runs at import time; `time_ms` and `card` need the card.
+Nothing here runs at import time; `time_ms`, `device_ms` and `card`
+need the card.
 """
 
 from __future__ import annotations
@@ -48,6 +49,20 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device ms per call of `fn`: the summed durations of the device
+    work it launches (`ab_kernels.profiled_calls`), for a kernel too short
+    for CUDA events around its Python call to time anything but the
+    host. If the profiler catches no device work at all, the CUDA-event
+    time of the calls (`time_ms`, which then holds the host's overhead
+    too: an upper bound)."""
+    from vdetr_tpu_torch.tools.ab_kernels import profiled_calls
+
+    calls = profiled_calls(fn, reps)
+    us = sum(z - a for c in calls for _, a, z in c)
+    return us / 1e3 / len(calls) if us > 0 else time_ms(fn, reps)
 
 
 def card() -> str:

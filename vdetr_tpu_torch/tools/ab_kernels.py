@@ -20,8 +20,18 @@ weights, synthetic scenes):
   lse and logits) on chip_smoke's decoder-shaped case: ms per launch
   (mean of 10) and the error against the plain version;
 - the flash-RPE backward F at dropout 0 and 0.1: ms per launch, and its
-  pair kernel, the sum of the pair kernel's key shares (a tree that has
-  it) and its table kernel apart (torch.profiler, device ms per call);
+  pair kernel, the sum of the pair kernel's key shares, its table kernel
+  and the sum of the table kernel's slices (a tree that has them) apart
+  (torch.profiler, device ms per call), and whether a second call gives
+  dTables bit for bit;
+- the sum of F's table slices alone (a tree that has it), 64 slices:
+  device ms of the kernel and of `torch.sum(slices, 0)`;
+- the neighbour maps G of one mapped forward, at B = 1 and B = 4, as the
+  tree's backbone launches them (`measure_maps`): ms for the set by CUDA
+  events, device us per launch and the device gaps between launches;
+- the table-contraction probe J2 on the tool's five variants: ms per
+  launch (CUDA events, mean of 20), device ms per launch
+  (torch.profiler), and the einsum with TF32 off and on;
 - FPS, kernel B, on its main-path input (the stride-4 level's 32768
   voxel centres sampled to 4096) of one scene (B = 1) and of the four
   rows of an eval batch (B = 4): ms per launch (mean of 10) and the
@@ -58,37 +68,55 @@ KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
                 ("rpe_attention_kernel", "C"),
                 ("rpe_pair_bwd_kernel", "F pair"),
                 ("rpe_dq_sum_kernel", "F dq sum"),
-                ("rpe_table_bwd_kernel", "F table"))
+                ("rpe_table_bwd_kernel", "F table"),
+                ("rpe_table_sum_kernel", "F table sum"),
+                ("dot_micro_kernel", "J2"))
 
 
 def _label(name: str):
     return next((lab for pat, lab in KERNEL_NAMES if pat in name), None)
 
 
-def profile_by_kernel(fn, reps: int = 1):
-    """{label: [device ms per call, launches per call]} of the port's
-    kernels that `fn` launches (torch.profiler over `reps` warm calls)."""
+def profiled_calls(fn, reps: int, keep=lambda event: True):
+    """The device events of `reps` calls of `fn`, one torch.profiler
+    session a call: per call a list of (name, start us, end us), of the
+    CUDA events that `keep` accepts. A session that caught fewer of them
+    than the most any caught (the profiler can drop a call's events) is
+    taken again; after 3 x reps sessions the fullest `reps` are kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    calls = []
+    for _ in range(3 * reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        calls.append(sorted(
+            ((e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False) and keep(e)),
+            key=lambda x: x[1]))
+        most = max(len(c) for c in calls)
+        if sum(len(c) == most for c in calls) >= reps:
+            break
+    return sorted(calls, key=len, reverse=True)[:reps]
+
+
+def profile_by_kernel(fn, reps: int = 1):
+    """{label: [device ms per call, launches per call]} of the port's
+    kernels that `fn` launches (torch.profiler, one session per warm
+    call, `profiled_calls`)."""
+    calls = profiled_calls(fn, reps, keep=lambda e: _label(e.name))
     out = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False):
-            continue
-        lab = _label(e.name)
-        if lab is None:
-            continue
-        ms, n = out.get(lab, (0.0, 0))
-        out[lab] = (ms + (e.time_range.end - e.time_range.start) / 1e3 / reps,
-                    n + 1 / reps)
+    for call in calls:
+        for name, a, z in call:
+            lab = _label(name)
+            ms, n = out.get(lab, (0.0, 0))
+            out[lab] = (ms + (z - a) / 1e3 / len(calls),
+                        n + 1 / len(calls))
     return {k: [ms, n] for k, (ms, n) in out.items()}
 
 
@@ -167,18 +195,24 @@ def measure() -> dict:
         a = (k, v, corners, angles, key_xyz, key_valid, out, dout, logits,
              lse, tables.shape[1])
         got = rpe_cross_attention_bwd(*a, **fkw)
+        again = rpe_cross_attention_bwd(*a, **fkw)
         ref = rpe_cross_attention_bwd_plain(*a, **fkw)
         errs = {n: float((g - r).abs().max()) for n, g, r in
                 zip(("dq", "dtables", "ds", "eg"), got, ref)}
+        dtables_repeat = bool(torch.equal(got[1], again[1]))
+        del again
         res["rpe_bwd"][str(rate)] = {
             "ms": time_ms(lambda: rpe_cross_attention_bwd(*a, **fkw),
                           reps=10),
             "parts": profile_by_kernel(
                 lambda: rpe_cross_attention_bwd(*a, **fkw), reps=5),
-            "max_abs_err": errs}
+            "max_abs_err": errs, "dtables_bit_equal": dtables_repeat}
         del got, ref, out, lse, logits
     del case, dout
+    res["table_sum"] = measure_table_sum(cfg, dev)
     res["fps"] = measure_fps(cfg, dev, cs)
+    res["maps"] = measure_maps(cfg, dev, cs)
+    res["dot_micro"] = measure_dot_micro(dev)
     torch.cuda.empty_cache()
 
     models = {r: cs.published_model(cfg, dev, r) for r in cs.ROUTES}
@@ -202,6 +236,98 @@ def measure() -> dict:
             "by_part": train[r]["profile"]["by_part"]}
         for r in cs.ROUTES}
     return res
+
+
+def map_launches(grids):
+    """The neighbour maps of one mapped forward over `grids` (raw, stem,
+    stages 1-4), launched the way this tree's backbone builds them: a
+    function that runs them once. A tree with `kernel_map_pair` builds
+    each stage's stride-2 map and level map in one launch (five launches
+    in all); an older tree runs nine `kernel_map` calls."""
+    from vdetr_tpu_torch.ops import map_kernel as mk
+
+    pair = getattr(mk, "kernel_map_pair", None)
+    stem_in, stem = grids[0], grids[1]
+
+    def run():
+        mk.kernel_map(stem_in.keys, (stem.coords * 2).contiguous(),
+                      stem.valid, stem_in.extent)
+        for fine, coarse in zip(grids[1:-1], grids[2:]):
+            if pair is not None:
+                pair(fine.keys, fine.extent, coarse.keys, coarse.coords,
+                     coarse.valid, coarse.extent)
+            else:
+                mk.kernel_map(fine.keys, (coarse.coords * 2).contiguous(),
+                              coarse.valid, fine.extent)
+                mk.kernel_map(coarse.keys, coarse.coords, coarse.valid,
+                              coarse.extent)
+
+    return run
+
+
+def measure_maps(cfg, dev, cs, reps: int = 20) -> dict:
+    """Kernel G on the maps of one mapped forward (`map_launches`) at B = 1
+    and B = 4: ms for the whole set by CUDA events (mean of `reps` sets,
+    each launch from the host as the forward makes it), and under
+    torch.profiler the device us of each launch, the device gaps between
+    consecutive launches of a set, and the set's device span."""
+    from vdetr_tpu_torch.tools import time_ms
+
+    out = {}
+    for batch in (1, 4):
+        run = map_launches(cs.level_grids(cfg, dev, batch))
+        ms = time_ms(run, reps=reps)
+        sets = profiled_calls(run, 5, keep=lambda e: "map_kernel" in e.name)
+        per_set = len(sets[0])
+        gaps = [s[i + 1][1] - s[i][2] for s in sets
+                for i in range(len(s) - 1)]
+        out[str(batch)] = {
+            "event_ms": ms, "launches": per_set,
+            "device_us_per_launch": [
+                sum(s[i][2] - s[i][1] for s in sets) / len(sets)
+                for i in range(per_set)],
+            "device_us_sum": sum(z - a for s in sets for _, a, z in s)
+            / len(sets),
+            "gap_us_mean": sum(gaps) / len(gaps) if gaps else 0.0,
+            "span_us": sum(s[-1][2] - s[0][1] for s in sets if s)
+            / len(sets)}
+    return out
+
+
+def measure_table_sum(cfg, dev) -> dict:
+    """The sum of F's table slices (a tree that has it) at the published
+    shape, 64 slices: device ms per call of the kernel and of
+    `torch.sum(slices, 0)` (one session per call, `profiled_calls`)."""
+    import torch
+
+    from vdetr_tpu_torch.ops import rpe_attention as ra
+
+    if not hasattr(ra, "rpe_table_sum"):
+        return {}
+    n, H = cfg.rpe_table_size, cfg.dec_nhead
+    slices = torch.randn(64, 8, n, n, n, H, device=dev)
+
+    def ms(fn):
+        calls = profiled_calls(fn, 10)
+        return sum(z - a for c in calls for _, a, z in c) / 1e3 / len(calls)
+
+    return {"device_ms": ms(lambda: ra.rpe_table_sum(slices)),
+            "library_device_ms": ms(lambda: torch.sum(slices, 0))}
+
+
+def measure_dot_micro(dev) -> list:
+    """Probe J2 on the tool's five variants: the tool's own timing rows
+    (kernel, plain version, einsum TF32 off and on; CUDA events, and the
+    device ms of each where the tree's tool has them) and the kernel's
+    device ms per launch (torch.profiler)."""
+    from vdetr_tpu_torch.tools import dot_micro as tdm
+
+    cases = tdm.make_inputs(dev)
+    rows = tdm.run_variants(cases, reps=20)
+    for row, (_, T, P, _) in zip(rows, cases):
+        parts = profile_by_kernel(lambda: tdm.dot_micro(T, P), reps=5)
+        row["device_ms"] = parts.get("J2", [None])[0]
+    return rows
 
 
 def measure_fps(cfg, dev, cs) -> dict:
@@ -266,9 +392,26 @@ def summary(runs) -> list:
     for rate in ("0.0", "0.1"):
         lines.append(f"| F ms dropout {rate} | "
                      + col(lambda r: r["rpe_bwd"][rate]["ms"]) + " |")
-        for part in ("F pair", "F dq sum", "F table"):
+        for part in ("F pair", "F dq sum", "F table", "F table sum"):
             lines.append(f"| {part} device ms dropout {rate} | " + col(
                 lambda r: r["rpe_bwd"][rate]["parts"][part][0]) + " |")
+        lines.append(f"| F dTables bit-equal twice dropout {rate} | " + " | "
+                     .join(str(r["rpe_bwd"][rate].get("dtables_bit_equal",
+                                                      "-")) for r in runs)
+                     + " |")
+    for key in ("device_ms", "library_device_ms"):
+        lines.append(f"| F table sum alone {key} | " + col(
+            lambda r: r["table_sum"][key]) + " |")
+    for batch in ("1", "4"):
+        for key in ("event_ms", "device_us_sum", "gap_us_mean", "span_us",
+                    "launches"):
+            lines.append(f"| G maps of a forward B={batch} {key} | " + col(
+                lambda r: r["maps"][batch][key]) + " |")
+    for i, row in enumerate(runs[0].get("dot_micro", [])):
+        for key in ("ms", "device_ms", "library_ms", "library_tf32_ms",
+                    "library_device_ms", "library_tf32_device_ms"):
+            lines.append(f"| J2 {row['case']} {key} | " + col(
+                lambda r: r["dot_micro"][i][key]) + " |")
     for batch in ("1", "4"):
         lines.append(f"| B ms B={batch} | "
                      + col(lambda r: r["fps"][batch]["ms"]) + " |")
@@ -290,7 +433,7 @@ def summary(runs) -> list:
                    "fps"):
             lines.append(f"| train {route} {kn} device ms/step | " + col(
                 lambda r: r["train"][route]["by_kernel"][kn]["ms"]) + " |")
-        for part in ("pair kernel", "dq sum", "table kernel"):
+        for part in ("pair kernel", "dq sum", "table kernel", "table sum"):
             kp = f"rpe_cross_attention_bwd {part}"
             lines.append(f"| train {route} F {part} device ms/step | " + col(
                 lambda r: r["train"][route]["by_part"][kp]["ms"]) + " |")

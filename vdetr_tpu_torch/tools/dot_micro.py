@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from vdetr_tpu_torch import kernels
-from vdetr_tpu_torch.tools import bound_ms, card, time_ms
+from vdetr_tpu_torch.tools import bound_ms, card, device_ms, time_ms
 
 # the tool's variants (label, K, M, E): nc 8 corners except the K = 800
 # one; nt 1024 tiles per layer at E 4096, 512 at E 8192
@@ -74,8 +74,24 @@ def rounding_rtol(T) -> float:
     return 2 * T.shape[0] * T.shape[1] * 2.0 ** -24
 
 
+# csrc/dot_micro.cu stages two chunks of T (nc x KC x 16 floats each) and
+# of P (KC x 72), and the corner-summed tile (KC x 40), in shared memory
+_SMEM_FLOATS = 227 * 1024 // 4
+
+
+def kernel_chunk(nc: int) -> int:
+    """The kernel's reduction depth per chunk (`chunk_depth`): 64, else
+    32, else 16, the deepest whose chunks fit in shared memory; 0 when
+    none does."""
+    return next((kc for kc in (64, 32, 16)
+                 if 2 * (nc * kc * 16 + kc * 72) + kc * 40 <= _SMEM_FLOATS),
+                0)
+
+
 def dot_micro(T, P):
-    """out (M, E) = sum_c T[c]^T P for T (nc, K, M), P (K, E) float32."""
+    """out (M, E) = sum_c T[c]^T P for T (nc, K, M), P (K, E) float32:
+    T summed over the corners in order, then one product in split TF32
+    on the tensor cores (`csrc/dot_micro.cu`)."""
     if not T.is_cuda:
         return dot_micro_plain(T, P)
     nc, K, M = T.shape
@@ -85,6 +101,9 @@ def dot_micro(T, P):
                          f"P {tuple(P.shape)}")
     kernels.check(T, torch.float32, (nc, K, M), "T")
     kernels.check(P, torch.float32, (K, E), "P")
+    if kernel_chunk(nc) == 0:
+        raise ValueError(f"dot_micro: {nc} corners do not fit the kernel's "
+                         "shared memory")
     out = torch.empty(M, E, dtype=torch.float32, device=T.device)
     kernels.call("dot_micro", T.data_ptr(), P.data_ptr(), out.data_ptr(), nc,
                  K, M, E, torch.cuda.current_stream(T.device).cuda_stream)
@@ -96,10 +115,17 @@ dot_micro.launches = 0
 
 
 def kernel_flops(T, P) -> int:
-    """2 nc K M E: what the tool's kernel and `csrc/dot_micro.cu` do (one
-    product per corner); the TF/s column counts these, as the tool does."""
+    """2 nc K M E: what the tool's kernel does (one product per corner);
+    the tool's TF/s column counts these."""
     nc, K, M = T.shape
     return 2 * nc * K * M * P.shape[1]
+
+
+def function_flops(T, P) -> int:
+    """nc K M + 2 K M E: what the function needs (T summed over the
+    corners, then one product), and what `csrc/dot_micro.cu` does."""
+    nc, K, M = T.shape
+    return nc * K * M + 2 * K * M * P.shape[1]
 
 
 def variant_bound(T, P):
@@ -108,22 +134,27 @@ def variant_bound(T, P):
     of them) and 2 K M E for one product, at the f32 CUDA-core rate."""
     nc, K, M = T.shape
     nbytes = (T.numel() + P.numel() + M * P.shape[1]) * 4
-    return bound_ms(nbytes, nc * K * M + 2 * K * M * P.shape[1])
+    return bound_ms(nbytes, function_flops(T, P))
 
 
-def _timed_einsum(T, P, reps: int, tf32: bool) -> float:
+def _timed_einsum(T, P, reps: int, tf32: bool, timer=time_ms) -> float:
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
-        return time_ms(lambda: dot_micro_library(T, P), reps)
+        return timer(lambda: dot_micro_library(T, P), reps)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
-def run_variants(cases, reps: int = 20):
+def run_variants(cases, reps: int = 20, device_times: bool = True):
     """Each variant timed on the card over `reps` calls: the kernel, the
-    plain version and the einsum with TF32 off and on. Per variant a dict
-    of the numbers."""
+    plain version and the einsum with TF32 off and on, by CUDA events
+    around the calls (`ms`, `plain_ms`, `library_ms`, `library_tf32_ms`:
+    host-bound for calls this short) and, with `device_times`, on the
+    device (torch.profiler: `device_ms`, `library_device_ms`,
+    `library_tf32_device_ms`). The TF/s come from the kernel's device
+    time where measured, else its CUDA-event time. Per variant a dict of
+    the numbers."""
     rows = []
     for label, T, P, nt in cases:
         b_ms, b_by = variant_bound(T, P)
@@ -133,7 +164,15 @@ def run_variants(cases, reps: int = 20):
         row["plain_ms"] = time_ms(lambda: dot_micro_plain(T, P), reps)
         row["library_ms"] = _timed_einsum(T, P, reps, tf32=False)
         row["library_tf32_ms"] = _timed_einsum(T, P, reps, tf32=True)
-        row["tflops"] = kernel_flops(T, P) / row["ms"] * 1e-9
+        if device_times:
+            row["device_ms"] = device_ms(lambda: dot_micro(T, P), reps)
+            row["library_device_ms"] = _timed_einsum(T, P, reps, False,
+                                                     device_ms)
+            row["library_tf32_device_ms"] = _timed_einsum(T, P, reps, True,
+                                                          device_ms)
+        t = row.get("device_ms", row["ms"])
+        row["tflops"] = kernel_flops(T, P) / t * 1e-9
+        row["function_tflops"] = function_flops(T, P) / t * 1e-9
         rows.append(row)
     return rows
 
@@ -141,13 +180,20 @@ def run_variants(cases, reps: int = 20):
 def format_rows(rows):
     lines = []
     for r in rows:
+        dev = (f", device {r['device_ms']:.4f} ms" if "device_ms" in r
+               else "")
+        lib = ("" if "library_device_ms" not in r else
+               f" (device {r['library_device_ms']:.4f})")
+        lib32 = ("" if "library_tf32_device_ms" not in r else
+                 f" (device {r['library_tf32_device_ms']:.4f})")
         lines.append(
-            f"{r['case']:22s} nc={r['nc']} "
-            f"{r['ms']:.4f} ms {r['tflops']:6.2f} TF/s, x nt="
-            f"{r['nt']}: {r['ms'] * r['nt']:.2f} ms; bound "
+            f"{r['case']:22s} nc={r['nc']} {r['ms']:.4f} ms{dev}: "
+            f"{r['tflops']:6.2f} TF/s of the tool's 2 nc K M E, "
+            f"{r['function_tflops']:6.2f} of the function's nc K M + 2 K M "
+            f"E; x nt={r['nt']}: {r['ms'] * r['nt']:.2f} ms; bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}); plain "
             f"{r['plain_ms']:.4f} ms; einsum TF32 off {r['library_ms']:.4f}"
-            f" ms, TF32 on {r['library_tf32_ms']:.4f} ms")
+            f" ms{lib}, TF32 on {r['library_tf32_ms']:.4f} ms{lib32}")
     return lines
 
 
