@@ -44,6 +44,20 @@ Phases, each printing its own lines:
      from timed runs of the two routes in turn; the two routes' FPN
      outputs agree; and a small model on each route whose kernel forward
      on the card agrees with the plain forward on the CPU;
+  4b. eval step, on both routes: the published eval step
+     (`Trainer.eval_step` with test_only: the forward, the focal sigmoid,
+     empty-box removal on a fixed 40000-point subsample and the greedy
+     same-class NMS, kernel N) at batch 1 and 4: its launches (the
+     forward's and one of N), finite outputs, the boxes kept and peak
+     memory, then median ms per scene of the step and of the forward
+     alone, timed in turn; kernel N bit for bit against its plain loop on
+     random boxes (exact score ties, pairs exactly at the threshold,
+     holes in valid) at K = 1024, B = 1 and 4, and on the published
+     steps' own NMS inputs, with its time, device time, floor (the scan
+     with no valid box) and bound; the VoteNet AP end to end
+     (`evaluate`, `APCalculator`) over four synthetic scenes, naming its
+     IoU path; and a small eval step on each route on the card against
+     the CPU (keep mask equal, outputs within 1e-3);
   5. train, on both routes: the published model's train step (Trainer,
      matcher "jv", batch 1, dropout on), the two routes' steps in turn on
      the same batches: three warm steps, then timed steps with finite
@@ -108,6 +122,10 @@ REPO_SOURCES = {
                    "tools/rpe_ablate.py:147"),
     "dot_micro": ("vdetr_tpu_torch/csrc/dot_micro.cu",
                   "tools/dot_micro.py:74"),
+    # no pallas_call: the JAX eval step's NMS is a jax.lax.while_loop
+    "nms": ("vdetr_tpu_torch/csrc/nms.cu",
+            "vdetr_tpu/geometry/nms.py:124 (jax.lax.while_loop in XLA, not "
+            "a pallas_call)"),
 }
 PROBES = ("rpe_ablate", "dot_micro")
 ROUTES = ("keyed", "mapped")
@@ -128,6 +146,8 @@ LIBRARY_NONE = {
                    "torch op (the gather-then-matmul yardstick is timed "
                    "beside it, 'gather_matmul_ms')",
     "mapped_conv_dw": "weight gradient of a gather-GEMM: no single torch op",
+    "nms": "greedy same-class 3D NMS: no torch op runs it (torchvision's "
+           "is a package of finished kernels, 2D, and not installed)",
 }
 
 
@@ -1169,6 +1189,7 @@ def expected_launches(model, cfg, train: bool = False):
 
 
 def launch_counters():
+    from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask
     from vdetr_tpu_torch.ops.fps import furthest_point_sample
     from vdetr_tpu_torch.ops.map_kernel import kernel_map
     from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
@@ -1187,7 +1208,7 @@ def launch_counters():
             "rpe_cross_attention_bwd": rpe_cross_attention_bwd,
             "rpe_table_sum": rpe_table_sum, "kernel_map": kernel_map, "mapped_conv": mapped_conv,
             "mapped_conv_dw": mapped_conv_dw, "rpe_ablate": rpe_ablate,
-            "dot_micro": dot_micro}
+            "dot_micro": dot_micro, "nms": nms_3d_samecls_mask}
 
 
 def fmt_counts(counts, expected):
@@ -1351,6 +1372,318 @@ def check_small_forward_against_cpu(device, gen, route):
         f"equal="
         f"{seeds_equal}, max_abs_err over final outputs={err:.3e} tol={tol:.0e}"
         f" (f32 rounding through ~40 layers) -> {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# --------------------------------------------------------------------------
+# phase 4b: the eval step (scan in, boxes out) and its NMS kernel N
+# --------------------------------------------------------------------------
+
+# flops of one overlap test of kernel N: 6 min/max, 3 differences, 3
+# clamps, 2 products, an add, a difference, a max, a quotient, the
+# class select and the compare
+NMS_TEST_FLOPS = 20
+
+
+def eval_config(cfg):
+    """The published eval step's config: `test_only` (empty-box removal
+    on). The exact JV matcher is named only because the Trainer builds
+    the criterion, which refuses the unported auction; the eval step
+    never runs it."""
+    return cfg.replace(test_only=True, matcher_impl="jv")
+
+
+def nms_tests(aabbs, scores, classes, valid, thr):
+    """The overlap tests the greedy loop does on these inputs: for each
+    box it keeps, one against every other box still alive then (the plain
+    loop replayed, counting)."""
+    from vdetr_tpu_torch.geometry.nms import overlaps_samecls
+
+    ov = overlaps_samecls(aabbs, classes)
+    B, K = scores.shape
+    ar = torch.arange(K, device=scores.device)
+    neg = torch.tensor(-math.inf, device=scores.device)
+    tests = 0
+    for b in range(B):
+        alive = valid[b].clone()
+        while bool(alive.any()):
+            i = torch.where(alive, scores[b], neg).argmax()
+            tests += int(alive.sum()) - 1
+            alive &= ~((ov[b, i] > thr) | (ar == i))
+    return tests
+
+
+def check_nms_case(label, aabbs, scores, classes, valid, thr, reps=20):
+    """Kernel N on one set of boxes against its plain loop (bit for bit),
+    with the wrapper's time (the sort and kernel N, CUDA events), kernel
+    N's own device time, its floor (the same scan with every box invalid:
+    K steps of a barrier and no test), the plain loop's time and the
+    bound from this data's overlap tests."""
+    from vdetr_tpu_torch.geometry.nms import (nms_3d_samecls_mask_plain,
+                                              nms_launch)
+    from vdetr_tpu_torch.tools.ab_kernels import profiled_calls
+
+    def run(v=valid):
+        return nms_launch(aabbs, scores, classes, v, thr)
+
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = nms_3d_samecls_mask_plain(aabbs, scores, classes, valid, thr)
+    torch.cuda.synchronize()
+    t_p = (time.perf_counter() - t0) * 1e3
+    mism = int((got != ref).sum())
+    t_k = time_ms(run, reps)
+    none = torch.zeros_like(valid)
+
+    def scan_ms(fn):
+        calls = profiled_calls(fn, 5, keep=lambda e: "nms_scan" in e.name)
+        return sum(z - a for c in calls for _, a, z in c) / 1e3 / len(calls)
+
+    t_dev = scan_ms(run)
+    t_floor = scan_ms(lambda: run(none))
+    tests = nms_tests(aabbs, scores, classes, valid, thr)
+    b_ms, b_by = bound_ms(nbytes(aabbs, scores, classes, valid, got),
+                          NMS_TEST_FLOPS * tests)
+    B, K = scores.shape
+    ties = int(scores.numel() - sum(torch.unique(s).numel()
+                                    for s in scores))
+    log(f"check nms {label} B={B} K={K}: {int(valid.sum())} valid, "
+        f"{ties} tied scores, {int(got.sum())} kept, {tests} overlap tests; "
+        f"{mism} keep flags differ from the plain loop, tolerance 0 (the "
+        f"same f32 operations, each rounded alone) -> "
+        f"{'ok' if mism == 0 else 'FAIL'}; wrapper {t_k:.4f} ms (sort and "
+        f"scan, CUDA events), scan kernel {t_dev:.4f} device ms, floor "
+        f"(every box invalid: {K} barrier steps, no test) {t_floor:.4f} "
+        f"device ms; bound {b_ms:.5f} ms ({b_by}); plain loop {t_p:.1f} ms")
+    return {"case": f"{label} B={B} K={K}", "ok": mism == 0,
+            "max_abs_err": float(mism > 0), "ms": t_k, "device_ms": t_dev,
+            "scan_floor_ms": t_floor, "plain_ms": t_p, "bound_ms": b_ms,
+            "bound_by": b_by, "overlap_tests": tests,
+            "kept": int(got.sum()), "tied_scores": ties}
+
+
+def check_nms(device, captured, thr):
+    """Kernel N against its plain loop on random boxes (exact score ties,
+    pairs at overlap exactly 0.25, holes in `valid`: tools/nms_cases.py)
+    at K = 1024 for B = 1 and 4, and on the NMS inputs of the published
+    eval steps (`captured`: route, B and the wrapper's arguments)."""
+    from vdetr_tpu_torch.tools.nms_cases import nms_cases
+
+    rng = np.random.RandomState(SEED)
+    cases = []
+    for B in (1, 4):
+        args = [torch.from_numpy(a).to(device)
+                for a in nms_cases(rng, B, 1024)]
+        cases.append(check_nms_case("random", *args, thr))
+    for route, B, (aabbs, scores, classes, valid, _) in captured:
+        cases.append(check_nms_case(f"published eval outputs, {route}",
+                                    aabbs, scores, classes, valid, thr))
+    one = cases[0]
+    return dict(ok=all(c["ok"] for c in cases),
+                err=max(c["max_abs_err"] for c in cases), ms=one["ms"],
+                plain_ms=one["plain_ms"], bound_ms=one["bound_ms"],
+                bound_by=one["bound_by"], device_ms=one["device_ms"],
+                scan_floor_ms=one["scan_floor_ms"], cases=cases)
+
+
+def run_eval(models, cfg, device, power, reps: int = 6):
+    """The published eval step (`Trainer.eval_step`, `test_only`) of each
+    route's model at batch 1 and 4: its launches (the forward's and one of
+    N), finite outputs, the boxes kept and the peak memory of one step,
+    with the NMS inputs captured for `check_nms`; then `reps` timed runs
+    of the whole step and of the forward alone, the routes in turn and
+    step and forward alternating, median ms per scene of each and their
+    difference (the sigmoid, empty-box removal and NMS)."""
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.train import engine
+
+    ds = ScannetDatasetConfig()
+    trainers = {route: engine.Trainer(cfg, m, ds, 1, device=device)
+                for route, m in models.items()}
+    counters = launch_counters()
+    real_nms = engine.nms_3d_samecls_mask
+    ok, launches, captured = True, {}, []
+    per = {route: {} for route in models}
+    for B in (1, 4):
+        inputs = synthetic_batch(cfg.num_points, B, device)
+        for route, tr in trainers.items():
+            expected = expected_launches(tr.model, cfg)
+            expected["nms"] = 1
+
+            def capture(*args, route=route):
+                captured.append((route, B, args))
+                return real_nms(*args)
+
+            engine.nms_3d_samecls_mask = capture
+            for fn in counters.values():
+                fn.launches = 0
+            try:
+                out = tr.eval_step(inputs)
+                torch.cuda.synchronize()
+            finally:
+                engine.nms_3d_samecls_mask = real_nms
+            counts = {k: fn.launches for k, fn in counters.items()}
+            bad = [k for k, v in out.items()
+                   if not bool(torch.isfinite(v.float()).all())]
+            if tuple(out["nms_keep"].shape) != (B, cfg.nqueries):
+                bad.append(f"nms_keep {tuple(out['nms_keep'].shape)}")
+            kept = out["nms_keep"].sum(1).tolist()
+            ok &= counts == expected and not bad and min(kept) > 0
+            if B == 1:
+                launches[route] = counts
+            del out
+            torch.cuda.reset_peak_memory_stats(device)
+            tr.eval_step(inputs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            log(f"eval step {route} B={B} N={cfg.num_points}: launches "
+                + fmt_counts(counts, expected)
+                + f"; outputs {'finite, shapes ok' if not bad else bad[:5]}"
+                f"; boxes kept per scene {kept} of {cfg.nqueries}; peak "
+                f"memory {peak:.2f} GiB (both routes' weights resident)")
+            per[route][B] = {"kept": kept, "peak_gib": peak}
+        times = {(route, what): [] for route in models
+                 for what in ("step", "forward")}
+        for i in range(reps):
+            for route in (ROUTES if i % 2 == 0 else ROUTES[::-1]):
+                tr = trainers[route]
+
+                def forward(model=tr.model):
+                    with torch.inference_mode():
+                        model(inputs)
+
+                runs = (("step", lambda tr=tr: tr.eval_step(inputs)),
+                        ("forward", forward))
+                for what, fn in (runs if i % 2 == 0 else runs[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[route, what].append(
+                        (time.perf_counter() - t0) * 1e3)
+        for route in models:
+            step = statistics.median(times[route, "step"]) / B
+            fwd = statistics.median(times[route, "forward"]) / B
+            per[route][B].update(step_ms_per_scene=step,
+                                 forward_ms_per_scene=fwd)
+            log(f"eval step {route} B={B}: {step:.2f} ms/scene, forward "
+                f"alone {fwd:.2f} ms/scene, the step's sigmoid, empty-box "
+                f"removal and NMS {step - fwd:.2f} ms/scene (medians of "
+                f"{reps} runs in turn with the other route, step and "
+                "forward alternating; step "
+                + ", ".join(f"{t:.1f}" for t in times[route, "step"])
+                + "; forward "
+                + ", ".join(f"{t:.1f}" for t in times[route, "forward"])
+                + f" ms); card {power}")
+        per["keyed"][B]["post_forward"] = eval_breakdown(trainers["keyed"],
+                                                         inputs, power)
+    return ok, launches, per, captured, trainers
+
+
+def eval_breakdown(trainer, inputs, power):
+    """Where the eval step's time above the forward goes, on one step's
+    outputs: the empty-box removal (`Trainer._nonempty`: the subsample
+    gather and the chunked points-in-boxes counts) and the whole device
+    NMS (`_nms_keep`: the removal, the AABBs, the classes, the sort and
+    kernel N), each by CUDA events around the call (the host's launch
+    time included) and by the device's own time (`device_ms`)."""
+    from vdetr_tpu_torch.tools import device_ms
+
+    with torch.inference_mode():
+        out = trainer.eval_step(inputs)
+        pc = inputs["point_clouds"]
+        parts = {"empty-box removal": lambda: trainer._nonempty(out, pc),
+                 "device NMS incl. removal": lambda: trainer._nms_keep(
+                     out, pc)}
+        res = {}
+        for name, fn in parts.items():
+            res[name] = {"ms": time_ms(fn, reps=5),
+                         "device_ms": device_ms(fn, reps=3)}
+    B = pc.shape[0]
+    log(f"eval step keyed B={B}, the part above the forward: "
+        + "; ".join(f"{k} {v['ms']:.2f} ms by CUDA events, "
+                    f"{v['device_ms']:.2f} device ms"
+                    for k, v in res.items())
+        + f"; card {power}")
+    return res
+
+
+def run_ap(trainer, cfg, scenes: int = 4, batch: int = 2):
+    """`evaluate` with `APCalculator` over a few synthetic scenes on the
+    card, end to end: mAP and AR at 0.25 and 0.5 (near 0 with random
+    weights), finite, and the IoU path that scored."""
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
+                                                collate)
+    from vdetr_tpu_torch.eval.ap_calculator import APCalculator
+    from vdetr_tpu_torch.train.engine import evaluate
+
+    ds = ScannetDatasetConfig()
+    data = SyntheticDetectionDataset(ds, cfg.num_points, seed=SEED)
+    batches = [collate([data[i + j] for j in range(batch)])
+               for i in range(0, scenes, batch)]
+    # one process, as the quality proof runs it: spawned workers cost
+    # more than the per-class loop at this size
+    calc = APCalculator(ds, ap_iou_thresh=[0.25, 0.5],
+                        class2type_map=ds.class2type,
+                        ap_config_dict=trainer.ap_config,
+                        axis_align_test=cfg.axis_align_test, processes=1)
+    t0 = time.perf_counter()
+    evaluate(trainer, batches, calc, logger=None)
+    t_steps = time.perf_counter() - t0
+    metrics = calc.metrics_to_dict(calc.compute_metrics())
+    t_all = time.perf_counter() - t0
+    ok = (calc.scan_cnt == scenes
+          and all(math.isfinite(float(v)) for v in metrics.values()))
+    log(f"AP end to end, {scenes} synthetic scenes at B={batch} (keyed "
+        f"route, random weights): "
+        + ", ".join(f"{k} {float(v):.2f}" for k, v in metrics.items())
+        + f"; IoU path {calc.iou_path}; eval steps and the AP's host "
+        f"parse {t_steps:.2f} s, with the AP's metrics {t_all:.2f} s -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, {"metrics": {k: float(v) for k, v in metrics.items()},
+                "iou_path": calc.iou_path, "wall_s": t_all}
+
+
+def check_small_eval_against_cpu(device, route):
+    """A small model's eval step with `test_only` on `route`: kernels (N
+    among them) on the card against the plain versions on the CPU, same
+    weights and inputs: the keep mask equal, the outputs within the small
+    forward's tolerance."""
+    import copy
+
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    cfg = tiny_config().replace(test_only=True, matcher_impl="jv")
+    ds = ScannetDatasetConfig()
+    gen = torch.Generator().manual_seed(SEED + 2)
+    model = build_model(cfg, ds, generator=gen, device="cpu",
+                        conv_route=route)
+    with torch.no_grad():  # non-trivial heads
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+    rng = np.random.RandomState(SEED)
+    pts = (rng.rand(2, cfg.num_points, 3) * [1.2, 1.2, 0.6]).astype(
+        np.float32)
+    batch = {"point_clouds": pts, "point_cloud_dims_min": pts.min(1),
+             "point_cloud_dims_max": pts.max(1)}
+    card_trainer = Trainer(cfg, copy.deepcopy(model), ds, 1, device=device)
+    ref = Trainer(cfg, model, ds, 1, device="cpu").eval_step(batch)
+    got = card_trainer.eval_step(batch)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got["nms_keep"].cpu(), ref["nms_keep"]))
+    err = max(float((got[k].cpu().float() - v.float()).abs().max())
+              for k, v in ref.items() if k != "nms_keep")
+    tol = 1e-3
+    ok = same and err <= tol
+    log(f"eval step {route} small config (test_only) on card vs CPU plain "
+        f"path: nms_keep equal={same} ({int(ref['nms_keep'].sum())} of "
+        f"{ref['nms_keep'].numel()} kept), max_abs_err over outputs="
+        f"{err:.3e} tol={tol:.0e} (f32 rounding through ~40 layers) -> "
+        f"{'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -1838,10 +2171,22 @@ def main() -> int:
     models = {route: published_model(cfg, device, route) for route in ROUTES}
     ok_f, fwd_launches, per_scene = run_forward(models, cfg, device, smi)
     ok_fpn, fpn_err = compare_fpn(models, cfg, device)
-    del models
+
+    # 4b. the published eval step (test_only) on both routes, kernel N
+    # against its plain loop (random boxes and the steps' own NMS inputs),
+    # the AP end to end
+    ecfg = eval_config(cfg)
+    ok_e, eval_launches, eval_per, captured, trainers = run_eval(
+        models, ecfg, device, smi)
+    res["nms"] = check_nms(device, captured, ecfg.nms_iou)
+    ok_ap, ap = run_ap(trainers["keyed"], ecfg)
+    del models, trainers, captured
     ok_s = all(check_small_forward_against_cpu(
         device, torch.Generator().manual_seed(SEED + 1), route)
         for route in ROUTES)
+    # a small eval step on each route against the CPU
+    ok_se = all(check_small_eval_against_cpu(device, route)
+                for route in ROUTES)
 
     # 5. the published train step on both routes, then a small one on each
     # against the CPU
@@ -1860,8 +2205,10 @@ def main() -> int:
         src, repl = REPO_SOURCES[kname]
         route = "mapped" if kname in ("kernel_map", "mapped_conv",
                                       "mapped_conv_dw") else "keyed"
+        launches = (eval_launches[route][kname] if kname == "nms"
+                    else train_launches[route][kname])
         entry = {"name": kname, "route": "cuda", "source": src,
-                 "replaces": repl, "launches": train_launches[route][kname],
+                 "replaces": repl, "launches": launches,
                  "max_abs_err": r["err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"],
@@ -1871,6 +2218,7 @@ def main() -> int:
                  "forward_launches": fwd_launches[route][kname],
                  "launches_by_route": {
                      rt: {"forward": fwd_launches[rt][kname],
+                          "eval_step": eval_launches[rt][kname],
                           "train_step": train_launches[rt][kname]}
                      for rt in ROUTES}}
         for extra in ("cases", "train_ms", "gather_matmul_ms",
@@ -1880,9 +2228,13 @@ def main() -> int:
                       "pair_bound_f32_ms", "pair_sass", "table_ms",
                       "table_bound_ms", "table_bound_by", "table_sass",
                       "table_sum_ms", "forward_maps", "ms_note", "slices",
-                      "exchange_floor_ms"):
+                      "exchange_floor_ms", "device_ms", "scan_floor_ms"):
             if extra in r:
                 entry[extra] = r[extra]
+        if kname == "nms":
+            entry["launches_note"] = ("per eval step (the main path's end); "
+                                      "the forward and the train step run "
+                                      "no NMS")
         if kname in PROBES:
             entry["probe"] = ("a probe of kernel C, off the main path: 0 "
                               "launches there; ms, plain_ms and bound_ms sum "
@@ -1891,12 +2243,16 @@ def main() -> int:
     record["forward_ms_per_scene"] = {
         route: {f"B={b}": t for b, t in per_scene[route].items()}
         for route in ROUTES}
+    record["eval_step"] = {
+        route: {f"B={b}": v for b, v in eval_per[route].items()}
+        for route in ROUTES}
+    record["ap_end_to_end"] = ap
     record["fpn_mapped_vs_keyed_max_abs_err"] = fpn_err
     record["train"] = train
     record["card"] = smi
     log(json.dumps(record))
     if not (all(r["ok"] for r in res.values()) and ok_f and ok_fpn and ok_s
-            and ok_t and ok_ts):
+            and ok_e and ok_ap and ok_se and ok_t and ok_ts):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ other and from call to call; C on the decoder's box corners (its shared
 x/y quantize), and F on those corners and on C's own training outputs;
 F's pair kernel at every head width, on partial bands and tiles, at the
 published shape, and its dq, ds and eg bit for bit from launch to
-launch. chip_smoke.py checks the published shapes.
+launch; the eval step's NMS (N) bit for bit against its plain loop on
+ties, threshold pairs, holes and past 1024 boxes, and a small eval step
+on the card against the CPU. chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports no jax, so it runs where only PyTorch is installed:
@@ -26,6 +28,8 @@ import torch
 
 from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
                                             convert_corners_camera2lidar)
+from vdetr_tpu_torch.geometry.nms import (nms_3d_samecls_mask,
+                                          nms_3d_samecls_mask_plain)
 from vdetr_tpu_torch.ops import fps as tfps
 from vdetr_tpu_torch.ops.map_kernel import (kernel_map, kernel_map_pair,
                                             neighbour_map, neighbour_map_pair)
@@ -49,6 +53,7 @@ from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
 from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
 from vdetr_tpu_torch.tools import dot_micro as tdm
 from vdetr_tpu_torch.tools import rpe_ablate as tra
+from vdetr_tpu_torch.tools.nms_cases import nms_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -822,3 +827,84 @@ def test_small_train_steps_repeat_bit_for_bit(cuda, route):
     assert spread["differing"] == []
     differ, count = step_twice(trainer, batch)
     assert count > 100 and differ == []
+
+
+@pytest.mark.parametrize("old_type", [False, True], ids=["iou", "old_type"])
+@pytest.mark.parametrize("B,K", [(1, 1024), (4, 1024), (3, 37), (1, 1),
+                                 (2, 1500), (1, 5000), (1, 13000)])
+def test_nms_kernel_equals_plain_loop(rng, cuda, B, K, old_type):
+    """Kernel N's keep mask bit for bit against the literal loop on the
+    card, on `tools/nms_cases.py`'s sets (exact score ties, pairs at
+    overlap exactly 0.25, holes in `valid`), at one box a thread and at
+    2, 8 and 16 (past the 48 KB of static shared memory), with one scene
+    wholly invalid where B > 1."""
+    aabbs, scores, classes, valid = (torch.from_numpy(a).to(cuda)
+                                     for a in nms_cases(rng, B, K))
+    valid = valid.clone()
+    if B > 1:
+        valid[-1] = False
+    before = nms_3d_samecls_mask.launches
+    got = nms_3d_samecls_mask(aabbs, scores, classes, valid, 0.25, old_type)
+    torch.cuda.synchronize()
+    assert nms_3d_samecls_mask.launches == before + 1
+    want = nms_3d_samecls_mask_plain(aabbs, scores, classes, valid, 0.25,
+                                     old_type)
+    assert torch.equal(got, want)
+    if B > 1:
+        assert not got[-1].any()
+    assert bool(got[0].any()) == bool(valid[0].any())
+
+
+def test_nms_kernel_refuses_what_it_cannot_take(cuda):
+    K = 16 * 1024 + 1
+    args = (torch.rand(1, K, 6, device=cuda), torch.rand(1, K, device=cuda),
+            torch.zeros(1, K, dtype=torch.int64, device=cuda),
+            torch.ones(1, K, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):
+        nms_3d_samecls_mask(*args, 0.25)
+    with pytest.raises(ValueError):  # float64 boxes
+        nms_3d_samecls_mask(args[0][:, :8].double(), args[1][:, :8],
+                            args[2][:, :8], args[3][:, :8], 0.25)
+
+
+@pytest.mark.parametrize("route", ["keyed", "mapped"])
+def test_small_eval_step_on_the_card_equals_cpu(cuda, route):
+    """A small model's eval step with `test_only` (empty-box removal on),
+    on the card (kernels, N among them, launched once) against the same
+    step on the CPU (plain versions): the keep mask equal, the outputs
+    within 1e-3 (f32 rounding through ~40 layers, as the forward's
+    check)."""
+    import copy
+
+    from vdetr_tpu_torch.config import VDETRConfig
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    cfg = VDETRConfig(
+        voxel_capacity=2048, min_stage_capacity=128,
+        grid_extent=(128, 128, 64), preenc_npoints=128, nqueries=64,
+        dec_nlayers=3, dec_dim=32, dec_ffn_dim=32, dec_nhead=4, rpe_dim=16,
+        inplanes=8, enc_dim=32, num_points=512, matcher_impl="jv",
+        test_only=True)
+    ds = ScannetDatasetConfig()
+    gen = torch.Generator().manual_seed(3)
+    model = build_model(cfg, ds, generator=gen, device="cpu",
+                        conv_route=route)
+    with torch.no_grad():  # non-trivial heads and norm statistics
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+    rng = np.random.RandomState(0)
+    pts = (rng.rand(2, 512, 3) * [1.2, 1.2, 0.6]).astype(np.float32)
+    batch = {"point_clouds": pts, "point_cloud_dims_min": pts.min(1),
+             "point_cloud_dims_max": pts.max(1)}
+    card = Trainer(cfg, copy.deepcopy(model), ds, 1, device=cuda)
+    ref = Trainer(cfg, model, ds, 1, device="cpu").eval_step(batch)
+    before = nms_3d_samecls_mask.launches
+    got = card.eval_step(batch)
+    torch.cuda.synchronize()
+    assert nms_3d_samecls_mask.launches == before + 1
+    assert torch.equal(got["nms_keep"].cpu(), ref["nms_keep"])
+    assert 0 < int(ref["nms_keep"].sum()) < ref["nms_keep"].numel()
+    for k, v in ref.items():
+        assert float((got[k].cpu().float() - v.float()).abs().max()) <= 1e-3, k

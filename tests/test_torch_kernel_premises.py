@@ -41,19 +41,32 @@
   torch, with the kernel's layout of points over threads, it picks
   `fps_jax`'s indices on lattice ties, on an all-zero row and on a row
   with fewer valid points than npoint.
+- The eval step's greedy same-class NMS (kernel N, `csrc/nms.cu`)
+  visits the boxes once, in the order of a stable descending sort of
+  the scores, keeps each box still alive when it is reached and kills
+  the alive boxes of its class whose overlap with it is > the threshold,
+  the overlap in f32 in JAX's order, each operation rounded on its own.
+  Emulated here, that scan keeps exactly the boxes of the literal
+  argmax-and-suppress loop (the port's plain version and JAX's
+  `while_loop`) on sets with forced exact score ties, pairs exactly at
+  the threshold and holes in `valid`.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vdetr_tpu.geometry.nms import nms_3d_samecls_mask as jax_nms
 from vdetr_tpu.ops import fps as jfps
 from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
                                             convert_corners_camera2lidar)
+from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask_plain
 from vdetr_tpu_torch.ops import fps as tfps
+from vdetr_tpu_torch.tools.nms_cases import nms_cases
 
 CONV_RTOL = 1e-4  # chip_smoke.py's conv tolerance: 1e-4 of max|ref|
 
@@ -706,3 +719,59 @@ def test_low_high_halves_with_carry_sum_exactly():
         total = total - (1 << 64) if total >= 1 << 63 else total
         assert total == want
         assert 0 < high_adds < len(terms)
+
+
+def nms_scan(aabbs, scores, classes, valid, thr, old_type):
+    """Kernel N's scan of one scene, every thread's test at a step done at
+    once in numpy float32 (one rounding per operation, no fused
+    multiply-add): visit the boxes in the order of the wrapper's stable
+    descending sort; a box alive when reached is kept, and the alive
+    boxes of its class other than itself whose overlap with it is > thr
+    die."""
+    order = torch.sort(torch.from_numpy(scores), descending=True,
+                       stable=True).indices.numpy()
+    x1, y1, z1, x2, y2, z2 = aabbs.T
+    area = ((x2 - x1) * (y2 - y1)) * (z2 - z1)
+    alive, kept = valid.copy(), np.zeros(len(scores), bool)
+    zero = np.float32(0)
+    for o in order:
+        if not alive[o]:
+            continue
+        kept[o] = True
+        alive[o] = False
+        inter = ((np.maximum(np.minimum(x2[o], x2) - np.maximum(x1[o], x1),
+                             zero)
+                  * np.maximum(np.minimum(y2[o], y2) - np.maximum(y1[o], y1),
+                               zero))
+                 * np.maximum(np.minimum(z2[o], z2) - np.maximum(z1[o], z1),
+                              zero))
+        denom = area if old_type else (area[o] + area) - inter
+        ov = inter / np.maximum(denom, np.float32(1e-12))
+        alive &= ~(np.where(classes == classes[o], ov, zero) > thr)
+    return kept
+
+
+@pytest.mark.parametrize("old_type", [False, True], ids=["iou", "old_type"])
+@pytest.mark.parametrize("K", [64, 1024])
+def test_nms_sorted_scan_equals_the_argmax_loop(K, old_type):
+    """Exact, keep mask for keep mask: the scan against the literal loop
+    of the port (torch) and of JAX, on `tools/nms_cases.py`'s sets (exact
+    ties in half the scores, a pair at overlap exactly 0.25 in every
+    eight boxes, one box in ten not valid), two scenes."""
+    rng = np.random.RandomState(11)
+    aabbs, scores, classes, valid = nms_cases(rng, 2, K)
+    assert (np.unique(scores, return_counts=True)[1] > 1).any()
+    loop = nms_3d_samecls_mask_plain(
+        torch.from_numpy(aabbs), torch.from_numpy(scores),
+        torch.from_numpy(classes), torch.from_numpy(valid), 0.25,
+        old_type).numpy()
+    jloop = np.asarray(jax.vmap(lambda a, s, c, v: jax_nms(
+        a, s, c, v, 0.25, old_type))(aabbs, scores, classes, valid))
+    for b in range(2):
+        scan = nms_scan(aabbs[b], scores[b], classes[b], valid[b],
+                        np.float32(0.25), old_type)
+        np.testing.assert_array_equal(scan, loop[b])
+        np.testing.assert_array_equal(scan, jloop[b])
+        # the threshold pairs: (2, 1, 1) s against (3, 1, 1) s, overlap
+        # exactly 1/4 in f32, are both kept where both are alive first
+        assert 0 < scan.sum() < valid[b].sum()

@@ -1,6 +1,7 @@
 """vdetr_tpu_torch: V-DETR in PyTorch on an NVIDIA H100: the eval forward
-(`models.vdetr.build_model`) and the train step (`train.engine.Trainer`)
-of the published model.
+(`models.vdetr.build_model`), the eval step with its NMS and the VoteNet
+AP (`train.engine.Trainer.eval_step`, `eval/`) and the train step
+(`train.engine.Trainer`) of the published model.
 
 A port of `vdetr_tpu` (JAX on a TPU), which stays in the repository as
 the reference. Module names mirror `vdetr_tpu/` so each counterpart is
@@ -12,7 +13,7 @@ model on the CUDA card unless the caller passes `device`.
 
 The package imports torch and numpy, and nothing of `vdetr_tpu`: what it
 shares with it (the configuration, the weight-name mapping) it keeps in
-its own copies (`config.py`, `convert.py`).
+its own copies (`config.py`, `convert.py`, the numpy AP in `eval/`).
 """
 
 __version__ = "0.2.0"

@@ -70,6 +70,10 @@ class ScannetDatasetConfig:
             [0.47535285, 0.49249494, 0.5802117],
         ])
 
+    @property
+    def class2type(self):
+        return {v: k for k, v in self.type2class.items()}
+
     def box_parametrization_to_corners_np(self, center_unnorm, size, angle):
         center_cam = np.stack(
             [center_unnorm[..., 0], -center_unnorm[..., 2],

@@ -25,3 +25,18 @@ def points_in_boxes_all(points, boxes):
               & (ly.abs() < dims[:, None, :, 1] * 0.5)
               & (lz >= 0.0) & (lz <= dims[:, None, :, 2]))
     return inside.float()
+
+
+def points_in_boxes_count(points, boxes, chunk: int = 4096):
+    """points (B, N, 3), boxes (B, T, 7) -> (B, T) int64: the number of
+    points inside each box, equal to `points_in_boxes_all(...).sum(1)`.
+    The points are taken `chunk` at a time, so the (B, N, T, 3)
+    intermediate never exists whole (at B = 4, 40000 points and 1024
+    boxes it would take ~2 GB)."""
+    B, N, _ = points.shape
+    count = torch.zeros(boxes.shape[:2], dtype=torch.int64,
+                        device=boxes.device)
+    for start in range(0, N, chunk):
+        inside = points_in_boxes_all(points[:, start:start + chunk], boxes)
+        count += inside.sum(1, dtype=torch.int64)
+    return count
