@@ -52,9 +52,10 @@ Phases, each printing its own lines:
      memory, then median ms per scene of the step and of the forward
      alone, timed in turn; kernel N bit for bit against its plain loop on
      random boxes (exact score ties, pairs exactly at the threshold,
-     holes in valid) at K = 1024, B = 1 and 4, and on the published
-     steps' own NMS inputs, with its time, device time, floor (the scan
-     with no valid box) and bound; the VoteNet AP end to end
+     holes in valid) at K = 1024, 1000 and 4097, B = 1 and 4, on chains
+     of boxes each killing the next, and on the published steps' own NMS
+     inputs, with its time, its mask and scan kernels' device times, the
+     plain loop's and the bound; the VoteNet AP end to end
      (`evaluate`, `APCalculator`) over four synthetic scenes, naming its
      IoU path; and a small eval step on each route on the card against
      the CPU (keep mask equal, outputs within 1e-3);
@@ -1413,18 +1414,39 @@ def nms_tests(aabbs, scores, classes, valid, thr):
     return tests
 
 
-def check_nms_case(label, aabbs, scores, classes, valid, thr, reps=20):
-    """Kernel N on one set of boxes against its plain loop (bit for bit),
-    with the wrapper's time (the sort and kernel N, CUDA events), kernel
-    N's own device time, its floor (the same scan with every box invalid:
-    K steps of a barrier and no test), the plain loop's time and the
-    bound from this data's overlap tests."""
-    from vdetr_tpu_torch.geometry.nms import (nms_3d_samecls_mask_plain,
-                                              nms_launch)
+def nms_kernel_ms(fn, reps: int = 5):
+    """{"mask": ms, "scan": ms}: the device ms per call of kernel N's two
+    kernels (torch.profiler, one session a call). A tree whose kernel N is
+    one scan kernel reports it as "scan"."""
     from vdetr_tpu_torch.tools.ab_kernels import profiled_calls
 
-    def run(v=valid):
-        return nms_launch(aabbs, scores, classes, v, thr)
+    calls = profiled_calls(fn, reps, keep=lambda e: "nms_" in e.name)
+    out = {}
+    for call in calls:
+        for kname, a, z in call:
+            part = "mask" if "nms_mask" in kname else "scan"
+            out[part] = out.get(part, 0.0) + (z - a) / 1e3 / len(calls)
+    return out
+
+
+def nms_mask_bytes(B, K):
+    """The bytes kernel N's mask kernel writes: the upper triangle's
+    64-bit words (64 rows a tile pair) and a seed word a tile."""
+    W = -(-K // 64)
+    return B * 8 * (64 * W * (W + 1) // 2 + W)
+
+
+def check_nms_case(label, aabbs, scores, classes, valid, thr, reps=20):
+    """Kernel N on one set of boxes against its plain loop (bit for bit),
+    with the wrapper's time (the sort and kernel N's two launches, CUDA
+    events), its mask and scan kernels' device times apart, the plain
+    loop's time and the bound from this data's overlap tests (the mask's
+    bytes beside it)."""
+    from vdetr_tpu_torch.geometry.nms import (nms_3d_samecls_mask_plain,
+                                              nms_launch)
+
+    def run():
+        return nms_launch(aabbs, scores, classes, valid, thr)
 
     got = run()
     torch.cuda.synchronize()
@@ -1434,48 +1456,54 @@ def check_nms_case(label, aabbs, scores, classes, valid, thr, reps=20):
     t_p = (time.perf_counter() - t0) * 1e3
     mism = int((got != ref).sum())
     t_k = time_ms(run, reps)
-    none = torch.zeros_like(valid)
-
-    def scan_ms(fn):
-        calls = profiled_calls(fn, 5, keep=lambda e: "nms_scan" in e.name)
-        return sum(z - a for c in calls for _, a, z in c) / 1e3 / len(calls)
-
-    t_dev = scan_ms(run)
-    t_floor = scan_ms(lambda: run(none))
+    dev = nms_kernel_ms(run)
     tests = nms_tests(aabbs, scores, classes, valid, thr)
     b_ms, b_by = bound_ms(nbytes(aabbs, scores, classes, valid, got),
                           NMS_TEST_FLOPS * tests)
     B, K = scores.shape
     ties = int(scores.numel() - sum(torch.unique(s).numel()
                                     for s in scores))
+    mask_bytes = nms_mask_bytes(B, K)
     log(f"check nms {label} B={B} K={K}: {int(valid.sum())} valid, "
         f"{ties} tied scores, {int(got.sum())} kept, {tests} overlap tests; "
         f"{mism} keep flags differ from the plain loop, tolerance 0 (the "
         f"same f32 operations, each rounded alone) -> "
         f"{'ok' if mism == 0 else 'FAIL'}; wrapper {t_k:.4f} ms (sort and "
-        f"scan, CUDA events), scan kernel {t_dev:.4f} device ms, floor "
-        f"(every box invalid: {K} barrier steps, no test) {t_floor:.4f} "
-        f"device ms; bound {b_ms:.5f} ms ({b_by}); plain loop {t_p:.1f} ms")
+        f"two launches, CUDA events), mask kernel "
+        f"{dev.get('mask', 0.0):.4f} device ms, scan kernel "
+        f"{dev.get('scan', 0.0):.4f} device ms; bound {b_ms:.5f} ms "
+        f"({b_by}; the mask's {mask_bytes} bytes at 3.35 TB/s: "
+        f"{mask_bytes / 3.35e9:.5f} ms); plain loop {t_p:.1f} ms")
     return {"case": f"{label} B={B} K={K}", "ok": mism == 0,
-            "max_abs_err": float(mism > 0), "ms": t_k, "device_ms": t_dev,
-            "scan_floor_ms": t_floor, "plain_ms": t_p, "bound_ms": b_ms,
-            "bound_by": b_by, "overlap_tests": tests,
-            "kept": int(got.sum()), "tied_scores": ties}
+            "max_abs_err": float(mism > 0), "ms": t_k,
+            "device_ms": sum(dev.values()), "mask_ms": dev.get("mask"),
+            "scan_ms": dev.get("scan"), "mask_bytes": mask_bytes,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "overlap_tests": tests, "kept": int(got.sum()),
+            "tied_scores": ties}
 
 
 def check_nms(device, captured, thr):
     """Kernel N against its plain loop on random boxes (exact score ties,
     pairs at overlap exactly 0.25, holes in `valid`: tools/nms_cases.py)
-    at K = 1024 for B = 1 and 4, and on the NMS inputs of the published
-    eval steps (`captured`: route, B and the wrapper's arguments)."""
-    from vdetr_tpu_torch.tools.nms_cases import nms_cases
+    at K = 1024, 1000 and 4097 for B = 1 and 4, on chains of boxes each
+    killing the next (K = 1024, B = 1 and 4: the scan walks every tile in
+    order), and on the NMS inputs of the published eval steps
+    (`captured`: route, B and the wrapper's arguments). The record's
+    numbers are the first case's (K = 1024, B = 1)."""
+    from vdetr_tpu_torch.tools.nms_cases import nms_cases, nms_chain
 
     rng = np.random.RandomState(SEED)
     cases = []
-    for B in (1, 4):
+    for K in (1024, 1000, 4097):
+        for B in (1, 4):
+            args = [torch.from_numpy(a).to(device)
+                    for a in nms_cases(rng, B, K)]
+            cases.append(check_nms_case("random", *args, thr))
+    for B in (1, 4):  # every tile walked in order
         args = [torch.from_numpy(a).to(device)
-                for a in nms_cases(rng, B, 1024)]
-        cases.append(check_nms_case("random", *args, thr))
+                for a in nms_chain(rng, B, 1024)]
+        cases.append(check_nms_case("chain", *args, thr))
     for route, B, (aabbs, scores, classes, valid, _) in captured:
         cases.append(check_nms_case(f"published eval outputs, {route}",
                                     aabbs, scores, classes, valid, thr))
@@ -1484,7 +1512,8 @@ def check_nms(device, captured, thr):
                 err=max(c["max_abs_err"] for c in cases), ms=one["ms"],
                 plain_ms=one["plain_ms"], bound_ms=one["bound_ms"],
                 bound_by=one["bound_by"], device_ms=one["device_ms"],
-                scan_floor_ms=one["scan_floor_ms"], cases=cases)
+                mask_ms=one["mask_ms"], scan_ms=one["scan_ms"],
+                mask_bytes=one["mask_bytes"], cases=cases)
 
 
 def run_eval(models, cfg, device, power, reps: int = 6):
@@ -2228,7 +2257,8 @@ def main() -> int:
                       "pair_bound_f32_ms", "pair_sass", "table_ms",
                       "table_bound_ms", "table_bound_by", "table_sass",
                       "table_sum_ms", "forward_maps", "ms_note", "slices",
-                      "exchange_floor_ms", "device_ms", "scan_floor_ms"):
+                      "exchange_floor_ms", "device_ms", "mask_ms",
+                      "scan_ms", "mask_bytes"):
             if extra in r:
                 entry[extra] = r[extra]
         if kname == "nms":

@@ -53,7 +53,7 @@ from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
 from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
 from vdetr_tpu_torch.tools import dot_micro as tdm
 from vdetr_tpu_torch.tools import rpe_ablate as tra
-from vdetr_tpu_torch.tools.nms_cases import nms_cases
+from vdetr_tpu_torch.tools.nms_cases import nms_cases, nms_chain
 
 pytestmark = pytest.mark.cuda
 
@@ -831,13 +831,17 @@ def test_small_train_steps_repeat_bit_for_bit(cuda, route):
 
 @pytest.mark.parametrize("old_type", [False, True], ids=["iou", "old_type"])
 @pytest.mark.parametrize("B,K", [(1, 1024), (4, 1024), (3, 37), (1, 1),
-                                 (2, 1500), (1, 5000), (1, 13000)])
+                                 (2, 1500), (1, 5000), (1, 13000),
+                                 (1, 1000), (1, 4097), (1, 16384)])
 def test_nms_kernel_equals_plain_loop(rng, cuda, B, K, old_type):
     """Kernel N's keep mask bit for bit against the literal loop on the
     card, on `tools/nms_cases.py`'s sets (exact score ties, pairs at
-    overlap exactly 0.25, holes in `valid`), at one box a thread and at
-    2, 8 and 16 (past the 48 KB of static shared memory), with one scene
-    wholly invalid where B > 1."""
+    overlap exactly 0.25, holes in `valid`): one tile of 64 boxes and
+    less, K not a multiple of 64 (a last tile of 40 boxes, of 1), fewer
+    and more than 32 words a row (the scan's lanes split over the kept
+    rows, or over the words alone) up to the most it takes (16384: 256
+    words a row, a 16 MB mask), with one scene wholly invalid where
+    B > 1."""
     aabbs, scores, classes, valid = (torch.from_numpy(a).to(cuda)
                                      for a in nms_cases(rng, B, K))
     valid = valid.clone()
@@ -853,6 +857,23 @@ def test_nms_kernel_equals_plain_loop(rng, cuda, B, K, old_type):
     if B > 1:
         assert not got[-1].any()
     assert bool(got[0].any()) == bool(valid[0].any())
+
+
+@pytest.mark.parametrize("old_type", [False, True], ids=["iou", "old_type"])
+@pytest.mark.parametrize("B,K", [(1, 200), (2, 1024), (1, 4097)])
+def test_nms_kernel_walks_chains_its_rounds_do_not_settle(rng, cuda, B, K,
+                                                         old_type):
+    """Kernel N on chains in which each box kills the next
+    (`tools/nms_cases.py`'s `nms_chain`): every tile's fate chain outlasts
+    the scan's rounds, so it walks each tile in order; the keep mask
+    equals the loop's bit for bit, every other box of each chain."""
+    aabbs, scores, classes, valid = (torch.from_numpy(a).to(cuda)
+                                     for a in nms_chain(rng, B, K))
+    got = nms_3d_samecls_mask(aabbs, scores, classes, valid, 0.25, old_type)
+    want = nms_3d_samecls_mask_plain(aabbs, scores, classes, valid, 0.25,
+                                     old_type)
+    assert torch.equal(got, want)
+    assert int(got.sum()) == B * ((K + 1) // 2)
 
 
 def test_nms_kernel_refuses_what_it_cannot_take(cuda):

@@ -41,15 +41,20 @@
   torch, with the kernel's layout of points over threads, it picks
   `fps_jax`'s indices on lattice ties, on an all-zero row and on a row
   with fewer valid points than npoint.
-- The eval step's greedy same-class NMS (kernel N, `csrc/nms.cu`)
-  visits the boxes once, in the order of a stable descending sort of
-  the scores, keeps each box still alive when it is reached and kills
-  the alive boxes of its class whose overlap with it is > the threshold,
-  the overlap in f32 in JAX's order, each operation rounded on its own.
-  Emulated here, that scan keeps exactly the boxes of the literal
+- The eval step's greedy same-class NMS (kernel N, `csrc/nms.cu`) works
+  on positions in the order of a stable descending sort of the scores.
+  Its mask kernel writes, for each box, one 64-bit word per 64-box tile
+  of later positions: bit j set when the box kills box j, the overlap in
+  f32 in JAX's order, each operation rounded on its own, and the
+  predicate JAX's `where(same_cls, ov, 0) > thr`. Its scan walks the
+  tiles in order, seeded with the invalid boxes and the positions past
+  K: within a tile it resolves the 64 boxes serially against their
+  words for the tile itself (a box not removed when reached is kept),
+  then ORs the kept boxes' words for the later tiles into the removed
+  set. Emulated here, that form keeps exactly the boxes of the literal
   argmax-and-suppress loop (the port's plain version and JAX's
   `while_loop`) on sets with forced exact score ties, pairs exactly at
-  the threshold and holes in `valid`.
+  the threshold and holes in `valid`, at K a multiple of 64 and not.
 """
 
 import math
@@ -66,7 +71,7 @@ from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
                                             convert_corners_camera2lidar)
 from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask_plain
 from vdetr_tpu_torch.ops import fps as tfps
-from vdetr_tpu_torch.tools.nms_cases import nms_cases
+from vdetr_tpu_torch.tools.nms_cases import nms_cases, nms_chain
 
 CONV_RTOL = 1e-4  # chip_smoke.py's conv tolerance: 1e-4 of max|ref|
 
@@ -721,45 +726,93 @@ def test_low_high_halves_with_carry_sum_exactly():
         assert 0 < high_adds < len(terms)
 
 
-def nms_scan(aabbs, scores, classes, valid, thr, old_type):
-    """Kernel N's scan of one scene, every thread's test at a step done at
-    once in numpy float32 (one rounding per operation, no fused
-    multiply-add): visit the boxes in the order of the wrapper's stable
-    descending sort; a box alive when reached is kept, and the alive
-    boxes of its class other than itself whose overlap with it is > thr
-    die."""
+NMS_ROUNDS = 4  # csrc/nms.cu ROUNDS: warp rounds before a tile's walk
+
+
+def nms_scan(aabbs, scores, classes, valid, thr, old_type,
+             rounds=NMS_ROUNDS):
+    """Kernel N on one scene in numpy float32 (one rounding per
+    operation, no fused multiply-add): the mask kernel's words, then the
+    scan kernel's pass over them in 64-box tiles, each tile resolved by
+    up to `rounds` rounds of kept = alive & ~(OR of the kept rows'
+    diagonal words) from kept = alive, or, where no round came back
+    unchanged, walked in order. Returns the keep mask, the words (mask
+    (K, W) and seed (W,), uint64) and the number of tiles walked."""
+    K = len(scores)
+    W = -(-K // 64)
     order = torch.sort(torch.from_numpy(scores), descending=True,
                        stable=True).indices.numpy()
-    x1, y1, z1, x2, y2, z2 = aabbs.T
+    x1, y1, z1, x2, y2, z2 = aabbs[order].T
+    cls = classes[order]
     area = ((x2 - x1) * (y2 - y1)) * (z2 - z1)
-    alive, kept = valid.copy(), np.zeros(len(scores), bool)
     zero = np.float32(0)
-    for o in order:
-        if not alive[o]:
-            continue
-        kept[o] = True
-        alive[o] = False
-        inter = ((np.maximum(np.minimum(x2[o], x2) - np.maximum(x1[o], x1),
-                             zero)
-                  * np.maximum(np.minimum(y2[o], y2) - np.maximum(y1[o], y1),
-                               zero))
-                 * np.maximum(np.minimum(z2[o], z2) - np.maximum(z1[o], z1),
-                              zero))
-        denom = area if old_type else (area[o] + area) - inter
-        ov = inter / np.maximum(denom, np.float32(1e-12))
-        alive &= ~(np.where(classes == classes[o], ov, zero) > thr)
-    return kept
+
+    def span(lo, hi):  # row i (the kept box), column j (the box tested)
+        return np.maximum(np.minimum(hi[:, None], hi[None])
+                          - np.maximum(lo[:, None], lo[None]), zero)
+
+    inter = (span(x1, x2) * span(y1, y2)) * span(z1, z2)
+    denom = (np.broadcast_to(area[None], inter.shape) if old_type
+             else (area[:, None] + area[None]) - inter)
+    ov = inter / np.maximum(denom, np.float32(1e-12))
+    kill = np.where(cls[:, None] == cls[None], ov, zero) > thr
+    kill &= np.arange(K)[None] > np.arange(K)[:, None]  # later positions
+    bits = np.zeros((K, W * 64), bool)
+    bits[:, :K] = kill
+    mask = np.packbits(bits, axis=1, bitorder="little").view("<u8")
+    gone = np.ones(W * 64, bool)
+    gone[:K] = ~valid[order]
+    seed = np.packbits(gone, bitorder="little").view("<u8")
+
+    removed = [int(w) for w in seed]
+    kept_pos, walked = [], 0
+    for t in range(W):
+        diag = [int(mask[p, t]) for p in range(t * 64, min(t * 64 + 64, K))]
+        alive = ~removed[t] & (2 ** 64 - 1)
+        bits, settled = alive, False
+        for _ in range(rounds):
+            killed = 0
+            for i, w in enumerate(diag):
+                if bits >> i & 1:
+                    killed |= w
+            settled, bits = alive & ~killed == bits, alive & ~killed
+            if settled:
+                break
+        if not settled:
+            walked += 1
+            gone, bits = removed[t], 0
+            for i, w in enumerate(diag):
+                if not gone >> i & 1:
+                    bits |= 1 << i
+                    gone |= w
+        kept = [t * 64 + i for i in range(64) if bits >> i & 1]
+        kept_pos += kept
+        if kept and t + 1 < W:
+            later = np.bitwise_or.reduce(mask[kept, t + 1:], axis=0)
+            for u, w in enumerate(later, t + 1):
+                removed[u] |= int(w)
+    keep = np.zeros(K, bool)
+    keep[order[kept_pos]] = True
+    return keep, mask, seed, walked
+
+
+NMS_SCENES = {64: 2, 1024: 2, 1000: 1, 4100: 1}
 
 
 @pytest.mark.parametrize("old_type", [False, True], ids=["iou", "old_type"])
-@pytest.mark.parametrize("K", [64, 1024])
+@pytest.mark.parametrize("K", list(NMS_SCENES))
 def test_nms_sorted_scan_equals_the_argmax_loop(K, old_type):
-    """Exact, keep mask for keep mask: the scan against the literal loop
-    of the port (torch) and of JAX, on `tools/nms_cases.py`'s sets (exact
-    ties in half the scores, a pair at overlap exactly 0.25 in every
-    eight boxes, one box in ten not valid), two scenes."""
+    """Exact, keep mask for keep mask: the bitmask form against the
+    literal loop of the port (torch) and of JAX, on `tools/nms_cases.py`'s
+    sets (exact ties in half the scores, a pair at overlap exactly 0.25 in
+    every eight boxes, one box in ten not valid), two scenes at K 64 and
+    1024, one at K 1000 and 4100 (a last tile of 40 and of 4 boxes), the
+    tiles resolved as the kernel resolves them and, again, all walked in
+    order and all by rounds alone. No word has a bit at or before its
+    own row's position, and the seed marks every position past K."""
     rng = np.random.RandomState(11)
-    aabbs, scores, classes, valid = nms_cases(rng, 2, K)
+    B = NMS_SCENES[K]
+    aabbs, scores, classes, valid = nms_cases(rng, B, K)
     assert (np.unique(scores, return_counts=True)[1] > 1).any()
     loop = nms_3d_samecls_mask_plain(
         torch.from_numpy(aabbs), torch.from_numpy(scores),
@@ -767,11 +820,46 @@ def test_nms_sorted_scan_equals_the_argmax_loop(K, old_type):
         old_type).numpy()
     jloop = np.asarray(jax.vmap(lambda a, s, c, v: jax_nms(
         a, s, c, v, 0.25, old_type))(aabbs, scores, classes, valid))
-    for b in range(2):
-        scan = nms_scan(aabbs[b], scores[b], classes[b], valid[b],
-                        np.float32(0.25), old_type)
+    for b in range(B):
+        args = (aabbs[b], scores[b], classes[b], valid[b], np.float32(0.25),
+                old_type)
+        scan, mask, seed, walked = nms_scan(*args)
         np.testing.assert_array_equal(scan, loop[b])
         np.testing.assert_array_equal(scan, jloop[b])
+        # every tile walked in order, and every tile by rounds alone
+        for rounds in (0, 64):
+            again, _, _, n = nms_scan(*args, rounds=rounds)
+            np.testing.assert_array_equal(again, scan)
+            assert n == (len(seed) if rounds == 0 else 0)
         # the threshold pairs: (2, 1, 1) s against (3, 1, 1) s, overlap
         # exactly 1/4 in f32, are both kept where both are alive first
         assert 0 < scan.sum() < valid[b].sum()
+        bits = np.unpackbits(mask.view(np.uint8), axis=1,
+                             bitorder="little")[:, :K]
+        assert not np.tril(bits).any()
+        tail = np.unpackbits(seed.view(np.uint8), bitorder="little")[K:]
+        assert tail.all()
+
+
+@pytest.mark.parametrize("old_type", [False, True], ids=["iou", "old_type"])
+def test_nms_scan_walks_the_tiles_the_rounds_do_not_settle(old_type):
+    """A chain of boxes, each killing the next (`tools/nms_cases.py`'s
+    `nms_chain`, K 200 in a random order): each tile's fate chain is as
+    long as the tile (64 boxes, the last 8), more than the kernel's 4
+    rounds settle, so it walks every tile in order; the keep mask still
+    equals the loop's (torch and JAX), every other box of the chain."""
+    aabbs, scores, classes, valid = nms_chain(np.random.RandomState(5), 1,
+                                              200)
+    loop = nms_3d_samecls_mask_plain(
+        torch.from_numpy(aabbs), torch.from_numpy(scores),
+        torch.from_numpy(classes), torch.from_numpy(valid), 0.25,
+        old_type).numpy()[0]
+    jloop = np.asarray(jax_nms(aabbs[0], scores[0], classes[0], valid[0],
+                               0.25, old_type))
+    scan, _, _, walked = nms_scan(aabbs[0], scores[0], classes[0],
+                                  valid[0], np.float32(0.25), old_type)
+    assert walked == 4  # every tile: the last one's chain of 8 too
+    np.testing.assert_array_equal(scan, loop)
+    np.testing.assert_array_equal(scan, jloop)
+    rank = np.argsort(-scores[0], kind="stable")
+    np.testing.assert_array_equal(scan[rank], np.arange(200) % 2 == 0)

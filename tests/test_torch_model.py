@@ -29,6 +29,7 @@ from vdetr_tpu_torch.convert import (from_reference_state_dict,
                                      load_jax_params, reference_state_dict)
 from vdetr_tpu_torch.data.dataset_config import \
     ScannetDatasetConfig as PortScannetConfig
+from vdetr_tpu_torch.models.transformer import select_proposals
 from vdetr_tpu_torch.models.vdetr import build_model as build_port_model
 
 REPO = Path(__file__).resolve().parents[1]
@@ -169,14 +170,14 @@ def test_forward_matches_jax(models, n_valid):
 
 
 def test_topk_order_matches_lax_top_k():
-    """Proposal selection: a stable descending sort picks the indices
-    lax.top_k picks, lower index first among equal scores."""
+    """Proposal selection (`select_proposals`, a stable descending sort)
+    picks the indices lax.top_k picks, lower index first among equal
+    scores."""
     rng = np.random.RandomState(0)
     obj = rng.randint(0, 5, size=(3, 200)).astype(np.float32) / 4
     obj[1, 50:] = -np.inf
     _, ref = jax.lax.top_k(jnp.asarray(obj), 64)
-    got = torch.sort(torch.from_numpy(obj), dim=1, descending=True,
-                     stable=True).indices[:, :64]
+    got = select_proposals(torch.from_numpy(obj), 64)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 

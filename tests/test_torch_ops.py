@@ -104,6 +104,31 @@ def test_voxelize_matches_jax(rng, capacity):
         assert tg.valid.all()
 
 
+@pytest.mark.parametrize("voxel_size", [0.01, 0.02])
+def test_voxelize_matches_compiled_jax_on_voxel_boundaries(rng, voxel_size):
+    """Points whose coordinates are whole multiples of the voxel size,
+    where floor(x / v) and floor(x * (1 / v)) part: the compiled JAX
+    voxelize (XLA turns the division by the constant voxel size into a
+    product with its float32 reciprocal) and the port's put every point
+    in the same voxel, with the same keys and features. At the published
+    1 cm, 4.22 m is voxel 421 in the compiled model, not 422."""
+    v = np.float32(voxel_size)
+    x = (np.arange(600) * float(voxel_size)).astype(np.float32)
+    edge = x[np.floor(x / v) != np.floor(x * (np.float32(1) / v))]
+    assert len(edge) > 10
+    pts = rng.choice(edge, (2, 500, 3)).astype(np.float32)
+    pts[..., 2] = rng.choice(edge[edge < 2], (2, 500))
+    feats = rng.randn(2, 500, 4).astype(np.float32)
+    valid = np.ones((2, 500), bool)
+    jg = jax.jit(lambda p, f, m: jvox.voxelize(
+        p, f, m, voxel_size=voxel_size, capacity=1024))(pts, feats, valid)
+    tg = tvox.voxelize(t(pts), t(feats), t(valid), voxel_size=voxel_size,
+                       capacity=1024)
+    assert_grid_sites(jg, tg)
+    np.testing.assert_array_equal(tg.features.numpy(),
+                                  np.asarray(jg.features))
+
+
 def test_downsample_and_upsample_match_jax(rng):
     jg, tg = both_grids(rng, 2048)
     jd, td = jvox.downsample_grid(jg, 512), tvox.downsample_grid(tg, 512)

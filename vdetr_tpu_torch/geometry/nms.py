@@ -8,8 +8,9 @@ The numpy versions reproduce the reference pick order bit-for-bit
 JAX function of that name: a keep mask over a fixed proposal count, with
 the greedy semantics of `nms_3d_faster_samecls_np`. Its plain version
 follows the JAX `lax.while_loop` literally (masked argmax, keep,
-suppress); on the card one launch of kernel N runs the whole loop of
-each scene as one scan over the boxes in score order.
+suppress); on the card kernel N runs the whole loop of each scene in two
+launches: an overlap bitmask over the boxes in score order, then a scan
+of its words.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from vdetr_tpu_torch import kernels
 from vdetr_tpu_torch.eval.native import box3d_iou_pairs
 from vdetr_tpu_torch.geometry.iou import box3d_iou_np
 
-# the most boxes a scene may hold on the card: kernel N's 1024 threads
-# hold at most 16 boxes each in registers
+# the most boxes a scene may hold on the card: kernel N's scan keeps the
+# removed set, a bit a box, in 2 KB of shared memory
 NMS_MAX_BOXES = 16 * 1024
 
 
@@ -187,10 +188,12 @@ def nms_launch(aabbs, scores, classes, valid, iou_threshold,
     (B, K) bool keep mask. Counts nothing: `nms_3d_samecls_mask` is the
     main path's entry.
 
-    The boxes are visited in the order of a stable descending sort of the
-    scores (the lowest index first among equal scores), which is the
-    order the loop's argmax takes them in: a box the loop picks is the
-    first alive box of that order. The loop's one other case, every
+    The kernel works on positions in the order of a stable descending
+    sort of the scores (the lowest index first among equal scores), which
+    is the order the loop's argmax takes the boxes in: a box the loop
+    picks is the first alive box of that order. Its scratch, the (B, K,
+    ceil(K / 64)) overlap bitmask and the (B, ceil(K / 64)) seed words of
+    the removed set, is allocated here. The loop's one other case, every
     alive score -inf (argmax then returns index 0, alive or not), cannot
     occur: the eval step's scores are probabilities in [0, 1]."""
     B, K = scores.shape
@@ -204,9 +207,11 @@ def nms_launch(aabbs, scores, classes, valid, iou_threshold,
                        stable=True).indices.to(torch.int32)
     cls = classes.to(torch.int32).contiguous()
     kernels.check(cls, torch.int32, (B, K), "classes")
+    words = torch.empty(B * (K + 1) * ((K + 63) // 64), dtype=torch.int64,
+                        device=scores.device)
     keep = torch.empty(B, K, dtype=torch.bool, device=scores.device)
     kernels.call("nms", aabbs.data_ptr(), order.data_ptr(), cls.data_ptr(),
-                 valid.data_ptr(), keep.data_ptr(), B, K,
+                 valid.data_ptr(), words.data_ptr(), keep.data_ptr(), B, K,
                  float(iou_threshold), int(old_type),
                  torch.cuda.current_stream(scores.device).cuda_stream)
     return keep
@@ -219,8 +224,8 @@ def nms_3d_samecls_mask(aabbs, scores, classes, valid, iou_threshold,
     (B, K) bool -> the (B, K) bool keep mask, with the greedy semantics of
     `nms_3d_faster_samecls_np` (ties broken by the lowest index).
 
-    CUDA tensors launch kernel N, once for the batch (or raise); CPU
-    tensors take the plain loop."""
+    CUDA tensors launch kernel N, once for the batch (its mask and scan
+    kernels; or raise); CPU tensors take the plain loop."""
     if not scores.is_cuda:
         return nms_3d_samecls_mask_plain(aabbs, scores, classes, valid,
                                          iou_threshold, old_type)

@@ -63,7 +63,8 @@ _SIGNATURES = {
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                     _F, _I, _P]),
     "dot_micro": ("dot_micro_f32", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "nms": ("nms_samecls_f32", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    "nms": ("nms_samecls_f32",
+            [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

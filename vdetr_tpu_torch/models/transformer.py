@@ -309,6 +309,13 @@ class PointClsHead(GenericMLP):
                          dropout=c.mlp_dropout)
 
 
+def select_proposals(obj, nq: int):
+    """(B, nq) indices of the nq largest scores of obj (B, K), largest
+    first: `lax.top_k`'s choice (JAX transformer.py:523), the lower index
+    first among equal scores, which a stable descending sort keeps."""
+    return torch.sort(obj, dim=1, descending=True, stable=True).indices[:, :nq]
+
+
 class TransformerDecoder(nn.Module):
     """Reference vdetr_transformer.py:105-452."""
 
@@ -348,15 +355,13 @@ class TransformerDecoder(nn.Module):
             point_cloud_dims, self.num_angle_bin, c.use_focal)
         intermediate: List[Dict[str, torch.Tensor]] = [pred0]
 
-        # top-k proposals; a stable descending sort keeps lax.top_k's
-        # lower-index-first order among equal scores (the objectness is
-        # detached in refine_box_predictions)
+        # top-k proposals (the objectness is detached in
+        # refine_box_predictions)
         obj = pred0["objectness_prob"]
         if enc_valid is not None:
             obj = torch.where(enc_valid, obj, -torch.inf)
         nq = min(c.nqueries, obj.shape[1])
-        topk = torch.sort(obj, dim=1, descending=True,
-                          stable=True).indices[:, :nq]
+        topk = select_proposals(obj, nq)
 
         def g(x):
             idx = topk.reshape(topk.shape + (1,) * (x.ndim - 2))

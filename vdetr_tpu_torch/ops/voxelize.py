@@ -139,8 +139,15 @@ def voxelize(points, feats, point_valid, voxel_size: float, capacity: int,
              extent=DEFAULT_EXTENT, align_stride: int = 32) -> VoxelGrid:
     """points (B, N, 3) world metres; feats (B, N, C); point_valid (B, N)
     bool. Duplicate points in one voxel: the lowest original index wins.
-    Returns a stride-1 VoxelGrid."""
-    coords_raw = torch.floor(points / voxel_size).to(torch.int32)
+    Returns a stride-1 VoxelGrid.
+
+    The coordinates are floor(points * r), r the float32 reciprocal of
+    the voxel size, as the compiled JAX model computes them: XLA turns
+    its `points / voxel_size` by a constant into that product. A point
+    whose quotient is an integer can fall one voxel lower that way (4.22
+    m at 1 cm: 4.22 / 0.01 = 422, 4.22 * 100 = 421.99997)."""
+    inv = (1.0 / torch.tensor(voxel_size, dtype=torch.float32)).item()
+    coords_raw = torch.floor(points * inv).to(torch.int32)
     masked = torch.where(point_valid[..., None], coords_raw, 1 << 30)
     mn = masked.min(dim=1).values
     origin = torch.div(mn, align_stride, rounding_mode="floor") * align_stride

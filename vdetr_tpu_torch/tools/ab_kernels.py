@@ -1,6 +1,6 @@
 """A/B of two source trees of the port on one card, in turns.
 
-    python -m vdetr_tpu_torch.tools.ab_kernels TREE [TREE ...]
+    python -m vdetr_tpu_torch.tools.ab_kernels [--only PART,...] TREE ...
 
 Runs the measurement below once per TREE, in the order given, each in a
 child process whose working directory and import path are that tree (so
@@ -40,7 +40,17 @@ weights, synthetic scenes):
   and launches per port kernel;
 - chip_smoke's `run_forward` (ms per scene at batch 1 and 4) and
   `run_train` (median train step, one profiled step per route, F's
-  kernels apart).
+  kernels apart);
+- the device NMS, kernel N, through the tree's `nms_launch` on
+  `tools/nms_cases.py`'s sets at K = 1024, B = 1 and 4, and on one fixed
+  seeded set of published-like boxes (`published_like_boxes`): ms per
+  launch (CUDA events, the sort included), device ms per call of each
+  kernel it launches (the barrier scan of a parent, the mask and scan
+  kernels of the bitmask form), the plain loop's ms, and a digest of
+  the keep mask's bits;
+- chip_smoke's `run_eval`: the published eval step (`test_only`) per
+  route at B = 1 and 4, ms per scene of the step and of the forward.
+The parts (PARTS) run in that order; `--only` names the ones to run.
 Prints one JSON line per tree (`ab_kernels {...}`) and a summary table
 last; the card's name and power limit beside it. Needs the card.
 """
@@ -70,7 +80,11 @@ KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
                 ("rpe_dq_sum_kernel", "F dq sum"),
                 ("rpe_table_bwd_kernel", "F table"),
                 ("rpe_table_sum_kernel", "F table sum"),
-                ("dot_micro_kernel", "J2"))
+                ("dot_micro_kernel", "J2"),
+                ("nms_mask_kernel", "N mask"),
+                ("nms_scan_kernel", "N scan"))
+PARTS = ("conv", "rpe", "table_sum", "fps", "maps", "dot_micro", "forward",
+         "train", "nms", "eval")
 
 
 def _label(name: str):
@@ -120,31 +134,91 @@ def profile_by_kernel(fn, reps: int = 1):
     return {k: [ms, n] for k, (ms, n) in out.items()}
 
 
-def measure() -> dict:
-    """The measurement of the tree in the working directory."""
+def measure(parts=PARTS) -> dict:
+    """The measurement of the tree in the working directory: the PARTS
+    named in `parts`."""
     import torch
 
     import chip_smoke as cs
     from vdetr_tpu_torch import kernels
     from vdetr_tpu_torch.config import VDETRConfig
-    from vdetr_tpu_torch.ops.rpe_attention import (
-        rpe_cross_attention, rpe_cross_attention_bwd,
-        rpe_cross_attention_bwd_plain, rpe_cross_attention_plain)
-    from vdetr_tpu_torch.ops.sparse_conv_kernel import (
-        mapped_conv, mapped_conv_dw, mapped_conv_dw_plain, mapped_conv_plain)
-    from vdetr_tpu_torch.ops.sparse_conv_keyed import (
-        keyed_conv, keyed_conv_dw, keyed_conv_dw_plain, keyed_conv_plain)
-    from vdetr_tpu_torch.tools import card, time_ms
+    from vdetr_tpu_torch.tools import card
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kernels.build_all()
     smi = card()
-    res = {"tree": os.getcwd(), "card": smi, "conv": {}, "rpe_fwd": {},
-           "rpe_bwd": {}}
+    res = {"tree": os.getcwd(), "card": smi, "parts": list(parts)}
     cfg = VDETRConfig()
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    if "conv" in parts:
+        res["conv"] = measure_convs(cfg, dev, cs, gen)
+    if "rpe" in parts:
+        res.update(measure_rpe(cfg, dev, cs, gen))
+    if "table_sum" in parts:
+        res["table_sum"] = measure_table_sum(cfg, dev)
+    if "fps" in parts:
+        res["fps"] = measure_fps(cfg, dev, cs)
+    if "maps" in parts:
+        res["maps"] = measure_maps(cfg, dev, cs)
+    if "dot_micro" in parts:
+        res["dot_micro"] = measure_dot_micro(dev)
+    if "nms" in parts:
+        res["nms"] = measure_nms(dev, cs)
+    torch.cuda.empty_cache()
+    ok = True
+    if {"forward", "eval"} & set(parts):
+        models = {r: cs.published_model(cfg, dev, r) for r in cs.ROUTES}
+    if "forward" in parts:
+        inputs = cs.synthetic_batch(cfg.num_points, 1, dev)
+        with torch.inference_mode():
+            res["forward_profile"] = {
+                r: profile_by_kernel(lambda: m(inputs))
+                for r, m in models.items()}
+        ok_f, _, per_scene = cs.run_forward(models, cfg, dev, smi)
+        res["forward_ms_per_scene"] = {
+            r: {str(b): t for b, t in v.items()}
+            for r, v in per_scene.items()}
+        ok &= bool(ok_f)
+    if "eval" in parts:
+        ok_e, _, per, _, trainers = cs.run_eval(
+            models, cs.eval_config(cfg), dev, smi)
+        res["eval_step"] = {
+            r: {str(b): {k: v[k] for k in ("step_ms_per_scene",
+                                           "forward_ms_per_scene", "kept")}
+                for b, v in per[r].items()} for r in cs.ROUTES}
+        ok &= bool(ok_e)
+        del trainers
+    if {"forward", "eval"} & set(parts):
+        del models
+        torch.cuda.empty_cache()
+    if "train" in parts:
+        ok_t, _, train = cs.run_train(cfg.replace(matcher_impl="jv"), dev,
+                                      smi)
+        res["train"] = {
+            r: {"ms_per_step": train[r]["ms_per_step"],
+                "steps": train[r]["steps"],
+                "device_busy_ms": train[r]["profile"]["device_busy_ms"],
+                "busy_share": train[r]["profile"]["busy_share"],
+                "by_kernel": train[r]["profile"]["by_kernel"],
+                "by_part": train[r]["profile"]["by_part"]}
+            for r in cs.ROUTES}
+        ok &= bool(ok_t)
+    res["ok"] = ok and all(c["mismatches"] == 0
+                           for c in res.get("nms", {}).values())
+    return res
+
+
+def measure_convs(cfg, dev, cs, gen) -> dict:
+    """A, H, D and I on chip_smoke's conv cases."""
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (
+        mapped_conv, mapped_conv_dw, mapped_conv_dw_plain, mapped_conv_plain)
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import (
+        keyed_conv, keyed_conv_dw, keyed_conv_dw_plain, keyed_conv_plain)
+    from vdetr_tpu_torch.tools import time_ms
+
+    out = {}
     grids = cs.level_grids(cfg, dev)
     for case in cs.conv_cases(cfg, grids, gen):
         label, args, dout, nbr = case[0], case[1], case[2], case[4]
@@ -166,8 +240,20 @@ def measure() -> dict:
                              got.cpu().numpy().tobytes()).hexdigest()[:16],
                          "max_ref": float(ref.abs().max()),
                          "parts": profile_by_kernel(lambda: fn(*a), reps=5)}
-        res["conv"][label] = row
-    del grids
+        out[label] = row
+    return out
+
+
+def measure_rpe(cfg, dev, cs, gen) -> dict:
+    """C in its eval and train forms and F at dropout 0 and 0.1."""
+    import torch
+
+    from vdetr_tpu_torch.ops.rpe_attention import (
+        rpe_cross_attention, rpe_cross_attention_bwd,
+        rpe_cross_attention_bwd_plain, rpe_cross_attention_plain)
+    from vdetr_tpu_torch.tools import time_ms
+
+    res = {"rpe_fwd": {}, "rpe_bwd": {}}
     case = cs.rpe_case(cfg, dev, gen)
     q, k, v, corners, angles, key_xyz, tables, key_valid = case
     for form, extra in (("eval", {}),
@@ -208,34 +294,89 @@ def measure() -> dict:
                 lambda: rpe_cross_attention_bwd(*a, **fkw), reps=5),
             "max_abs_err": errs, "dtables_bit_equal": dtables_repeat}
         del got, ref, out, lse, logits
-    del case, dout
-    res["table_sum"] = measure_table_sum(cfg, dev)
-    res["fps"] = measure_fps(cfg, dev, cs)
-    res["maps"] = measure_maps(cfg, dev, cs)
-    res["dot_micro"] = measure_dot_micro(dev)
-    torch.cuda.empty_cache()
-
-    models = {r: cs.published_model(cfg, dev, r) for r in cs.ROUTES}
-    inputs = cs.synthetic_batch(cfg.num_points, 1, dev)
-    with torch.inference_mode():
-        res["forward_profile"] = {
-            r: profile_by_kernel(lambda: m(inputs)) for r, m in models.items()}
-    ok_f, _, per_scene = cs.run_forward(models, cfg, dev, smi)
-    del models
-    torch.cuda.empty_cache()
-    ok_t, _, train = cs.run_train(cfg.replace(matcher_impl="jv"), dev, smi)
-    res["forward_ms_per_scene"] = {
-        r: {str(b): t for b, t in v.items()} for r, v in per_scene.items()}
-    res["ok"] = bool(ok_f and ok_t)
-    res["train"] = {
-        r: {"ms_per_step": train[r]["ms_per_step"],
-            "steps": train[r]["steps"],
-            "device_busy_ms": train[r]["profile"]["device_busy_ms"],
-            "busy_share": train[r]["profile"]["busy_share"],
-            "by_kernel": train[r]["profile"]["by_kernel"],
-            "by_part": train[r]["profile"]["by_part"]}
-        for r in cs.ROUTES}
     return res
+
+
+def published_like_boxes(seed: int = 0, B: int = 1, K: int = 1024):
+    """One fixed set of NMS inputs shaped like a published eval step's
+    (numpy, from `seed`): K proposals a scene clustered around 24
+    objects in an 8 x 8 x 3 m scan (the queries of a decoder crowd its
+    objects), sizes 0.2-2 m jittered per proposal, one of 18 classes per
+    object with one proposal in five of another, scores in (0.6, 0.8)
+    with a few exact ties, and a third of the boxes left out as the
+    empty-box removal leaves them. Returns (aabbs (B, K, 6) float32,
+    scores (B, K) float32, classes (B, K) int32, valid (B, K) bool)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    objs = 24
+    centre = rng.rand(B, objs, 3) * [8.0, 8.0, 3.0]
+    size = 0.2 + rng.rand(B, objs, 3) * 1.8
+    cls = rng.randint(0, 18, (B, objs))
+    of = rng.randint(0, objs, (B, K))
+    take = np.take_along_axis
+    c = take(centre, of[..., None], 1) + rng.randn(B, K, 3) * 0.15
+    s = take(size, of[..., None], 1) * (0.8 + 0.4 * rng.rand(B, K, 3))
+    classes = take(cls, of, 1)
+    other = rng.rand(B, K) < 0.2
+    classes[other] = rng.randint(0, 18, int(other.sum()))
+    scores = 0.6 + 0.2 * rng.rand(B, K)
+    scores[:, 1::16] = scores[:, ::16][:, :scores[:, 1::16].shape[1]]
+    aabbs = np.concatenate([c - s / 2, c + s / 2], -1).astype(np.float32)
+    valid = rng.rand(B, K) >= 1 / 3
+    return (aabbs, scores.astype(np.float32), classes.astype(np.int32),
+            valid)
+
+
+def measure_nms(dev, cs) -> dict:
+    """Kernel N through the tree's `nms_launch` on `nms_cases` at K =
+    1024, B = 1 and 4, and on `published_like_boxes` at B = 1 and 4: ms
+    per launch (CUDA events, mean of 20), device ms per call of each
+    kernel launched (torch.profiler, 5 calls), the plain loop's ms, the
+    keep flags that differ from it and a digest of the keep mask's bits
+    (equal digests: two trees kept the same boxes)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from vdetr_tpu_torch.geometry.nms import (nms_3d_samecls_mask_plain,
+                                              nms_launch)
+    from vdetr_tpu_torch.tools import time_ms
+    from vdetr_tpu_torch.tools.nms_cases import nms_cases
+
+    sets = {}
+    rng = np.random.RandomState(cs.SEED)
+    for B in (1, 4):
+        sets[f"nms_cases B={B} K=1024"] = nms_cases(rng, B, 1024)
+    for B in (1, 4):
+        sets[f"published-like B={B} K=1024"] = published_like_boxes(7, B)
+    out = {}
+    for label, arrays in sets.items():
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+
+        def run():
+            return nms_launch(*args, 0.25)
+
+        got = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = nms_3d_samecls_mask_plain(*args, 0.25)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        calls = profiled_calls(run, 5, keep=lambda e: "nms_" in e.name)
+        parts = {}
+        for call in calls:
+            for name, a, z in call:
+                lab = _label(name) or name
+                parts[lab] = parts.get(lab, 0.0) + (z - a) / 1e3 / len(calls)
+        out[label] = {
+            "ms": time_ms(run, reps=20), "device_ms": parts,
+            "plain_ms": plain_ms, "mismatches": int((got != ref).sum()),
+            "kept": int(got.sum()),
+            "keep_sha256": hashlib.sha256(
+                got.cpu().numpy().tobytes()).hexdigest()[:16]}
+    return out
 
 
 def map_launches(grids):
@@ -373,7 +514,8 @@ def summary(runs) -> list:
 
     lines = ["| quantity | " + " | ".join(
         Path(r["tree"]).name or r["tree"] for r in runs) + " |"]
-    for label in runs[0]["conv"]:
+    has = set(runs[0])
+    for label in runs[0].get("conv", {}):
         for k in ("A", "H", "D", "I"):
             lines.append(f"| {k} ms {label} | "
                          + col(lambda r: r["conv"][label][k]["ms"]) + " |")
@@ -382,14 +524,14 @@ def summary(runs) -> list:
             for part in parts:
                 lines.append(f"| {k} {label}: {part} device ms | " + col(
                     lambda r: r["conv"][label][k]["parts"][part][0]) + " |")
-    for label in runs[0]["conv"]:
+    for label in runs[0].get("conv", {}):
         for k in ("A", "H", "D", "I"):
             lines.append(f"| {k} output sha256 {label} | " + " | ".join(
                 r["conv"][label][k].get("sha256", "-") for r in runs) + " |")
-    for form in ("eval", "train"):
+    for form in ("eval", "train") if "rpe_fwd" in has else ():
         lines.append(f"| C ms {form} form | "
                      + col(lambda r: r["rpe_fwd"][form]["ms"]) + " |")
-    for rate in ("0.0", "0.1"):
+    for rate in ("0.0", "0.1") if "rpe_bwd" in has else ():
         lines.append(f"| F ms dropout {rate} | "
                      + col(lambda r: r["rpe_bwd"][rate]["ms"]) + " |")
         for part in ("F pair", "F dq sum", "F table", "F table sum"):
@@ -399,10 +541,11 @@ def summary(runs) -> list:
                      .join(str(r["rpe_bwd"][rate].get("dtables_bit_equal",
                                                       "-")) for r in runs)
                      + " |")
-    for key in ("device_ms", "library_device_ms"):
+    for key in ("device_ms", "library_device_ms") if "table_sum" in has \
+            else ():
         lines.append(f"| F table sum alone {key} | " + col(
             lambda r: r["table_sum"][key]) + " |")
-    for batch in ("1", "4"):
+    for batch in ("1", "4") if "maps" in has else ():
         for key in ("event_ms", "device_us_sum", "gap_us_mean", "span_us",
                     "launches"):
             lines.append(f"| G maps of a forward B={batch} {key} | " + col(
@@ -412,18 +555,36 @@ def summary(runs) -> list:
                     "library_device_ms", "library_tf32_device_ms"):
             lines.append(f"| J2 {row['case']} {key} | " + col(
                 lambda r: r["dot_micro"][i][key]) + " |")
-    for batch in ("1", "4"):
+    for batch in ("1", "4") if "fps" in has else ():
         lines.append(f"| B ms B={batch} | "
                      + col(lambda r: r["fps"][batch]["ms"]) + " |")
         lines.append(f"| B indices differing B={batch} | "
                      + col(lambda r: r["fps"][batch]["mismatches"]) + " |")
-    for route in ("keyed", "mapped"):
+    for label in runs[0].get("nms", {}):
+        for key in ("ms", "plain_ms", "mismatches", "kept"):
+            lines.append(f"| N {label} {key} | " + col(
+                lambda r: r["nms"][label][key]) + " |")
+        for part in sorted({p for r in runs
+                            for p in r.get("nms", {}).get(label, {}).get(
+                                "device_ms", {})}):
+            lines.append(f"| N {label} {part} device ms | " + col(
+                lambda r: r["nms"][label]["device_ms"][part]) + " |")
+        lines.append(f"| N {label} keep sha256 | " + " | ".join(
+            r.get("nms", {}).get(label, {}).get("keep_sha256", "-")
+            for r in runs) + " |")
+    for route in ("keyed", "mapped") if "eval_step" in has else ():
+        for b in ("1", "4"):
+            for key in ("step_ms_per_scene", "forward_ms_per_scene"):
+                lines.append(f"| eval step {route} B={b} {key} | " + col(
+                    lambda r: r["eval_step"][route][b][key]) + " |")
+    for route in ("keyed", "mapped") if "forward_profile" in has else ():
         for lab in ("A", "H", "C", "B", "G"):  # C: one launch per layer
             lines.append(f"| forward {route} B=1 {lab} device ms | " + col(
                 lambda r: r["forward_profile"][route][lab][0]) + " |")
         for b in (1, 4):
             lines.append(f"| forward {route} ms/scene B={b} | " + col(
                 lambda r: r["forward_ms_per_scene"][route][str(b)]) + " |")
+    for route in ("keyed", "mapped") if "train" in has else ():
         lines.append(f"| train {route} median step ms | " + col(
             lambda r: r["train"][route]["ms_per_step"]) + " |")
         lines.append(f"| train {route} device busy ms | " + col(
@@ -442,8 +603,16 @@ def summary(runs) -> list:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    parts = PARTS
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        parts = tuple(argv[1].split(","))
+        argv = argv[2:]
+        if not set(parts) <= set(PARTS):
+            print(f"ab_kernels: --only takes {','.join(PARTS)}",
+                  file=sys.stderr)
+            return 2
     if argv[:1] == ["--child"]:
-        print("ab_kernels " + json.dumps(measure()), flush=True)
+        print("ab_kernels " + json.dumps(measure(parts)), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -453,7 +622,8 @@ def main(argv=None) -> int:
         tree = str(Path(tree).resolve())
         env = dict(os.environ, PYTHONPATH=tree)
         proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--child"],
+            [sys.executable, str(Path(__file__).resolve()), "--only",
+             ",".join(parts), "--child"],
             cwd=tree, env=env, capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         line = next((ln for ln in proc.stdout.splitlines()

@@ -1,7 +1,9 @@
 """Box sets for holding kernel N (the eval step's greedy same-class NMS)
 to its plain loop at the edges where a scan could part from the loop:
-exact score ties, pairs of boxes exactly at the IoU threshold, and holes
-in `valid`. Used by `chip_smoke.py` and the tests; numpy only.
+exact score ties, pairs of boxes exactly at the IoU threshold, holes in
+`valid` (`nms_cases`), and chains in which every box's fate hangs on the
+one before it (`nms_chain`). Used by `chip_smoke.py` and the tests;
+numpy only.
 """
 
 from __future__ import annotations
@@ -49,3 +51,23 @@ def nms_cases(rng: np.random.RandomState, B: int, K: int):
     valid = rng.rand(B, K) >= 0.1
     return (aabbs, scores.astype(np.float32), classes.astype(np.int32),
             valid)
+
+
+def nms_chain(rng: np.random.RandomState, B: int, K: int):
+    """(aabbs, scores, classes, valid) as `nms_cases` returns them: a
+    chain of K unit cubes of one class, each shifted 0.5 m along x from
+    the one before it and scored below it, stored in a random order. Each
+    cube overlaps the next by 1/3 (and by 1/2 over its own volume, the old
+    type's), both above the published 0.25, and the one after that not at
+    all, so the loop keeps every other cube: the fate of the i-th depends
+    on all i - 1 before it, a dependency chain as long as the set."""
+    aabbs = np.zeros((B, K, 6), np.float32)
+    scores = np.zeros((B, K), np.float32)
+    for b in range(B):
+        at = rng.permutation(K)  # the chain's i-th cube is stored at at[i]
+        x = 0.5 * np.arange(K)
+        aabbs[b, at] = np.stack([x, 0 * x, 0 * x, x + 1, 0 * x + 1,
+                                 0 * x + 1], -1)
+        scores[b, at] = 1.0 - np.arange(K) / K
+    return (aabbs, scores, np.zeros((B, K), np.int32),
+            np.ones((B, K), bool))
