@@ -23,8 +23,11 @@ Phases, each printing its own lines:
      its dq, dtables, ds and eg bit for bit from a second launch, the
      pair kernel's SASS read for tensor-core MMAs and atomics and the
      table kernel's for global atomics and compare-and-swap loops, the
-     pair kernel's two products as torch.matmul beside it), and the
-     slices' sum (bit for bit against its plain version); prints the
+     pair kernel's two products as torch.matmul beside it), the
+     slices' sum (bit for bit against its plain version), and the
+     matcher's auction (M: col4row and rounds bit for bit, on the
+     published criterion's cost groups at batch 1 and 4, on exact ties,
+     on duplicated GT rows and on a problem cut at max_iters); prints the
      error, its tolerance, both times and the kernel's bound (for A, D, H
      and I, which multiply on the tensor cores in split TF32, against the
      TF32 rate, with the f32 CUDA-core bound beside it); I bit for bit
@@ -59,13 +62,17 @@ Phases, each printing its own lines:
      (`evaluate`, `APCalculator`) over four synthetic scenes, naming its
      IoU path; and a small eval step on each route on the card against
      the CPU (keep mask equal, outputs within 1e-3);
-  5. train, on both routes: the published model's train step (Trainer,
-     matcher "jv", batch 1, dropout on), the two routes' steps in turn on
+  5. train, on both routes under the auction matcher (the default) and
+     on the keyed route under JV: the published model's train step
+     (Trainer, batch 1, dropout on), the three variants' steps in turn on
      the same batches: three warm steps, then timed steps with finite
      loss and gradients and the expected launches per step (A, D or G,
-     H, I; B, C, F and its slices' sum), median ms per step, peak memory
-     and a breakdown by phase (host ms, and the backward's stream spans),
-     the same breakdown under torch.profiler (device ms per phase); the
+     H, I; B, C, F and its slices' sum; M twice under the auction),
+     median ms per step, peak memory and a breakdown by phase (host ms,
+     the matcher alone, and the backward's stream spans), the criterion
+     under torch.cuda.set_sync_debug_mode("error") (the auction's makes
+     no synchronizing call), the same breakdown under torch.profiler
+     (device ms per phase); the
      run-to-run spread of the gradients (two backwards from the same
      state, batch and seed), which must be exactly 0 for every
      parameter, and two whole steps from one state, which must leave the
@@ -75,7 +82,15 @@ Phases, each printing its own lines:
      share); and a small
      model's step on each route on the card against the same step on the
      CPU (dropout 0): loss, every gradient and the updated parameters;
-  6. a JSON line of per-kernel results, then the last line
+  6. the CLI, `vdetr_tpu_torch.main.main`, at the VDETRConfig defaults on
+     fabricated ScanNet-format scans (4 train and 2 val scans of
+     150k-250k vertices, written to a temporary directory): one epoch
+     with a checkpoint directory (its launches per kernel counted: every
+     kernel of the keyed path, M included), `--test_only --auto_test` on
+     checkpoint_best reproducing the final eval's mAP exactly (at
+     --empty_pt_thre 0), and a second epoch resumed from the checkpoint;
+     the wall ms of each train step and seconds of each eval pass;
+  7. a JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}} -- printed only when every phase
      passed.
 
@@ -88,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import sys
 import time
@@ -127,6 +143,10 @@ REPO_SOURCES = {
     "nms": ("vdetr_tpu_torch/csrc/nms.cu",
             "vdetr_tpu/geometry/nms.py:124 (jax.lax.while_loop in XLA, not "
             "a pallas_call)"),
+    # no pallas_call: the JAX train step's matcher is jax.lax.while_loops
+    "auction": ("vdetr_tpu_torch/csrc/auction.cu",
+                "vdetr_tpu/ops/hungarian.py:123,223 (jax.lax.while_loop in "
+                "XLA, not a pallas_call)"),
 }
 PROBES = ("rpe_ablate", "dot_micro")
 ROUTES = ("keyed", "mapped")
@@ -149,6 +169,7 @@ LIBRARY_NONE = {
     "mapped_conv_dw": "weight gradient of a gather-GEMM: no single torch op",
     "nms": "greedy same-class 3D NMS: no torch op runs it (torchvision's "
            "is a package of finished kernels, 2D, and not installed)",
+    "auction": "no torch op solves an assignment problem",
 }
 
 
@@ -1164,8 +1185,10 @@ def expected_launches(model, cfg, train: bool = False):
     first block's stride-2 map with the level's own map in one launch
     (the maps are saved for the backward); H where keyed runs A, I where
     keyed runs D; no A or D. Both: C, and F with the sum of its table
-    slices, once per decoder layer, FPS once. The probes (rpe_ablate,
-    dot_micro) never."""
+    slices, once per decoder layer, FPS once. A train step under the
+    auction matcher: M once per shape group of the criterion's jobs, the
+    repeated jobs' and the bilabel aux0's (none under JV). The probes
+    (rpe_ablate, dot_micro) never."""
     from vdetr_tpu_torch.models.backbone import SparseConv, SparseConvDown
 
     k3 = [m for m in model.modules()
@@ -1186,11 +1209,14 @@ def expected_launches(model, cfg, train: bool = False):
             else "mapped_conv_dw"] = len(k3)
         out["rpe_cross_attention_bwd"] = layers
         out["rpe_table_sum"] = layers
+        if cfg.matcher_impl == "auction":
+            out["auction"] = 1 + int(cfg.is_bilable)
     return out
 
 
 def launch_counters():
     from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask
+    from vdetr_tpu_torch.ops.hungarian import auction
     from vdetr_tpu_torch.ops.fps import furthest_point_sample
     from vdetr_tpu_torch.ops.map_kernel import kernel_map
     from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
@@ -1209,7 +1235,8 @@ def launch_counters():
             "rpe_cross_attention_bwd": rpe_cross_attention_bwd,
             "rpe_table_sum": rpe_table_sum, "kernel_map": kernel_map, "mapped_conv": mapped_conv,
             "mapped_conv_dw": mapped_conv_dw, "rpe_ablate": rpe_ablate,
-            "dot_micro": dot_micro, "nms": nms_3d_samecls_mask}
+            "dot_micro": dot_micro, "nms": nms_3d_samecls_mask,
+            "auction": auction}
 
 
 def fmt_counts(counts, expected):
@@ -1388,10 +1415,8 @@ NMS_TEST_FLOPS = 20
 
 def eval_config(cfg):
     """The published eval step's config: `test_only` (empty-box removal
-    on). The exact JV matcher is named only because the Trainer builds
-    the criterion, which refuses the unported auction; the eval step
-    never runs it."""
-    return cfg.replace(test_only=True, matcher_impl="jv")
+    on)."""
+    return cfg.replace(test_only=True)
 
 
 def nms_tests(aabbs, scores, classes, valid, thr):
@@ -1652,12 +1677,10 @@ def run_ap(trainer, cfg, scenes: int = 4, batch: int = 2):
     data = SyntheticDetectionDataset(ds, cfg.num_points, seed=SEED)
     batches = [collate([data[i + j] for j in range(batch)])
                for i in range(0, scenes, batch)]
-    # one process, as the quality proof runs it: spawned workers cost
-    # more than the per-class loop at this size
     calc = APCalculator(ds, ap_iou_thresh=[0.25, 0.5],
                         class2type_map=ds.class2type,
                         ap_config_dict=trainer.ap_config,
-                        axis_align_test=cfg.axis_align_test, processes=1)
+                        axis_align_test=cfg.axis_align_test)
     t0 = time.perf_counter()
     evaluate(trainer, batches, calc, logger=None)
     t_steps = time.perf_counter() - t0
@@ -1686,7 +1709,7 @@ def check_small_eval_against_cpu(device, route):
     from vdetr_tpu_torch.models.vdetr import build_model
     from vdetr_tpu_torch.train.engine import Trainer
 
-    cfg = tiny_config().replace(test_only=True, matcher_impl="jv")
+    cfg = tiny_config().replace(test_only=True)
     ds = ScannetDatasetConfig()
     gen = torch.Generator().manual_seed(SEED + 2)
     model = build_model(cfg, ds, generator=gen, device="cpu",
@@ -1751,7 +1774,8 @@ def step_breakdown(trainer, batch, gen, profiled: bool = False):
     step runs under torch.profiler with a synchronization at the
     decoder's input too, and the result also holds the device ms of each
     phase (the union of its device intervals, and the sum of its kernels'
-    times), `device: <phase>`."""
+    times), `device: <phase>`, and the device-to-host copies the profiler
+    saw in each phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1832,12 +1856,13 @@ def step_breakdown(trainer, batch, gen, profiled: bool = False):
             split = e.time_range.start
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
-    spans = {}
+    spans, dtoh = {}, {w: 0 for _, _, w in windows}
     for e in dev:
         a, z = e.time_range.start, e.time_range.end
         name = next((w for lo, hi, w in windows if lo <= a < hi), None)
         if name is None:
             continue
+        dtoh[name] += "DtoH" in e.name  # a copy to the host
         if name == "backward" and split is not None:
             name = ("backward: decoder and heads" if a < split else
                     "backward: projection, FPN and backbone")
@@ -1850,12 +1875,15 @@ def step_breakdown(trainer, batch, gen, profiled: bool = False):
                 end = z
         t[f"device: {name}"] = busy / 1e3
         t[f"device kernel sum: {name}"] = sum(z - a for a, z in iv) / 1e3
+    for name, n in dtoh.items():
+        t[f"device-to-host copies: {name}"] = n
     return t
 
 
-def matcher_host_ms(trainer, batch, gen):
-    """Host ms of the criterion's solve: the costs' copy to the host
-    (after a synchronization, so the copy alone) and the JV solves."""
+def matcher_ms(trainer, batch, gen):
+    """Host ms of the criterion's matcher, `solve_costs` between two
+    synchronizations: under JV the costs' copy to the host and the JV
+    solves; under the auction kernel M's launches on the card."""
     from vdetr_tpu_torch.train.engine import INPUT_KEYS
 
     crit = trainer.criterion
@@ -1866,10 +1894,11 @@ def matcher_host_ms(trainer, batch, gen):
     orig = crit.solve_costs
     spent = {}
 
-    def timed(costs, nactual):
+    def timed(*args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = orig(costs, nactual)
+        res = orig(*args)
+        torch.cuda.synchronize()
         spent["ms"] = (time.perf_counter() - t0) * 1e3
         return res
 
@@ -1880,6 +1909,34 @@ def matcher_host_ms(trainer, batch, gen):
     finally:
         crit.solve_costs = orig
     return spent["ms"]
+
+
+def criterion_sync(trainer, batch, gen):
+    """The criterion of one step run under
+    torch.cuda.set_sync_debug_mode("error"): None when it makes no
+    synchronizing call (no device-to-host copy), else the error the first
+    such call raised, with the line of the port that made it."""
+    import traceback
+
+    from vdetr_tpu_torch.train.engine import INPUT_KEYS
+
+    b = trainer._to_device(batch)
+    with torch.no_grad():
+        out = trainer.model({k: b[k] for k in INPUT_KEYS if k in b},
+                            generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            trainer.criterion(out, b)
+        return None
+    except RuntimeError as e:
+        where = [f"{f.filename.split('vdetr_tpu_torch/')[-1]}:{f.lineno}"
+                 for f in traceback.extract_tb(e.__traceback__)
+                 if "vdetr_tpu_torch" in f.filename]
+        return f"{str(e).splitlines()[0]} at {where[-1:]}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 # kernel function names (as the profiler reports them) -> the port's
@@ -1905,7 +1962,8 @@ PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
                    ("rpe_table_bwd_kernel", "rpe_cross_attention_bwd",
                     "table kernel"),
                    ("rpe_table_sum_kernel", "rpe_cross_attention_bwd",
-                    "table sum"))
+                    "table sum"),
+                   ("auction_kernel", "auction", "auction"))
 
 
 def profile_step(trainer, batch, gen):
@@ -1962,86 +2020,104 @@ def profile_step(trainer, batch, gen):
                      for name, (ms, n) in top])
 
 
-def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
-    """The published model's train step at batch 1 on both routes, each
-    with its own model (the same initial weights), optimizer and dropout
-    generator (the same seed): `warm` steps, then `steps` timed steps, the
-    routes in turn on the same batch (the order alternating), so that
-    their medians share the call's conditions. Each step's launches are
-    counted."""
+def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
+    """The published model's train step at batch 1 in each variant, name
+    -> (conv route, matcher), each with its own model (the same initial weights), optimizer and
+    dropout generator (the same seed): `warm` steps, then `steps` timed
+    steps, the variants in turn on the same batch (the order
+    alternating), so that their medians share the call's conditions.
+    Each step's launches are counted."""
     from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.tools.determinism import grad_spread, step_twice
     from vdetr_tpu_torch.train.engine import Trainer
 
     ds = ScannetDatasetConfig()
-    trainers = {route: Trainer(cfg, published_model(cfg, device, route), ds,
-                               steps_per_epoch=1000, device=device)
-                for route in ROUTES}
-    expected = {route: expected_launches(tr.model, cfg, train=True)
-                for route, tr in trainers.items()}
-    gens = {route: torch.Generator(device=device).manual_seed(SEED)
-            for route in ROUTES}
+    names = list(variants)
+    cfgs = {n: cfg.replace(matcher_impl=m) for n, (_, m) in variants.items()}
+    trainers = {n: Trainer(cfgs[n], published_model(cfg, device, route), ds,
+                           steps_per_epoch=1000, device=device)
+                for n, (route, _) in variants.items()}
+    expected = {n: expected_launches(tr.model, cfgs[n], train=True)
+                for n, tr in trainers.items()}
+    gens = {n: torch.Generator(device=device).manual_seed(SEED)
+            for n in names}
     counters = launch_counters()
     batches = [train_batch(cfg, 1, first=i) for i in range(warm + steps)]
     ok, launches = True, {}
-    times = {route: [] for route in ROUTES}
-    all_times = {route: [] for route in ROUTES}
-    peak = {route: 0.0 for route in ROUTES}
+    times = {n: [] for n in names}
+    all_times = {n: [] for n in names}
+    peak = {n: 0.0 for n in names}
     for i, batch in enumerate(batches):
-        for route in (ROUTES if i % 2 == 0 else ROUTES[::-1]):
-            trainer = trainers[route]
+        for name in (names if i % 2 == 0 else names[::-1]):
+            trainer = trainers[name]
             for fn in counters.values():
                 fn.launches = 0
             torch.cuda.reset_peak_memory_stats(device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss, parts = trainer.train_step(batch, gens[route])
+            loss, parts = trainer.train_step(batch, gens[name])
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) * 1e3
             counts = {k: fn.launches for k, fn in counters.items()}
-            peak[route] = max(
-                peak[route], torch.cuda.max_memory_allocated(device) / 2 ** 30)
+            peak[name] = max(
+                peak[name], torch.cuda.max_memory_allocated(device) / 2 ** 30)
             nonfinite = grads_finite(trainer.model)
             step_ok = (math.isfinite(loss) and not nonfinite
-                       and counts == expected[route])
+                       and counts == expected[name])
             ok &= step_ok
-            all_times[route].append(dt)
+            all_times[name].append(dt)
             if i == 0:
-                launches[route] = counts
+                launches[name] = counts
             if i >= warm:
-                times[route].append(dt)
-            log(f"train {route} step {i}{' (warm)' if i < warm else ''}: "
+                times[name].append(dt)
+            log(f"train {name} step {i}{' (warm)' if i < warm else ''}: "
                 f"loss {loss:.4f}, {dt:.1f} ms, grads "
                 f"{'finite' if not nonfinite else nonfinite[:3]}, launches "
-                + fmt_counts(counts, expected[route])
+                + fmt_counts(counts, expected[name])
                 + f" -> {'ok' if step_ok else 'FAIL'}")
     stats = {}
-    for route, trainer in trainers.items():
-        med = statistics.median(times[route])
-        log(f"train {route} B=1 N={cfg.num_points} matcher="
-            f"{cfg.matcher_impl}: median {med:.1f} ms/step over "
-            f"{len(times[route])} steps after {warm} warm, in turn with the "
-            f"other route [{', '.join(f'{t:.1f}' for t in times[route])}]; "
-            f"all steps [{', '.join(f'{t:.1f}' for t in all_times[route])}];"
-            f" peak memory {peak[route]:.2f} GiB (both routes' weights and "
+    for name, trainer in trainers.items():
+        matcher = cfgs[name].matcher_impl
+        med = statistics.median(times[name])
+        log(f"train {name} B=1 N={cfg.num_points} matcher={matcher}: "
+            f"median {med:.1f} ms/step over {len(times[name])} steps after "
+            f"{warm} warm, in turn with the other variants "
+            f"[{', '.join(f'{t:.1f}' for t in times[name])}]; all steps "
+            f"[{', '.join(f'{t:.1f}' for t in all_times[name])}]; peak "
+            f"memory {peak[name]:.2f} GiB (every variant's weights and "
             f"optimizer states resident); card {power}")
-        brk = step_breakdown(trainer, batches[1], gens[route])
-        brk["matcher: cost copy and JV on the host"] = matcher_host_ms(
-            trainer, batches[1], gens[route])
-        log(f"train {route} step breakdown (ms; host clock per phase, each "
+        brk = step_breakdown(trainer, batches[1], gens[name])
+        brk[f"matcher alone ({matcher}: "
+            + ("cost copy and JV on the host" if matcher == "jv"
+               else "kernel M on the card") + ")"] = matcher_ms(
+            trainer, batches[1], gens[name])
+        log(f"train {name} step breakdown (ms; host clock per phase, each "
             "ended by a sync; the backward's stream spans between CUDA "
             "events, which include the host's gaps): " + "; ".join(
                 f"{k} {v:.1f}" for k, v in brk.items()))
-        dev_brk = step_breakdown(trainer, batches[1], gens[route],
+        sync = criterion_sync(trainer, batches[1], gens[name])
+        sync_ok = sync is None if matcher == "auction" else True
+        ok &= sync_ok
+        log(f"train {name} criterion under set_sync_debug_mode('error'): "
+            + ("no synchronizing call (no device-to-host copy)"
+               if sync is None else f"synchronizes: {sync}")
+            + (" -> ok" if sync_ok else " -> FAIL"))
+        dev_brk = step_breakdown(trainer, batches[1], gens[name],
                                  profiled=True)
-        log(f"train {route} step breakdown under torch.profiler (ms; "
+        copies = dev_brk["device-to-host copies: criterion incl. matcher"]
+        ok &= copies == 0 or matcher == "jv"
+        log(f"train {name} step breakdown under torch.profiler (ms; "
             "'device': the union of the phase's device intervals, 'device "
-            "kernel sum': their sum; host clock with the profiler on): "
-            + "; ".join(f"{k} {v:.1f}" for k, v in dev_brk.items()))
+            "kernel sum': their sum; host clock with the profiler on; "
+            "device-to-host copies counted): " + "; ".join(
+                f"{k} {v:.1f}" for k, v in dev_brk.items())
+            + f" -> the criterion's copies to the host: {copies} "
+            + ("(JV's)" if matcher == "jv" else
+               "(ok)" if copies == 0 else "(FAIL)"))
         spread = grad_spread(trainer, batches[1])
         repeat_ok = not spread["differing"] and all(
             v["max_abs_diff"] == 0 for v in spread["groups"].values())
-        log(f"train {route} run-to-run gradient spread (two backwards from "
+        log(f"train {name} run-to-run gradient spread (two backwards from "
             "the same state, batch and seed; max |g1 - g2| / max |g1| per "
             "parameter group, tolerance 0): " + "; ".join(
                 f"{k} {v['rel']:.2e}" for k, v in spread["groups"].items())
@@ -2049,21 +2125,23 @@ def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
             f"{[n for n, _ in spread['differing'][:5]]} -> "
             f"{'ok' if repeat_ok else 'FAIL'}")
         differ, count = step_twice(trainer, batches[1])
-        log(f"train {route} two whole steps (clip and AdamW included) from "
+        log(f"train {name} two whole steps (clip and AdamW included) from "
             f"the same state, batch and seed: {len(differ)} of {count} "
             f"parameters differ {differ[:5]} -> "
             f"{'ok' if not differ else 'FAIL'}")
         ok &= repeat_ok and not differ
-        stats[route] = dict(ms_per_step=med, steps=times[route],
-                            all_steps=all_times[route], peak_gib=peak[route],
-                            breakdown=brk, breakdown_profiled=dev_brk,
-                            grad_spread=spread["groups"],
-                            grad_spread_differing=spread["differing"],
-                            step_twice_differing=differ)
-        prof = profile_step(trainer, batches[2], gens[route])
+        stats[name] = dict(matcher=matcher, ms_per_step=med,
+                           steps=times[name], all_steps=all_times[name],
+                           peak_gib=peak[name], breakdown=brk,
+                           breakdown_profiled=dev_brk,
+                           criterion_sync=sync,
+                           grad_spread=spread["groups"],
+                           grad_spread_differing=spread["differing"],
+                           step_twice_differing=differ)
+        prof = profile_step(trainer, batches[2], gens[name])
         prof["busy_share_of_median_step"] = prof["device_busy_ms"] / med
-        stats[route]["profile"] = prof
-        log(f"train {route} step under torch.profiler: {prof['wall_ms']:.1f}"
+        stats[name]["profile"] = prof
+        log(f"train {name} step under torch.profiler: {prof['wall_ms']:.1f}"
             f" ms host clock, {prof['device_events']} device events, "
             f"device busy {prof['device_busy_ms']:.1f} ms = "
             f"{100 * prof['busy_share']:.1f}% of the profiled step, "
@@ -2080,13 +2158,15 @@ def run_train(cfg, device, power, warm: int = 3, steps: int = 5):
         log("  top kernels by device ms: " + "; ".join(
             f"{t['name'][:60]} {t['ms']:.2f} ({t['launches']})"
             for t in prof["top"]))
-    # the same batch on both routes: the paired difference cancels the
-    # scene-to-scene variation of the step
-    diff = [m - k for k, m in zip(times["keyed"], times["mapped"])]
-    stats["mapped_minus_keyed_ms"] = diff
-    log(f"train mapped minus keyed, paired by step: median "
-        f"{statistics.median(diff):.1f} ms ["
-        + ", ".join(f"{d:.1f}" for d in diff) + "]")
+    # the same batch in each variant: the paired difference against the
+    # first cancels the scene-to-scene variation of the step
+    a = names[0]
+    for b in names[1:]:
+        diff = [y - x for x, y in zip(times[a], times[b])]
+        stats[f"{b} minus {a} ms"] = diff
+        log(f"train {b} minus {a}, paired by step: median "
+            f"{statistics.median(diff):.1f} ms ["
+            + ", ".join(f"{d:.1f}" for d in diff) + "]")
     return ok, launches, stats
 
 
@@ -2149,6 +2229,358 @@ def check_small_train_against_cpu(device, route):
     return ok
 
 
+def matcher_inputs(cfg, device, B: int):
+    """The matcher's inputs of one published train step at batch B: each
+    shape group's (kind, costT, n_valid, repeat), captured from the
+    criterion's calls into `ops/hungarian.py` after a train-mode forward
+    of the published model (keyed, seeded random weights) on synthetic
+    scenes."""
+    import vdetr_tpu_torch.train.criterion as crit_mod
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.train.engine import INPUT_KEYS, Trainer
+
+    trainer = Trainer(cfg, published_model(cfg, device, "keyed"),
+                      ScannetDatasetConfig(), steps_per_epoch=1000,
+                      device=device)
+    b = trainer._to_device(train_batch(cfg, B))
+    seen = []
+    plain, capacity = crit_mod.auction, crit_mod.auction_capacity
+
+    def take_plain(cost, n_valid, **kw):
+        seen.append(("plain", cost.float().contiguous(), n_valid.clone(),
+                     1))
+        return plain(cost, n_valid, **kw)
+
+    def take_capacity(cost, n_valid, repeat, **kw):
+        seen.append(("capacity", cost.float().contiguous(), n_valid.clone(),
+                     repeat))
+        return capacity(cost, n_valid, repeat, **kw)
+
+    crit_mod.auction, crit_mod.auction_capacity = take_plain, take_capacity
+    try:
+        trainer.model.train()
+        with torch.no_grad():
+            out = trainer.model({k: b[k] for k in INPUT_KEYS if k in b},
+                                generator=torch.Generator(
+                                    device=device).manual_seed(SEED))
+            trainer.criterion(out, b)
+    finally:
+        crit_mod.auction, crit_mod.auction_capacity = plain, capacity
+    return seen
+
+
+def auction_edge_cases(device):
+    """Kernel M's edges at the published widths (1024 proposals, 64 GT
+    slots, repeat 5): exact ties (costs on a grid of 3 values), every GT
+    row duplicated 5 times (the plain auction's bidding wars), and a
+    capacity problem that runs to max_iters (more GT copies than genuine
+    proposals: the copies left over bid on 1e6 dummy columns)."""
+    rng = np.random.RandomState(SEED)
+
+    def tiled(base, repeat, slots):
+        g, m = base.shape
+        cost = np.full((slots * repeat, m), 1e6, np.float32)
+        for d in range(repeat):
+            cost[d * g:(d + 1) * g] = base
+        return cost
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    ties = np.stack([tiled(np.round(rng.rand(g, 1024) * 2).astype(
+        np.float32), 5, 64) for g in (20, 7, 40, 3)])
+    plain_ties = np.full((4, 64, 1024), 1e6, np.float32)
+    for b, g in enumerate((20, 7, 40, 3)):
+        plain_ties[b, :g] = np.round(rng.rand(g, 1024) * 2)
+    dup = np.tile((rng.randn(12, 1024) * 2).astype(np.float32), (5, 1))
+    cut = np.full((1, 320, 320), 1e6, np.float32)
+    cut[0, :150, :64] = tiled(rng.rand(30, 64).astype(np.float32), 5,
+                              30)[:, :64]
+    return [("capacity ties", t(ties), t(np.array([100, 35, 200, 15])), 5),
+            ("plain ties", t(plain_ties), t(np.array([20, 7, 40, 3])), 1),
+            ("plain duplicated rows", t(dup[None]), t(np.array([60])), 1),
+            ("capacity to max_iters", t(cut), t(np.array([150])), 5)]
+
+
+def auction_work(cost, n_valid, repeat, rounds):
+    """(bytes, flops) kernel M must spend on these inputs: the valid rows
+    read once (classes under the capacity auction) and col4row written;
+    each round a compare and a subtract per valid row and column."""
+    P, n, m = cost.shape
+    rows = (n_valid // repeat) if repeat > 1 else n_valid
+    rows = rows.clamp(max=n // repeat if repeat > 1 else n).double().cpu()
+    nbytes = float(rows.sum()) * m * 4 + P * n * 4 + P * 4
+    flops = float((rows * rounds.double().cpu()).sum()) * m * 2
+    return nbytes, flops
+
+
+def check_auction(cfg, device, power):
+    """Kernel M against its plain version on the card, col4row and rounds
+    bit for bit: the matcher inputs of the published criterion at B = 1
+    and 4 (every job, grouped by shape as one step launches them), then
+    the edge cases. The B = 1 groups' launch times (CUDA events), their
+    plain versions' and their bounds make the kernel's row."""
+    from vdetr_tpu_torch.ops.hungarian import (auction_capacity_plain,
+                                               auction_launch, auction_plain)
+
+    cases = []
+    for B in (1, 4):
+        for kind, cost, nv, rep in matcher_inputs(cfg, device, B):
+            cases.append((f"criterion B={B} {kind} {tuple(cost.shape)}",
+                          cost, nv, rep, B))
+    cases += [c + (None,) for c in auction_edge_cases(device)]
+    ok, rows, main = True, [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                "bytes": 0.0, "flops": 0.0}
+    for name, cost, nv, rep, B in cases:
+        got, rounds = auction_launch(cost, nv, rep)
+        if rep > 1:
+            want, want_rounds = auction_capacity_plain(cost, nv, rep)
+        else:
+            want, want_rounds = auction_plain(cost, nv)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and torch.equal(rounds.long(),
+                                                      want_rounds)
+        err = float((got.long() - want.long()).abs().max())
+        ok &= same
+        t_k = time_ms(lambda: auction_launch(cost, nv, rep), reps=20)
+        t_p = time_ms((lambda: auction_capacity_plain(cost, nv, rep))
+                      if rep > 1 else (lambda: auction_plain(cost, nv)),
+                      reps=1, warmup=0)
+        nbytes, flops = auction_work(cost, nv, rep, rounds)
+        bound, by = bound_ms(nbytes, flops)
+        rows.append(dict(case=name, problems=int(cost.shape[0]),
+                         shape=list(cost.shape), repeat=rep,
+                         rounds=rounds.tolist(), equal=same,
+                         max_abs_err=err, ms=t_k, plain_ms=t_p,
+                         bound_ms=bound, bound_by=by))
+        log(f"auction (M) {name}: col4row and rounds "
+            f"{'bit-equal' if same else 'DIFFER'} to the plain version "
+            f"(max |diff| {err:.0f}, tolerance 0); rounds "
+            f"{rounds.tolist()[:12]}{' ...' if len(rounds) > 12 else ''};"
+            f" kernel {t_k:.4f} ms, plain {t_p:.2f} ms, bound {bound:.6f} "
+            f"ms ({by}); card {power}")
+        if B == 1:
+            main["ms"] += t_k
+            main["plain_ms"] += t_p
+            main["bytes"] += nbytes
+            main["flops"] += flops
+    main["bound_ms"], main["bound_by"] = bound_ms(main["bytes"],
+                                                  main["flops"])
+    log(f"auction (M) per published train step at B=1 (2 launches, one a "
+        f"shape group: the 8 repeated jobs' capacity auction and the "
+        f"bilabel aux0's plain auction): "
+        f"kernel {main['ms']:.4f} ms, plain {main['plain_ms']:.2f} ms, "
+        f"bound {main['bound_ms']:.6f} ms ({main['bound_by']}); library "
+        f"none -> {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                cases=rows)
+
+
+# the CLI phase's fabricated scans: train and val counts, vertices a scan
+SCAN_TRAIN, SCAN_VAL = 4, 2
+SCAN_VERTICES = (150000, 250000)
+
+
+def write_scannet_scans(root):
+    """Fabricated scans in the ScanNet prep layout that
+    `data/scannet.py` reads: `{scan}_vert.npy` (x, y, z, r, g, b),
+    `{scan}_bbox.npy` (cx, cy, cz, dx, dy, dz, nyu40 id) and the split
+    lists. Each scan is a room 4-7 m across holding 6-20 boxes of the
+    ScanNet classes near their mean sizes, its vertices on the boxes'
+    surfaces, the floor and two walls: `SCAN_VERTICES` (lo, hi) in all."""
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+
+    ds = ScannetDatasetConfig()
+    rng = np.random.RandomState(SEED)
+    names = {"train": [f"scene{i:04d}_00" for i in range(SCAN_TRAIN)],
+             "val": [f"scene{i:04d}_00"
+                     for i in range(100, 100 + SCAN_VAL)]}
+    for name in names["train"] + names["val"]:
+        room = np.append(rng.rand(2) * 3 + 4.0, 2.5 + rng.rand() * 0.7)
+        nb = rng.randint(6, 21)
+        cls = rng.randint(0, ds.num_semcls, nb)
+        size = ds.mean_size_arr[cls] * np.exp(rng.randn(nb, 3) * 0.1)
+        center = np.stack([rng.rand(nb) * (room[0] - size[:, 0])
+                           + size[:, 0] / 2,
+                           rng.rand(nb) * (room[1] - size[:, 1])
+                           + size[:, 1] / 2, size[:, 2] / 2], 1)
+        total = rng.randint(SCAN_VERTICES[0], SCAN_VERTICES[1] + 1)
+        area = 2 * (size[:, 0] * size[:, 1] + size[:, 0] * size[:, 2]
+                    + size[:, 1] * size[:, 2])
+        per_box = np.maximum((0.4 * total * area / area.sum()).astype(int),
+                             1)
+        parts = []
+        for b in range(nb):
+            face = rng.randint(0, 6, per_box[b])
+            u = rng.rand(per_box[b], 3) - 0.5
+            u[np.arange(per_box[b]), face // 2] = np.where(face % 2, 0.5,
+                                                           -0.5)
+            parts.append(u * size[b] + center[b])
+        rest = total - per_box.sum()
+        nfloor = rest * 2 // 3
+        parts.append(np.stack([rng.rand(nfloor) * room[0],
+                               rng.rand(nfloor) * room[1],
+                               np.abs(rng.randn(nfloor)) * 0.01], 1))
+        nwall = rest - nfloor
+        along = rng.rand(nwall) < 0.5
+        parts.append(np.stack([np.where(along, rng.rand(nwall) * room[0],
+                                        0.01),
+                               np.where(along, 0.01,
+                                        rng.rand(nwall) * room[1]),
+                               rng.rand(nwall) * room[2]], 1))
+        xyz = np.concatenate(parts)
+        verts = np.concatenate([xyz, rng.rand(len(xyz), 3) * 255], 1)
+        boxes = np.concatenate([center, size, ds.nyu40ids[cls][:, None]], 1)
+        np.save(os.path.join(root, f"{name}_vert.npy"),
+                verts.astype(np.float32))
+        np.save(os.path.join(root, f"{name}_bbox.npy"),
+                boxes.astype(np.float32))
+    for split, scans in names.items():
+        with open(os.path.join(root, f"scannetv2_{split}.txt"), "w") as f:
+            f.write("\n".join(scans) + "\n")
+    return names
+
+
+def run_cli(device, power):
+    """The CLI, `vdetr_tpu_torch.main.main`, at the VDETRConfig defaults
+    (auction, random cuboid, 100k points) on
+    fabricated ScanNet-format scans in a temporary directory: train one
+    epoch with a checkpoint directory (checkpoint, checkpoint_best,
+    final_eval.txt/pkl), the launches of that run per kernel; then
+    `--test_only --auto_test` on checkpoint_best, whose mAP@0.25 and 0.5
+    must equal the final eval's (at --empty_pt_thre 0, so that the test
+    pass's empty-box removal keeps every box, as the training loop's
+    passes do), and again at the default threshold; then a second epoch
+    resumed from the checkpoint. Wall ms of each train step and seconds
+    of each eval pass."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from vdetr_tpu_torch import main as cli
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.eval.ap_calculator import APCalculator
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.train import checkpoint as ckpt_io
+    from vdetr_tpu_torch.train import engine
+
+    root = tempfile.mkdtemp(prefix="vdetr_cli_")
+    steps, passes, metrics_s = [], [], []
+    orig_step, orig_eval = engine.Trainer.train_step, engine.evaluate
+    orig_metrics = APCalculator.compute_metrics
+
+    def timed_step(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig_step(self, *a, **k)  # ends in the finite-loss sync
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_eval(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_eval(*a, **k)
+        passes.append(time.perf_counter() - t0)
+        return out
+
+    def timed_metrics(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig_metrics(self, *a, **k)
+        metrics_s.append(time.perf_counter() - t0)
+        return out
+
+    engine.Trainer.train_step, engine.evaluate = timed_step, timed_eval
+    APCalculator.compute_metrics = timed_metrics
+    try:
+        t0 = time.perf_counter()
+        names = write_scannet_scans(root)
+        nverts = [len(np.load(os.path.join(root, f"{n}_vert.npy"),
+                              mmap_mode="r"))
+                  for n in names["train"] + names["val"]]
+        write_s = time.perf_counter() - t0
+        ckpt = os.path.join(root, "ckpt")
+        base = (["--dataset_name", "scannet", "--dataset_root_dir", root,
+                 "--checkpoint_dir", ckpt])
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        final = cli.main(base + ["--max_epoch", "1"], device=device)
+        train_s = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        cfg = cli.config_from_args(cli.make_args_parser().parse_args(
+            base + ["--max_epoch", "1"]))
+        probe = build_model(cfg, ScannetDatasetConfig(), device=device)
+        ntrain, evals = len(names["train"]), 2 * len(names["val"])
+        per_step = expected_launches(probe, cfg, train=True)
+        per_eval = expected_launches(probe, cfg)
+        per_eval["nms"] = 1
+        expected = {k: ntrain * per_step[k] + evals * per_eval[k]
+                    for k in counts}
+        files = all(os.path.exists(os.path.join(ckpt, f)) for f in (
+            "checkpoint/state.pt", "checkpoint/header.json",
+            "checkpoint_best/state.pt", "final_eval.txt", "final_eval.pkl"))
+        with open(os.path.join(ckpt, "final_eval.pkl"), "rb") as f:
+            pkl = pickle.load(f)
+        pkl_ok = all(pkl[t]["mAP"] == final[t]["mAP"] for t in (0.25, 0.5))
+        launches_ok = counts == expected
+        log(f"cli train: {ntrain} train and {len(names['val'])} val "
+            f"fabricated scans of {min(nverts)}-{max(nverts)} vertices "
+            f"(written in {write_s:.1f} s); main(--max_epoch 1) in "
+            f"{train_s:.1f} s: train steps "
+            f"[{', '.join(f'{t:.1f}' for t in steps)}] ms (median "
+            f"{statistics.median(steps):.1f}, B={cfg.batchsize_per_gpu}, "
+            f"matcher {cfg.matcher_impl}), eval passes "
+            f"[{', '.join(f'{t:.2f}' for t in passes)}] s of eval steps, "
+            f"the AP's compute_metrics "
+            f"[{', '.join(f'{t:.2f}' for t in metrics_s)}] s; final eval "
+            f"mAP@0.25 {final[0.25]['mAP']:.6f} mAP@0.5 "
+            f"{final[0.5]['mAP']:.6f}; checkpoint, checkpoint_best, "
+            f"final_eval.txt/pkl {'written' if files and pkl_ok else 'MISSING'}"
+            f"; launches " + fmt_counts(counts, expected)
+            + f" -> {'ok' if files and pkl_ok and launches_ok else 'FAIL'}")
+        best = os.path.join(ckpt, "checkpoint_best")
+        test = ["--dataset_name", "scannet", "--dataset_root_dir", root,
+                "--test_only", "1", "--auto_test", "1", "--test_ckpt", best]
+        n_pass = len(passes)
+        again = cli.main(test + ["--empty_pt_thre", "0"], device=device)
+        same = all(again[t]["mAP"] == final[t]["mAP"] for t in (0.25, 0.5))
+        dflt = cli.main(test, device=device)
+        log(f"cli --test_only --auto_test on checkpoint_best: mAP@0.25 "
+            f"{again[0.25]['mAP']:.6f} mAP@0.5 {again[0.5]['mAP']:.6f} at "
+            f"--empty_pt_thre 0 -> {'equal to' if same else 'DIFFERS from'}"
+            f" the final eval; at the default threshold (empty-box removal)"
+            f" {dflt[0.25]['mAP']:.6f} / {dflt[0.5]['mAP']:.6f}; eval "
+            f"passes [{', '.join(f'{t:.2f}' for t in passes[n_pass:])}] s"
+            f" -> {'ok' if same else 'FAIL'}")
+        n_steps = len(steps)
+        resumed = cli.main(base + ["--max_epoch", "2"], device=device)
+        header = ckpt_io.read_header(os.path.join(ckpt, "checkpoint"))
+        state = torch.load(os.path.join(ckpt, "checkpoint", "state.pt"),
+                           map_location="cpu", weights_only=True)
+        resume_ok = (header["epoch"] == 1 and state["step"] == 2 * ntrain
+                     and len(steps) - n_steps == ntrain
+                     and all(math.isfinite(resumed[t]["mAP"])
+                             for t in (0.25, 0.5)))
+        log(f"cli resume (--max_epoch 2 on the same checkpoint_dir): "
+            f"{len(steps) - n_steps} steps run (epoch 1 only), checkpoint "
+            f"at epoch {header['epoch']} step {state['step']}, final eval "
+            f"mAP@0.25 {resumed[0.25]['mAP']:.6f} -> "
+            f"{'ok' if resume_ok else 'FAIL'}; card {power}")
+        ok = files and pkl_ok and launches_ok and same and resume_ok
+        return ok, dict(
+            scans={"train": ntrain, "val": len(names["val"]),
+                   "vertices": nverts},
+            train_step_ms=steps, eval_pass_s=passes,
+            compute_metrics_s=metrics_s,
+            train_step_median_ms=statistics.median(steps),
+            final={str(t): float(final[t]["mAP"]) for t in (0.25, 0.5)},
+            test_only={str(t): float(again[t]["mAP"]) for t in (0.25, 0.5)},
+            launches=counts, expected_launches=expected)
+    finally:
+        engine.Trainer.train_step, engine.evaluate = orig_step, orig_eval
+        APCalculator.compute_metrics = orig_metrics
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2190,6 +2622,7 @@ def main() -> int:
     res["rpe_cross_attention_bwd"] = check_rpe_bwd(cfg, case)
     res["rpe_table_sum"] = check_rpe_table_sum(cfg, device, gen)
     del case, grids
+    res["auction"] = check_auction(cfg, device, smi)
 
     # 3b. the probes of kernel C
     res["rpe_ablate"] = check_rpe_ablate(device)
@@ -2217,12 +2650,19 @@ def main() -> int:
     ok_se = all(check_small_eval_against_cpu(device, route)
                 for route in ROUTES)
 
-    # 5. the published train step on both routes, then a small one on each
-    # against the CPU
-    ok_t, train_launches, train = run_train(cfg.replace(matcher_impl="jv"),
-                                            device, smi)
+    # 5. the published train step on both routes under the auction, and
+    # under JV on the keyed route, then a small one on each route against
+    # the CPU
+    ok_t, train_launches, train = run_train(
+        cfg, device, smi, variants={"keyed": ("keyed", "auction"),
+                                    "mapped": ("mapped", "auction"),
+                                    "keyed jv": ("keyed", "jv")})
     ok_ts = all(check_small_train_against_cpu(device, route)
                 for route in ROUTES)
+    torch.cuda.empty_cache()
+
+    # 6. the CLI at the published width on fabricated ScanNet scans
+    ok_c, cli = run_cli(device, smi)
     log("keyed vs mapped route (ms): forward/scene B=1 "
         f"{per_scene['keyed'][1]:.2f} vs {per_scene['mapped'][1]:.2f}, B=4 "
         f"{per_scene['keyed'][4]:.2f} vs {per_scene['mapped'][4]:.2f}; "
@@ -2265,6 +2705,11 @@ def main() -> int:
             entry["launches_note"] = ("per eval step (the main path's end); "
                                       "the forward and the train step run "
                                       "no NMS")
+        if kname == "auction":
+            entry["launches_note"] = ("per train step under the auction "
+                                      "matcher (the default): one a shape "
+                                      "group; ms, plain_ms and bound_ms sum "
+                                      "the B = 1 step's launches")
         if kname in PROBES:
             entry["probe"] = ("a probe of kernel C, off the main path: 0 "
                               "launches there; ms, plain_ms and bound_ms sum "
@@ -2279,10 +2724,11 @@ def main() -> int:
     record["ap_end_to_end"] = ap
     record["fpn_mapped_vs_keyed_max_abs_err"] = fpn_err
     record["train"] = train
+    record["cli"] = cli
     record["card"] = smi
     log(json.dumps(record))
     if not (all(r["ok"] for r in res.values()) and ok_f and ok_fpn and ok_s
-            and ok_e and ok_ap and ok_se and ok_t and ok_ts):
+            and ok_e and ok_ap and ok_se and ok_t and ok_ts and ok_c):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,12 @@ F's pair kernel at every head width, on partial bands and tiles, at the
 published shape, and its dq, ds and eg bit for bit from launch to
 launch; the eval step's NMS (N) bit for bit against its plain loop on
 ties, threshold pairs, holes and past 1024 boxes, and a small eval step
-on the card against the CPU. chip_smoke.py checks the published shapes.
+on the card against the CPU; the matcher's auction (M) bit for bit
+against its plain versions (ties, duplicated rows, no valid row, more
+rows than columns, a problem cut at max_iters, the published widths),
+the criterion under the auction with no synchronizing call, and the CLI
+at a tiny config (train, checkpoint, --test_only --auto_test). chip_smoke.py
+checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports no jax, so it runs where only PyTorch is installed:
@@ -30,6 +35,9 @@ from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
                                             convert_corners_camera2lidar)
 from vdetr_tpu_torch.geometry.nms import (nms_3d_samecls_mask,
                                           nms_3d_samecls_mask_plain)
+from vdetr_tpu_torch.ops.hungarian import (auction, auction_capacity,
+                                           auction_capacity_plain,
+                                           auction_launch, auction_plain)
 from vdetr_tpu_torch.ops import fps as tfps
 from vdetr_tpu_torch.ops.map_kernel import (kernel_map, kernel_map_pair,
                                             neighbour_map, neighbour_map_pair)
@@ -929,3 +937,160 @@ def test_small_eval_step_on_the_card_equals_cpu(cuda, route):
     assert 0 < int(ref["nms_keep"].sum()) < ref["nms_keep"].numel()
     for k, v in ref.items():
         assert float((got[k].cpu().float() - v.float()).abs().max()) <= 1e-3, k
+
+
+def auction_tiled(rng, g, m, repeat, slots, grid=None):
+    """The training layout: row r < g * repeat copies class r % g, the
+    rest 1e6 sentinels; `grid` rounds the costs to that many values (exact
+    ties)."""
+    base = rng.randn(g, m) * 2
+    if grid:
+        base = np.round(rng.rand(g, m) * (grid - 1))
+    cost = np.full((slots * repeat, m), 1e6, np.float32)
+    for d in range(repeat):
+        cost[d * g:(d + 1) * g] = base
+    return cost
+
+
+AUCTION_CASES = {
+    # name: (P, n, m, repeat, valid rows of each problem, ties grid)
+    "capacity_published": (8, 320, 1024, 5, [15, 100, 5, 0, 320, 35, 60, 5],
+                           None),
+    "capacity_ties": (4, 320, 1000, 5, [100, 35, 200, 15], 3),
+    "capacity_repeat2": (3, 128, 96, 2, [20, 128, 2], None),
+    "plain_published_aux0": (2, 64, 4096, 1, [13, 64], None),
+    "plain_ties": (4, 64, 1024, 1, [20, 7, 40, 3], 3),
+    "plain_rows_past_columns": (2, 40, 20, 1, [40, 12], None),
+    "plain_single_column": (2, 3, 1, 1, [3, 1], None),
+    "plain_no_valid_row": (2, 10, 33, 1, [0, 0], None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUCTION_CASES))
+def test_auction_kernel_equals_plain(rng, cuda, name):
+    """Kernel M's col4row and rounds bit for bit against the plain
+    versions on the card."""
+    P, n, m, repeat, nv, grid = AUCTION_CASES[name]
+    if repeat > 1:
+        cost = np.stack([auction_tiled(rng, k // repeat, m, repeat,
+                                       n // repeat, grid) for k in nv])
+    else:
+        cost = (np.round(rng.rand(P, n, m) * (grid - 1)) if grid
+                else rng.randn(P, n, m) * 3).astype(np.float32)
+        for b, k in enumerate(nv):
+            cost[b, k:] = 1e6
+    c, v = t(cost, cuda), t(np.array(nv), cuda)
+    got, rounds = auction_launch(c, v, repeat)
+    want, want_rounds = (auction_capacity_plain(c, v, repeat) if repeat > 1
+                         else auction_plain(c, v))
+    assert torch.equal(got, want)
+    assert torch.equal(rounds.long(), want_rounds)
+
+
+@pytest.mark.parametrize("repeat", [1, 5])
+def test_auction_kernel_cut_at_max_iters(rng, cuda, repeat):
+    """Duplicated rows (plain) or more GT copies than genuine proposals
+    (capacity) run past max_iters: rounds stop there, the rows still
+    unassigned are -1, as in the plain versions."""
+    if repeat == 1:
+        cost = np.tile(rng.randn(12, 64).astype(np.float32) * 2, (5, 1))
+        nv = [60]
+    else:
+        cost = np.full((320, 320), 1e6, np.float32)
+        cost[:150, :64] = auction_tiled(rng, 30, 64, 5, 30)
+        nv = [150]
+    c, v = t(cost[None], cuda), t(np.array(nv), cuda)
+    for iters in (7, 3000):
+        got, rounds = auction_launch(c, v, repeat, max_iters=iters)
+        want, want_rounds = (
+            auction_capacity_plain(c, v, repeat, max_iters=iters)
+            if repeat > 1 else auction_plain(c, v, max_iters=iters))
+        assert torch.equal(got, want)
+        assert torch.equal(rounds.long(), want_rounds)
+    assert int(auction_launch(c, v, repeat, max_iters=7)[1][0]) == 7
+
+
+def test_auction_entry_points_count_kernel_m(rng, cuda):
+    cost = t(np.stack([auction_tiled(rng, 6, 128, 5, 12)]), cuda)
+    nv = t(np.array([30]), cuda)
+    before = auction.launches
+    got = auction_capacity(cost, nv, 5)
+    assert auction.launches == before + 1
+    assert torch.equal(got, auction_capacity_plain(cost, nv, 5)[0])
+    got = auction(cost, nv)
+    assert auction.launches == before + 2
+    assert torch.equal(got, auction_plain(cost, nv)[0])
+
+
+def test_auction_kernel_refuses_what_it_cannot_take(cuda):
+    cost = torch.rand(1, 10, 40, device=cuda)
+    nv = torch.tensor([10], device=cuda)
+    with pytest.raises(ValueError):  # float64
+        auction_launch(cost.double(), nv)
+    with pytest.raises(ValueError):  # a class's slots past a warp
+        auction_launch(torch.rand(1, 64, 64, device=cuda),
+                       torch.tensor([64], device=cuda), repeat=32)
+    with pytest.raises(ValueError):  # fewer columns than top-k slots
+        auction_launch(torch.rand(1, 10, 4, device=cuda), nv, repeat=5)
+    with pytest.raises(ValueError):  # past the shared memory
+        auction_launch(torch.rand(1, 2, 20000, device=cuda),
+                       torch.tensor([2], device=cuda))
+
+
+def test_criterion_under_the_auction_makes_no_sync(cuda):
+    """A small model's train step under the auction on the card: the
+    criterion runs under set_sync_debug_mode("error") without a
+    synchronizing call, launching M once per shape group (2)."""
+    from vdetr_tpu_torch.config import VDETRConfig
+    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
+                                                collate)
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.train.engine import INPUT_KEYS, Trainer
+
+    cfg = VDETRConfig(
+        voxel_capacity=2048, min_stage_capacity=128,
+        grid_extent=(128, 128, 64), preenc_npoints=128, nqueries=64,
+        dec_nlayers=3, dec_dim=32, dec_ffn_dim=32, dec_nhead=4, rpe_dim=16,
+        inplanes=8, enc_dim=32, num_points=1024, voxel_size=0.05)
+    ds = ScannetDatasetConfig()
+    model = build_model(cfg, ds, device=cuda)
+    trainer = Trainer(cfg, model, ds, steps_per_epoch=10, device=cuda)
+    data = SyntheticDetectionDataset(ds, cfg.num_points, seed=0)
+    b = trainer._to_device(collate([data[0], data[1]]))
+    model.train()
+    out = model({k: b[k] for k in INPUT_KEYS},
+                generator=torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    before = auction.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = trainer.criterion(out, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert auction.launches == before + 2
+    assert bool(torch.isfinite(loss))
+
+
+def test_cli_at_a_tiny_config_on_the_card(tmp_path, cuda):
+    """`main` on the card: one epoch with checkpoints and the final eval,
+    then --test_only --auto_test on checkpoint_best with the final eval's
+    mAP (--empty_pt_thre 0: the test pass's empty-box removal keeps
+    every box, as the training loop's passes do)."""
+    from vdetr_tpu_torch.main import main
+
+    tiny = ["--dataset_name", "synthetic", "--voxel_capacity", "1024",
+            "--min_stage_capacity", "128", "--preenc_npoints", "64",
+            "--nqueries", "32", "--dec_nlayers", "2", "--dec_dim", "32",
+            "--dec_ffn_dim", "32", "--rpe_dim", "8", "--inplanes", "8",
+            "--enc_dim", "32", "--num_points", "512", "--repeat_num", "2",
+            "--batchsize_per_gpu", "8", "--dataset_num_workers", "0"]
+    ckpt = str(tmp_path / "ckpt")
+    final = main(tiny + ["--max_epoch", "1", "--checkpoint_dir", ckpt],
+                 device=cuda)
+    again = main(["--dataset_name", "synthetic", "--test_only", "1",
+                  "--auto_test", "1", "--empty_pt_thre", "0",
+                  "--test_ckpt", str(tmp_path / "ckpt" / "checkpoint_best")],
+                 device=cuda)
+    for th in (0.25, 0.5):
+        assert again[th]["mAP"] == final[th]["mAP"]

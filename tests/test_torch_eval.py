@@ -296,9 +296,12 @@ def test_parse_predictions_and_ap_match_jax(rng, branch):
     calcs = []
     for mod, cfg, ds in ((tap, tcfg, PortScannetConfig()),
                          (jap, jcfg, ScannetDatasetConfig())):
+        # the JAX calculator's per-class loop in one process, as the
+        # port's always is
+        kw = {"processes": 1} if mod is jap else {}
         calc = mod.APCalculator(ds, ap_iou_thresh=[0.25, 0.5],
                                 class2type_map=ds.class2type,
-                                ap_config_dict=cfg, processes=1)
+                                ap_config_dict=cfg, **kw)
         # the port's calculator takes tensors and copies them itself
         calc.step({k: torch.from_numpy(np.asarray(v)) for k, v in
                    out.items()} if mod is tap else out, targets)
@@ -311,18 +314,27 @@ def test_parse_predictions_and_ap_match_jax(rng, branch):
     assert calcs[0].metrics_to_str(got) == calcs[1].metrics_to_str(want)
 
 
-def test_ap_worker_pool_equals_one_process(rng):
-    """The per-class loop in two spawned workers gives the metrics of one
-    process, exactly (the same numpy code per class)."""
+@pytest.mark.parametrize("size", ["", "S", "M", "L"])
+def test_eval_det_matches_jax(rng, size):
+    """The port's one-process per-class AP equals the JAX package's
+    `eval_det` on the same scans (every class's rec, prec and AP, exactly),
+    in each volume bucket, at both IoU thresholds."""
+    from vdetr_tpu.eval.eval_det import eval_det as jax_eval_det
+    from vdetr_tpu_torch.eval.eval_det import eval_det
+
     out, targets = _predictions(rng)
-    cfg = tap.get_ap_config_dict(PortScannetConfig())
-    got = []
-    for processes in (1, 2):
-        calc = tap.APCalculator(PortScannetConfig(), ap_iou_thresh=[0.25],
-                                ap_config_dict=cfg, processes=processes)
-        calc.step(out, targets)
-        got.append(calc.compute_metrics())
-    assert got[0] == got[1] and got[0][0.25]["mAP"] > 0
+    calc = tap.APCalculator(PortScannetConfig(), ap_iou_thresh=[0.25])
+    calc.step(out, targets)
+    for thresh in (0.25, 0.5):
+        got = eval_det(calc.pred_map_cls, calc.gt_map_cls,
+                       ovthresh=thresh, size=size)
+        want = jax_eval_det(calc.pred_map_cls, calc.gt_map_cls,
+                            ovthresh=thresh, size=size)
+        for g, w in zip(got, want):
+            assert list(g) == list(w)
+            for c in g:
+                np.testing.assert_array_equal(g[c], w[c])
+    assert size or max(got[2].values()) > 0
 
 
 def test_device_nms_predicates_match_jax():
@@ -413,9 +425,10 @@ def test_eval_step_matches_jax(test_only):
     for mod, ds, out in ((tap, PortScannetConfig(), got),
                          (jap, ScannetDatasetConfig(), want)):
         cfg = mod.config_dict_from_cfg(trainer.cfg, ds)
+        kw = {"processes": 1} if mod is jap else {}
         calc = mod.APCalculator(ds, ap_iou_thresh=[0.25, 0.5],
                                 class2type_map=ds.class2type,
-                                ap_config_dict=cfg, processes=1)
+                                ap_config_dict=cfg, **kw)
         calc.step(out, targets)
         ap.append(calc.metrics_to_dict(calc.compute_metrics()))
     assert ap[0] == ap[1]
@@ -560,7 +573,7 @@ def test_train_one_epoch_and_evaluate_loops():
 
     calc = tap.APCalculator(ds, ap_iou_thresh=[0.25, 0.5],
                             class2type_map=ds.class2type,
-                            ap_config_dict=trainer.ap_config, processes=1)
+                            ap_config_dict=trainer.ap_config)
     assert evaluate(trainer, loader, calc, logger=None) is calc
     assert calc.scan_cnt == 4
     metrics = calc.metrics_to_dict(calc.compute_metrics())
@@ -585,7 +598,7 @@ def test_quality_proof_tiny_on_cpu(tmp_path, monkeypatch):
              "2", "--scenes", "2", "--batch", "1", "--out", str(out)])
     res = json.loads(out.read_text())
     assert res["finished"] and res["steps_done"] == 2
-    assert res["device"] == "cpu" and res["config"]["matcher_impl"] == "jv"
+    assert res["device"] == "cpu" and res["config"]["matcher_impl"] == "auction"
     (rec,) = res["trajectory"]
     assert rec["step"] == 2 and np.isfinite(rec["loss"])
     for k in ("mAP25", "mAP50", "AR25", "AR50"):

@@ -3,8 +3,10 @@
 Decoder-shaped predictions are built in both packages from the same
 random head outputs through each package's `refine_box_predictions`
 (three layers, layer 0 over all seeds with one bilabel class), against
-synthetic ground truth repeated twice, with the exact JV matcher. The
-full loss dict must agree, and so must the loss's gradient with respect
+synthetic ground truth repeated twice, with the exact JV matcher and with
+the auction (the JAX default: the capacity auction for the repeated
+jobs, the plain auction for the bilabel one). The full loss dict must
+agree, and so must the loss's gradient with respect
 to the head outputs, which runs back through the GIoU, the box
 parametrization and every loss term.
 """
@@ -62,8 +64,8 @@ def make_case(seed=0, B=2, nseed=64, nq=24, nlayers=3):
     return f32(layers), f32(enc), batch
 
 
-def jax_loss(layers, enc, batch):
-    cfg = JaxConfig(**KW)
+def jax_loss(layers, enc, batch, **kw):
+    cfg = JaxConfig(**{**KW, **kw})
     crit = JaxCriterion(cfg, ScannetDatasetConfig())
     dims = [jnp.asarray(batch["point_cloud_dims_min"]),
             jnp.asarray(batch["point_cloud_dims_max"])]
@@ -86,8 +88,8 @@ def jax_loss(layers, enc, batch):
         jax.tree.map(np.asarray, grads)
 
 
-def port_loss(layers, enc, batch):
-    cfg = VDETRConfig(**KW)
+def port_loss(layers, enc, batch, **kw):
+    cfg = VDETRConfig(**{**KW, **kw})
     crit = SetCriterion(cfg, PortScannetConfig())
     t = torch.from_numpy
     dims = [t(batch["point_cloud_dims_min"]), t(batch["point_cloud_dims_max"])]
@@ -110,9 +112,19 @@ def port_loss(layers, enc, batch):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_loss_dict_and_gradients_match_jax(seed):
-    case = make_case(seed)
-    loss_j, parts_j, grads_j = jax_loss(*case)
-    loss_p, parts_p, grads_p = port_loss(*case)
+    check_against_jax(make_case(seed))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_loss_dict_and_gradients_match_jax_auction(seed):
+    """The auction's assignments are JAX's bit for bit
+    (tests/test_torch_matcher.py), so the losses meet the JV tolerances."""
+    check_against_jax(make_case(seed), matcher_impl="auction")
+
+
+def check_against_jax(case, **kw):
+    loss_j, parts_j, grads_j = jax_loss(*case, **kw)
+    loss_p, parts_p, grads_p = port_loss(*case, **kw)
     assert loss_p == pytest.approx(loss_j, rel=LOSS_RTOL)
     assert set(parts_p) == set(parts_j)
     for k, v in parts_j.items():
@@ -128,8 +140,11 @@ def test_loss_dict_and_gradients_match_jax(seed):
 
 
 def test_refuses_the_unported_matcher_and_rotated_boxes():
-    with pytest.raises(NotImplementedError):
-        SetCriterion(VDETRConfig(), PortScannetConfig())  # the auction
+    # every matcher of the JAX package is ported: an unknown one is refused
+    with pytest.raises(ValueError):
+        SetCriterion(VDETRConfig(matcher_impl="sinkhorn"),
+                     PortScannetConfig())
+    SetCriterion(VDETRConfig(), PortScannetConfig())  # the auction
     with pytest.raises(NotImplementedError):
         SetCriterion(VDETRConfig(matcher_impl="jv", iou_type="diou"),
                      PortScannetConfig())

@@ -1,7 +1,9 @@
 """vdetr_tpu_torch: V-DETR in PyTorch on an NVIDIA H100: the eval forward
 (`models.vdetr.build_model`), the eval step with its NMS and the VoteNet
-AP (`train.engine.Trainer.eval_step`, `eval/`) and the train step
-(`train.engine.Trainer`) of the published model.
+AP (`train.engine.Trainer.eval_step`, `eval/`), the train step
+(`train.engine.Trainer`) of the published model, and the CLI that
+trains, checkpoints, resumes and evaluates it on ScanNet-format scans
+(`python -m vdetr_tpu_torch.main`).
 
 A port of `vdetr_tpu` (JAX on a TPU), which stays in the repository as
 the reference. Module names mirror `vdetr_tpu/` so each counterpart is

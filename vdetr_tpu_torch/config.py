@@ -301,3 +301,15 @@ class VDETRConfig:
         if self.fps_impl not in ("auto", "pallas", "jax"):
             raise ValueError(f"unknown fps_impl {self.fps_impl!r}")
         return self
+
+
+# Keys restored from the CLI (not the checkpoint) under --auto_test
+# (reference main.py:218-233).
+AUTO_TEST_IGNORE_KEYS = [
+    "test_only", "auto_test", "test_no_nms", "no_3d_nms", "rotated_nms",
+    "tta",
+    "nms_iou", "empty_pt_thre", "conf_thresh", "test_ckpt", "angle_nms",
+    "angle_conf", "use_old_type_nms", "no_cls_nms", "filt_empty",
+    "no_per_class_proposal", "use_cls_confidence_only", "test_size",
+    "model_name", "dataset_root_dir", "meta_data_dir", "checkpoint_dir",
+]

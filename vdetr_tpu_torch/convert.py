@@ -1,4 +1,5 @@
-"""Weight bridge between the JAX package's parameter trees and the port.
+"""Weight bridge between the JAX package's parameter trees and the port,
+and between the reference's checkpoints and the port.
 
 The port's parameters are named after the reference V-DETR state_dict.
 `build_reference_state_dict` renames a flax (params, batch_stats) tree,
@@ -12,10 +13,15 @@ Sparse-conv kernel offsets: the reference layout (MinkowskiEngine) is
 x-fastest, the JAX package and the port are z-fastest, so
 `k_port = k_ref[KERNEL_OFFSET_PERMUTATION[k^3]]`: the base-k digit
 reversal, an involution (torch_import.py:32-85 derives it).
+
+`reference_args_to_config` maps the argparse namespace pickled in a
+reference checkpoint onto `VDETRConfig`, for `--test_only --auto_test
+--test_ckpt x.pth` (the port's copy of torch_import.py:332-358).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -267,3 +273,25 @@ def load_jax_params(model: nn.Module, params: Dict, batch_stats: Dict,
         build_reference_state_dict(params, batch_stats, cfg))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def reference_args_to_config(ckpt_args, base_cfg: VDETRConfig,
+                             ignore_keys=()) -> VDETRConfig:
+    """Map the argparse Namespace pickled inside a reference checkpoint
+    (`ckpt["args"]`, utils/io.py:23-29) onto VDETRConfig: the .pth
+    equivalent of `--auto_test` (reference main.py:218-233).
+
+    Same-named fields are copied; reference-only infra flags (ngpus,
+    dist_url, ...) and `ignore_keys` (the test/NMS/IO flags, which stay
+    the CLI's) are skipped; fields the reference lacks keep `base_cfg`'s
+    values."""
+    ns = dict(ckpt_args) if isinstance(ckpt_args, dict) else vars(ckpt_args)
+    fields = {f.name for f in dataclasses.fields(VDETRConfig)}
+    kw = {}
+    for k, v in ns.items():
+        if k in ignore_keys or k not in fields:
+            continue
+        if v is None and isinstance(getattr(base_cfg, k), str):
+            v = ""  # argparse default-None strings (angle_type etc.)
+        kw[k] = v
+    return base_cfg.replace(**kw)

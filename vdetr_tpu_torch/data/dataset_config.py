@@ -1,9 +1,12 @@
-"""ScanNet dataset configuration: numpy counterpart of the ScanNet part of
+"""Dataset configurations: numpy counterpart of
 `vdetr_tpu/data/dataset_config.py` (that module imports jax through its
 box helpers; this one is numpy only).
 
-18 detection classes, axis-aligned boxes (1 angle bin), per-class mean
-box sizes (reference datasets/scannet.py:38-199).
+ScanNet: 18 detection classes, axis-aligned boxes (1 angle bin), per-class
+mean box sizes (reference datasets/scannet.py:38-199). The synthetic
+config is ScanNet's, for the generator of `data/synthetic.py`. SUN RGB-D
+(12 angle bins) needs the rotated boxes, which are not ported yet:
+`get_dataset_config("sunrgbd")` raises.
 """
 
 from __future__ import annotations
@@ -35,7 +38,36 @@ def _np_corners(box_size, angle, center):
     return (corners + center[..., None, :]).astype(np.float32)
 
 
-class ScannetDatasetConfig:
+class BaseDatasetConfig:
+    num_semcls: int
+    num_angle_bin: int
+    max_num_obj: int = 64
+    type2class: dict
+    mean_size_arr: np.ndarray
+
+    @property
+    def class2type(self):
+        return {v: k for k, v in self.type2class.items()}
+
+    @property
+    def mean_size_arr_hard_anchor(self):
+        return np.ones((self.num_semcls, 3), np.float64)
+
+    def box_parametrization_to_corners_np(self, center_unnorm, size, angle):
+        center_cam = np.stack(
+            [center_unnorm[..., 0], -center_unnorm[..., 2],
+             center_unnorm[..., 1]], axis=-1
+        )
+        return _np_corners(size, angle, center_cam)
+
+    def angle2class(self, angle):
+        raise NotImplementedError
+
+    def class2angle(self, cls, residual):
+        raise NotImplementedError
+
+
+class ScannetDatasetConfig(BaseDatasetConfig):
     def __init__(self):
         self.num_semcls = 18
         self.num_angle_bin = 1
@@ -46,6 +78,12 @@ class ScannetDatasetConfig:
             "counter": 9, "desk": 10, "curtain": 11, "refrigerator": 12,
             "showercurtrain": 13, "toilet": 14, "sink": 15, "bathtub": 16,
             "garbagebin": 17,
+        }
+        self.nyu40ids = np.array(
+            [3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39]
+        )
+        self.nyu40id2class = {
+            int(n): i for i, n in enumerate(self.nyu40ids)
         }
         # per-class mean box sizes (dataset statistics,
         # reference datasets/scannet.py:72-91)
@@ -70,13 +108,28 @@ class ScannetDatasetConfig:
             [0.47535285, 0.49249494, 0.5802117],
         ])
 
-    @property
-    def class2type(self):
-        return {v: k for k, v in self.type2class.items()}
+    def angle2class(self, angle):
+        raise ValueError("ScanNet boxes are axis aligned (no angle bins)")
 
-    def box_parametrization_to_corners_np(self, center_unnorm, size, angle):
-        center_cam = np.stack(
-            [center_unnorm[..., 0], -center_unnorm[..., 2],
-             center_unnorm[..., 1]], axis=-1
-        )
-        return _np_corners(size, angle, center_cam)
+    def class2angle(self, cls, residual):
+        return np.zeros_like(residual)
+
+    def class2anglebatch(self, pred_cls, residual):
+        return np.zeros(pred_cls.shape[0], np.float32)
+
+
+class SyntheticDatasetConfig(ScannetDatasetConfig):
+    """ScanNet-shaped config for the synthetic data generator (tests,
+    benchmarks, and smoke training without real ScanNet files)."""
+
+
+def get_dataset_config(name: str) -> BaseDatasetConfig:
+    if name == "scannet":
+        return ScannetDatasetConfig()
+    if name == "synthetic":
+        return SyntheticDatasetConfig()
+    if name == "sunrgbd":
+        raise NotImplementedError(
+            "sunrgbd: its angle bins need the rotated-box criterion, which "
+            "is not ported yet")
+    raise ValueError(f"unknown dataset {name}")

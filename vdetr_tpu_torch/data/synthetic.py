@@ -10,9 +10,11 @@ floor/wall clutter at ~1 cm density, like a real ScanNet scan.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
+
+from vdetr_tpu_torch.data.loader import prefetch_loader
 
 
 class SyntheticDetectionDataset:
@@ -119,3 +121,17 @@ def collate(samples) -> Dict[str, np.ndarray]:
     for k in samples[0]:
         out[k] = np.stack([s[k] for s in samples])
     return out
+
+
+def make_loader(dataset, batch_size: int, shuffle: bool = True,
+                seed: int = 0, drop_last: bool = True,
+                pad_last: bool = False) -> Iterator:
+    """pad_last=True keeps the batch shape static without dropping tail
+    scans: the final partial batch is padded by repeating its last sample
+    and every batch carries a per-sample `sample_valid` mask, which the AP
+    calculator reads (the reference evaluates every scan at bs=1,
+    engine.py:125-192; dropping the tail would bias mAP whenever len(val)
+    % batch != 0). The batches of `vdetr_tpu/data/synthetic.py:make_loader`,
+    from `data/loader.py:prefetch_loader` without threads."""
+    return prefetch_loader(dataset, batch_size, shuffle, seed, drop_last,
+                           pad_last, num_workers=0)

@@ -20,7 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from vdetr_tpu_torch.eval import native
-from vdetr_tpu_torch.eval.eval_det import eval_det_multiprocessing
+from vdetr_tpu_torch.eval.eval_det import eval_det
 from vdetr_tpu_torch.geometry.nms import (
     nms_2d_faster_np,
     nms_3d_faster_np,
@@ -263,18 +263,19 @@ def parse_predictions(predicted_boxes, sem_cls_probs, objectness_probs,
 
 
 class APCalculator:
-    """Reference utils/ap_calculator.py:324-529."""
+    """Reference utils/ap_calculator.py:324-529, with the per-class AP
+    in one process (`eval/eval_det.py`), where the reference and the JAX
+    package fan it out over 10 workers."""
 
     def __init__(self, dataset_config, ap_iou_thresh=(0.25, 0.5),
                  class2type_map=None, ap_config_dict=None,
-                 axis_align_test: bool = False, processes: int = 10):
+                 axis_align_test: bool = False):
         self.ap_iou_thresh = list(ap_iou_thresh)
         self.ap_config_dict = ap_config_dict or get_ap_config_dict(
             dataset_config=dataset_config
         )
         self.class2type_map = class2type_map
         self.axis_align_test = axis_align_test
-        self.processes = processes
         self.reset()
 
     def reset(self):
@@ -344,9 +345,9 @@ class APCalculator:
         overall = OrderedDict()
         for thresh in self.ap_iou_thresh:
             ret = OrderedDict()
-            rec, prec, ap = eval_det_multiprocessing(
+            rec, prec, ap = eval_det(
                 self.pred_map_cls, self.gt_map_cls, ovthresh=thresh,
-                size=size, processes=self.processes,
+                size=size,
             )
             for key in sorted(ap.keys()):
                 name = (self.class2type_map[key] if self.class2type_map

@@ -2,21 +2,20 @@
 `vdetr_tpu/eval/eval_det.py`.
 
 Host-side numpy, exactness-critical (reference utils/eval_det.py). The
-per-class loop fans out over a process pool like the reference
-(utils/eval_det.py:283-292) when `processes > 1`; the workers are
-spawned fresh (so a script that asks for them needs the `if __name__ ==
-"__main__"` guard) and touch numpy only, never CUDA.
+per-class loop runs in one process: the reference's worker pool
+(utils/eval_det.py:283-292) was slower on the H100 machine's 8-core host
+at every worker count: each spawned worker imports torch and is sent its
+classes' predictions.
 """
 
 from __future__ import annotations
 
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict
 
 import numpy as np
 
 from vdetr_tpu_torch.eval import native
+from vdetr_tpu_torch.geometry.iou import box3d_iou_np
 
 SIZE_AREA_RNG = (0.17, 0.44)  # S/M/L volume buckets (utils/eval_det.py:89)
 
@@ -39,10 +38,6 @@ def voc_ap(rec: np.ndarray, prec: np.ndarray,
 
 
 def get_iou_obb(bb1, bb2) -> float:
-    # imported here: geometry.iou imports torch, which the spawned workers
-    # of eval_det_multiprocessing would otherwise each load (seconds)
-    from vdetr_tpu_torch.geometry.iou import box3d_iou_np
-
     iou3d, _ = box3d_iou_np(bb1, bb2)
     return iou3d
 
@@ -145,10 +140,6 @@ def eval_det_cls(pred: Dict, gt: Dict, ovthresh: float = 0.25,
     return rec, prec, voc_ap(rec, prec, use_07_metric)
 
 
-def _cls_wrapper(args):
-    return eval_det_cls(*args)
-
-
 def _group_by_class(pred_all, gt_all):
     pred, gt = {}, {}
     for img_id, dets in pred_all.items():
@@ -175,34 +166,4 @@ def eval_det(pred_all, gt_all, ovthresh=0.25, use_07_metric=False,
             )
         else:
             rec[classname], prec[classname], ap[classname] = 0, 0, 0
-    return rec, prec, ap
-
-
-def eval_det_multiprocessing(pred_all, gt_all, ovthresh=0.25,
-                             use_07_metric=False, get_iou_func=get_iou_obb,
-                             size="", processes: int = 10):
-    """Fan out classes over a worker pool (reference
-    utils/eval_det.py:244-302)."""
-    pred, gt = _group_by_class(pred_all, gt_all)
-    work = [
-        (pred[c], gt[c], ovthresh, use_07_metric, get_iou_func, size)
-        for c in gt if c in pred
-    ]
-    if processes > 1 and len(work) > 1:
-        # spawned workers (a fork of a process with threads and a CUDA
-        # context is unsafe); one that dies raises BrokenProcessPool here
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(max_workers=processes,
-                                 mp_context=ctx) as ex:
-            results = list(ex.map(_cls_wrapper, work))
-    else:
-        results = [_cls_wrapper(w) for w in work]
-    rec, prec, ap = {}, {}, {}
-    i = 0
-    for c in gt:
-        if c in pred:
-            rec[c], prec[c], ap[c] = results[i]
-            i += 1
-        else:
-            rec[c], prec[c], ap[c] = 0, 0, 0
     return rec, prec, ap

@@ -1,5 +1,7 @@
 """Box parametrization and coordinate frames (torch counterpart of
-`vdetr_tpu/geometry/boxes.py:20-108`; reference utils/box_util.py).
+`vdetr_tpu/geometry/boxes.py:20-108`; reference utils/box_util.py), and
+the data pipeline's numpy rotation of axis-aligned boxes
+(`rotate_aligned_boxes_np`, a copy of that module's :133).
 
 Frames:
   depth frame:  X-right, Y-forward, Z-up        (the point clouds)
@@ -9,6 +11,7 @@ Frames:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Corner sign pattern: x uses box_size[...,0] (l), y uses box_size[...,2] (h),
@@ -64,3 +67,26 @@ def box_parametrization_to_corners(center_unnorm, box_size, box_angle):
     """(center in depth frame, size, angle) -> camera-frame corners."""
     return get_3d_box_batch(box_size, box_angle,
                             flip_axis_to_camera(center_unnorm))
+
+
+def rotate_aligned_boxes_np(input_boxes: np.ndarray, rot_mat: np.ndarray):
+    """Rotate axis-aligned (cx,cy,cz,dx,dy,dz) boxes; keep them axis aligned
+    by taking the rotated-corner extents. numpy (data pipeline).
+
+    Reference: datasets/scannet.py:178-199.
+    """
+    centers, lengths = input_boxes[:, 0:3], input_boxes[:, 3:6]
+    new_centers = centers @ rot_mat.T
+    dx, dy = lengths[:, 0] / 2.0, lengths[:, 1] / 2.0
+    corners = np.stack(
+        [
+            np.stack([sx * dx, sy * dy, np.zeros_like(dx)], axis=1)
+            for sx, sy in [(-1, -1), (1, -1), (1, 1), (-1, 1)]
+        ],
+        axis=1,
+    )  # (N, 4, 3)
+    crnrs = corners @ rot_mat.T
+    new_dx = 2.0 * crnrs[..., 0].max(axis=1)
+    new_dy = 2.0 * crnrs[..., 1].max(axis=1)
+    new_lengths = np.stack([new_dx, new_dy, lengths[:, 2]], axis=1)
+    return np.concatenate([new_centers, new_lengths], axis=1)

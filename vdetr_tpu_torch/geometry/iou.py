@@ -51,9 +51,11 @@ def generalized_box3d_iou(corners1, corners2, nums_k2=None):
                          corners2[:, :, 4, 1][:, None, :])
     height = (ymax - ymin).clamp(min=0.0)
     # bird's-eye (x, z) extents: corner 2 is the min corner, corner 0 the
-    # max (the JAX package's rect[1] and rect[3] of corners [3, 2, 1, 0])
-    bev1 = corners1[:, :, [2, 0]][..., [0, 2]]
-    bev2 = corners2[:, :, [2, 0]][..., [0, 2]]
+    # max (the JAX package's rect[1] and rect[3] of corners [3, 2, 1, 0]);
+    # taken by slicing: an index list would be copied to the device, a
+    # synchronizing copy on the card
+    bev1 = torch.stack([corners1[:, :, 2], corners1[:, :, 0]], 2)[..., ::2]
+    bev2 = torch.stack([corners2[:, :, 2], corners2[:, :, 0]], 2)[..., ::2]
     lt = torch.maximum(bev1[:, :, None, 0, :], bev2[:, None, :, 0, :])
     rb = torch.minimum(bev1[:, :, None, 1, :], bev2[:, None, :, 1, :])
     wh = (rb - lt).clamp(min=0.0)

@@ -194,8 +194,8 @@ def measure(parts=PARTS) -> dict:
         del models
         torch.cuda.empty_cache()
     if "train" in parts:
-        ok_t, _, train = cs.run_train(cfg.replace(matcher_impl="jv"), dev,
-                                      smi)
+        ok_t, _, train = cs.run_train(
+            cfg, dev, smi, variants={r: (r, "jv") for r in cs.ROUTES})
         res["train"] = {
             r: {"ms_per_step": train[r]["ms_per_step"],
                 "steps": train[r]["steps"],

@@ -2,8 +2,8 @@
 
     python -m vdetr_tpu_torch.tools.determinism [--routes keyed,mapped]
 
-On the card, for each conv route, the published model (`VDETRConfig()`
-with `matcher_impl="jv"`, seeded random weights, dropout on) and one
+On the card, for each conv route, the published model (`VDETRConfig()`,
+the auction matcher on kernel M, seeded random weights, dropout on) and one
 synthetic scene at batch 1:
 - `grad_spread`: two forwards and backwards from one state, batch and
   dropout seed; per parameter max |g1 - g2| / max |g1|, by group (the
@@ -139,7 +139,7 @@ def run(routes, device) -> dict:
     from vdetr_tpu_torch.models.vdetr import build_model
     from vdetr_tpu_torch.train.engine import Trainer
 
-    cfg = VDETRConfig(matcher_impl="jv")
+    cfg = VDETRConfig()
     ds = ScannetDatasetConfig()
     data = SyntheticDetectionDataset(ds, cfg.num_points, seed=SEED)
     batch = collate([data[1]])

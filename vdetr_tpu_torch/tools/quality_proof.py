@@ -16,11 +16,11 @@ the model, matcher, criterion, NMS and AP protocol agree end to end.
 The protocol is the JAX tool's: up to `--max_objects` objects a scene,
 AdamW at `--lr` with `--warmup_steps` of linear warm-up and a cosine to
 `lr / 20`, the eval config of the training loop (`test_only` off, so no
-empty-box removal). The matcher is the exact JV (`matcher_impl="jv"`):
-the auction is not ported (`MATCHER_AB_r05.json` puts the two within
-0.025%). The model is the published one (`VDETRConfig()`), or with
-`--tiny` the JAX tool's reduced config, for a test of the harness on the
-CPU (`--tiny --device cpu`).
+empty-box removal). The matcher is `VDETRConfig()`'s, the capacity
+auction (kernel M on the card), as in the JAX tool's runs. The model is
+the published one (`VDETRConfig()`), or with `--tiny` the JAX tool's
+reduced config, for a test of the harness on the CPU (`--tiny --device
+cpu`).
 
 Writes one JSON file (`--out`, default under `build/`) after every eval
 pass, so a run cut short keeps what it measured: the mAP/AR trajectory,
@@ -89,7 +89,7 @@ def main(argv=None):
     cfg = VDETRConfig(
         base_lr=args.lr, warm_lr_epochs=warm_epochs, max_epoch=max_epoch,
         final_lr=args.lr / 20, batchsize_per_gpu=args.batch,
-        matcher_impl="jv", **(TINY if args.tiny else {}))
+        **(TINY if args.tiny else {}))
     ds = ScannetDatasetConfig()
     data = SyntheticDetectionDataset(ds, num_points=cfg.num_points,
                                      num_scenes=args.scenes,
@@ -114,10 +114,7 @@ def main(argv=None):
         calc = APCalculator(ds, ap_iou_thresh=[0.25, 0.5],
                             class2type_map=ds.class2type,
                             ap_config_dict=trainer.ap_config,
-                            axis_align_test=cfg.axis_align_test,
-                            # one process: spawning workers that import
-                            # torch costs more than the per-class loop
-                            processes=1)
+                            axis_align_test=cfg.axis_align_test)
         evaluate(trainer, batches, calc, logger=None)
         return calc, calc.compute_metrics()
 

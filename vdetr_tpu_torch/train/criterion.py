@@ -1,21 +1,23 @@
-"""Set-prediction criterion: Hungarian matching and the V-DETR losses
-(torch counterpart of `vdetr_tpu/train/criterion.py:33-491`; reference
+"""Set-prediction criterion: matching and the V-DETR losses (torch
+counterpart of `vdetr_tpu/train/criterion.py:33-491`; reference
 criterion.py).
 
 Per step the criterion builds one matching job per decoder output: the
 final layer and the aux layers 1..7 against the ground truth repeated
 `repeat_num` times, aux layer 0 (all seeds) against the un-repeated
-ground truth with every label 0 when `is_bilable`. The cost matrices of
-all jobs leave the device in one copy, exact JV solves them on the host
-(`ops/hungarian.py`), and the assignments come back for the losses:
-focal classification, angle class and residual, center L1, GIoU and
-log-size L1, each normalized by the number of (repeated) boxes, plus the
-encoder point-classification loss. That copy is the step's one
-device-to-host synchronization before the loss value.
+ground truth with every label 0 when `is_bilable`. The jobs are grouped
+by cost shape and repeat, as the JAX criterion groups them, and each
+group is solved in one call: under `matcher_impl="auction"` (the
+default) by the capacity auction for the repeated jobs and the plain
+auction otherwise (`ops/hungarian.py`; kernel M on the card, one launch
+a group, no device-to-host copy); under `"jv"` by exact JV on the host,
+the costs of all jobs leaving the device in one copy. The assignments
+feed the losses: focal classification, angle class and residual, center
+L1, GIoU and log-size L1, each normalized by the number of (repeated)
+boxes, plus the encoder point-classification loss.
 
-Ported for the published ScanNet model: GIoU of axis-aligned boxes and
-the exact JV matcher. The JAX default matcher, the capacity auction, and
-rotated boxes (an angle-binned dataset, `iou_type` diou/iou) are not
+Ported for the published ScanNet model: GIoU of axis-aligned boxes.
+Rotated boxes (an angle-binned dataset, `iou_type` diou/iou) are not
 ported yet; the criterion refuses them.
 """
 
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 
 from vdetr_tpu_torch.geometry.iou import generalized_box3d_iou
 from vdetr_tpu_torch.geometry.points_in_boxes import points_in_boxes_all
-from vdetr_tpu_torch.ops.hungarian import hungarian
+from vdetr_tpu_torch.ops.hungarian import (auction, auction_capacity,
+                                           hungarian)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -93,10 +96,8 @@ class SetCriterion:
     """Stateless; construct once per config (reference criterion.py:231)."""
 
     def __init__(self, cfg, dataset_config):
-        if cfg.matcher_impl != "jv":
-            raise NotImplementedError(
-                f"matcher_impl={cfg.matcher_impl!r}: only the exact JV "
-                f"matcher is ported (use matcher_impl='jv')")
+        if cfg.matcher_impl not in ("auction", "jv"):
+            raise ValueError(f"unknown matcher_impl {cfg.matcher_impl!r}")
         if cfg.iou_type != "giou" or dataset_config.num_angle_bin > 1:
             raise NotImplementedError(
                 "only the axis-aligned GIoU path is ported (ScanNet)")
@@ -153,36 +154,71 @@ class SetCriterion:
         return torch.where(kmask[:, None, :], cost, 1e6)
 
     @staticmethod
-    def solve_costs(costs: List[torch.Tensor], nactual: List[torch.Tensor]):
-        """Assign every job's valid GT rows to distinct proposals. All
-        costs and counts go to the host in one copy; returns per job
-        {per_prop_gt_inds (B, nprop) int64, proposal_matched_mask (B,
-        nprop) float} on the costs' device."""
-        device = costs[0].device
-        flat = torch.cat([x.reshape(-1).float() for x in costs]
-                         + [n.reshape(-1).float() for n in nactual])
-        host = flat.cpu().numpy()
-        out, at = [], 0
-        counts = host[sum(x.numel() for x in costs):]
-        for j, cost in enumerate(costs):
-            B, nprop, K = cost.shape
-            c = host[at:at + cost.numel()].reshape(B, nprop, K)
-            at += cost.numel()
-            n_valid = counts[j * B:(j + 1) * B].astype(np.int64)
-            costT = np.swapaxes(c, 1, 2)
-            if K > nprop:  # more GT slots than proposals: dummy columns
-                costT = np.concatenate(
-                    [costT, np.full((B, K, K - nprop), 1e6, np.float32)], 2)
-            col4row = hungarian(costT, n_valid)
-            inds = np.zeros((B, nprop), np.int64)
-            matched = np.zeros((B, nprop), np.float32)
-            for b, k in zip(*np.nonzero((col4row >= 0) & (col4row < nprop))):
-                inds[b, col4row[b, k]] = k
-                matched[b, col4row[b, k]] = 1.0
-            out.append({
-                "per_prop_gt_inds": torch.from_numpy(inds).to(device),
-                "proposal_matched_mask": torch.from_numpy(matched).to(device),
-            })
+    def assignment_from_col4row(col4row, nprop: int):
+        """col4row (B, K) -> {per_prop_gt_inds (B, nprop) int64,
+        proposal_matched_mask (B, nprop) float} on col4row's device: each
+        proposal matched to a GT row holds that row's index."""
+        B, K = col4row.shape
+        col4row = col4row.long()
+        valid = (col4row >= 0) & (col4row < nprop)
+        slot = torch.where(valid, col4row, nprop)  # an overflow slot
+        gt_ids = torch.arange(K, device=col4row.device).expand(B, K)
+        inds = torch.zeros(B, nprop + 1, dtype=torch.int64,
+                           device=col4row.device)
+        inds.scatter_(1, slot, torch.where(valid, gt_ids, 0))
+        matched = torch.zeros(B, nprop + 1, device=col4row.device)
+        matched.scatter_(1, slot, valid.float())
+        return {"per_prop_gt_inds": inds[:, :nprop],
+                "proposal_matched_mask": matched[:, :nprop]}
+
+    def solve_costs(self, costs: List[torch.Tensor],
+                    nactual: List[torch.Tensor], repeats: List[int]):
+        """Assign every job's valid GT rows to distinct proposals. Jobs of
+        one cost shape and repeat are solved together (JAX
+        criterion.py:445-465); `repeats[j] > 1` marks a repeat-tiled job,
+        which the auction solves by the capacity auction when K is a
+        multiple of it. Returns per job {per_prop_gt_inds (B, nprop)
+        int64, proposal_matched_mask (B, nprop) float} on the costs'
+        device."""
+        groups = {}
+        for j, (cost, rep) in enumerate(zip(costs, repeats)):
+            groups.setdefault((tuple(cost.shape[1:]), rep), []).append(j)
+        if self.cfg.matcher_impl == "jv":
+            # one device-to-host copy for every job
+            host = torch.cat([x.reshape(-1).float() for x in costs]
+                             + [n.reshape(-1).float() for n in nactual]
+                             ).cpu().numpy()
+            at, parts, host_n = 0, [], []
+            for x in costs:
+                parts.append(host[at:at + x.numel()].reshape(x.shape))
+                at += x.numel()
+            for n in nactual:
+                host_n.append(host[at:at + n.numel()].astype(np.int64))
+                at += n.numel()
+        out = [None] * len(costs)
+        for ((nprop, K), rep), idx in groups.items():
+            B = costs[idx[0]].shape[0]
+            if self.cfg.matcher_impl == "jv":
+                costT = np.swapaxes(np.concatenate([parts[j] for j in idx]),
+                                    1, 2)
+                if K > nprop:  # more GT slots than proposals: dummy columns
+                    costT = np.concatenate([costT, np.full(
+                        (costT.shape[0], K, K - nprop), 1e6, np.float32)], 2)
+                col4row = torch.from_numpy(hungarian(costT, np.concatenate(
+                    [host_n[j] for j in idx]))).to(costs[0].device)
+            else:
+                costT = torch.cat([costs[j] for j in idx]).transpose(1, 2)
+                if K > nprop:
+                    costT = torch.cat([costT, costT.new_full(
+                        (costT.shape[0], K, K - nprop), 1e6)], 2)
+                n_valid = torch.cat([nactual[j] for j in idx])
+                if rep > 1 and K % rep == 0:
+                    col4row = auction_capacity(costT, n_valid, rep)
+                else:
+                    col4row = auction(costT, n_valid)
+            assign = self.assignment_from_col4row(col4row, nprop)
+            for i, j in enumerate(idx):
+                out[j] = {k: v[i * B:(i + 1) * B] for k, v in assign.items()}
         return out
 
     # ---- per-output losses (reference criterion.py:334-530) ----
@@ -311,20 +347,24 @@ class SetCriterion:
         else:
             targets_rep, num_boxes_rep = targets, num_boxes
 
-        jobs = [("final", outputs["outputs"], targets_rep, num_boxes_rep)]
+        rep = max(c.repeat_num, 1)
+        jobs = [("final", outputs["outputs"], targets_rep, num_boxes_rep,
+                 rep)]
         for k, aux in enumerate(outputs.get("aux_outputs", [])):
             if k == 0 and c.is_bilable:
                 bin_targets = dict(targets)
                 bin_targets["gt_box_sem_cls_label"] = torch.zeros_like(
                     targets["gt_box_sem_cls_label"])
-                jobs.append((f"aux{k}", aux, bin_targets, num_boxes))
+                jobs.append((f"aux{k}", aux, bin_targets, num_boxes, 1))
             else:
-                jobs.append((f"aux{k}", aux, targets_rep, num_boxes_rep))
+                jobs.append((f"aux{k}", aux, targets_rep, num_boxes_rep,
+                             rep))
         prepared = [(tag, self.prepare_output(out, tgt), tgt, nb)
-                    for tag, out, tgt, nb in jobs]
+                    for tag, out, tgt, nb, _ in jobs]
         assignments = self.solve_costs(
             [self.build_cost(out, tgt) for _, out, tgt, _ in prepared],
-            [tgt["nactual_gt"] for _, _, tgt, _ in prepared])
+            [tgt["nactual_gt"] for _, _, tgt, _ in prepared],
+            [jrep for *_, jrep in jobs])
 
         loss = torch.zeros((), device=num_boxes.device)
         loss_dict = {}

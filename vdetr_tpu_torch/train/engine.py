@@ -12,7 +12,9 @@ change (the reference exits there).
 sigmoid, and, for the published NMS variant, empty-box removal and the
 greedy same-class NMS on the device (kernel N), whose keep mask the AP
 calculator takes instead of its host NMS. `train_one_epoch` and
-`evaluate` are the loops around the two steps.
+`evaluate` are the loops around the two steps; `epoch_generator` seeds
+an epoch's dropout masks from (cfg.seed, epoch), so that a resumed run
+draws the masks an unbroken run draws.
 
 One device, no mesh and no retries: the JAX engine's data-parallel
 shard_map and its transient-error re-dispatch are TPU machinery.
@@ -21,6 +23,7 @@ shard_map and its transient-error re-dispatch are TPU machinery.
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -181,32 +184,73 @@ class Trainer:
         return out
 
 
+def epoch_generator(trainer: Trainer, epoch: int) -> torch.Generator:
+    """The generator of epoch `epoch`'s dropout masks, on the trainer's
+    device, seeded from (cfg.seed, epoch): an epoch draws the same masks
+    whether the run was resumed before it or not."""
+    seed = (trainer.cfg.seed * 1000003 + epoch) % (2 ** 63)
+    return torch.Generator(device=trainer.device).manual_seed(seed)
+
+
+def _start_trace(trainer: Trainer):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def _stop_trace(prof, profile_dir: str) -> None:
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
 def train_one_epoch(trainer: Trainer, loader, epoch: int,
                     generator: Optional[torch.Generator] = None,
                     log_every: int = 10,
                     logger: Optional[Callable[[str], None]] = print,
-                    metrics_logger=None, log_metrics_every: int = 20):
+                    metrics_logger=None, log_metrics_every: int = 20,
+                    profile_dir: Optional[str] = None):
     """One pass of train steps over `loader` (vdetr_tpu/train/engine.py:
-    356-407, without its TPU profiler hook; reference engine.py:59-122).
-    `generator` (on the trainer's device) draws the dropout masks; a loss
-    that is not finite raises in `train_step`. `metrics_logger`, if given,
-    receives the loss dict every `log_metrics_every` iterations. Returns
-    (mean loss, the last loss dict)."""
+    356-407; reference engine.py:59-122). `generator` (on the trainer's
+    device) draws the dropout masks; a loss that is not finite raises in
+    `train_step`. `metrics_logger`, if given, receives the loss dict every
+    `log_metrics_every` iterations. `profile_dir`: iterations 2-4 of epoch
+    0 run under torch.profiler (CPU and, on the card, CUDA activity), the
+    trace written to `<profile_dir>/trace.json` (the JAX package takes a
+    jax.profiler trace of the same iterations). Returns (mean loss, the
+    last loss dict)."""
     losses = []
     last_dict = None
     t0 = time.time()
-    for it, batch in enumerate(loader):
-        loss, loss_dict = trainer.train_step(batch, generator)
-        losses.append(loss)
-        last_dict = loss_dict
-        if metrics_logger is not None and it % log_metrics_every == 0:
-            metrics_logger.log(
-                {"loss": loss, **{k: float(v) for k, v in loss_dict.items()}},
-                trainer.step, prefix="train_iter/")
-        if logger and it % log_every == 0:
-            avg = sum(losses[-10:]) / len(losses[-10:])
-            logger(f"Epoch [{epoch}]; Iter [{it}]; Loss {avg:0.2f}; "
-                   f"LR {trainer.current_lr():0.2e}; {time.time() - t0:0.1f}s")
+    prof = None
+    try:
+        for it, batch in enumerate(loader):
+            if profile_dir and epoch == 0 and it == 2:
+                prof = _start_trace(trainer)
+            if prof is not None and it == 5:
+                _stop_trace(prof, profile_dir)
+                prof = None
+            loss, loss_dict = trainer.train_step(batch, generator)
+            losses.append(loss)
+            last_dict = loss_dict
+            if metrics_logger is not None and it % log_metrics_every == 0:
+                metrics_logger.log(
+                    {"loss": loss,
+                     **{k: float(v) for k, v in loss_dict.items()}},
+                    trainer.step, prefix="train_iter/")
+            if logger and it % log_every == 0:
+                avg = sum(losses[-10:]) / len(losses[-10:])
+                logger(f"Epoch [{epoch}]; Iter [{it}]; Loss {avg:0.2f}; "
+                       f"LR {trainer.current_lr():0.2e}; "
+                       f"{time.time() - t0:0.1f}s")
+    finally:
+        if prof is not None:  # an epoch shorter than the window
+            _stop_trace(prof, profile_dir)
     return sum(losses) / max(len(losses), 1), last_dict
 
 
