@@ -90,7 +90,24 @@ Phases, each printing its own lines:
      checkpoint_best reproducing the final eval's mAP exactly (at
      --empty_pt_thre 0), and a second epoch resumed from the checkpoint;
      the wall ms of each train step and seconds of each eval pass;
-  7. a JSON line of per-kernel results, then the last line
+  7. SUN RGB-D (oriented boxes, 12 angle bins) at the published width,
+     `VDETRConfig(dataset_name="sunrgbd", angle_type="object_coords")`:
+     kernel R (the rotated GIoU's intersection areas) against its plain
+     version on every job of the published criterion at batch 1 and 4
+     and on edge cases (identical, nested, edge-sharing, collinear,
+     corner-touching, zero-size and gated-off pairs): the forward bit for
+     bit, the backward against autograd of the plain version and bit for
+     bit from a second launch, with its times, the plain version's, the
+     bound and the gated share; the eval step on both routes at batch 1
+     and 4 (ms/scene, launches), the AP end to end with the device NMS
+     and with the host's rotated NMS; a small forward, eval step and
+     train step per route on the card against the CPU; the train step on
+     both routes under the auction (launches, R included, bit-equal
+     parameters after two whole steps, the profiled breakdown, median,
+     peak memory); one step each under iou_type "diou" and "iou" (ms,
+     peak memory); the CLI on fabricated SUN RGB-D scans in VoteNet's
+     layout (train, --test_only --auto_test, resume);
+  8. a JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}} -- printed only when every phase
      passed.
 
@@ -147,6 +164,12 @@ REPO_SOURCES = {
     "auction": ("vdetr_tpu_torch/csrc/auction.cu",
                 "vdetr_tpu/ops/hungarian.py:123,223 (jax.lax.while_loop in "
                 "XLA, not a pallas_call)"),
+    # no pallas_call: the JAX criterion's rotated GIoU is a fori_loop in a
+    # lax.scan, vmapped over the pairs
+    "rotated_iou": ("vdetr_tpu_torch/csrc/rotated_iou.cu",
+                    "vdetr_tpu/geometry/iou.py:71 _clip_quad_quad, vmapped "
+                    "at :141 rotated_intersection_areas (jax.lax.fori_loop "
+                    "in XLA, not a pallas_call)"),
 }
 PROBES = ("rpe_ablate", "dot_micro")
 ROUTES = ("keyed", "mapped")
@@ -170,6 +193,8 @@ LIBRARY_NONE = {
     "nms": "greedy same-class 3D NMS: no torch op runs it (torchvision's "
            "is a package of finished kernels, 2D, and not installed)",
     "auction": "no torch op solves an assignment problem",
+    "rotated_iou": "no torch op clips one quad by another (the "
+                   "intersection area of two rotated rectangles)",
 }
 
 
@@ -186,12 +211,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def synthetic_batch(num_points: int, batch: int, device, first: int = 0):
+def dataset_of(cfg):
+    """The dataset config that `cfg.dataset_name` names: ScanNet's for
+    "scannet" and "synthetic", SUN RGB-D's (10 classes, 12 angle bins)
+    for "sunrgbd"."""
+    from vdetr_tpu_torch.data.dataset_config import get_dataset_config
+
+    return get_dataset_config(cfg.dataset_name)
+
+
+def synthetic_batch(num_points: int, batch: int, device, first: int = 0,
+                    ds=None):
+    """The model inputs of `batch` synthetic scenes of dataset config `ds`
+    (ScanNet's when None; an angle-binned one's boxes are yawed)."""
     from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
                                                 collate)
 
-    ds = SyntheticDetectionDataset(ScannetDatasetConfig(), num_points,
+    ds = SyntheticDetectionDataset(ds or ScannetDatasetConfig(), num_points,
                                    seed=SEED)
     b = collate([ds[first + i] for i in range(batch)])
     keys = ("point_clouds", "point_validity", "point_cloud_dims_min",
@@ -1187,8 +1224,10 @@ def expected_launches(model, cfg, train: bool = False):
     keyed runs D; no A or D. Both: C, and F with the sum of its table
     slices, once per decoder layer, FPS once. A train step under the
     auction matcher: M once per shape group of the criterion's jobs, the
-    repeated jobs' and the bilabel aux0's (none under JV). The probes
-    (rpe_ablate, dot_micro) never."""
+    repeated jobs' and the bilabel aux0's (none under JV). A train step
+    of an angle-binned dataset (SUN RGB-D) under the GIoU: R once forward
+    and once backward per job (the decoder's `dec_nlayers` outputs). The
+    probes (rpe_ablate, dot_micro) never."""
     from vdetr_tpu_torch.models.backbone import SparseConv, SparseConvDown
 
     k3 = [m for m in model.modules()
@@ -1211,12 +1250,16 @@ def expected_launches(model, cfg, train: bool = False):
         out["rpe_table_sum"] = layers
         if cfg.matcher_impl == "auction":
             out["auction"] = 1 + int(cfg.is_bilable)
+        if (dataset_of(cfg).num_angle_bin > 1
+                and cfg.iou_type not in ("diou", "iou")):
+            out["rotated_iou"] = 2 * cfg.dec_nlayers
     return out
 
 
 def launch_counters():
     from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask
     from vdetr_tpu_torch.ops.hungarian import auction
+    from vdetr_tpu_torch.ops.rotated_iou import rotated_intersection_areas
     from vdetr_tpu_torch.ops.fps import furthest_point_sample
     from vdetr_tpu_torch.ops.map_kernel import kernel_map
     from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
@@ -1236,7 +1279,7 @@ def launch_counters():
             "rpe_table_sum": rpe_table_sum, "kernel_map": kernel_map, "mapped_conv": mapped_conv,
             "mapped_conv_dw": mapped_conv_dw, "rpe_ablate": rpe_ablate,
             "dot_micro": dot_micro, "nms": nms_3d_samecls_mask,
-            "auction": auction}
+            "auction": auction, "rotated_iou": rotated_intersection_areas}
 
 
 def fmt_counts(counts, expected):
@@ -1263,12 +1306,11 @@ def check_outputs(out, cfg, B, num_semcls):
 
 
 def published_model(cfg, device, route):
-    """The published model on `route`, its weights from the seed (the
-    same on both routes)."""
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    """The published model of `cfg`'s dataset on `route`, its weights
+    from the seed (the same on both routes)."""
     from vdetr_tpu_torch.models.vdetr import build_model
 
-    return build_model(cfg, ScannetDatasetConfig(),
+    return build_model(cfg, dataset_of(cfg),
                        generator=torch.Generator().manual_seed(SEED),
                        device=device, conv_route=route)
 
@@ -1365,14 +1407,14 @@ def compare_fpn(models, cfg, device):
     return ok, err
 
 
-def check_small_forward_against_cpu(device, gen, route):
-    """The whole forward at a small size on `route`: kernels on the card
+def check_small_forward_against_cpu(device, gen, route, base=None):
+    """The whole forward at a small size on `route` (`base`: a small config
+    of another dataset, `tiny_config()` when None): kernels on the card
     against the plain versions on the CPU, same weights and inputs."""
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.models.vdetr import build_model
 
-    cfg = tiny_config()
-    model = build_model(cfg, ScannetDatasetConfig(), generator=gen,
+    cfg = base or tiny_config()
+    model = build_model(cfg, dataset_of(cfg), generator=gen,
                         device="cpu", conv_route=route)
     with torch.no_grad():  # non-trivial heads and norm statistics
         for name, p in model.named_parameters():
@@ -1396,7 +1438,8 @@ def check_small_forward_against_cpu(device, gen, route):
               for k, v in ref["outputs"].items())
     tol = 1e-3
     ok = seeds_equal and err <= tol
-    log(f"forward {route} small config on card vs CPU plain path: seeds "
+    log(f"forward {route} small {cfg.dataset_name} config on card vs CPU "
+        "plain path: seeds "
         f"equal="
         f"{seeds_equal}, max_abs_err over final outputs={err:.3e} tol={tol:.0e}"
         f" (f32 rounding through ~40 layers) -> {'ok' if ok else 'FAIL'}")
@@ -1548,11 +1591,11 @@ def run_eval(models, cfg, device, power, reps: int = 6):
     with the NMS inputs captured for `check_nms`; then `reps` timed runs
     of the whole step and of the forward alone, the routes in turn and
     step and forward alternating, median ms per scene of each and their
-    difference (the sigmoid, empty-box removal and NMS)."""
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    difference (the sigmoid, empty-box removal and NMS). The scenes are
+    synthetic ones of `cfg`'s dataset."""
     from vdetr_tpu_torch.train import engine
 
-    ds = ScannetDatasetConfig()
+    ds = dataset_of(cfg)
     trainers = {route: engine.Trainer(cfg, m, ds, 1, device=device)
                 for route, m in models.items()}
     counters = launch_counters()
@@ -1560,7 +1603,7 @@ def run_eval(models, cfg, device, power, reps: int = 6):
     ok, launches, captured = True, {}, []
     per = {route: {} for route in models}
     for B in (1, 4):
-        inputs = synthetic_batch(cfg.num_points, B, device)
+        inputs = synthetic_batch(cfg.num_points, B, device, ds=ds)
         for route, tr in trainers.items():
             expected = expected_launches(tr.model, cfg)
             expected["nms"] = 1
@@ -1591,7 +1634,8 @@ def run_eval(models, cfg, device, power, reps: int = 6):
             tr.eval_step(inputs)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-            log(f"eval step {route} B={B} N={cfg.num_points}: launches "
+            log(f"eval step {cfg.dataset_name} {route} B={B} "
+                f"N={cfg.num_points}: launches "
                 + fmt_counts(counts, expected)
                 + f"; outputs {'finite, shapes ok' if not bad else bad[:5]}"
                 f"; boxes kept per scene {kept} of {cfg.nqueries}; peak "
@@ -1621,7 +1665,8 @@ def run_eval(models, cfg, device, power, reps: int = 6):
             fwd = statistics.median(times[route, "forward"]) / B
             per[route][B].update(step_ms_per_scene=step,
                                  forward_ms_per_scene=fwd)
-            log(f"eval step {route} B={B}: {step:.2f} ms/scene, forward "
+            log(f"eval step {cfg.dataset_name} {route} B={B}: {step:.2f} "
+                "ms/scene, forward "
                 f"alone {fwd:.2f} ms/scene, the step's sigmoid, empty-box "
                 f"removal and NMS {step - fwd:.2f} ms/scene (medians of "
                 f"{reps} runs in turn with the other route, step and "
@@ -1664,16 +1709,17 @@ def eval_breakdown(trainer, inputs, power):
 
 
 def run_ap(trainer, cfg, scenes: int = 4, batch: int = 2):
-    """`evaluate` with `APCalculator` over a few synthetic scenes on the
-    card, end to end: mAP and AR at 0.25 and 0.5 (near 0 with random
-    weights), finite, and the IoU path that scored."""
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    """`evaluate` with `APCalculator` over a few synthetic scenes of
+    `cfg`'s dataset on the card, end to end, under the trainer's AP
+    config: mAP and AR at 0.25 and 0.5 (near 0 with random weights),
+    finite, and the IoU path that scored."""
     from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
                                                 collate)
-    from vdetr_tpu_torch.eval.ap_calculator import APCalculator
+    from vdetr_tpu_torch.eval.ap_calculator import (APCalculator,
+                                                    device_nms_supported)
     from vdetr_tpu_torch.train.engine import evaluate
 
-    ds = ScannetDatasetConfig()
+    ds = dataset_of(cfg)
     data = SyntheticDetectionDataset(ds, cfg.num_points, seed=SEED)
     batches = [collate([data[i + j] for j in range(batch)])
                for i in range(0, scenes, batch)]
@@ -1688,29 +1734,31 @@ def run_ap(trainer, cfg, scenes: int = 4, batch: int = 2):
     t_all = time.perf_counter() - t0
     ok = (calc.scan_cnt == scenes
           and all(math.isfinite(float(v)) for v in metrics.values()))
-    log(f"AP end to end, {scenes} synthetic scenes at B={batch} (keyed "
-        f"route, random weights): "
+    nms = ("the device NMS" if device_nms_supported(trainer.ap_config)
+           else "the host's " + ("rotated NMS" if trainer.ap_config[
+               "rotated_nms"] else "NMS"))
+    log(f"AP end to end, {scenes} synthetic {cfg.dataset_name} scenes at "
+        f"B={batch} (keyed route, random weights, {nms}): "
         + ", ".join(f"{k} {float(v):.2f}" for k, v in metrics.items())
         + f"; IoU path {calc.iou_path}; eval steps and the AP's host "
         f"parse {t_steps:.2f} s, with the AP's metrics {t_all:.2f} s -> "
         f"{'ok' if ok else 'FAIL'}")
     return ok, {"metrics": {k: float(v) for k, v in metrics.items()},
-                "iou_path": calc.iou_path, "wall_s": t_all}
+                "iou_path": calc.iou_path, "wall_s": t_all, "nms": nms}
 
 
-def check_small_eval_against_cpu(device, route):
-    """A small model's eval step with `test_only` on `route`: kernels (N
-    among them) on the card against the plain versions on the CPU, same
-    weights and inputs: the keep mask equal, the outputs within the small
-    forward's tolerance."""
+def check_small_eval_against_cpu(device, route, base=None):
+    """A small model's eval step with `test_only` on `route` (`base`: a
+    small config of another dataset): kernels (N among them) on the card
+    against the plain versions on the CPU, same weights and inputs: the
+    keep mask equal, the outputs within the small forward's tolerance."""
     import copy
 
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.models.vdetr import build_model
     from vdetr_tpu_torch.train.engine import Trainer
 
-    cfg = tiny_config().replace(test_only=True)
-    ds = ScannetDatasetConfig()
+    cfg = (base or tiny_config()).replace(test_only=True)
+    ds = dataset_of(cfg)
     gen = torch.Generator().manual_seed(SEED + 2)
     model = build_model(cfg, ds, generator=gen, device="cpu",
                         conv_route=route)
@@ -1731,7 +1779,8 @@ def check_small_eval_against_cpu(device, route):
               for k, v in ref.items() if k != "nms_keep")
     tol = 1e-3
     ok = same and err <= tol
-    log(f"eval step {route} small config (test_only) on card vs CPU plain "
+    log(f"eval step {route} small {cfg.dataset_name} config (test_only) on "
+        "card vs CPU plain "
         f"path: nms_keep equal={same} ({int(ref['nms_keep'].sum())} of "
         f"{ref['nms_keep'].numel()} kept), max_abs_err over outputs="
         f"{err:.3e} tol={tol:.0e} (f32 rounding through ~40 layers) -> "
@@ -1744,12 +1793,12 @@ def check_small_eval_against_cpu(device, route):
 # --------------------------------------------------------------------------
 
 def train_batch(cfg, B: int, first: int = 0):
-    """Synthetic scenes with their ground truth, as numpy arrays."""
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    """Synthetic scenes of `cfg`'s dataset with their ground truth (yawed
+    boxes and angle labels for SUN RGB-D), as numpy arrays."""
     from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
                                                 collate)
 
-    ds = SyntheticDetectionDataset(ScannetDatasetConfig(), cfg.num_points,
+    ds = SyntheticDetectionDataset(dataset_of(cfg), cfg.num_points,
                                    seed=SEED)
     return collate([ds[first + i] for i in range(B)])
 
@@ -1963,7 +2012,9 @@ PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
                     "table kernel"),
                    ("rpe_table_sum_kernel", "rpe_cross_attention_bwd",
                     "table sum"),
-                   ("auction_kernel", "auction", "auction"))
+                   ("auction_kernel", "auction", "auction"),
+                   ("rotated_areas_bwd_kernel", "rotated_iou", "backward"),
+                   ("rotated_areas_kernel", "rotated_iou", "forward"))
 
 
 def profile_step(trainer, batch, gen):
@@ -2026,12 +2077,12 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
     dropout generator (the same seed): `warm` steps, then `steps` timed
     steps, the variants in turn on the same batch (the order
     alternating), so that their medians share the call's conditions.
-    Each step's launches are counted."""
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
+    Each step's launches are counted. The model, its scenes and its
+    criterion are those of `cfg`'s dataset."""
     from vdetr_tpu_torch.tools.determinism import grad_spread, step_twice
     from vdetr_tpu_torch.train.engine import Trainer
 
-    ds = ScannetDatasetConfig()
+    ds = dataset_of(cfg)
     names = list(variants)
     cfgs = {n: cfg.replace(matcher_impl=m) for n, (_, m) in variants.items()}
     trainers = {n: Trainer(cfgs[n], published_model(cfg, device, route), ds,
@@ -2070,7 +2121,8 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
                 launches[name] = counts
             if i >= warm:
                 times[name].append(dt)
-            log(f"train {name} step {i}{' (warm)' if i < warm else ''}: "
+            log(f"train {cfg.dataset_name} {name} step {i}"
+                f"{' (warm)' if i < warm else ''}: "
                 f"loss {loss:.4f}, {dt:.1f} ms, grads "
                 f"{'finite' if not nonfinite else nonfinite[:3]}, launches "
                 + fmt_counts(counts, expected[name])
@@ -2079,7 +2131,8 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
     for name, trainer in trainers.items():
         matcher = cfgs[name].matcher_impl
         med = statistics.median(times[name])
-        log(f"train {name} B=1 N={cfg.num_points} matcher={matcher}: "
+        log(f"train {cfg.dataset_name} {name} B=1 N={cfg.num_points} "
+            f"matcher={matcher}: "
             f"median {med:.1f} ms/step over {len(times[name])} steps after "
             f"{warm} warm, in turn with the other variants "
             f"[{', '.join(f'{t:.1f}' for t in times[name])}]; all steps "
@@ -2091,14 +2144,14 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
             + ("cost copy and JV on the host" if matcher == "jv"
                else "kernel M on the card") + ")"] = matcher_ms(
             trainer, batches[1], gens[name])
-        log(f"train {name} step breakdown (ms; host clock per phase, each "
+        log(f"train {cfg.dataset_name} {name} step breakdown (ms; host clock per phase, each "
             "ended by a sync; the backward's stream spans between CUDA "
             "events, which include the host's gaps): " + "; ".join(
                 f"{k} {v:.1f}" for k, v in brk.items()))
         sync = criterion_sync(trainer, batches[1], gens[name])
         sync_ok = sync is None if matcher == "auction" else True
         ok &= sync_ok
-        log(f"train {name} criterion under set_sync_debug_mode('error'): "
+        log(f"train {cfg.dataset_name} {name} criterion under set_sync_debug_mode('error'): "
             + ("no synchronizing call (no device-to-host copy)"
                if sync is None else f"synchronizes: {sync}")
             + (" -> ok" if sync_ok else " -> FAIL"))
@@ -2106,7 +2159,7 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
                                  profiled=True)
         copies = dev_brk["device-to-host copies: criterion incl. matcher"]
         ok &= copies == 0 or matcher == "jv"
-        log(f"train {name} step breakdown under torch.profiler (ms; "
+        log(f"train {cfg.dataset_name} {name} step breakdown under torch.profiler (ms; "
             "'device': the union of the phase's device intervals, 'device "
             "kernel sum': their sum; host clock with the profiler on; "
             "device-to-host copies counted): " + "; ".join(
@@ -2117,7 +2170,7 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
         spread = grad_spread(trainer, batches[1])
         repeat_ok = not spread["differing"] and all(
             v["max_abs_diff"] == 0 for v in spread["groups"].values())
-        log(f"train {name} run-to-run gradient spread (two backwards from "
+        log(f"train {cfg.dataset_name} {name} run-to-run gradient spread (two backwards from "
             "the same state, batch and seed; max |g1 - g2| / max |g1| per "
             "parameter group, tolerance 0): " + "; ".join(
                 f"{k} {v['rel']:.2e}" for k, v in spread["groups"].items())
@@ -2125,7 +2178,7 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
             f"{[n for n, _ in spread['differing'][:5]]} -> "
             f"{'ok' if repeat_ok else 'FAIL'}")
         differ, count = step_twice(trainer, batches[1])
-        log(f"train {name} two whole steps (clip and AdamW included) from "
+        log(f"train {cfg.dataset_name} {name} two whole steps (clip and AdamW included) from "
             f"the same state, batch and seed: {len(differ)} of {count} "
             f"parameters differ {differ[:5]} -> "
             f"{'ok' if not differ else 'FAIL'}")
@@ -2141,7 +2194,7 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
         prof = profile_step(trainer, batches[2], gens[name])
         prof["busy_share_of_median_step"] = prof["device_busy_ms"] / med
         stats[name]["profile"] = prof
-        log(f"train {name} step under torch.profiler: {prof['wall_ms']:.1f}"
+        log(f"train {cfg.dataset_name} {name} step under torch.profiler: {prof['wall_ms']:.1f}"
             f" ms host clock, {prof['device_events']} device events, "
             f"device busy {prof['device_busy_ms']:.1f} ms = "
             f"{100 * prof['busy_share']:.1f}% of the profiled step, "
@@ -2164,28 +2217,27 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
     for b in names[1:]:
         diff = [y - x for x, y in zip(times[a], times[b])]
         stats[f"{b} minus {a} ms"] = diff
-        log(f"train {b} minus {a}, paired by step: median "
+        log(f"train {cfg.dataset_name} {b} minus {a}, paired by step: "
+            "median "
             f"{statistics.median(diff):.1f} ms ["
             + ", ".join(f"{d:.1f}" for d in diff) + "]")
     return ok, launches, stats
 
 
-def check_small_train_against_cpu(device, route):
-    """One train step of a small model (dropout 0) on `route` on the card
-    against the same step on the CPU through the plain versions: same
-    weights, same batch."""
+def check_small_train_against_cpu(device, route, base=None):
+    """One train step of a small model (dropout 0) on `route` (`base`: a
+    small config of another dataset) on the card against the same step on
+    the CPU through the plain versions: same weights, same batch."""
     import copy
 
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.models.vdetr import build_model
     from vdetr_tpu_torch.train.engine import Trainer
 
-    cfg = tiny_config().replace(voxel_size=0.05, num_points=1024, nqueries=32,
-                                repeat_num=2, matcher_impl="jv",
-                                dec_dropout=0.0, mlp_dropout=0.0,
-                                warm_lr_epochs=0, max_epoch=10,
-                                base_lr=1e-3)
-    ds = ScannetDatasetConfig()
+    cfg = (base or tiny_config()).replace(
+        voxel_size=0.05, num_points=1024, nqueries=32, repeat_num=2,
+        matcher_impl="jv", dec_dropout=0.0, mlp_dropout=0.0,
+        warm_lr_epochs=0, max_epoch=10, base_lr=1e-3)
+    ds = dataset_of(cfg)
     cpu = build_model(cfg, ds, generator=torch.Generator().manual_seed(SEED),
                       device="cpu", conv_route=route)
     card = copy.deepcopy(cpu).to(device)
@@ -2216,7 +2268,8 @@ def check_small_train_against_cpu(device, route):
     u_err = float((u_card - u_cpu).norm() / u_cpu.norm())
     l_err = abs(l_card - l_cpu) / abs(l_cpu)
     ok = l_err <= 1e-4 and g_err <= 1e-3 and worst <= 5e-2 and u_err <= 1e-3
-    log(f"train {route} step small config on card vs CPU plain path: loss "
+    log(f"train {route} step small {cfg.dataset_name} config on card vs CPU "
+        "plain path: loss "
         f"{l_card:.6f} vs {l_cpu:.6f} (rel err {l_err:.2e}, tol 1e-4); "
         f"gradients rel L2 err {g_err:.2e} (tol 1e-3), worst tensor "
         f"{worst:.2e} of its max (tol 5e-2); updates rel L2 err {u_err:.2e}"
@@ -2441,10 +2494,11 @@ def write_scannet_scans(root):
     return names
 
 
-def run_cli(device, power):
+def run_cli(device, power, dataset: str = "scannet"):
     """The CLI, `vdetr_tpu_torch.main.main`, at the VDETRConfig defaults
-    (auction, random cuboid, 100k points) on
-    fabricated ScanNet-format scans in a temporary directory: train one
+    (auction, 100k points; random cuboid on ScanNet) on fabricated scans
+    of `dataset` in a temporary directory (ScanNet's prep layout, or
+    VoteNet's SUN RGB-D layout with `--angle_type object_coords`): train one
     epoch with a checkpoint directory (checkpoint, checkpoint_best,
     final_eval.txt/pkl), the launches of that run per kernel; then
     `--test_only --auto_test` on checkpoint_best, whose mAP@0.25 and 0.5
@@ -2458,7 +2512,6 @@ def run_cli(device, power):
     import tempfile
 
     from vdetr_tpu_torch import main as cli
-    from vdetr_tpu_torch.data.dataset_config import ScannetDatasetConfig
     from vdetr_tpu_torch.eval.ap_calculator import APCalculator
     from vdetr_tpu_torch.models.vdetr import build_model
     from vdetr_tpu_torch.train import checkpoint as ckpt_io
@@ -2491,14 +2544,22 @@ def run_cli(device, power):
     APCalculator.compute_metrics = timed_metrics
     try:
         t0 = time.perf_counter()
-        names = write_scannet_scans(root)
-        nverts = [len(np.load(os.path.join(root, f"{n}_vert.npy"),
-                              mmap_mode="r"))
-                  for n in names["train"] + names["val"]]
+        if dataset == "sunrgbd":
+            names = write_sunrgbd_scans(root)
+            nverts = [len(np.load(os.path.join(root, split,
+                                               f"{n}_pc.npz"))["pc"])
+                      for split in names for n in names[split]]
+            model_flags = ["--angle_type", "object_coords"]
+        else:
+            names = write_scannet_scans(root)
+            nverts = [len(np.load(os.path.join(root, f"{n}_vert.npy"),
+                                  mmap_mode="r"))
+                      for n in names["train"] + names["val"]]
+            model_flags = []
         write_s = time.perf_counter() - t0
         ckpt = os.path.join(root, "ckpt")
-        base = (["--dataset_name", "scannet", "--dataset_root_dir", root,
-                 "--checkpoint_dir", ckpt])
+        data = ["--dataset_name", dataset, "--dataset_root_dir", root]
+        base = data + model_flags + ["--checkpoint_dir", ckpt]
         counters = launch_counters()
         for fn in counters.values():
             fn.launches = 0
@@ -2508,7 +2569,7 @@ def run_cli(device, power):
         counts = {k: fn.launches for k, fn in counters.items()}
         cfg = cli.config_from_args(cli.make_args_parser().parse_args(
             base + ["--max_epoch", "1"]))
-        probe = build_model(cfg, ScannetDatasetConfig(), device=device)
+        probe = build_model(cfg, dataset_of(cfg), device=device)
         ntrain, evals = len(names["train"]), 2 * len(names["val"])
         per_step = expected_launches(probe, cfg, train=True)
         per_eval = expected_launches(probe, cfg)
@@ -2522,8 +2583,8 @@ def run_cli(device, power):
             pkl = pickle.load(f)
         pkl_ok = all(pkl[t]["mAP"] == final[t]["mAP"] for t in (0.25, 0.5))
         launches_ok = counts == expected
-        log(f"cli train: {ntrain} train and {len(names['val'])} val "
-            f"fabricated scans of {min(nverts)}-{max(nverts)} vertices "
+        log(f"cli {dataset} train: {ntrain} train and {len(names['val'])} "
+            f"val fabricated scans of {min(nverts)}-{max(nverts)} points "
             f"(written in {write_s:.1f} s); main(--max_epoch 1) in "
             f"{train_s:.1f} s: train steps "
             f"[{', '.join(f'{t:.1f}' for t in steps)}] ms (median "
@@ -2538,13 +2599,14 @@ def run_cli(device, power):
             f"; launches " + fmt_counts(counts, expected)
             + f" -> {'ok' if files and pkl_ok and launches_ok else 'FAIL'}")
         best = os.path.join(ckpt, "checkpoint_best")
-        test = ["--dataset_name", "scannet", "--dataset_root_dir", root,
-                "--test_only", "1", "--auto_test", "1", "--test_ckpt", best]
+        test = data + ["--test_only", "1", "--auto_test", "1",
+                       "--test_ckpt", best]
         n_pass = len(passes)
         again = cli.main(test + ["--empty_pt_thre", "0"], device=device)
         same = all(again[t]["mAP"] == final[t]["mAP"] for t in (0.25, 0.5))
         dflt = cli.main(test, device=device)
-        log(f"cli --test_only --auto_test on checkpoint_best: mAP@0.25 "
+        log(f"cli {dataset} --test_only --auto_test on checkpoint_best: "
+            "mAP@0.25 "
             f"{again[0.25]['mAP']:.6f} mAP@0.5 {again[0.5]['mAP']:.6f} at "
             f"--empty_pt_thre 0 -> {'equal to' if same else 'DIFFERS from'}"
             f" the final eval; at the default threshold (empty-box removal)"
@@ -2560,7 +2622,8 @@ def run_cli(device, power):
                      and len(steps) - n_steps == ntrain
                      and all(math.isfinite(resumed[t]["mAP"])
                              for t in (0.25, 0.5)))
-        log(f"cli resume (--max_epoch 2 on the same checkpoint_dir): "
+        log(f"cli {dataset} resume (--max_epoch 2 on the same "
+            "checkpoint_dir): "
             f"{len(steps) - n_steps} steps run (epoch 1 only), checkpoint "
             f"at epoch {header['epoch']} step {state['step']}, final eval "
             f"mAP@0.25 {resumed[0.25]['mAP']:.6f} -> "
@@ -2579,6 +2642,422 @@ def run_cli(device, power):
         engine.Trainer.train_step, engine.evaluate = orig_step, orig_eval
         APCalculator.compute_metrics = orig_metrics
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# phase 7: SUN RGB-D (oriented boxes) at the published width, kernel R
+# --------------------------------------------------------------------------
+
+def sun_config():
+    """The slice's configuration: what `python -m vdetr_tpu.main
+    --dataset_name sunrgbd --angle_type object_coords` runs, every other
+    field at its default (the rotated vertex RPE in C and F)."""
+    from vdetr_tpu_torch.config import VDETRConfig
+
+    return VDETRConfig(dataset_name="sunrgbd", angle_type="object_coords")
+
+
+def sun_tiny_config():
+    return tiny_config().replace(dataset_name="sunrgbd",
+                                 angle_type="object_coords")
+
+
+@contextlib.contextmanager
+def capture_rotated(seen):
+    """Every call of the rotated GIoU's `rotated_intersection_areas` while
+    the block runs, appended to `seen` as {rect1, rect2, gate (uint8)}
+    and, once the backward has passed it, "grad" (the cotangent kernel R's
+    backward received)."""
+    import vdetr_tpu_torch.geometry.iou as iou_mod
+
+    real = iou_mod.rotated_intersection_areas
+
+    def take(rect1, rect2, gate):
+        out = real(rect1, rect2, gate)
+        job = {"rect1": rect1.detach().float().contiguous(),
+               "rect2": rect2.detach().float().contiguous(),
+               "gate": gate.to(torch.uint8).contiguous()}
+        seen.append(job)
+        if out.requires_grad:
+            out.register_hook(lambda g, job=job: job.__setitem__(
+                "grad", g.detach().float().contiguous()))
+        return out
+
+    iou_mod.rotated_intersection_areas = take
+    try:
+        yield seen
+    finally:
+        iou_mod.rotated_intersection_areas = real
+
+
+def rotated_inputs(cfg, device, B: int):
+    """Kernel R's inputs of one published SUN RGB-D train step at batch B,
+    one per criterion job, with the cotangents of its backward: a
+    train-mode forward of the published model (keyed, seeded random
+    weights) on rotated synthetic scenes, the criterion and the
+    backward."""
+    from vdetr_tpu_torch.train.engine import INPUT_KEYS, Trainer
+
+    trainer = Trainer(cfg, published_model(cfg, device, "keyed"),
+                      dataset_of(cfg), steps_per_epoch=1000, device=device)
+    b = trainer._to_device(train_batch(cfg, B))
+    trainer.model.train()
+    with capture_rotated([]) as seen:
+        out = trainer.model({k: b[k] for k in INPUT_KEYS if k in b},
+                            generator=torch.Generator(
+                                device=device).manual_seed(SEED))
+        loss, _ = trainer.criterion(out, b)
+        loss.backward()
+    return seen
+
+
+def rotated_edge_cases(device):
+    """Kernel R's edge cases, as the rotated GIoU hands them over: 10
+    predictions against 6 ground-truth boxes (identical axis-aligned
+    boxes; a box inside another; a shared edge; collinear edges; a
+    touching corner; zero-size boxes on both sides; a pair the corner-1/3
+    gate turns off although it overlaps, a yaw of pi; parallel edges; a
+    sliver); two identical rotated boxes, every gate on (`ILL_POSED`);
+    and 64 random yawed predictions against 16 boxes near them, with the
+    GIoU's gate and with every pair on; a random cotangent on every
+    pair."""
+    from vdetr_tpu_torch.geometry.boxes import box_parametrization_to_corners
+    from vdetr_tpu_torch.geometry.iou import generalized_box3d_iou
+
+    unit = [0, 0, 0, 1, 1, 1, 0]
+    gt = [unit, [3, 0, 0, 2, 2, 1, 0.3], [0, 3, 0, 0, 0, 0, 0],
+          [6, 6, 0, 1, 1, 1, 0], [-3, -3, 0, 1, 2, 1, 0],
+          [-6, 0, 0, 1, 1, 1, 0]]
+    preds = [unit, [0, 0, 0, 0.5, 0.5, 0.5, 0], [1, 0, 0, 1, 1, 1, 0],
+             [0.5, 0.25, 0, 1, 0.5, 1, 0], [1, 1, 0, 1, 1, 1, 0],
+             [0, 0, 0, 0, 0, 0, 0], [0, 0, 0, 1, 1, 1, np.pi],
+             [3.125, 0, 0, 2, 2, 1, 0.3], [3.9, 0.9, 0, 0.25, 0.25, 1, 1.0],
+             [-3, -3, 0.25, 1, 2, 1, 0.7]]
+    same = [[3, 0, 0, 2, 2, 1, 0.3], [-1, 2, 0, 0.7, 1.3, 1, -2.1]]
+    rng = np.random.RandomState(SEED)
+
+    def rand(n):
+        return np.concatenate([rng.randn(n, 3) * 0.4, rng.rand(n, 3) * 1.5
+                               + 0.2, rng.rand(n, 1) * 2 * np.pi - np.pi], 1)
+
+    out = []
+    for name, p, g in (("edge cases", preds, gt), (ILL_POSED, same, same),
+                       ("random yawed", rand(64), rand(16))):
+        t = torch.tensor(np.asarray(p, np.float32)[None], device=device)
+        u = torch.tensor(np.asarray(g, np.float32)[None], device=device)
+        c1 = box_parametrization_to_corners(t[..., :3], t[..., 3:6],
+                                            t[..., 6])
+        c2 = box_parametrization_to_corners(u[..., :3], u[..., 3:6],
+                                            u[..., 6])
+        with capture_rotated([]) as seen, torch.no_grad():
+            generalized_box3d_iou(c1, c2, rotated_boxes=True)
+        job = seen[0]
+        if name == ILL_POSED:
+            job["gate"] = torch.ones_like(job["gate"])
+        job["grad"] = torch.randn(job["gate"].shape, device=device,
+                                  generator=torch.Generator(
+                                      device=device).manual_seed(SEED))
+        out.append((name, job))
+        if name == "random yawed":
+            out.append(("random yawed, every pair",
+                        dict(job, gate=torch.ones_like(job["gate"]))))
+    return out
+
+
+# identical rotated boxes: each subject vertex lies on a clip line, where
+# the strict inside test goes by rounding and a crossing along a collinear
+# edge divides by a rounding residue; the area is an artefact of the
+# rounding and its gradient has no meaning (~1e7). The forward is held bit
+# for bit; the backward to finite values that repeat bit for bit only.
+ILL_POSED = "identical rotated boxes (ill-posed)"
+
+
+def rotated_plain_grad(job, rows: int = 64):
+    """d rect1 of sum(grad * areas) by autograd through kernel R's plain
+    version, on the rows with a cotangent that reaches a gated pair (the
+    other rows' gradient is 0), `rows` rows at a time."""
+    from vdetr_tpu_torch.ops.rotated_iou import clip_quad_quad_plain
+
+    r1, r2, gate, g = job["rect1"], job["rect2"], job["gate"].bool(), \
+        job["grad"]
+    out = torch.zeros_like(r1)
+    live = ((g != 0) & gate).any(-1).nonzero()
+    for s in range(0, len(live), rows):
+        b, q = live[s:s + rows].unbind(1)
+        sub = r1[b, q].clone().requires_grad_(True)
+        with torch.enable_grad():
+            a = clip_quad_quad_plain(sub[:, None], r2[b])
+            (torch.where(gate[b, q], a, 0.0) * g[b, q]).sum().backward()
+        out[b, q] = sub.grad
+    return out
+
+
+# the backward's tolerance against autograd of the plain version, of the
+# largest |d rect1| of the prediction's row (at least 1)
+ROTATED_BWD_TOL = 1e-4
+ROTATED_BWD_REASON = (
+    "the chain rule of each pair in another order than autograd's, with "
+    "nvcc's fused multiply-adds in the backward (its forward replay rounds "
+    "alone, so it takes the forward's branches); ~100 f32 operations a "
+    "pair, summed over a row's columns in column order")
+
+
+def rotated_work(job):
+    """(forward bytes, forward flops, backward bytes, backward flops) of
+    kernel R on `job`: each input read once and each output written once;
+    the clips' flops (`clip_flops`) over the gated pairs, and over the
+    gated pairs with a nonzero cotangent three times (the replay and its
+    reverse); the gated share of the pairs."""
+    from vdetr_tpu_torch.ops.rotated_iou import (clip_flops,
+                                                 clip_quad_quad_plain)
+
+    r1, r2, gate = job["rect1"], job["rect2"], job["gate"].bool()
+    with torch.no_grad():
+        _, work = clip_quad_quad_plain(r1[:, :, None], r2[:, None],
+                                       work=True)
+    flops = clip_flops(work).double()
+    fwd_flops = float(flops[gate].sum())
+    live = gate & (job["grad"] != 0)
+    bwd_flops = 3 * float(flops[live].sum())
+    base = nbytes(r1, r2, job["gate"])
+    return (base + gate.numel() * 4, fwd_flops,
+            base + nbytes(job["grad"]) + r1.numel() * 4, bwd_flops,
+            float(gate.float().mean()), int(live.sum()))
+
+
+def check_rotated_iou(cfg, device, power):
+    """Kernel R against its plain version on the card: the forward bit for
+    bit, the backward against autograd of the plain version
+    (`ROTATED_BWD_TOL`) and bit for bit from a second launch; on every job
+    of the published SUN RGB-D criterion at B = 1 and 4 (the cotangents
+    of that step's backward), then the edge cases. Per case the times by
+    CUDA events, the plain versions', the bound and the gated share; the
+    B = 1 step's sums (one forward and one backward launch a job) and the
+    device ms of its launches make the kernel's row."""
+    from vdetr_tpu_torch.ops.rotated_iou import (rotated_areas_bwd_launch,
+                                                 rotated_areas_launch,
+                                                 rotated_areas_plain)
+    from vdetr_tpu_torch.tools import device_ms
+
+    cases = []
+    for B in (1, 4):
+        for j, job in enumerate(rotated_inputs(cfg, device, B)):
+            cases.append((f"criterion B={B} job {j} "
+                          f"{tuple(job['gate'].shape)}", job, B))
+        torch.cuda.empty_cache()
+    cases += [(name, job, None) for name, job in rotated_edge_cases(device)]
+    ok, rows = True, []
+    main = {k: 0.0 for k in ("ms", "bwd_ms", "device_ms", "plain_ms",
+                             "plain_bwd_ms", "bound_ms", "pairs", "gated")}
+    for name, job, B in cases:
+        r1, r2, gate, g = (job[k] for k in ("rect1", "rect2", "gate",
+                                            "grad"))
+        got = rotated_areas_launch(r1, r2, gate)
+        with torch.no_grad():
+            want = rotated_areas_plain(r1, r2, gate.bool())
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = float((got - want).abs().nan_to_num(float("inf")).max())
+        d1 = rotated_areas_bwd_launch(r1, r2, gate, g)
+        d1b = rotated_areas_bwd_launch(r1, r2, gate, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = rotated_plain_grad(job)
+        torch.cuda.synchronize()
+        t_pb = (time.perf_counter() - t0) * 1e3
+        repeat = torch.equal(d1.view(torch.int32), d1b.view(torch.int32))
+        # where autograd of the plain version overflows (a crossing along
+        # a collinear edge: identical rotated boxes), only the forward's
+        # bits are compared
+        fin = torch.isfinite(ref)
+        overflow = int((~fin).sum())
+        row_scale = torch.where(fin, ref.abs(), 0.0).amax((-2, -1),
+                                                          keepdim=True)
+        excess = torch.where(fin, (d1 - ref).abs().nan_to_num(float("inf"))
+                             / row_scale.clamp(min=1.0), 0.0)
+        rel = float(excess.max())
+        gerr = float(torch.where(fin, (d1 - ref).abs(), 0.0).nan_to_num(
+            float("inf")).max())
+        scale = float(row_scale.max())
+        finite = bool(torch.isfinite(d1[fin]).all())
+        case_ok = same and repeat and finite and (
+            rel <= ROTATED_BWD_TOL or name == ILL_POSED)
+        ok &= case_ok
+        t_f = time_ms(lambda: rotated_areas_launch(r1, r2, gate), reps=10)
+        t_b = time_ms(lambda: rotated_areas_bwd_launch(r1, r2, gate, g),
+                      reps=10)
+        with torch.no_grad():
+            t_p = time_ms(lambda: rotated_areas_plain(r1, r2, gate.bool()),
+                          reps=1, warmup=0)
+        fb, ff, bb, bf, share, live = rotated_work(job)
+        b_f, by_f = bound_ms(fb, ff)
+        b_b, by_b = bound_ms(bb, bf)
+        rec = dict(case=name, shape=list(gate.shape), forward_bit_equal=same,
+                   max_abs_err=err, backward_max_abs_err=gerr,
+                   backward_max_rel_err=rel, backward_largest=scale,
+                   backward_repeats=repeat,
+                   ms=t_f, bwd_ms=t_b, plain_ms=t_p, plain_bwd_ms=t_pb,
+                   bound_ms=b_f, bound_by=by_f, bwd_bound_ms=b_b,
+                   bwd_bound_by=by_b, gated_share=share,
+                   pairs_with_cotangent=live, plain_grad_overflow=overflow)
+        if B == 1:
+            dev = (device_ms(lambda: rotated_areas_launch(r1, r2, gate),
+                             reps=3)
+                   + device_ms(lambda: rotated_areas_bwd_launch(
+                       r1, r2, gate, g), reps=3))
+            rec["device_ms"] = dev
+            main["device_ms"] += dev
+            for k in ("ms", "bwd_ms", "plain_ms", "plain_bwd_ms"):
+                main[k] += rec[k]
+            main["bound_ms"] += b_f + b_b
+            main["pairs"] += gate.numel()
+            main["gated"] += share * gate.numel()
+        rows.append(rec)
+        log(f"rotated_iou (R) {name}: forward "
+            f"{'bit-equal' if same else 'DIFFERS'} to the plain version "
+            f"(max |diff| {err:.3e}, tolerance 0); backward max |diff| "
+            f"{gerr:.3e}, {rel:.2e} of its row's largest |d rect1| (at "
+            f"least 1; the largest {scale:.3e}) against autograd of the "
+            f"plain version (tol "
+            f"{'none: ill-posed' if name == ILL_POSED else f'{ROTATED_BWD_TOL:.0e}'}"
+            "), "
+            f"{'repeats bit for bit' if repeat else 'DIFFERS launch to launch'}"
+            f"{'' if finite else ', NOT FINITE'}"
+            f"{f' ({overflow} entries of the plain gradient overflow)' if overflow else ''}"
+            f"; gated {100 * share:.1f}% "
+            f"of {gate.numel()} pairs, {live} with a cotangent; forward "
+            f"{t_f:.4f} ms (plain {t_p:.2f}, bound {b_f:.6f} {by_f}), "
+            f"backward {t_b:.4f} ms (plain autograd {t_pb:.1f}, bound "
+            f"{b_b:.6f} {by_b}) -> {'ok' if case_ok else 'FAIL'}")
+        del got, want, d1, d1b, ref
+    log("  tolerance reason (backward): " + ROTATED_BWD_REASON)
+    share = main["gated"] / max(main["pairs"], 1)
+    jobs = sum(B == 1 for _, _, B in cases)
+    log(f"rotated_iou (R) per published SUN RGB-D train step at B=1 (one "
+        f"forward and one backward launch each of its {jobs} jobs): kernel {main['ms']:.4f} + {main['bwd_ms']:.4f} ms "
+        f"(CUDA events), device {main['device_ms']:.4f} ms, plain "
+        f"{main['plain_ms']:.1f} + {main['plain_bwd_ms']:.1f} ms, bound "
+        f"{main['bound_ms']:.6f} ms; the gate passes {100 * share:.2f}% of "
+        f"the pairs; library none; card {power} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"] + main["bwd_ms"], fwd_ms=main["ms"],
+                bwd_ms=main["bwd_ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"] + main["plain_bwd_ms"],
+                bound_ms=main["bound_ms"],
+                bound_by=_dominant([r for r in rows]),
+                # the ill-posed case's backward is held to nothing
+                backward_max_rel_err=max(r["backward_max_rel_err"]
+                                         for r in rows
+                                         if r["case"] != ILL_POSED),
+                gated_share=share, cases=rows)
+
+
+def run_iou_types(cfg, device, power, steps: int = 2):
+    """The published SUN RGB-D train step (keyed, the auction) under
+    `iou_type` "diou" and "iou" (the differentiable rotated DIoU / IoU,
+    plain torch), after one warm step: loss and gradients finite, ms of
+    each step, the criterion's host ms (a synced phase of
+    `step_breakdown`) and its device ms (the same under torch.profiler),
+    and peak memory."""
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    ok, res = True, {}
+    batches = [train_batch(cfg, 1, first=i) for i in range(steps + 1)]
+    for iou_type in ("diou", "iou"):
+        c = cfg.replace(iou_type=iou_type)
+        tr = Trainer(c, published_model(c, device, "keyed"), dataset_of(c),
+                     steps_per_epoch=1000, device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        times, finite = [], True
+        torch.cuda.reset_peak_memory_stats(device)
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = tr.train_step(batch, gen)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+            finite &= math.isfinite(loss) and not grads_finite(tr.model)
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        brk = step_breakdown(tr, batches[0], gen)
+        crit = brk["criterion incl. matcher"]
+        dev = step_breakdown(tr, batches[0], gen, profiled=True)[
+            "device: criterion incl. matcher"]
+        ok &= finite
+        res[iou_type] = dict(step_ms=times, criterion_ms=crit,
+                             criterion_device_ms=dev, peak_gib=peak,
+                             finite=finite)
+        log(f"train sunrgbd iou_type={iou_type} keyed B=1: steps "
+            f"[{', '.join(f'{t:.1f}' for t in times)}] ms after a warm one,"
+            f" the criterion {crit:.1f} host ms (synced phase), {dev:.1f} "
+            "device ms (under torch.profiler), peak memory "
+            f"{peak:.2f} GiB, loss and gradients "
+            f"{'finite' if finite else 'NOT FINITE'}; card {power} -> "
+            f"{'ok' if finite else 'FAIL'}")
+        del tr
+        torch.cuda.empty_cache()
+    return ok, res
+
+
+# the SUN RGB-D CLI's fabricated scans: points a scan (VoteNet's SUN RGB-D
+# extraction keeps 50k points of each depth image), boxes a scan
+SUN_POINTS = 50000
+SUN_BOXES = (3, 12)
+
+
+def write_sunrgbd_scans(root):
+    """Fabricated scans in VoteNet's SUN RGB-D layout, which
+    `data/sunrgbd.py` reads: `<split>/<id>_pc.npz` with `pc` (x, y, z and
+    colour centred on 0, `SUN_POINTS` points) and `<split>/<id>_bbox.npy`
+    (cx, cy, cz, dx, dy, dz, heading, class): a room 3-5 m across whose
+    3-12 boxes of the 10 classes, near their mean sizes and yawed, hold
+    60% of the points on their surfaces, the floor and a wall the rest."""
+    from vdetr_tpu_torch.data.dataset_config import SunrgbdDatasetConfig
+
+    ds = SunrgbdDatasetConfig()
+    rng = np.random.RandomState(SEED)
+    names = {"train": [f"{i:06d}" for i in range(1, SCAN_TRAIN + 1)],
+             "val": [f"{i:06d}" for i in range(5001, 5001 + SCAN_VAL)]}
+    for split, ids in names.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        for sid in ids:
+            room = rng.rand(2) * 2 + 3.0
+            nb = rng.randint(SUN_BOXES[0], SUN_BOXES[1] + 1)
+            cls = rng.randint(0, ds.num_semcls, nb)
+            size = ds.mean_size_arr[cls] * np.exp(rng.randn(nb, 3) * 0.1)
+            yaw = rng.rand(nb) * 2 * np.pi - np.pi
+            center = np.stack([(rng.rand(nb) - 0.5) * room[0],
+                               rng.rand(nb) * room[1] + 1.0,
+                               size[:, 2] / 2], 1)
+            per_box = int(0.6 * SUN_POINTS) // nb
+            parts = []
+            for b in range(nb):
+                face = rng.randint(0, 6, per_box)
+                u = rng.rand(per_box, 3) - 0.5
+                u[np.arange(per_box), face // 2] = np.where(face % 2, 0.5,
+                                                            -0.5)
+                c, s = np.cos(yaw[b]), np.sin(yaw[b])
+                rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+                parts.append((u * size[b]) @ rot.T + center[b])
+            rest = SUN_POINTS - per_box * nb
+            floor = rest // 2
+            parts.append(np.stack([(rng.rand(floor) - 0.5) * room[0],
+                                   rng.rand(floor) * room[1] + 1.0,
+                                   np.abs(rng.randn(floor)) * 0.01], 1))
+            wall = rest - floor
+            parts.append(np.stack([(rng.rand(wall) - 0.5) * room[0],
+                                   np.full(wall, room[1] + 1.0),
+                                   rng.rand(wall) * 2.5], 1))
+            xyz = np.concatenate(parts)
+            pc = np.concatenate([xyz, rng.rand(len(xyz), 3) - 0.5], 1)
+            boxes = np.concatenate([center, size, yaw[:, None],
+                                    cls[:, None]], 1)
+            np.savez(os.path.join(root, split, f"{sid}_pc.npz"),
+                     pc=pc.astype(np.float32))
+            np.save(os.path.join(root, split, f"{sid}_bbox.npy"),
+                    boxes.astype(np.float32))
+    return names
 
 
 def main() -> int:
@@ -2663,6 +3142,40 @@ def main() -> int:
 
     # 6. the CLI at the published width on fabricated ScanNet scans
     ok_c, cli = run_cli(device, smi)
+
+    # 7. SUN RGB-D at the published width: kernel R against its plain
+    # version, the eval step and the AP (the device NMS, then the host's
+    # rotated NMS), a small forward, eval and train step per route against
+    # the CPU, the train step on both routes under the auction (R forward
+    # and backward on every job), the diou / iou steps, and the CLI on
+    # fabricated scans
+    from vdetr_tpu_torch.eval.ap_calculator import config_dict_from_cfg
+
+    scfg = sun_config()
+    res["rotated_iou"] = check_rotated_iou(scfg, device, smi)
+    torch.cuda.empty_cache()
+    smodels = {route: published_model(scfg, device, route)
+               for route in ROUTES}
+    secfg = eval_config(scfg)
+    ok_sev, sun_eval_launches, sun_eval, _, strainers = run_eval(
+        smodels, secfg, device, smi, reps=3)
+    ok_sap, sun_ap = run_ap(strainers["keyed"], secfg)
+    strainers["keyed"].ap_config = config_dict_from_cfg(
+        secfg.replace(rotated_nms=True), dataset_of(secfg))
+    ok_sapr, sun_ap_rot = run_ap(strainers["keyed"], secfg)
+    del smodels, strainers
+    stiny = sun_tiny_config()
+    ok_ss = [check(device, route, stiny) for route in ROUTES for check in (
+        lambda d, r, b: check_small_forward_against_cpu(
+            d, torch.Generator().manual_seed(SEED + 1), r, b),
+        check_small_eval_against_cpu, check_small_train_against_cpu)]
+    torch.cuda.empty_cache()
+    ok_st, sun_train_launches, sun_train = run_train(
+        scfg, device, smi, variants={"keyed": ("keyed", "auction"),
+                                     "mapped": ("mapped", "auction")})
+    torch.cuda.empty_cache()
+    ok_si, sun_iou = run_iou_types(scfg, device, smi)
+    ok_sc, sun_cli = run_cli(device, smi, dataset="sunrgbd")
     log("keyed vs mapped route (ms): forward/scene B=1 "
         f"{per_scene['keyed'][1]:.2f} vs {per_scene['mapped'][1]:.2f}, B=4 "
         f"{per_scene['keyed'][4]:.2f} vs {per_scene['mapped'][4]:.2f}; "
@@ -2675,6 +3188,8 @@ def main() -> int:
         route = "mapped" if kname in ("kernel_map", "mapped_conv",
                                       "mapped_conv_dw") else "keyed"
         launches = (eval_launches[route][kname] if kname == "nms"
+                    else sun_train_launches[route][kname]
+                    if kname == "rotated_iou"
                     else train_launches[route][kname])
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": repl, "launches": launches,
@@ -2690,6 +3205,10 @@ def main() -> int:
                           "eval_step": eval_launches[rt][kname],
                           "train_step": train_launches[rt][kname]}
                      for rt in ROUTES}}
+        for rt in ROUTES:
+            entry["launches_by_route"][rt].update(
+                sunrgbd_eval_step=sun_eval_launches[rt][kname],
+                sunrgbd_train_step=sun_train_launches[rt][kname])
         for extra in ("cases", "train_ms", "gather_matmul_ms",
                       "library_tf32_ms", "bound_f32_ms", "bound_note",
                       "ms_dropout0", "pair_ms", "pair_ms_dropout0",
@@ -2698,7 +3217,8 @@ def main() -> int:
                       "table_bound_ms", "table_bound_by", "table_sass",
                       "table_sum_ms", "forward_maps", "ms_note", "slices",
                       "exchange_floor_ms", "device_ms", "mask_ms",
-                      "scan_ms", "mask_bytes"):
+                      "scan_ms", "mask_bytes", "fwd_ms", "bwd_ms",
+                      "gated_share", "backward_max_rel_err"):
             if extra in r:
                 entry[extra] = r[extra]
         if kname == "nms":
@@ -2710,6 +3230,12 @@ def main() -> int:
                                       "matcher (the default): one a shape "
                                       "group; ms, plain_ms and bound_ms sum "
                                       "the B = 1 step's launches")
+        if kname == "rotated_iou":
+            entry["launches_note"] = (
+                "per SUN RGB-D train step under the GIoU: one forward and "
+                "one backward launch a criterion job (0 in an eval step, "
+                "0 on ScanNet); ms, plain_ms and bound_ms sum the B = 1 "
+                "step's launches")
         if kname in PROBES:
             entry["probe"] = ("a probe of kernel C, off the main path: 0 "
                               "launches there; ms, plain_ms and bound_ms sum "
@@ -2725,10 +3251,17 @@ def main() -> int:
     record["fpn_mapped_vs_keyed_max_abs_err"] = fpn_err
     record["train"] = train
     record["cli"] = cli
+    record["sunrgbd"] = {
+        "eval_step": {route: {f"B={b}": v for b, v in sun_eval[route].items()}
+                      for route in ROUTES},
+        "ap_end_to_end": {"device_nms": sun_ap, "rotated_nms": sun_ap_rot},
+        "train": sun_train, "iou_types": sun_iou, "cli": sun_cli}
     record["card"] = smi
     log(json.dumps(record))
     if not (all(r["ok"] for r in res.values()) and ok_f and ok_fpn and ok_s
-            and ok_e and ok_ap and ok_se and ok_t and ok_ts and ok_c):
+            and ok_e and ok_ap and ok_se and ok_t and ok_ts and ok_c
+            and ok_sev and ok_sap and ok_sapr and all(ok_ss) and ok_st
+            and ok_si and ok_sc):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

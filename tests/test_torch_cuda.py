@@ -18,8 +18,12 @@ on the card against the CPU; the matcher's auction (M) bit for bit
 against its plain versions (ties, duplicated rows, no valid row, more
 rows than columns, a problem cut at max_iters, the published widths),
 the criterion under the auction with no synchronizing call, and the CLI
-at a tiny config (train, checkpoint, --test_only --auto_test). chip_smoke.py
-checks the published shapes.
+at a tiny config (train, checkpoint, --test_only --auto_test); the
+rotated GIoU's clip (R): forward bit for bit against its plain version
+on random and exact edge-case quads, its backward against autograd of
+the plain version and bit for bit from launch to launch, its launch
+counts, and a small SUN RGB-D train step that repeats bit for bit.
+chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports no jax, so it runs where only PyTorch is installed:
@@ -1094,3 +1098,142 @@ def test_cli_at_a_tiny_config_on_the_card(tmp_path, cuda):
                  device=cuda)
     for th in (0.25, 0.5):
         assert again[th]["mAP"] == final[th]["mAP"]
+
+
+# --------------------------------------------------------------------------
+# kernel R: the rotated GIoU's intersection areas
+# --------------------------------------------------------------------------
+
+def rotated_rects(rng, B, K, spread=0.5, cuda=None):
+    """(B, K, 4, 2) CCW bird's-eye rects of random yawed boxes, as the
+    GIoU builds them from camera-frame corners."""
+    from vdetr_tpu_torch.geometry.iou import _bev_rects
+
+    box = np.concatenate([rng.randn(B, K, 3) * spread,
+                          rng.rand(B, K, 3) * 1.5 + 0.2,
+                          rng.rand(B, K, 1) * 2 * np.pi - np.pi], -1)
+    box = torch.from_numpy(box.astype(np.float32)).to(cuda)
+    return _bev_rects(box_parametrization_to_corners(
+        box[..., :3], box[..., 3:6], box[..., 6])).contiguous()
+
+
+def rotated_plain_grad(r1, r2, gate, g):
+    from vdetr_tpu_torch.ops.rotated_iou import rotated_areas_plain
+
+    x = r1.clone().requires_grad_(True)
+    (rotated_areas_plain(x, r2, gate.bool()) * g).sum().backward()
+    return x.grad
+
+
+@pytest.mark.parametrize("B,K1,K2", [(1, 37, 9), (2, 130, 64), (1, 5, 1),
+                                     (3, 1, 20)])
+@pytest.mark.parametrize("gate_share", [1.0, 0.3])
+def test_rotated_iou_kernel_equals_plain(rng, cuda, B, K1, K2, gate_share):
+    """Forward bit for bit against the plain version; the backward within
+    1e-4 of each row's largest |d rect1| (at least 1) of autograd through
+    the plain version (another order of the chain rule, fused
+    multiply-adds), and bit for bit from a second launch; a sparse
+    cotangent as the criterion gives."""
+    from vdetr_tpu_torch.ops.rotated_iou import (rotated_areas_bwd_launch,
+                                                 rotated_areas_launch,
+                                                 rotated_areas_plain)
+
+    r1 = rotated_rects(rng, B, K1, cuda=cuda)
+    r2 = rotated_rects(rng, B, K2, cuda=cuda)
+    gate = t(rng.rand(B, K1, K2) < gate_share, cuda).to(torch.uint8)
+    g = t((rng.randn(B, K1, K2) * (rng.rand(B, K1, K2) < 0.5)).astype(
+        np.float32), cuda)
+    got = rotated_areas_launch(r1, r2, gate)
+    want = rotated_areas_plain(r1, r2, gate.bool())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert float(got.max()) > 0
+    d1 = rotated_areas_bwd_launch(r1, r2, gate, g)
+    assert torch.equal(d1.view(torch.int32), rotated_areas_bwd_launch(
+        r1, r2, gate, g).view(torch.int32))
+    ref = rotated_plain_grad(r1, r2, gate, g)
+    scale = ref.abs().amax((-2, -1), keepdim=True).clamp(min=1.0)
+    assert float(((d1 - ref).abs() / scale).max()) <= 1e-4
+
+
+def test_rotated_iou_kernel_edge_cases(cuda):
+    """Identical, nested, edge-sharing, collinear, corner-touching and
+    zero-size quads, axis-aligned on exact binary fractions: the forward
+    bit for bit and the exact areas."""
+    from vdetr_tpu_torch.geometry.iou import _bev_rects
+    from vdetr_tpu_torch.ops.rotated_iou import (rotated_areas_launch,
+                                                 rotated_areas_plain)
+
+    def rects(boxes):
+        b = torch.tensor(boxes, dtype=torch.float32, device=cuda)[None]
+        return _bev_rects(box_parametrization_to_corners(
+            b[..., :3], b[..., 3:6], b[..., 6])).contiguous()
+
+    unit = [0, 0, 0, 1, 1, 1, 0]
+    r1 = rects([unit, [0, 0, 0, 0.5, 0.5, 1, 0], [1, 0, 0, 1, 1, 1, 0],
+                [0.5, 0.25, 0, 1, 0.5, 1, 0], [1, 1, 0, 1, 1, 1, 0],
+                [0, 0, 0, 0, 0, 0, 0], [3, 0, 0, 2, 2, 1, 0.3]])
+    r2 = rects([unit, [3, 0, 0, 2, 2, 1, 0.3], [0, 0, 0, 0, 0, 0, 0]])
+    gate = torch.ones(1, 7, 3, dtype=torch.uint8, device=cuda)
+    got = rotated_areas_launch(r1, r2, gate)
+    want = rotated_areas_plain(r1, r2, gate.bool())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    exact = [1.0, 0.25, 0.0, 0.25, 0.0, 0.0]
+    assert got[0, :6, 0].tolist() == exact
+    assert float(got[0, :, 2].abs().sum()) == 0.0
+
+
+def test_rotated_iou_entry_counts_and_refuses(rng, cuda):
+    """`rotated_intersection_areas` launches R forward and backward (two
+    counts) through autograd, and refuses ground truth that requires
+    grad."""
+    from vdetr_tpu_torch.ops.rotated_iou import (rotated_areas_plain,
+                                                 rotated_intersection_areas)
+
+    r1 = rotated_rects(rng, 2, 16, cuda=cuda).requires_grad_(True)
+    r2 = rotated_rects(rng, 2, 8, cuda=cuda)
+    gate = torch.rand(2, 16, 8, device=cuda) < 0.7
+    before = rotated_intersection_areas.launches
+    out = rotated_intersection_areas(r1, r2, gate)
+    assert rotated_intersection_areas.launches == before + 1
+    out.sum().backward()
+    assert rotated_intersection_areas.launches == before + 2
+    ref = r1.detach().clone().requires_grad_(True)
+    rotated_areas_plain(ref, r2, gate).sum().backward()
+    assert float((r1.grad - ref.grad).abs().max()) <= 1e-4 * max(
+        1.0, float(ref.grad.abs().max()))
+    with pytest.raises(ValueError):
+        rotated_intersection_areas(r1, r2.clone().requires_grad_(True), gate)
+
+
+def test_sunrgbd_train_steps_repeat_on_the_card(cuda):
+    """A small SUN RGB-D model (object_coords: the rotated RPE in C and F)
+    on the card: a train step under the auction launches R twice a
+    criterion job, and two whole steps from one state leave every
+    parameter bit-equal."""
+    from vdetr_tpu_torch.config import VDETRConfig
+    from vdetr_tpu_torch.data.dataset_config import SunrgbdDatasetConfig
+    from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
+                                                collate)
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.ops.rotated_iou import rotated_intersection_areas
+    from vdetr_tpu_torch.tools.determinism import step_twice
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    cfg = VDETRConfig(
+        dataset_name="sunrgbd", angle_type="object_coords",
+        voxel_capacity=2048, min_stage_capacity=128,
+        grid_extent=(128, 128, 64), preenc_npoints=128, nqueries=64,
+        dec_nlayers=3, dec_dim=32, dec_ffn_dim=32, dec_nhead=4, rpe_dim=16,
+        inplanes=8, enc_dim=32, num_points=1024, voxel_size=0.05)
+    ds = SunrgbdDatasetConfig()
+    trainer = Trainer(cfg, build_model(cfg, ds, device=cuda), ds,
+                      steps_per_epoch=10, device=cuda)
+    data = SyntheticDetectionDataset(ds, cfg.num_points, seed=0)
+    batch = collate([data[0], data[1]])
+    before = rotated_intersection_areas.launches
+    loss, _ = trainer.train_step(batch, torch.Generator(
+        device=cuda).manual_seed(0))
+    assert np.isfinite(loss)
+    assert rotated_intersection_areas.launches == before + 2 * cfg.dec_nlayers
+    differ, count = step_twice(trainer, batch)
+    assert not differ and count > 0

@@ -126,19 +126,41 @@ def test_rotate_aligned_boxes_equals_jax():
 def test_dataset_configs_equal_jax():
     from vdetr_tpu.data import get_dataset_config as jax_get
 
-    for name in ("scannet", "synthetic"):
+    for name in ("scannet", "synthetic", "sunrgbd"):
         got, want = get_dataset_config(name), jax_get(name)
         assert type(got).__name__ == type(want).__name__
-        assert got.nyu40id2class == want.nyu40id2class
+        assert (got.num_semcls, got.num_angle_bin, got.max_num_obj) == (
+            want.num_semcls, want.num_angle_bin, want.max_num_obj)
+        assert getattr(got, "nyu40id2class", None) == getattr(
+            want, "nyu40id2class", None)
         assert got.class2type == want.class2type
         np.testing.assert_array_equal(got.mean_size_arr, want.mean_size_arr)
         np.testing.assert_array_equal(got.mean_size_arr_hard_anchor,
                                       want.mean_size_arr_hard_anchor)
-        r = np.arange(4, dtype=np.float32)
-        np.testing.assert_array_equal(got.class2angle(0, r),
-                                      want.class2angle(0, r))
-    with pytest.raises(NotImplementedError):
-        get_dataset_config("sunrgbd")  # needs the rotated boxes
+        if name != "sunrgbd":  # no angle bins: zeros
+            r = np.arange(4, dtype=np.float32)
+            np.testing.assert_array_equal(got.class2angle(0, r),
+                                          want.class2angle(0, r))
+    # SUN RGB-D's angle bins (tolerance 0: the same numpy arithmetic)
+    got, want = get_dataset_config("sunrgbd"), jax_get("sunrgbd")
+    rng = np.random.RandomState(0)
+    angles = np.concatenate([rng.rand(64) * 4 * np.pi - 2 * np.pi,
+                             np.arange(-12, 13) * np.pi / 6]).astype(
+        np.float32)
+    for a in angles:
+        assert got.angle2class(a) == want.angle2class(a)
+        c, res = got.angle2class(a)
+        assert got.class2angle(c, res) == want.class2angle(c, res)
+        assert got.class2angle(c, res, False) == want.class2angle(c, res,
+                                                                  False)
+    cls = rng.randint(0, 12, 50)
+    res = (rng.rand(50) - 0.5).astype(np.float32)
+    np.testing.assert_array_equal(got.class2anglebatch(cls, res),
+                                  want.class2anglebatch(cls, res))
+    box = rng.rand(5, 3).astype(np.float32)
+    np.testing.assert_array_equal(
+        got.box_parametrization_to_corners_np(box, box + 0.5, angles[:5]),
+        want.box_parametrization_to_corners_np(box, box + 0.5, angles[:5]))
 
 
 def synth_pair(n=5):

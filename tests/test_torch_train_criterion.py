@@ -8,7 +8,12 @@ the auction (the JAX default: the capacity auction for the repeated
 jobs, the plain auction for the bilabel one). The full loss dict must
 agree, and so must the loss's gradient with respect
 to the head outputs, which runs back through the GIoU, the box
-parametrization and every loss term.
+parametrization and every loss term. SUN RGB-D's 12 angle bins, with
+rotated synthetic ground truth and nonzero angle costs in the matcher,
+under `iou_type` giou (the rotated GIoU, kernel R's plain version here),
+diou and iou, against the JAX criterion with its rotated overlaps guarded
+against NaN gradients (`test_torch_rotated_iou.jax_guarded`: unguarded,
+every JAX gradient of a rotated job is NaN).
 """
 
 import jax
@@ -18,16 +23,20 @@ import pytest
 import torch
 
 from vdetr_tpu.config import VDETRConfig as JaxConfig
-from vdetr_tpu.data import ScannetDatasetConfig
+from vdetr_tpu.data import ScannetDatasetConfig, SunrgbdDatasetConfig
 from vdetr_tpu.models.transformer import \
     refine_box_predictions as jax_refine
 from vdetr_tpu.train.criterion import SetCriterion as JaxCriterion
 from vdetr_tpu_torch.config import VDETRConfig
 from vdetr_tpu_torch.data.dataset_config import \
     ScannetDatasetConfig as PortScannetConfig
+from vdetr_tpu_torch.data.dataset_config import \
+    SunrgbdDatasetConfig as PortSunrgbdConfig
 from vdetr_tpu_torch.data.synthetic import SyntheticDetectionDataset, collate
 from vdetr_tpu_torch.models.transformer import refine_box_predictions
 from vdetr_tpu_torch.train.criterion import SetCriterion
+
+from test_torch_rotated_iou import jax_guarded
 
 KW = dict(repeat_num=2, matcher_impl="jv", is_bilable=True)
 HEADS = ("sem_cls", "center", "size", "angle_cls", "angle_residual")
@@ -37,9 +46,11 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-5
 
 
-def make_case(seed=0, B=2, nseed=64, nq=24, nlayers=3):
+def make_case(seed=0, B=2, nseed=64, nq=24, nlayers=3, sunrgbd=False):
     rng = np.random.RandomState(seed)
-    data = SyntheticDetectionDataset(PortScannetConfig(), num_points=2048,
+    ds = PortSunrgbdConfig() if sunrgbd else PortScannetConfig()
+    nbins = ds.num_angle_bin
+    data = SyntheticDetectionDataset(ds, num_points=2048,
                                      num_scenes=B, max_objects=5, seed=seed)
     batch = collate([data[i] for i in range(B)])
     dmin, dmax = batch["point_cloud_dims_min"], batch["point_cloud_dims_max"]
@@ -47,33 +58,35 @@ def make_case(seed=0, B=2, nseed=64, nq=24, nlayers=3):
     layers = []
     for i in range(nlayers):
         n = nseed if i == 0 else nq
-        ncls = 1 if i == 0 else 18
+        ncls = 1 if i == 0 else ds.num_semcls
         centers = dmin[:, None, :] + rng.rand(B, n, 3) * scene
         sizes = rng.rand(B, n, 3) * 1.5 + 0.2
         layers.append(dict(
             heads={"sem_cls": rng.randn(B, n, ncls),
                    "center": 0.3 * rng.randn(B, n, 3),
                    "size": 0.3 * rng.randn(B, n, 3),
-                   "angle_cls": rng.randn(B, n, 1),
-                   "angle_residual": rng.randn(B, n, 1)},
+                   "angle_cls": rng.randn(B, n, nbins),
+                   "angle_residual": rng.randn(B, n, nbins)},
             pre_center=(centers - dmin[:, None, :]) / scene,
             pre_size=sizes / scene))
-    enc = dict(point_cls_logits=rng.randn(B, nseed, 18),
+    enc = dict(point_cls_logits=rng.randn(B, nseed, ds.num_semcls),
                seed_xyz=dmin[:, None, :] + rng.rand(B, nseed, 3) * scene)
     f32 = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float32), t)  # noqa
-    return f32(layers), f32(enc), batch
+    return f32(layers), f32(enc), batch, sunrgbd
 
 
-def jax_loss(layers, enc, batch, **kw):
+def jax_loss(layers, enc, batch, sunrgbd, jit=False, **kw):
     cfg = JaxConfig(**{**KW, **kw})
-    crit = JaxCriterion(cfg, ScannetDatasetConfig())
+    ds = SunrgbdDatasetConfig() if sunrgbd else ScannetDatasetConfig()
+    crit = JaxCriterion(cfg, ds)
     dims = [jnp.asarray(batch["point_cloud_dims_min"]),
             jnp.asarray(batch["point_cloud_dims_max"])]
     targets = {k: jnp.asarray(v) for k, v in batch.items()}
 
     def f(heads, point_cls):
         preds = [jax_refine(h, jnp.asarray(L["pre_center"]),
-                            jnp.asarray(L["pre_size"]), dims, 1, True)
+                            jnp.asarray(L["pre_size"]), dims,
+                            ds.num_angle_bin, True)
                  for h, L in zip(heads, layers)]
         out = {"outputs": preds[-1], "aux_outputs": preds[:-1],
                "enc_outputs": {"point_cls_logits": point_cls},
@@ -81,16 +94,17 @@ def jax_loss(layers, enc, batch, **kw):
         return crit(out, targets)
 
     heads = [{k: jnp.asarray(L["heads"][k]) for k in HEADS} for L in layers]
-    (loss, parts), grads = jax.value_and_grad(f, argnums=(0, 1),
-                                              has_aux=True)(
+    vg = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)
+    (loss, parts), grads = (jax.jit(vg) if jit else vg)(
         heads, jnp.asarray(enc["point_cls_logits"]))
     return float(loss), jax.tree.map(float, parts), \
         jax.tree.map(np.asarray, grads)
 
 
-def port_loss(layers, enc, batch, **kw):
+def port_loss(layers, enc, batch, sunrgbd, jit=False, **kw):
     cfg = VDETRConfig(**{**KW, **kw})
-    crit = SetCriterion(cfg, PortScannetConfig())
+    ds = PortSunrgbdConfig() if sunrgbd else PortScannetConfig()
+    crit = SetCriterion(cfg, ds)
     t = torch.from_numpy
     dims = [t(batch["point_cloud_dims_min"]), t(batch["point_cloud_dims_max"])]
     targets = {k: t(np.asarray(v)) for k, v in batch.items()}
@@ -98,7 +112,7 @@ def port_loss(layers, enc, batch, **kw):
              for L in layers]
     point_cls = t(enc["point_cls_logits"]).requires_grad_()
     preds = [refine_box_predictions(h, t(L["pre_center"]), t(L["pre_size"]),
-                                    dims, 1, True)
+                                    dims, ds.num_angle_bin, True)
              for h, L in zip(heads, layers)]
     out = {"outputs": preds[-1], "aux_outputs": preds[:-1],
            "enc_outputs": {"point_cls_logits": point_cls},
@@ -122,8 +136,26 @@ def test_loss_dict_and_gradients_match_jax_auction(seed):
     check_against_jax(make_case(seed), matcher_impl="auction")
 
 
+SUN_COSTS = dict(matcher_anglecls_cost=0.5, matcher_anglereg_cost=0.5)
+
+
+@pytest.mark.parametrize("iou_type,matcher", [
+    ("giou", "jv"), ("giou", "auction"), ("diou", "jv"), ("iou", "jv")])
+def test_sunrgbd_loss_dict_and_gradients_match_jax(iou_type, matcher):
+    """12 angle bins, rotated ground truth, nonzero angle matcher costs:
+    the rotated GIoU (kernel R's plain version), or the differentiable
+    DIoU / IoU, through the costs, the matching and every loss. The JAX
+    criterion runs under jax.jit (its rotated loops compile ~5x faster
+    than op by op)."""
+    check_against_jax(make_case(2, sunrgbd=True), iou_type=iou_type,
+                      matcher_impl=matcher, jit=True, **SUN_COSTS)
+
+
 def check_against_jax(case, **kw):
-    loss_j, parts_j, grads_j = jax_loss(*case, **kw)
+    # JAX's rotated overlaps with the port's guard against NaN gradients
+    # (tests/test_torch_rotated_iou.py); ScanNet's path never reaches them
+    with jax_guarded():
+        loss_j, parts_j, grads_j = jax_loss(*case, **kw)
     loss_p, parts_p, grads_p = port_loss(*case, **kw)
     assert loss_p == pytest.approx(loss_j, rel=LOSS_RTOL)
     assert set(parts_p) == set(parts_j)
@@ -145,6 +177,10 @@ def test_refuses_the_unported_matcher_and_rotated_boxes():
         SetCriterion(VDETRConfig(matcher_impl="sinkhorn"),
                      PortScannetConfig())
     SetCriterion(VDETRConfig(), PortScannetConfig())  # the auction
-    with pytest.raises(NotImplementedError):
-        SetCriterion(VDETRConfig(matcher_impl="jv", iou_type="diou"),
-                     PortScannetConfig())
+    # rotated boxes are ported: an angle-binned dataset and every iou_type
+    # are taken, the rotated GIoU where the dataset has angle bins
+    assert not SetCriterion(VDETRConfig(), PortScannetConfig()).rotated
+    for iou_type in ("giou", "diou", "iou"):
+        crit = SetCriterion(VDETRConfig(iou_type=iou_type),
+                            PortSunrgbdConfig())
+        assert crit.rotated

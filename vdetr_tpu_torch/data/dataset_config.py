@@ -118,6 +118,54 @@ class ScannetDatasetConfig(BaseDatasetConfig):
         return np.zeros(pred_cls.shape[0], np.float32)
 
 
+class SunrgbdDatasetConfig(BaseDatasetConfig):
+    def __init__(self):
+        self.num_semcls = 10
+        self.num_angle_bin = 12
+        self.max_num_obj = 64
+        self.type2class = {
+            "bed": 0, "table": 1, "sofa": 2, "chair": 3, "toilet": 4,
+            "desk": 5, "dresser": 6, "night_stand": 7, "bookshelf": 8,
+            "bathtub": 9,
+        }
+        # VoteNet-lineage mean sizes
+        self.mean_size_arr = np.array([
+            [2.114256, 1.620300, 0.927272],
+            [0.791118, 1.279516, 0.718182],
+            [0.923508, 1.867419, 0.845495],
+            [0.591958, 0.552978, 0.827272],
+            [0.699104, 0.454178, 0.756250],
+            [0.695190, 1.346299, 0.736364],
+            [0.528526, 1.002642, 1.172878],
+            [0.500618, 0.632163, 0.683424],
+            [0.404671, 1.071108, 1.688889],
+            [0.765840, 1.398258, 0.472728],
+        ])
+
+    def angle2class(self, angle):
+        """Continuous angle -> (bin, residual). Bins of width 2pi/N
+        centered at 0, 2pi/N, ... (VoteNet convention)."""
+        num_class = self.num_angle_bin
+        angle = angle % (2 * np.pi)
+        angle_per_class = 2 * np.pi / num_class
+        shifted = (angle + angle_per_class / 2) % (2 * np.pi)
+        cls = int(shifted / angle_per_class)
+        residual = shifted - (cls * angle_per_class + angle_per_class / 2)
+        return cls, residual
+
+    def class2angle(self, cls, residual, limit_period=True):
+        angle_per_class = 2 * np.pi / self.num_angle_bin
+        angle = cls * angle_per_class + residual
+        if limit_period and angle > np.pi:
+            angle -= 2 * np.pi
+        return angle
+
+    def class2anglebatch(self, pred_cls, residual):
+        angle_per_class = 2 * np.pi / self.num_angle_bin
+        angle = pred_cls * angle_per_class + residual
+        return np.where(angle > np.pi, angle - 2 * np.pi, angle)
+
+
 class SyntheticDatasetConfig(ScannetDatasetConfig):
     """ScanNet-shaped config for the synthetic data generator (tests,
     benchmarks, and smoke training without real ScanNet files)."""
@@ -126,10 +174,8 @@ class SyntheticDatasetConfig(ScannetDatasetConfig):
 def get_dataset_config(name: str) -> BaseDatasetConfig:
     if name == "scannet":
         return ScannetDatasetConfig()
+    if name == "sunrgbd":
+        return SunrgbdDatasetConfig()
     if name == "synthetic":
         return SyntheticDatasetConfig()
-    if name == "sunrgbd":
-        raise NotImplementedError(
-            "sunrgbd: its angle bins need the rotated-box criterion, which "
-            "is not ported yet")
     raise ValueError(f"unknown dataset {name}")

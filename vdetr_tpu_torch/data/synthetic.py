@@ -1,7 +1,8 @@
 """Synthetic indoor scenes: a numpy copy of `vdetr_tpu/data/synthetic.py`
 (whose dataset-config import pulls in jax). For the same seed and index
-it produces identical arrays. Boxes are axis aligned, as in ScanNet; the
-rotated scenes of an angle-binned dataset are not ported.
+it produces identical arrays. Boxes are axis aligned, as in ScanNet,
+unless `rotated` (by default: the config has angle bins, as SUN RGB-D
+has): then each box gets a yaw in [-pi, pi) and its angle labels.
 
 Scenes are rooms with box-shaped objects whose sizes are drawn around the
 per-class mean sizes; points are sampled on object surfaces plus
@@ -10,7 +11,7 @@ floor/wall clutter at ~1 cm density, like a real ScanNet scan.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -20,13 +21,16 @@ from vdetr_tpu_torch.data.loader import prefetch_loader
 class SyntheticDetectionDataset:
     def __init__(self, dataset_config, num_points: int,
                  num_scenes: int = 64, min_objects: int = 3,
-                 max_objects: int = 10, seed: int = 0):
+                 max_objects: int = 10, seed: int = 0,
+                 rotated: Optional[bool] = None):
         self.ds = dataset_config
         self.num_points = num_points
         self.num_scenes = num_scenes
         self.min_objects = min_objects
         self.max_objects = max_objects
         self.seed = seed
+        self.rotated = (rotated if rotated is not None
+                        else dataset_config.num_angle_bin > 1)
 
     def __len__(self):
         return self.num_scenes
@@ -54,8 +58,12 @@ class SyntheticDetectionDataset:
             cx = rng.rand() * (room[0] - size[0]) + size[0] / 2
             cy = rng.rand() * (room[1] - size[1]) + size[1] / 2
             cz = size[2] / 2
+            ang = 0.0
+            if self.rotated:
+                ang = float(rng.rand() * 2 * np.pi - np.pi)
             centers[i] = (cx, cy, cz)
             sizes[i] = size
+            angles[i] = ang
             labels[i] = cls
             present[i] = 1.0
             # surface points at ~cm density (a real scan has ~50-80k
@@ -68,7 +76,12 @@ class SyntheticDetectionDataset:
             for ax in range(3):
                 sel = face // 2 == ax
                 u[sel, ax] = 0.5 * np.sign(face[sel] % 2 - 0.5)
-            pts_parts.append(u * size + centers[i])
+            local = u * size
+            if ang != 0.0:
+                c, s = np.cos(ang), np.sin(ang)
+                R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+                local = local @ R.T
+            pts_parts.append(local + centers[i])
 
         # floor + wall clutter at the same ~cm surface density
         nfloor = int(np.clip(room[0] * room[1] / 2e-4, 2000, 40000))
@@ -95,6 +108,11 @@ class SyntheticDetectionDataset:
         corners = self.ds.box_parametrization_to_corners_np(
             centers, sizes, angles
         )
+        angle_cls = np.zeros((K,), np.int64)
+        angle_res = np.zeros((K,), np.float32)
+        if self.rotated:
+            for i in range(n_obj):
+                angle_cls[i], angle_res[i] = self.ds.angle2class(angles[i])
 
         return {
             "point_clouds": point_cloud.astype(np.float32),
@@ -105,8 +123,8 @@ class SyntheticDetectionDataset:
             "gt_box_sizes": sizes,
             "gt_box_sizes_normalized": sizes_norm.astype(np.float32),
             "gt_box_angles": angles,
-            "gt_angle_class_label": np.zeros((K,), np.int64),
-            "gt_angle_residual_label": np.zeros((K,), np.float32),
+            "gt_angle_class_label": angle_cls,
+            "gt_angle_residual_label": angle_res,
             "gt_box_sem_cls_label": labels,
             "gt_box_present": present,
             "scan_idx": np.int64(idx),

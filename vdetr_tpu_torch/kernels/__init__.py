@@ -66,6 +66,8 @@ _SIGNATURES = {
     "nms": ("nms_samecls_f32",
             [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P]),
     "auction": ("auction_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    "rotated_iou": ("rotated_areas_f32",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -19,6 +19,9 @@ Usage:
       --dataset_root_dir scannet_data/ --checkpoint_dir ckpt/
   python -m vdetr_tpu_torch.main --dataset_name scannet --test_only 1 \\
       --auto_test 1 --test_ckpt ckpt/checkpoint_best ...
+  python -m vdetr_tpu_torch.main --dataset_name sunrgbd \\
+      --angle_type object_coords --dataset_root_dir sunrgbd_data/ \\
+      --checkpoint_dir ckpt_sun/
 
 `main(argv, device=None)`: the card unless the caller passes `device`
 (the tests pass "cpu").
@@ -87,6 +90,11 @@ def build_datasets(cfg: VDETRConfig):
 
         train = ScannetDetectionDataset(cfg, ds_cfg, "train")
         val = ScannetDetectionDataset(cfg, ds_cfg, "val")
+    elif cfg.dataset_name == "sunrgbd":
+        from vdetr_tpu_torch.data.sunrgbd import SunrgbdDetectionDataset
+
+        train = SunrgbdDetectionDataset(cfg, ds_cfg, "train")
+        val = SunrgbdDetectionDataset(cfg, ds_cfg, "val")
     else:
         raise ValueError(cfg.dataset_name)
     return {"train": train, "test": val}, ds_cfg

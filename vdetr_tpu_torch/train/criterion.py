@@ -16,9 +16,12 @@ feed the losses: focal classification, angle class and residual, center
 L1, GIoU and log-size L1, each normalized by the number of (repeated)
 boxes, plus the encoder point-classification loss.
 
-Ported for the published ScanNet model: GIoU of axis-aligned boxes.
-Rotated boxes (an angle-binned dataset, `iou_type` diou/iou) are not
-ported yet; the criterion refuses them.
+The box overlap of the costs and the loss follows `iou_type`: "giou"
+(the default) is the corner GIoU, axis-aligned for ScanNet (one angle
+bin) and rotated for an angle-binned dataset (SUN RGB-D), whose
+bird's-eye intersections run on kernel R (`ops/rotated_iou.py`) on the
+card; "diou" and "iou" are the differentiable rotated DIoU and IoU of
+each (proposal, GT) pair of (center, size, angle) boxes, plain torch.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vdetr_tpu_torch.geometry.iou import generalized_box3d_iou
+from vdetr_tpu_torch.geometry.iou import (diff_diou_rotated_3d,
+                                          diff_iou_rotated_3d,
+                                          generalized_box3d_iou)
 from vdetr_tpu_torch.geometry.points_in_boxes import points_in_boxes_all
 from vdetr_tpu_torch.ops.hungarian import (auction, auction_capacity,
                                            hungarian)
@@ -98,11 +103,9 @@ class SetCriterion:
     def __init__(self, cfg, dataset_config):
         if cfg.matcher_impl not in ("auction", "jv"):
             raise ValueError(f"unknown matcher_impl {cfg.matcher_impl!r}")
-        if cfg.iou_type != "giou" or dataset_config.num_angle_bin > 1:
-            raise NotImplementedError(
-                "only the axis-aligned GIoU path is ported (ScanNet)")
         self.cfg = cfg
         self.ds = dataset_config
+        self.rotated = dataset_config.num_angle_bin > 1
         self.loss_weights = {
             "loss_giou": cfg.loss_giou_weight,
             "loss_sem_cls": cfg.loss_sem_cls_weight,
@@ -271,12 +274,29 @@ class SetCriterion:
         return losses
 
     def prepare_output(self, outputs: Tensors, targets: Tensors) -> Tensors:
-        """Attach the GIoU, center and size distance matrices (reference
-        criterion.py:620-645)."""
+        """Attach the GIoU (or DIoU / IoU), center and size distance
+        matrices (reference criterion.py:620-645)."""
         outputs = dict(outputs)
-        outputs["gious"] = generalized_box3d_iou(
-            outputs["box_corners"], targets["gt_box_corners"],
-            targets["nactual_gt"])
+        if self.cfg.iou_type in ("diou", "iou"):
+            gt = torch.cat([targets["gt_box_centers"],
+                            targets["gt_box_sizes"],
+                            targets["gt_box_angles"][..., None]], dim=-1)
+            pred = torch.cat([outputs["center_unnormalized"],
+                              outputs["size_unnormalized"],
+                              outputs["angle_continuous"][..., None]], dim=-1)
+            B, K = gt.shape[:2]
+            nprop = pred.shape[1]
+            fn = (diff_diou_rotated_3d if self.cfg.iou_type == "diou"
+                  else diff_iou_rotated_3d)
+            gious = fn(pred[:, :, None].expand(B, nprop, K, 7),
+                       gt[:, None].expand(B, nprop, K, 7))
+            kmask = (torch.arange(K, device=gt.device)[None, :]
+                     < targets["nactual_gt"][:, None])
+            outputs["gious"] = gious * kmask[:, None, :]
+        else:
+            outputs["gious"] = generalized_box3d_iou(
+                outputs["box_corners"], targets["gt_box_corners"],
+                targets["nactual_gt"], rotated_boxes=self.rotated)
         pre_c = outputs["pre_box_center_unnormalized"][:, :, None, :]
         pre_s = outputs["pre_box_size_unnormalized"][:, :, None, :]
         gt_center_reg = ((targets["gt_box_centers"][:, None, :, :] - pre_c)
