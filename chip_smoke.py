@@ -2373,6 +2373,7 @@ def check_auction(cfg, device, power):
     plain versions' and their bounds make the kernel's row."""
     from vdetr_tpu_torch.ops.hungarian import (auction_capacity_plain,
                                                auction_launch, auction_plain)
+    from vdetr_tpu_torch.tools.ab_kernels import kernel_device_ms
 
     cases = []
     for B in (1, 4):
@@ -2381,7 +2382,7 @@ def check_auction(cfg, device, power):
                           cost, nv, rep, B))
     cases += [c + (None,) for c in auction_edge_cases(device)]
     ok, rows, main = True, [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                "bytes": 0.0, "flops": 0.0}
+                                "bytes": 0.0, "flops": 0.0, "device_ms": 0.0}
     for name, cost, nv, rep, B in cases:
         got, rounds = auction_launch(cost, nv, rep)
         if rep > 1:
@@ -2393,25 +2394,35 @@ def check_auction(cfg, device, power):
                                                       want_rounds)
         err = float((got.long() - want.long()).abs().max())
         ok &= same
-        t_k = time_ms(lambda: auction_launch(cost, nv, rep), reps=20)
+        most = max(int(rounds.max()), 1)
+        t_k = time_ms(lambda: auction_launch(cost, nv, rep),
+                      reps=20 if most < 100 else 3)
+        t_d = kernel_device_ms(lambda: auction_launch(cost, nv, rep), "M",
+                               reps=5 if most < 100 else 2)
         t_p = time_ms((lambda: auction_capacity_plain(cost, nv, rep))
                       if rep > 1 else (lambda: auction_plain(cost, nv)),
                       reps=1, warmup=0)
         nbytes, flops = auction_work(cost, nv, rep, rounds)
         bound, by = bound_ms(nbytes, flops)
+        # the problems of a launch run side by side: a round is the
+        # device time over the most rounds a problem ran
+        us_round = 1e3 * t_d / most
         rows.append(dict(case=name, problems=int(cost.shape[0]),
                          shape=list(cost.shape), repeat=rep,
                          rounds=rounds.tolist(), equal=same,
-                         max_abs_err=err, ms=t_k, plain_ms=t_p,
+                         max_abs_err=err, ms=t_k, device_ms=t_d,
+                         us_per_round=us_round, plain_ms=t_p,
                          bound_ms=bound, bound_by=by))
         log(f"auction (M) {name}: col4row and rounds "
             f"{'bit-equal' if same else 'DIFFER'} to the plain version "
             f"(max |diff| {err:.0f}, tolerance 0); rounds "
             f"{rounds.tolist()[:12]}{' ...' if len(rounds) > 12 else ''};"
-            f" kernel {t_k:.4f} ms, plain {t_p:.2f} ms, bound {bound:.6f} "
-            f"ms ({by}); card {power}")
+            f" kernel {t_k:.4f} ms (CUDA events), device {t_d:.4f} ms a "
+            f"launch ({us_round:.2f} us a round) beside its bound "
+            f"{bound:.6f} ms ({by}), plain {t_p:.2f} ms; card {power}")
         if B == 1:
             main["ms"] += t_k
+            main["device_ms"] += t_d
             main["plain_ms"] += t_p
             main["bytes"] += nbytes
             main["flops"] += flops
@@ -2420,11 +2431,14 @@ def check_auction(cfg, device, power):
     log(f"auction (M) per published train step at B=1 (2 launches, one a "
         f"shape group: the 8 repeated jobs' capacity auction and the "
         f"bilabel aux0's plain auction): "
-        f"kernel {main['ms']:.4f} ms, plain {main['plain_ms']:.2f} ms, "
-        f"bound {main['bound_ms']:.6f} ms ({main['bound_by']}); library "
-        f"none -> {'ok' if ok else 'FAIL'}")
+        f"kernel {main['ms']:.4f} ms (CUDA events), device "
+        f"{main['device_ms']:.4f} ms beside its bound "
+        f"{main['bound_ms']:.6f} ms ({main['bound_by']}), plain "
+        f"{main['plain_ms']:.2f} ms; library none -> "
+        f"{'ok' if ok else 'FAIL'}")
     return dict(ok=ok, err=max(r["max_abs_err"] for r in rows),
-                ms=main["ms"], plain_ms=main["plain_ms"],
+                ms=main["ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 cases=rows)
 
@@ -2837,7 +2851,7 @@ def check_rotated_iou(cfg, device, power):
     from vdetr_tpu_torch.ops.rotated_iou import (rotated_areas_bwd_launch,
                                                  rotated_areas_launch,
                                                  rotated_areas_plain)
-    from vdetr_tpu_torch.tools import device_ms
+    from vdetr_tpu_torch.tools import graph_ms
 
     cases = []
     for B in (1, 4):
@@ -2900,13 +2914,13 @@ def check_rotated_iou(cfg, device, power):
                    bound_ms=b_f, bound_by=by_f, bwd_bound_ms=b_b,
                    bwd_bound_by=by_b, gated_share=share,
                    pairs_with_cotangent=live, plain_grad_overflow=overflow)
+        # device ms a launch: a launch is shorter than its wrapper's
+        # Python, and torch.profiler caught few of these launches here
+        d_f = graph_ms(lambda: rotated_areas_launch(r1, r2, gate))
+        d_b = graph_ms(lambda: rotated_areas_bwd_launch(r1, r2, gate, g))
+        rec["device_ms"], rec["bwd_device_ms"] = d_f, d_b
         if B == 1:
-            dev = (device_ms(lambda: rotated_areas_launch(r1, r2, gate),
-                             reps=3)
-                   + device_ms(lambda: rotated_areas_bwd_launch(
-                       r1, r2, gate, g), reps=3))
-            rec["device_ms"] = dev
-            main["device_ms"] += dev
+            main["device_ms"] += d_f + d_b
             for k in ("ms", "bwd_ms", "plain_ms", "plain_bwd_ms"):
                 main[k] += rec[k]
             main["bound_ms"] += b_f + b_b
@@ -2926,9 +2940,12 @@ def check_rotated_iou(cfg, device, power):
             f"{f' ({overflow} entries of the plain gradient overflow)' if overflow else ''}"
             f"; gated {100 * share:.1f}% "
             f"of {gate.numel()} pairs, {live} with a cotangent; forward "
-            f"{t_f:.4f} ms (plain {t_p:.2f}, bound {b_f:.6f} {by_f}), "
-            f"backward {t_b:.4f} ms (plain autograd {t_pb:.1f}, bound "
-            f"{b_b:.6f} {by_b}) -> {'ok' if case_ok else 'FAIL'}")
+            f"{t_f:.4f} ms (CUDA events), device {d_f:.4f} ms a launch "
+            f"(a CUDA graph's back-to-back launches) beside its bound "
+            f"{b_f:.6f} ({by_f}), plain {t_p:.2f}; "
+            f"backward {t_b:.4f} ms, device {d_b:.4f} ms a launch beside "
+            f"its bound {b_b:.6f} ({by_b}), plain autograd {t_pb:.1f} -> "
+            f"{'ok' if case_ok else 'FAIL'}")
         del got, want, d1, d1b, ref
     log("  tolerance reason (backward): " + ROTATED_BWD_REASON)
     share = main["gated"] / max(main["pairs"], 1)

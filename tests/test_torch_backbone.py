@@ -17,6 +17,7 @@ import torch
 
 from test_torch_model import jax_and_port, make_inputs, tiny_config
 from vdetr_tpu.models.backbone import FPNOutBlock, FPNUpBlock, SparseResNet
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Each stage is ~10 convolutions deep; f32 sums in other orders differ by
 # ~1e-7 relative per op, so 1e-4 relative to the stage's largest feature.

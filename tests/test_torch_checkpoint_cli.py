@@ -63,13 +63,7 @@ from vdetr_tpu_torch.models.vdetr import build_model
 from vdetr_tpu_torch.train import checkpoint as ckpt_io
 from vdetr_tpu_torch.train.engine import (Trainer, epoch_generator,
                                           train_one_epoch)
-
-@pytest.fixture
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 TINY = dict(
@@ -205,7 +199,7 @@ def test_reference_pth_loads_with_every_tensor_equal(tmp_path):
         assert torch.equal(got.state_dict()[k], v), k
 
 
-def test_resume_gives_the_unbroken_epoch_bit_for_bit(tmp_path, one_thread):
+def test_resume_gives_the_unbroken_epoch_bit_for_bit(tmp_path):
     cfg = VDETRConfig(**TINY, max_epoch=2, warm_lr_epochs=1)
     ds = ScannetDatasetConfig()
     data = SyntheticDetectionDataset(ds, 512, num_scenes=4, seed=2)
@@ -282,7 +276,7 @@ def test_cli_flags_are_the_jax_clis():
     assert got == want
 
 
-def test_cli_train_checkpoint_auto_test_and_tta(tmp_path, one_thread):
+def test_cli_train_checkpoint_auto_test_and_tta(tmp_path):
     ckpt_dir = str(tmp_path / "ckpt")
     overall = main(CLI_TINY + ["--max_epoch", "1", "--checkpoint_dir",
                                ckpt_dir, "--eval_every_epoch", "10"],

@@ -948,7 +948,11 @@ def auction_tiled(rng, g, m, repeat, slots, grid=None):
     rest 1e6 sentinels; `grid` rounds the costs to that many values (exact
     ties)."""
     base = rng.randn(g, m) * 2
-    if grid:
+    if grid == "lane":  # the best columns all in lane 0 (j % 32 == 0)
+        base[:, ::32] -= 20.0
+    elif grid == "zeros":  # net values -0 and +0: top_k takes +0 first
+        base = rng.choice(np.array([-0.0, 0.0, 1.0], np.float32), (g, m))
+    elif grid:
         base = np.round(rng.rand(g, m) * (grid - 1))
     cost = np.full((slots * repeat, m), 1e6, np.float32)
     for d in range(repeat):
@@ -967,6 +971,15 @@ AUCTION_CASES = {
     "plain_rows_past_columns": (2, 40, 20, 1, [40, 12], None),
     "plain_single_column": (2, 3, 1, 1, [3, 1], None),
     "plain_no_valid_row": (2, 10, 33, 1, [0, 0], None),
+    # a class's top need + 1 entries past what a lane keeps (two keys):
+    # lanes refill; m not a multiple of 32
+    "capacity_repeat31": (2, 62, 100, 31, [62, 31], None),
+    "capacity_repeat9_ties": (2, 36, 50, 9, [27, 36], 3),
+    "capacity_one_lane_best": (3, 320, 1024, 5, [320, 100, 35], "lane"),
+    "plain_one_lane_best": (2, 64, 4096, 1, [64, 30], "lane"),
+    "plain_ties_m33": (2, 40, 33, 1, [33, 40], 2),
+    "capacity_signed_zeros": (2, 40, 64, 5, [30, 40], "zeros"),
+    "plain_signed_zeros": (2, 12, 40, 1, [12, 7], "zeros"),
 }
 
 
@@ -979,8 +992,13 @@ def test_auction_kernel_equals_plain(rng, cuda, name):
         cost = np.stack([auction_tiled(rng, k // repeat, m, repeat,
                                        n // repeat, grid) for k in nv])
     else:
-        cost = (np.round(rng.rand(P, n, m) * (grid - 1)) if grid
-                else rng.randn(P, n, m) * 3).astype(np.float32)
+        cost = (np.round(rng.rand(P, n, m) * (grid - 1))
+                if isinstance(grid, int) else rng.randn(P, n, m) * 3)
+        if grid == "lane":
+            cost[:, :, ::32] -= 20.0
+        if grid == "zeros":
+            cost = rng.choice(np.array([-0.0, 0.0, 1.0]), (P, n, m))
+        cost = cost.astype(np.float32)
         for b, k in enumerate(nv):
             cost[b, k:] = 1e6
     c, v = t(cost, cuda), t(np.array(nv), cuda)
@@ -1126,7 +1144,8 @@ def rotated_plain_grad(r1, r2, gate, g):
 
 
 @pytest.mark.parametrize("B,K1,K2", [(1, 37, 9), (2, 130, 64), (1, 5, 1),
-                                     (3, 1, 20)])
+                                     (3, 1, 20), (1, 1024, 320),
+                                     (2, 21, 130), (1, 3, 8000)])
 @pytest.mark.parametrize("gate_share", [1.0, 0.3])
 def test_rotated_iou_kernel_equals_plain(rng, cuda, B, K1, K2, gate_share):
     """Forward bit for bit against the plain version; the backward within
@@ -1153,6 +1172,54 @@ def test_rotated_iou_kernel_equals_plain(rng, cuda, B, K1, K2, gate_share):
     ref = rotated_plain_grad(r1, r2, gate, g)
     scale = ref.abs().amax((-2, -1), keepdim=True).clamp(min=1.0)
     assert float(((d1 - ref).abs() / scale).max()) <= 1e-4
+
+
+def test_rotated_iou_kernel_on_unaligned_views(rng, cuda):
+    """Gate, cotangent and output views that start one element into their
+    storage (the kernels' 4- and 16-byte reads fall back to scalar ones):
+    the same bits as on aligned copies."""
+    from vdetr_tpu_torch.ops.rotated_iou import (rotated_areas_bwd_launch,
+                                                 rotated_areas_launch)
+
+    B, K1, K2 = 2, 33, 132
+    r1 = rotated_rects(rng, B, K1, cuda=cuda)
+    r2 = rotated_rects(rng, B, K2, cuda=cuda)
+    gate = t(rng.rand(B, K1, K2) < 0.5, cuda).to(torch.uint8)
+    g = t(rng.randn(B, K1, K2).astype(np.float32), cuda)
+    gbuf = torch.zeros(gate.numel() + 1, dtype=torch.uint8, device=cuda)
+    gbuf[1:] = gate.flatten()
+    cbuf = torch.zeros(g.numel() + 1, device=cuda)
+    cbuf[1:] = g.flatten()
+    gv, cv = gbuf[1:].view(gate.shape), cbuf[1:].view(g.shape)
+    assert torch.equal(rotated_areas_launch(r1, r2, gv).view(torch.int32),
+                       rotated_areas_launch(r1, r2, gate).view(torch.int32))
+    assert torch.equal(
+        rotated_areas_bwd_launch(r1, r2, gv, cv).view(torch.int32),
+        rotated_areas_bwd_launch(r1, r2, gate, g).view(torch.int32))
+
+
+def test_rotated_iou_bwd_sums_a_rows_pairs_in_column_order(rng, cuda):
+    """Rows with several hits (a cotangent on a gated pair) in one lane's
+    four columns, in one 128-column pass and across passes: the row's
+    gradient is its pairs' gradients (each from a launch with that
+    column's cotangent alone) added in column order, bit for bit."""
+    from vdetr_tpu_torch.ops.rotated_iou import rotated_areas_bwd_launch
+
+    B, K1, K2 = 2, 5, 300
+    r1 = rotated_rects(rng, B, K1, spread=0.2, cuda=cuda)
+    r2 = rotated_rects(rng, B, K2, spread=0.2, cuda=cuda)
+    gate = torch.ones(B, K1, K2, dtype=torch.uint8, device=cuda)
+    cols = [0, 1, 3, 5, 31, 32, 33, 127, 128, 200, 255, 256, 299]
+    g = torch.zeros(B, K1, K2, device=cuda)
+    g[:, :, cols] = t(rng.randn(B, K1, len(cols)).astype(np.float32), cuda)
+    got = rotated_areas_bwd_launch(r1, r2, gate, g)
+    want = torch.zeros_like(got)
+    for k in cols:
+        one = torch.zeros_like(g)
+        one[:, :, k] = g[:, :, k]
+        want = want + rotated_areas_bwd_launch(r1, r2, gate, one)
+    assert float(got.abs().max()) > 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_rotated_iou_kernel_edge_cases(cuda):

@@ -36,6 +36,7 @@ from vdetr_tpu_torch.data.synthetic import (SyntheticDetectionDataset,
 from vdetr_tpu_torch.eval import tta
 from vdetr_tpu_torch.eval.ap_calculator import APCalculator
 from vdetr_tpu_torch.geometry.boxes import rotate_aligned_boxes_np
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCANS = ["scene0000_00", "scene0001_00", "scene0002_00", "scene0003_00"]
 

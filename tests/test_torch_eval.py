@@ -43,6 +43,7 @@ from vdetr_tpu_torch.geometry.points_in_boxes import points_in_boxes_count
 from vdetr_tpu_torch.models.vdetr import build_model as build_port_model
 from vdetr_tpu_torch.tools.nms_cases import nms_cases
 from vdetr_tpu_torch.train.engine import Trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 THR = 0.25  # the published nms_iou
 

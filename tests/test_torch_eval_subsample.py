@@ -19,6 +19,7 @@ from test_torch_eval import _assert_same_keep, _eval_steps
 from test_torch_model import MODEL_ATOL, MODEL_RTOL, tiny_config
 from vdetr_tpu.geometry.points_in_boxes import points_in_boxes_all
 from vdetr_tpu_torch.geometry.points_in_boxes import points_in_boxes_count
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CLUSTERS, PER_CLUSTER = 288, 144  # 41472 points
 

@@ -20,6 +20,7 @@ from vdetr_tpu.train.torch_import import (
     convert_torch_state_dict,
     _flatten,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

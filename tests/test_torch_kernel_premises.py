@@ -72,6 +72,7 @@ from vdetr_tpu_torch.geometry.boxes import (box_parametrization_to_corners,
 from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask_plain
 from vdetr_tpu_torch.ops import fps as tfps
 from vdetr_tpu_torch.tools.nms_cases import nms_cases, nms_chain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONV_RTOL = 1e-4  # chip_smoke.py's conv tolerance: 1e-4 of max|ref|
 
@@ -595,16 +596,15 @@ def test_corner_first_split_tf32_meets_the_probe_tolerance(K, M, nc):
 TABLE_QUERIES = 32  # queries per table block
 
 
-def fixed_point_tables(ds, corners, key_xyz, n, keys_per_block, kw):
+def fixed_point_tables(ds, taps, n, keys_per_block):
     """The table kernel and `rpe_table_sum`, emulated: every weighted ds
     of the launch rounded to an integer multiple of 2^-k (k = 30 - e for
     the largest |ds| < 2^e), summed exactly in int64 per block (32
     queries, one corner, a share of the keys), each block's table rounded
     once to f32, then the slices (batch row, query tile, key share) added
-    in order in f32. Returns (dtables, largest |term| in units 2^-k,
+    in order in f32. `taps[c]`: corner c's trilinear taps, (cell, weight)
+    each (B, nQ, nK). Returns (dtables, largest |term| in units 2^-k,
     largest |block word| in those units)."""
-    from vdetr_tpu_torch.ops.rpe_attention import _corner_taps
-
     B, H, nQ, nK = ds.shape
     _, e = math.frexp(float(ds.abs().max()))
     k = min(30 - e, 126)
@@ -613,17 +613,18 @@ def fixed_point_tables(ds, corners, key_xyz, n, keys_per_block, kw):
         for q0 in range(0, nQ, TABLE_QUERIES):
             for k0 in range(0, nK, keys_per_block):
                 sl = torch.zeros(8, n ** 3, H)
-                d = ds[b, :, q0:q0 + TABLE_QUERIES, k0:k0 + keys_per_block]
+                block = (slice(b, b + 1), slice(q0, q0 + TABLE_QUERIES),
+                         slice(k0, k0 + keys_per_block))
+                d = ds[b, :, block[1], block[2]]
                 d = d.permute(1, 2, 0).reshape(-1, H)
                 for c in range(8):
                     acc = torch.zeros(n ** 3, H, dtype=torch.int64)
-                    for cell, w in _corner_taps(
-                            corners[b:b + 1, q0:q0 + TABLE_QUERIES],
-                            None, key_xyz[b:b + 1, k0:k0 + keys_per_block],
-                            c, False, kw["log_scale"], kw["max_value"], n):
-                        x = torch.round((d * w.reshape(-1, 1)) * 2.0 ** k)
+                    for cell, w in taps[c]:
+                        x = torch.round((d * w[block].reshape(-1, 1))
+                                        * 2.0 ** k)
                         top_term = max(top_term, float(x.abs().max()))
-                        acc.index_add_(0, cell.reshape(-1), x.long())
+                        acc.index_add_(0, cell[block].reshape(-1),
+                                       x.long())
                     top_word = max(top_word, int(acc.abs().max()))
                     sl[c] = acc.float() * 2.0 ** -k
                 slices.append(sl)
@@ -661,13 +662,14 @@ def test_fixed_point_table_sums_meet_the_bwd_tolerance():
     _, ref, ds, _ = rpe_cross_attention_bwd_plain(
         kv[0], kv[1], corners, None, key_xyz, valid, out, dout, logits, lse,
         n, **kw)
-    got, top_term, top_word = fixed_point_tables(ds, corners, key_xyz, n,
-                                                 nK, kw)
+    # each corner's taps once, for the emulated blocks and the f64 sums
+    taps = [_corner_taps(corners, None, key_xyz, c, False, kw["log_scale"],
+                         kw["max_value"], n) for c in range(8)]
+    got, top_term, top_word = fixed_point_tables(ds, taps, n, nK)
     exact = torch.zeros(8, n ** 3, H, dtype=torch.float64)
     d = ds[0].permute(1, 2, 0).reshape(-1, H).double()
     for c in range(8):
-        for cell, w in _corner_taps(corners, None, key_xyz, c, False,
-                                    kw["log_scale"], kw["max_value"], n):
+        for cell, w in taps[c]:
             exact[c].index_add_(0, cell.reshape(-1), d * w.reshape(-1, 1))
     exact = exact.reshape(got.shape)
     tol = BWD_RTOL * max(1.0, float(exact.abs().max()))

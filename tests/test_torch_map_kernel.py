@@ -29,6 +29,7 @@ from vdetr_tpu_torch.ops.sparse_conv_kernel import (dw_dense, dw_row_splits,
                                                     dw_rulebook,
                                                     mapped_conv_dw_plain)
 from vdetr_tpu_torch.ops.voxelize import VoxelGrid
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def t(a):

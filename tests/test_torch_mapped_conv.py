@@ -33,6 +33,7 @@ from vdetr_tpu_torch.ops import sparse_conv as tsc
 from vdetr_tpu_torch.ops import sparse_conv_keyed as tkc
 from vdetr_tpu_torch.ops import sparse_conv_kernel as tsk
 from vdetr_tpu_torch.ops.voxelize import VoxelGrid
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 gather-matmul sums of <= 27 * C products (or, for dW, of ~500 rows)
 # taken in another order than XLA's: 1e-5 of the largest entry

@@ -11,6 +11,7 @@ from `col4row` against JAX's, and kernel M's bid key (order-preserving
 bits above the bidder) against JAX's scatter-max then scatter-min.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +21,11 @@ from vdetr_tpu.ops.hungarian import auction as j_auction
 from vdetr_tpu.ops.hungarian import auction_capacity as j_capacity
 from vdetr_tpu.train.criterion import SetCriterion as JaxCriterion
 from vdetr_tpu_torch.ops.hungarian import (auction, auction_capacity,
+                                           lane_merge_top,
                                            auction_capacity_plain,
                                            auction_plain)
 from vdetr_tpu_torch.train.criterion import SetCriterion
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def jax_auction(cost, n_valid, repeat=None, **kw):
@@ -71,6 +74,9 @@ def plain_cases():
     out["batch_of_rounds"] = ((rng.randn(4, 16, 64)).astype(np.float32),
                               [16, 3, 0, 9])
     out["single_column"] = (rng.randn(2, 3, 1).astype(np.float32), [3, 1])
+    # net values -0 (cost +0) and +0 (cost -0) tie in JAX's argmax
+    out["signed_zero_ties"] = (rng.choice(
+        np.array([-0.0, 0.0, 1.0], np.float32), (2, 12, 40)), [12, 7])
     return out
 
 
@@ -93,6 +99,9 @@ def capacity_cases():
     b = [tiled((rng.randn(g, 48) * 2).astype(np.float32), 4, 6)
          for g in (6, 2, 0, 5)]
     out["batch_of_rounds"] = (np.stack(b), [24, 8, 0, 20], 4)
+    # net values -0 (cost +0) and +0 (cost -0): lax.top_k takes +0 first
+    base = rng.choice(np.array([-0.0, 0.0, 1.0], np.float32), (6, 40))
+    out["signed_zero_ties"] = (tiled(base, 5, 8)[None], [30], 5)
     return out
 
 
@@ -175,3 +184,25 @@ def test_kernel_bid_key_is_scatter_max_then_lowest_bidder():
             assert price == bids[at].max()
             assert 0xFFFFFFFF - int(best & np.uint64(0xFFFFFFFF)) == \
                 who[at][bids[at] == bids[at].max()].min()
+
+
+@pytest.mark.parametrize("m", [33, 100, 1024])
+def test_kernel_lane_merge_is_lax_top_k_on_ties(m):
+    """Kernel M's selection of a row's top need + 1 entries (lanes keep
+    two keys each, pops merge them, emptied lanes refill:
+    `lane_merge_top`) gives `lax.top_k`'s values and columns, on values
+    with exact ties (a grid of 3, signed zeros among them, and the owned
+    columns' -1e30), for every count the capacity auction takes (up to
+    32), and where the best columns all fall to one lane."""
+    rng = np.random.RandomState(m)
+    for trial in range(4):
+        v = np.round(rng.rand(m) * 2).astype(np.float32) - np.float32(1)
+        v[rng.rand(m) < 0.2] = -0.0
+        v[rng.rand(m) < 0.1] = -1e30
+        if trial == 3:
+            v[::32] += np.float32(8)  # the best columns all in lane 0
+        for take in (1, 2, 6, 17, 32):
+            want_v, want_j = jax.lax.top_k(jnp.asarray(v), take)
+            got = lane_merge_top(v, take)
+            assert [j for _, j in got] == np.asarray(want_j).tolist()
+            assert [x for x, _ in got] == np.asarray(want_v).tolist()

@@ -31,6 +31,7 @@ from vdetr_tpu_torch.data.dataset_config import \
     ScannetDatasetConfig as PortScannetConfig
 from vdetr_tpu_torch.models.transformer import select_proposals
 from vdetr_tpu_torch.models.vdetr import build_model as build_port_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

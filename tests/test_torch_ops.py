@@ -29,6 +29,7 @@ from vdetr_tpu_torch.ops import sparse_conv as tsc
 from vdetr_tpu_torch.ops import voxelize as tvox
 from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                    keyed_conv_plain)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the module (vdetr_tpu.ops re-exports a function of the same name)
 jvox = importlib.import_module("vdetr_tpu.ops.voxelize")

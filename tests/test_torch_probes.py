@@ -29,6 +29,7 @@ from vdetr_tpu.ops.rpe_attention import (_hat, _quantize,
 from vdetr_tpu_torch.ops.rpe_attention import rpe_cross_attention_plain
 from vdetr_tpu_torch.tools import dot_micro as port_dm
 from vdetr_tpu_torch.tools import rpe_ablate as port_ra
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOOLS = Path(__file__).resolve().parents[1] / "tools"
 # the tool's tiles at a small size: a (1, 2, 2) grid of (32, 128) tiles

@@ -45,6 +45,7 @@ from vdetr_tpu_torch.geometry.boxes import \
     box_parametrization_to_corners as port_corners
 from vdetr_tpu_torch.ops.rotated_iou import (clip_quad_quad_plain,
                                              rotated_intersection_areas)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 clips and sums in other orders (XLA on the CPU may fuse
 # multiply-adds): a few ulps of areas ~1 m^2

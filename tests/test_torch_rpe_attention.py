@@ -17,6 +17,7 @@ from vdetr_tpu.ops.rpe_attention import (rpe_cross_attention_pallas,
                                          rpe_cross_attention_reference)
 from vdetr_tpu_torch.ops.rpe_attention import (pair_key_split,
                                                rpe_cross_attention)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(log_scale=512.0, max_value=4.0)
 # the JAX package's own tolerance for its kernel against the reference

@@ -60,6 +60,7 @@ from vdetr_tpu_torch.eval import ap_calculator as tap
 from vdetr_tpu_torch.main import main
 from vdetr_tpu_torch.models.vdetr import build_model as build_port_model
 from vdetr_tpu_torch.train.engine import INPUT_KEYS, Trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TRAIN_IDS = [f"{i:06d}" for i in range(1, 5)]
 VAL_IDS = ["000103", "000104"]
@@ -179,9 +180,12 @@ def _jax_variables(jm, inputs, seed):
 
 @pytest.fixture(scope="module")
 def train_steps():
-    """JAX's loss and gradients under JV and the auction (one forward,
-    one compile), and the port's train step under each from the same
-    weights."""
+    """JAX's loss and gradients under JV and the auction, and the port's
+    train step under each from the same weights. The JAX model's forward
+    is compiled once with its pullback as an output, the pullback once,
+    and each criterion's value and gradient in the model's outputs apart
+    (in one function the two criteria's backward passes through the model
+    were compiled twice)."""
     batch = _batch()
     inputs = {k: jnp.asarray(batch[k]) for k in INPUT_KEYS}
     targets = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -192,31 +196,21 @@ def train_steps():
     crits = {m: JaxCriterion(jcfg.replace(matcher_impl=m), jds)
              for m in ("jv", "auction")}
 
-    def steps(p):
-        out, vjp = jax.vjp(lambda q: jm.apply(
-            {"params": q, "batch_stats": stats}, inputs, train=True,
-            mutable=["batch_stats"])[0], p)
-        leaves, tree = jax.tree.flatten(out)
-        real = [jnp.issubdtype(x.dtype, jnp.floating) for x in leaves]
+    def forward(p):
+        return jm.apply({"params": p, "batch_stats": stats}, inputs,
+                        train=True, mutable=["batch_stats"])[0]
 
-        def loss_of(crit, floats):
-            it = iter(floats)
-            full = [next(it) if r else x for x, r in zip(leaves, real)]
-            return crit(jax.tree.unflatten(tree, full), targets)
-
-        res = {}
-        for m, crit in crits.items():
-            (loss, parts), g = jax.value_and_grad(
-                lambda f: loss_of(crit, f), has_aux=True)(
-                [x for x, r in zip(leaves, real) if r])
-            it = iter(g)
-            cot = [next(it) if r else np.zeros(x.shape, jax.dtypes.float0)
-                   for x, r in zip(leaves, real)]
-            res[m] = (loss, parts, vjp(jax.tree.unflatten(tree, cot))[0])
-        return res
-
+    out, pullback = jax.jit(lambda p: jax.vjp(forward, p))(params)
+    pull = jax.jit(lambda f, cot: f(cot)[0])
+    ref = {}
     with jax_guarded():
-        ref = jax.jit(steps)(params)
+        for m, crit in crits.items():
+            (loss, parts), g = jax.jit(jax.value_and_grad(
+                crit, has_aux=True, allow_int=True))(out, targets)
+            cot = jax.tree.map(
+                lambda x, d: d if jnp.issubdtype(x.dtype, jnp.floating)
+                else np.zeros(x.shape, jax.dtypes.float0), out, g)
+            ref[m] = (loss, parts, pull(pullback, cot))
     cfg = VDETRConfig(**TINY)
     got = {}
     for m in crits:
@@ -329,16 +323,8 @@ def test_sunrgbd_eval_step_and_ap_match_jax():
 # the CLI
 # --------------------------------------------------------------------------
 
-@pytest.fixture
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
-
-def test_sunrgbd_cli_train_eval_and_test_only(sun_root, tmp_path,
-                                              one_thread):
+def test_sunrgbd_cli_train_eval_and_test_only(sun_root, tmp_path):
     """tests/test_sunrgbd_e2e.py's run on the port (object_coords here:
     the rotated RPE), then `--test_only --auto_test` on its checkpoint
     with the final eval's mAP (at --empty_pt_thre 0 the removal keeps

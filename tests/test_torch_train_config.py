@@ -9,6 +9,7 @@ import pytest
 
 from vdetr_tpu.config import VDETRConfig as JaxConfig
 from vdetr_tpu_torch.config import VDETRConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_fields_and_defaults_equal():

@@ -37,6 +37,7 @@ from vdetr_tpu_torch.models.transformer import refine_box_predictions
 from vdetr_tpu_torch.train.criterion import SetCriterion
 
 from test_torch_rotated_iou import jax_guarded
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(repeat_num=2, matcher_impl="jv", is_bilable=True)
 HEADS = ("sem_cls", "center", "size", "angle_cls", "angle_residual")

@@ -33,6 +33,7 @@ from vdetr_tpu_torch.ops.rpe_attention import (dropout_keep,
 from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv_ad
 from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
 from vdetr_tpu_torch.train.schedule import make_lr_schedule
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

@@ -33,6 +33,7 @@ from vdetr_tpu_torch.data.dataset_config import \
 from vdetr_tpu_torch.data.synthetic import SyntheticDetectionDataset, collate
 from vdetr_tpu_torch.models.vdetr import build_model as build_port_model
 from vdetr_tpu_torch.train.engine import INPUT_KEYS, Trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(
     voxel_capacity=2048, min_stage_capacity=128, grid_extent=(128, 128, 64),

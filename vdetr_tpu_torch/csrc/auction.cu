@@ -21,8 +21,8 @@
 // repeat > 1 (capacity): class c < g = n_valid / repeat owns up to
 //   `repeat` columns; its values are row c. While a class owns fewer and
 //   rounds < max_iters: each such class takes its top need + 1 net values
-//   in lax.top_k's order (larger first, the lower column among equal
-//   values; the columns it owns at -1e30) and bids
+//   in lax.top_k's order (larger first, +0 above -0, the lower column
+//   among equal values; the columns it owns at -1e30) and bids
 //   price[j] + (v_s - v_need) + eps on its top `need` (where both are
 //   above -5e29); each column bid on goes to its highest bid (the lowest
 //   class among equal bids). Then the columns of class c go, in ascending
@@ -42,17 +42,33 @@
 // Design: 1024 threads a block. Shared memory holds the problem's state:
 // per column the best bid's key, the price and the owner (row or class);
 // per row the held column (plain) or per class the columns owned
-// (capacity). A round: a block-wide OR of "some row or class still
-// unfinished" (the loop's condition), then each warp takes rows r = warp,
-// warp + 32, ...: the warp finds the row's top entries one at a time, each
-// the largest net value that comes after the previous one in top_k's
-// order (one pass over the row, 32 columns a lane, and a 5-step shuffle
-// reduction), lane s keeping entry s; lanes s < need post their bids.
-// After a barrier, a thread a column takes its best bid: price, owner and
-// the holder's eviction (plain) or the two classes' counts (capacity).
-// The cost rows stay in device memory, read through L1/L2 each round.
-// What bounds it: its rounds, each a few dependent passes of a warp over
-// its rows' columns and three block barriers; the bytes (the valid rows
+// (capacity). A round has two block barriers: each warp takes rows r =
+// warp, warp + 32, ... and bids for those still unfinished; a block-wide OR
+// of "some row or class is unfinished" ends the loop where none is (the
+// loop's condition) and is the barrier after the bids; a thread a column
+// then settles them, and a barrier ends the round.
+//
+// A row's top entries: an entry (v, j) is the order-preserving bits of v
+// and its column, compared as top_k orders them (the larger value, then the
+// lower column; the plain auction takes -0 as +0, as its argmax does). One
+// pass over the row: each lane keeps the top two entries of its columns (j
+// = lane, lane + 32, ...) in registers. Then need + 1 pops (2 in the plain
+// auction), each two redux.sync over the lanes' heads (the largest bits,
+// then the lowest column with them); the lane that held the entry moves its
+// second one up, and a lane emptied while pops remain refills its top two
+// among its entries after the last it gave (rare: the row's top need + 1
+// seldom fall three to one lane). Lane s keeps entry s; lanes s < need post
+// their bids. A pop is a merge of sorted lists, so the entries are those
+// that need + 1 warp-wide arg-max passes over the row, each after the last,
+// would take. The plain auction's decoded value is +0 where the row's was
+// -0: its bid price + (v1 - v2) + eps is the same for both (prices are >=
+// +0).
+//
+// What bounds it: its rounds, each a pass of a warp over each bidding row's
+// columns (one cost read, a price read and ~15 instructions a column: the
+// SM's instruction throughput, one problem to an SM), the pops, and the
+// latency of the round's chain (the pass, the pops, the bids' shared
+// atomics, a barrier, the settling, a barrier); the bytes (the valid rows
 // read once) and the compares (rounds x rows x columns) are far below.
 
 #include <cuda_runtime.h>
@@ -78,43 +94,86 @@ __device__ __forceinline__ float from_order_bits(unsigned o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-// (v, j) comes before (w, k) in lax.top_k's order
-__device__ __forceinline__ bool before(float v, int j, float w, int k) {
-  return v > w || (v == w && j < k);
+// An entry (v, j) is the order-preserving bits of v and the column j:
+// (v, j) comes first when its bits are larger, or equal and j lower, as
+// in lax.top_k, where +0 is above -0 (CAPACITY); the plain auction's
+// argmax takes -0 and +0 as equal (v + 0 is +0 for both). An empty slot
+// is (0, INT_MAX): 0 is below the bits of every value.
+template <bool CAPACITY>
+__device__ __forceinline__ unsigned value_bits(float v) {
+  return order_bits(CAPACITY ? v : __fadd_rn(v, 0.0f));
 }
 
-// The row's net value at column j: -cost - price, or NEG where the class
-// owns the column (capacity; owner_mask < 0 in the plain auction).
-__device__ __forceinline__ float net_at(const float* row, const float* price,
-                                        const int* owner, int owner_mask,
-                                        int j) {
-  if (owner[j] == owner_mask) return NEG;
-  return __fsub_rn(-__ldg(row + j), price[j]);
+__device__ __forceinline__ float bits_value(unsigned x) {
+  return x ? from_order_bits(x) : -INFINITY;
 }
 
-// The warp's next entry of the row in top_k's order after (pv, pj): every
-// lane returns the same (value, column).
-__device__ __forceinline__ void warp_next(const float* row,
+// The lane's top two entries over its columns j = lane, lane + 32, ...
+// (BELOW: among those after (bx, bj)): the net value -cost - price, or
+// NEG where the class owns the column (CAPACITY). The lane's columns
+// ascend, so an entry equal to a kept one comes after it.
+template <bool CAPACITY, bool BELOW>
+__device__ __forceinline__ void lane_top2(const float* row,
                                           const float* price,
-                                          const int* owner, int owner_mask,
-                                          int m, float pv, int pj, int lane,
-                                          float& bv, int& bj) {
-  bv = -INFINITY;
-  bj = 0x7fffffff;
+                                          const int* owner, int cls, int m,
+                                          int lane, unsigned bx, int bj,
+                                          unsigned& x0, int& j0,
+                                          unsigned& x1, int& j1) {
+  x0 = x1 = 0u;
+  j0 = j1 = 0x7fffffff;
+#pragma unroll 4
   for (int j = lane; j < m; j += 32) {
-    const float v = net_at(row, price, owner, owner_mask, j);
-    if (before(pv, pj, v, j) && before(v, j, bv, bj)) {
-      bv = v;
-      bj = j;
+    const float c = __ldg(row + j);
+    const float v = CAPACITY && owner[j] == cls ? NEG
+                                                : __fsub_rn(-c, price[j]);
+    const unsigned x = value_bits<CAPACITY>(v);
+    if (BELOW && !(x < bx || (x == bx && j > bj))) continue;
+    if (x > x0) {
+      x1 = x0;
+      j1 = j0;
+      x0 = x;
+      j0 = j;
+    } else if (x > x1) {
+      x1 = x;
+      j1 = j;
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(FULL, bv, off);
-    const int oj = __shfl_xor_sync(FULL, bj, off);
-    if (before(ov, oj, bv, bj)) {
-      bv = ov;
-      bj = oj;
+}
+
+// The row's top `take` entries in top_k's order: every lane returns the
+// last (cut_x, cut_j), lane s < take entry s (mine_x, mine_j). A pop is
+// two redux.sync: the largest head's bits, then the lowest column among
+// the heads with those bits.
+template <bool CAPACITY>
+__device__ __forceinline__ void row_top(const float* row, const float* price,
+                                        const int* owner, int cls, int m,
+                                        int lane, int take, unsigned& mine_x,
+                                        int& mine_j, unsigned& cut_x,
+                                        int& cut_j) {
+  unsigned x0, x1;
+  int j0, j1;
+  lane_top2<CAPACITY, false>(row, price, owner, cls, m, lane, 0u, 0, x0, j0,
+                             x1, j1);
+  mine_x = cut_x = 0u;
+  mine_j = cut_j = 0x7fffffff;
+  for (int s = 0; s < take; ++s) {
+    const unsigned mx = __reduce_max_sync(FULL, x0);
+    const int mj = (int)__reduce_min_sync(
+        FULL, x0 == mx ? (unsigned)j0 : 0xffffffffu);
+    if (lane == s) {
+      mine_x = mx;
+      mine_j = mj;
+    }
+    cut_x = mx;
+    cut_j = mj;
+    if (mx != 0u && x0 == mx && j0 == mj) {  // this lane's head
+      x0 = x1;
+      j0 = j1;
+      x1 = 0u;
+      j1 = 0x7fffffff;
+      if (x0 == 0u && s + 1 < take)
+        lane_top2<CAPACITY, true>(row, price, owner, cls, m, lane, mx, mj,
+                                  x0, j0, x1, j1);
     }
   }
 }
@@ -192,30 +251,22 @@ auction_kernel(const float* __restrict__ cost, const int* __restrict__ nvalid,
   const float eps = eps_s;
 
   int it = 0;
-  while (true) {
+  while (it < max_iters) {
+    // bids of the rows or classes still short of their columns: the
+    // unfinished ones (the loop's condition)
     int unfinished = 0;
-    for (int r = tid; r < lrows; r += THREADS)
-      unfinished |= capacity ? rowstate[r] < repeat : rowstate[r] < 0;
-    if (!__syncthreads_or(unfinished) || it >= max_iters) break;
-
-    // bids
     for (int r = warp; r < lrows; r += WARPS) {
       const float* row = C + (size_t)r * m;
       if (capacity) {
         const int need = repeat - rowstate[r];
         if (need <= 0) continue;
-        float pv = INFINITY, v = 0.f, mine_v = 0.f;
-        int pj = -1, j = 0, mine_j = 0;
-        for (int s = 0; s <= need; ++s) {
-          warp_next(row, price, owner, r, m, pv, pj, lane, v, j);
-          if (lane == s) {
-            mine_v = v;
-            mine_j = j;
-          }
-          pv = v;
-          pj = j;
-        }
-        const float vcut = v;  // the (need+1)-th best
+        unfinished = 1;
+        unsigned mine_x, cut_x;
+        int mine_j, cut_j;
+        row_top<true>(row, price, owner, r, m, lane, need + 1, mine_x, mine_j,
+                      cut_x, cut_j);
+        const float mine_v = bits_value(mine_x);
+        const float vcut = bits_value(cut_x);  // the (need+1)-th best
         if (lane < need && mine_v > HALF_NEG && vcut > HALF_NEG) {
           const float bid = __fadd_rn(
               __fadd_rn(price[mine_j], __fsub_rn(mine_v, vcut)), eps);
@@ -223,22 +274,22 @@ auction_kernel(const float* __restrict__ cost, const int* __restrict__ nvalid,
         }
       } else {
         if (rowstate[r] >= 0) continue;
-        float v1, v2;
+        unfinished = 1;
+        unsigned x1, x2;
         int j1, j2;
-        warp_next(row, price, owner, -2, m, INFINITY, -1, lane, v1, j1);
-        if (m > 1) {
-          warp_next(row, price, owner, -2, m, v1, j1, lane, v2, j2);
-        } else {
-          v2 = __fsub_rn(v1, eps);
-        }
+        row_top<false>(row, price, owner, -2, m, lane, m > 1 ? 2 : 1, x1, j1,
+                       x2, j2);
         if (lane == 0) {
+          const float v1 = bits_value(x1);
+          const float v2 = m > 1 ? bits_value(x2) : __fsub_rn(v1, eps);
           const float bid =
               __fadd_rn(__fadd_rn(price[j1], __fsub_rn(v1, v2)), eps);
           post_bid(best, j1, bid, r);
         }
       }
     }
-    __syncthreads();
+    // the barrier after the bids: none was posted if nothing is unfinished
+    if (!__syncthreads_or(unfinished)) break;
 
     // each column bid on goes to its best bid
     for (int j = tid; j < m; j += THREADS) {

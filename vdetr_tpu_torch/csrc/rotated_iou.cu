@@ -28,28 +28,47 @@
 // __fsub_rn, __fadd_rn, __fdiv_rn: nvcc contracts nothing), and the
 // plain version's sum over the unused slots adds zeros.
 //
-// Forward: a block takes ROWS prediction rows of one batch row and every
-// column; the batch row's ground-truth quads are staged in shared memory
-// (32 bytes each); a thread takes a pair at a time, neighbouring threads
-// neighbouring columns (coalesced writes). A gated-off pair skips the
-// clip. The clip runs over the live vertices only, in a thread's local
-// arrays (16 slots, 8 used at most by convex quads).
+// Forward: a thread a pair of the flat (b, q, k) index, nothing staged:
+// neighbouring threads read neighbouring gate bytes and write
+// neighbouring areas (a warp's read is one 32-byte sector, its write 128
+// contiguous bytes). A gated pair divides its flat index by K2 and K1
+// (in 32 bits where the pairs fit) to find its quads and reads both
+// through the read-only cache (the gate passes ~0.1% of a criterion
+// job's pairs, so these reads are rare, and any K2 is taken); a pair the
+// gate turns off writes 0. One pair a thread, because a thread's clips
+// run in series: with 4 pairs a thread (a 4-byte gate read, a 16-byte
+// store) neighbouring gated pairs made the launch slower. The clip runs
+// over the live vertices only, in a thread's local arrays (16 slots, 8
+// used at most by convex quads).
 //
-// Backward (d rect1 only): one thread a (b, q) row walks its columns in
-// order, skips gated-off pairs and zero cotangents (only the matched
-// pairs of a criterion job are nonzero), replays the pair's clip keeping
-// every stage's polygon and where each vertex came from (a copy of input
-// vertex i, or the intersection of the edge ending at i), then takes the
-// shoelace's gradient back through the four stages to the subject's four
-// vertices. The row's sum runs in column order: no atomics, the same bits
-// from launch to launch. An intersection that was not appended has no
-// gradient (the plain version's denominator 1 there does the same).
+// Backward (d rect1 only): a warp owns a (b, q) row. Its lanes read the
+// row's cotangents and gate bytes in 128-column passes, 4 consecutive
+// columns a lane (16 and 4 bytes where aligned, scalar reads
+// otherwise); a ballot a pass finds the lanes with a hit (a nonzero
+// cotangent on a gated pair: only the matched pairs of a criterion job
+// carry one). The hits are replayed in column order, each by the lane
+// that owns it, through clip_area_grad on the row's running sum g, which
+// every lane holds and takes from that lane by shuffles after each hit:
+// the same calls on the same g in the same order as one thread walking
+// the row's columns, so the same bits from launch to launch.
+// clip_area_grad replays the pair's clip keeping every stage's polygon
+// and where each vertex came from (a copy of input vertex i, or the
+// intersection of the edge ending at i), then takes the shoelace's
+// gradient back through the four stages to the subject's four vertices.
+// An intersection that was not appended has no gradient (the plain
+// version's denominator 1 there does the same).
 //
-// What bounds it: operations, 5 flops an inside test of a live vertex and
-// 18 an intersection, four clip edges and the shoelace, 100-300 flops a
-// clipped pair (ops/rotated_iou.py:clip_flops), against 32 bytes of rects,
-// one of gate and 4 of output a pair; the pairs are independent, so the
-// card is filled at the published criterion's 327680 pairs a job.
+// What bounds it: the bytes. A job moves 32 bytes of rects a row and
+// column, one byte of gate and 4 of area a pair (forward), 4 of
+// cotangent and one of gate a pair (backward); the clips (5 flops an
+// inside test of a live vertex, 18 an intersection, four clip edges and
+// the shoelace, 100-300 flops a clipped pair: ops/rotated_iou.py:
+// clip_flops) run on the few gated pairs only. At B = 1 a job's 1024 rows
+// are 1024 warps of the backward and 1280 blocks of the forward. What is
+// left above the bound is a launch's fixed cost and the latency of one
+// thread's clip (forward) or one pair's replay and its reverse
+// (backward) on the pairs that have one: a chain of dependent f32
+// operations over arrays in local memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,8 +77,9 @@ namespace {
 
 constexpr int MAXV = 16;
 constexpr int THREADS = 256;
-constexpr int ROWS = 4;
 constexpr int BWD_THREADS = 128;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Poly {
   float x[MAXV], y[MAXV];
@@ -178,22 +198,34 @@ __global__ void __launch_bounds__(THREADS)
 rotated_areas_kernel(const float* __restrict__ rect1,
                      const float* __restrict__ rect2,
                      const uint8_t* __restrict__ gate,
-                     float* __restrict__ out, int K1, int K2) {
-  extern __shared__ float gt[];  // K2 quads of this batch row
-  const int b = blockIdx.y;
-  const float* r2 = rect2 + (size_t)b * K2 * 8;
-  for (int t = threadIdx.x; t < K2 * 8; t += THREADS) gt[t] = r2[t];
-  __syncthreads();
-  const int q0 = blockIdx.x * ROWS;
-  const int rows = K1 - q0 < ROWS ? K1 - q0 : ROWS;
-  const size_t base = ((size_t)b * K1 + q0) * K2;
-  for (int p = threadIdx.x; p < rows * K2; p += THREADS) {
-    const int q = q0 + p / K2, k = p % K2;
-    float area = 0.0f;
-    if (gate[base + p])
-      area = clip_area(rect1 + ((size_t)b * K1 + q) * 8, gt + k * 8);
-    out[base + p] = area;
+                     float* __restrict__ out, int K1, int K2,
+                     long long total) {
+  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (p >= total) return;
+  float area = 0.0f;
+  if (__ldg(gate + p)) {
+    // pair p = (b K1 + q) K2 + k: its quads, read before the clip (32-bit
+    // divisions where the pairs fit in 32 bits)
+    long long row, b;
+    if (total <= 0xffffffffll) {
+      const unsigned r = (unsigned)p / (unsigned)K2;
+      row = r;
+      b = r / (unsigned)K1;
+    } else {
+      row = p / K2;
+      b = row / K1;
+    }
+    const float* s = rect1 + row * 8;
+    const float* c = rect2 + (b * K2 + (p - row * K2)) * 8;
+    float subject[8], clip[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      subject[i] = __ldg(s + i);
+      clip[i] = __ldg(c + i);
+    }
+    area = clip_area(subject, clip);
   }
+  out[p] = area;
 }
 
 // d(x, y of the intersection) -> d(s), d(e), the edge constants fixed
@@ -285,27 +317,70 @@ __device__ void clip_area_grad(const float* subject, const float* clip,
   }
 }
 
+// v[i] without a dynamic index (which would put v in local memory)
+__device__ __forceinline__ float pick4(const float (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
 __global__ void __launch_bounds__(BWD_THREADS)
 rotated_areas_bwd_kernel(const float* __restrict__ rect1,
                          const float* __restrict__ rect2,
                          const uint8_t* __restrict__ gate,
                          const float* __restrict__ grad,
-                         float* __restrict__ d1, int B, int K1, int K2) {
-  const int row = blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (row >= B * K1) return;
-  const int b = row / K1;
-  const float* subject = rect1 + (size_t)row * 8;
-  const size_t base = (size_t)row * K2;
+                         float* __restrict__ d1, int B, int K1, int K2,
+                         int vec) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * BWD_WARPS + (threadIdx.x >> 5);
+  if (row >= (long long)B * K1) return;  // the whole warp
+  const long long b = row / K1;
+  const float* subject = rect1 + row * 8;
+  const float* cot_row = grad + row * K2;
+  const uint8_t* gate_row = gate + row * K2;
   float g[8];
 #pragma unroll
   for (int v = 0; v < 8; ++v) g[v] = 0.0f;
-  for (int k = 0; k < K2; ++k) {
-    const float cot = grad[base + k];
-    if (cot == 0.0f || !gate[base + k]) continue;
-    clip_area_grad(subject, rect2 + ((size_t)b * K2 + k) * 8, cot, g);
-  }
+  for (int k0 = 0; k0 < K2; k0 += 128) {
+    const int k = k0 + 4 * lane;  // this lane's 4 columns
+    float cot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    unsigned on = 0;  // gate bytes, one a column
+    if (vec && k + 4 <= K2) {
+      const float4 c = __ldg(reinterpret_cast<const float4*>(cot_row + k));
+      cot[0] = c.x;
+      cot[1] = c.y;
+      cot[2] = c.z;
+      cot[3] = c.w;
+      on = __ldg(reinterpret_cast<const unsigned*>(gate_row + k));
+    } else {
 #pragma unroll
-  for (int v = 0; v < 8; ++v) d1[(size_t)row * 8 + v] = g[v];
+      for (int i = 0; i < 4; ++i)
+        if (k + i < K2) {
+          cot[i] = __ldg(cot_row + k + i);
+          on |= (unsigned)__ldg(gate_row + k + i) << (8 * i);
+        }
+    }
+    unsigned hits = 0;  // bit i: column k + i carries a cotangent, gated
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (cot[i] != 0.0f && ((on >> (8 * i)) & 0xffu)) hits |= 1u << i;
+    // the hits in column order: lanes in order, each lane's in order
+    for (unsigned lanes = __ballot_sync(FULL, hits != 0); lanes;
+         lanes &= lanes - 1) {
+      const int src = __ffs(lanes) - 1;
+      for (unsigned h = __shfl_sync(FULL, hits, src); h; h &= h - 1) {
+        const int i = __ffs(h) - 1;
+        if (lane == src)
+          clip_area_grad(subject, rect2 + (b * K2 + k + i) * 8,
+                         pick4(cot, i), g);
+#pragma unroll
+        for (int v = 0; v < 8; ++v) g[v] = __shfl_sync(FULL, g[v], src);
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int v = 0; v < 8; ++v) d1[row * 8 + v] = g[v];
+  }
 }
 
 }  // namespace
@@ -314,20 +389,19 @@ extern "C" int rotated_areas_f32(const float* rect1, const float* rect2,
                                  const uint8_t* gate, const float* grad,
                                  float* out, int B, int K1, int K2,
                                  int backward, cudaStream_t stream) {
+  const long long rows = (long long)B * K1;
   if (backward) {
-    const int rows = B * K1;
-    rotated_areas_bwd_kernel<<<(rows + BWD_THREADS - 1) / BWD_THREADS,
+    const int vec = K2 % 4 == 0 && (uintptr_t)grad % 16 == 0 &&
+                    (uintptr_t)gate % 4 == 0;
+    rotated_areas_bwd_kernel<<<(unsigned)((rows + BWD_WARPS - 1) /
+                                          BWD_WARPS),
                                BWD_THREADS, 0, stream>>>(
-        rect1, rect2, gate, grad, out, B, K1, K2);
+        rect1, rect2, gate, grad, out, B, K1, K2, vec);
     return (int)cudaGetLastError();
   }
-  const size_t shared = (size_t)K2 * 8 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rotated_areas_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shared);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((K1 + ROWS - 1) / ROWS, B);
-  rotated_areas_kernel<<<grid, THREADS, shared, stream>>>(rect1, rect2, gate,
-                                                          out, K1, K2);
+  const long long total = rows * K2;
+  rotated_areas_kernel<<<(unsigned)((total + THREADS - 1) / THREADS),
+                         THREADS, 0, stream>>>(rect1, rect2, gate, out, K1,
+                                               K2, total);
   return (int)cudaGetLastError();
 }

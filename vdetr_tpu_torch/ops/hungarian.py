@@ -100,6 +100,13 @@ def _f32(x, like):
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+def _order_key(x):
+    """int32 keys of float32 x in the order lax.top_k sorts by: -0 below
+    +0, equal keys for equal bits."""
+    bits = x.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
 def _eps(values, genuine, eps_frac: float):
     """(P,) eps_frac * spread of the genuine values (valid rows, cost <
     1e5) of each problem, the spread at least 1e-3 and 1 where no entry is
@@ -201,10 +208,11 @@ def auction_capacity_plain(cost, n_valid, repeat: int,
             break
         net = values - prices[:, None, :]
         net = torch.where(own | ~class_valid[:, :, None], neg, net)
-        # lax.top_k's order: the lower column first among equal values
-        srt = torch.sort(net, dim=2, descending=True, stable=True)
-        topv = srt.values[:, :, :repeat + 1]
-        topj = srt.indices[:, :, :repeat + 1]
+        # lax.top_k's order: the larger value first (+0 above -0), the
+        # lower column first among equal values
+        topj = torch.sort(_order_key(net), dim=2, descending=True,
+                          stable=True).indices[:, :, :repeat + 1]
+        topv = net.gather(2, topj)
         vcut = topv.gather(2, need.clamp(0, repeat)[:, :, None])
         bidding = ((slot < need[:, :, None]) & (topv > half)
                    & (vcut > half))
@@ -241,6 +249,46 @@ def auction_capacity_plain(cost, n_valid, repeat: int,
 # --------------------------------------------------------------------------
 # The auction: kernel M
 # --------------------------------------------------------------------------
+
+def lane_merge_top(values, take: int, lanes: int = 32) -> list:
+    """Kernel M's selection of a class's top `take` entries under the
+    capacity auction, in Python: the model its source
+    (`csrc/auction.cu:row_top`) follows, for a test against `lax.top_k`.
+    values (m,) float32 net values -> [(value, column), ...] in order.
+    Each entry is a key, the order-preserving bits of its value above
+    0xffffffff - column (top_k's order: +0 above -0, the lower column
+    among equal values); each lane keeps the top two keys of its columns
+    (j = lane, lane + lanes, ...); a pop takes the largest head, the
+    lane's second key moves up, and a lane emptied while pops remain
+    takes its top two keys below the last it gave."""
+    v = np.asarray(values, np.float32).view(np.uint32)
+    bits = np.where(v & 0x80000000, ~v, v | 0x80000000).astype(np.uint64)
+    keys = [int(b) << 32 | (0xFFFFFFFF - j) for j, b in enumerate(bits)]
+
+    def top2(lane, below):
+        got = sorted((k for k in keys[lane::lanes] if k < below),
+                     reverse=True)[:2]
+        return got + [0] * (2 - len(got))
+
+    heads = [top2(lane, 1 << 64) for lane in range(lanes)]
+    out = []
+    for s in range(take):
+        w = max(h[0] for h in heads)
+        out.append(w)
+        if w:
+            lane = next(i for i, h in enumerate(heads) if h[0] == w)
+            heads[lane] = [heads[lane][1], 0]
+            if heads[lane][0] == 0 and s + 1 < take:
+                heads[lane] = top2(lane, w)
+
+    def value(k):
+        o = np.uint32(k >> 32)
+        o = o & 0x7FFFFFFF if o & 0x80000000 else ~o
+        return float(np.uint32(o).view(np.float32))
+
+    return [(value(k), 0xFFFFFFFF - (k & 0xFFFFFFFF)) if k
+            else (-np.inf, 0x7FFFFFFF) for k in out]
+
 
 def auction_shared_bytes(n: int, m: int) -> int:
     """Kernel M's dynamic shared memory for a problem of n rows and m

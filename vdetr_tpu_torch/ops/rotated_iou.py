@@ -37,9 +37,6 @@ import torch
 from vdetr_tpu_torch import kernels
 
 MAXV = 16  # vertex slots while clipping a quad by a quad (8 needed)
-# kernel R keeps one batch row's ground-truth quads, 32 bytes each, in a
-# block's shared memory
-ROTATED_MAX_GT = 227 * 1024 // 32
 # kernel R's flops: 5 a clip edge's constants, 5 an inside test of a live
 # vertex, 18 an intersection, 4 a shoelace term, 2 the half and abs
 EDGE_FLOPS, INSIDE_FLOPS, CROSS_FLOPS, SHOELACE_FLOPS = 5, 5, 18, 4
@@ -151,9 +148,6 @@ def _check(rect1, rect2, gate):
     kernels.check(rect1, torch.float32, (B, K1, 4, 2), "rect1")
     kernels.check(rect2, torch.float32, (B, K2, 4, 2), "rect2")
     kernels.check(gate, torch.uint8, (B, K1, K2), "gate")
-    if K2 > ROTATED_MAX_GT:
-        raise ValueError(f"kernel R stages at most {ROTATED_MAX_GT} "
-                         f"ground-truth quads a batch row, got {K2}")
     return B, K1, K2
 
 
@@ -172,7 +166,8 @@ def rotated_areas_launch(rect1, rect2, gate):
 
 def rotated_areas_bwd_launch(rect1, rect2, gate, grad):
     """Kernel R's backward: d areas (B, K1, K2) -> d rect1 (B, K1, 4, 2),
-    one thread a row summing its columns in order. Counts nothing."""
+    one warp a row, its pairs' gradients summed in column order. Counts
+    nothing."""
     B, K1, K2 = _check(rect1, rect2, gate)
     kernels.check(grad, torch.float32, (B, K1, K2), "grad")
     d1 = torch.empty_like(rect1)

@@ -2,8 +2,8 @@
 vdetr_tpu_torch.tools.<name>`, and the timing and bound helpers they share
 with `chip_smoke.py`.
 
-Nothing here runs at import time; `time_ms`, `device_ms` and `card`
-need the card.
+Nothing here runs at import time; `time_ms`, `device_ms`, `graph_ms`
+and `card` need the card.
 """
 
 from __future__ import annotations
@@ -49,6 +49,30 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device ms per call of `fn` for a kernel whose wrapper's Python
+    takes longer than its launch: `launches` calls captured into one CUDA
+    graph, replayed `reps` times between CUDA events, so that the launches
+    run back to back without the host between them (the gaps between
+    them are counted). `fn` allocates its outputs in the graph's pool."""
+    fn()  # builds and loads what the call needs outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
 
 
 def device_ms(fn, reps: int = 10) -> float:

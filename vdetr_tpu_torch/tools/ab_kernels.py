@@ -49,7 +49,18 @@ weights, synthetic scenes):
   kernels of the bitmask form), the plain loop's ms, and a digest of
   the keep mask's bits;
 - chip_smoke's `run_eval`: the published eval step (`test_only`) per
-  route at B = 1 and 4, ms per scene of the step and of the forward.
+  route at B = 1 and 4, ms per scene of the step and of the forward;
+- the rotated GIoU's areas, kernel R, forward and backward on each job
+  of the published SUN RGB-D criterion (`chip_smoke.rotated_inputs`: 9
+  jobs, the cotangents of that step's backward) at B = 1 and 4: ms per
+  launch (CUDA events, mean of 20), device ms per launch (torch.profiler)
+  and their sums over a step's jobs, and a digest of the inputs' and of
+  each output's bits;
+- the auction, kernel M, on the published criterion's two shape groups
+  at B = 1 and 4 (`chip_smoke.matcher_inputs`) and on chip_smoke's edge
+  cases (ties, duplicated rows, a cut at max_iters): ms per launch (CUDA
+  events), device ms per launch, the rounds, ms a round, and a digest of
+  col4row's and the rounds' bits.
 The parts (PARTS) run in that order; `--only` names the ones to run.
 Prints one JSON line per tree (`ab_kernels {...}`) and a summary table
 last; the card's name and power limit beside it. Needs the card.
@@ -82,9 +93,12 @@ KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
                 ("rpe_table_sum_kernel", "F table sum"),
                 ("dot_micro_kernel", "J2"),
                 ("nms_mask_kernel", "N mask"),
-                ("nms_scan_kernel", "N scan"))
+                ("nms_scan_kernel", "N scan"),
+                ("rotated_areas_bwd_kernel", "R backward"),
+                ("rotated_areas_kernel", "R forward"),
+                ("auction_kernel", "M"))
 PARTS = ("conv", "rpe", "table_sum", "fps", "maps", "dot_micro", "forward",
-         "train", "nms", "eval")
+         "train", "nms", "eval", "rotated", "auction")
 
 
 def _label(name: str):
@@ -166,6 +180,10 @@ def measure(parts=PARTS) -> dict:
         res["dot_micro"] = measure_dot_micro(dev)
     if "nms" in parts:
         res["nms"] = measure_nms(dev, cs)
+    if "rotated" in parts:
+        res["rotated"] = measure_rotated(dev, cs)
+    if "auction" in parts:
+        res["auction"] = measure_auction(cfg, dev, cs)
     torch.cuda.empty_cache()
     ok = True
     if {"forward", "eval"} & set(parts):
@@ -236,8 +254,7 @@ def measure_convs(cfg, dev, cs, gen) -> dict:
             err = float((got - ref).abs().max())
             row[name] = {"ms": time_ms(lambda: fn(*a), reps=20),
                          "max_abs_err": err,
-                         "sha256": hashlib.sha256(
-                             got.cpu().numpy().tobytes()).hexdigest()[:16],
+                         "sha256": digest(got),
                          "max_ref": float(ref.abs().max()),
                          "parts": profile_by_kernel(lambda: fn(*a), reps=5)}
         out[label] = row
@@ -374,8 +391,114 @@ def measure_nms(dev, cs) -> dict:
             "ms": time_ms(run, reps=20), "device_ms": parts,
             "plain_ms": plain_ms, "mismatches": int((got != ref).sum()),
             "kept": int(got.sum()),
-            "keep_sha256": hashlib.sha256(
-                got.cpu().numpy().tobytes()).hexdigest()[:16]}
+            "keep_sha256": digest(got)}
+    return out
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kernel_device_ms(fn, label: str, reps: int = 5) -> float:
+    """Device ms per call of the launches of `fn` labelled `label`
+    (KERNEL_NAMES; torch.profiler, one profile a call)."""
+    calls = profiled_calls(fn, reps, keep=lambda e: _label(e.name) == label)
+    return sum(z - a for c in calls for _, a, z in c) / 1e3 / len(calls)
+
+
+def measure_rotated(dev, cs) -> dict:
+    """Kernel R through the tree's `rotated_areas_launch` and
+    `rotated_areas_bwd_launch` on each job of the published SUN RGB-D
+    criterion at B = 1 and 4: per job ms per launch (CUDA events, mean of
+    20) and device ms per launch, forward and backward, and digests of
+    the inputs and of each output's bits; per B the sums over the jobs (a
+    train step launches each once)."""
+    import torch
+
+    from vdetr_tpu_torch.ops.rotated_iou import (rotated_areas_bwd_launch,
+                                                 rotated_areas_launch)
+    from vdetr_tpu_torch.tools import time_ms
+
+    out = {}
+    for B in (1, 4):
+        jobs = cs.rotated_inputs(cs.sun_config(), dev, B)
+        torch.cuda.empty_cache()
+        rows, total = [], {"ms": 0.0, "bwd_ms": 0.0, "device_ms": 0.0,
+                           "bwd_device_ms": 0.0}
+        for job in jobs:
+            r1, r2, gate, g = (job[k] for k in ("rect1", "rect2", "gate",
+                                                "grad"))
+
+            def fwd():
+                return rotated_areas_launch(r1, r2, gate)
+
+            def bwd():
+                return rotated_areas_bwd_launch(r1, r2, gate, g)
+
+            row = {"shape": list(gate.shape),
+                   "inputs_sha256": digest(r1, r2, gate, g),
+                   "forward_sha256": digest(fwd()),
+                   "backward_sha256": digest(bwd()),
+                   "ms": time_ms(fwd, reps=20),
+                   "bwd_ms": time_ms(bwd, reps=20),
+                   "device_ms": kernel_device_ms(fwd, "R forward"),
+                   "bwd_device_ms": kernel_device_ms(bwd, "R backward")}
+            for k in total:
+                total[k] += row[k]
+            rows.append(row)
+        total["forward_sha256"] = digest(*(rotated_areas_launch(
+            j["rect1"], j["rect2"], j["gate"]) for j in jobs))
+        total["backward_sha256"] = digest(*(rotated_areas_bwd_launch(
+            j["rect1"], j["rect2"], j["gate"], j["grad"]) for j in jobs))
+        total["inputs_sha256"] = digest(*(j[k] for j in jobs for k in (
+            "rect1", "rect2", "gate", "grad")))
+        out[str(B)] = {"jobs": rows, "step": total}
+        del jobs
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure_auction(cfg, dev, cs) -> dict:
+    """Kernel M through the tree's `auction_launch` on the published
+    criterion's shape groups at B = 1 and 4 and on chip_smoke's edge
+    cases: ms per launch (CUDA events), device ms per launch, the rounds
+    of each problem, ms a round (the device ms over the most rounds of a
+    problem: the problems run side by side), and a digest of col4row's
+    and the rounds' bits."""
+    import torch
+
+    from vdetr_tpu_torch.ops.hungarian import auction_launch
+    from vdetr_tpu_torch.tools import time_ms
+
+    cases = []
+    for B in (1, 4):
+        for kind, cost, nv, rep in cs.matcher_inputs(cfg, dev, B):
+            cases.append((f"criterion B={B} {kind} {tuple(cost.shape)}",
+                          cost, nv, rep))
+    cases += list(cs.auction_edge_cases(dev))
+    out = {}
+    for name, cost, nv, rep in cases:
+        def run():
+            return auction_launch(cost, nv, rep)
+
+        col4row, rounds = run()
+        few = int(rounds.max()) < 100
+        dev_ms = kernel_device_ms(run, "M", reps=5 if few else 2)
+        out[name] = {"shape": list(cost.shape), "repeat": rep,
+                     "rounds": rounds.tolist(),
+                     "inputs_sha256": digest(cost, nv),
+                     "sha256": digest(col4row, rounds),
+                     "ms": time_ms(run, reps=20 if few else 3),
+                     "device_ms": dev_ms,
+                     "ms_per_round": dev_ms / max(int(rounds.max()), 1)}
+    step = [v for k, v in out.items() if k.startswith("criterion B=1 ")]
+    out["step B=1"] = {"ms": sum(v["ms"] for v in step),
+                       "device_ms": sum(v["device_ms"] for v in step),
+                       "sha256": "".join(v["sha256"][:4] for v in step)}
     return out
 
 
@@ -572,6 +695,29 @@ def summary(runs) -> list:
         lines.append(f"| N {label} keep sha256 | " + " | ".join(
             r.get("nms", {}).get(label, {}).get("keep_sha256", "-")
             for r in runs) + " |")
+    for B in ("1", "4") if "rotated" in has else ():
+        for key in ("ms", "bwd_ms", "device_ms", "bwd_device_ms"):
+            lines.append(f"| R step B={B} {key} | " + col(
+                lambda r: r["rotated"][B]["step"][key]) + " |")
+        for key in ("inputs_sha256", "forward_sha256", "backward_sha256"):
+            lines.append(f"| R step B={B} {key} | " + " | ".join(
+                r.get("rotated", {}).get(B, {}).get("step", {}).get(key, "-")
+                for r in runs) + " |")
+        for i, job in enumerate(runs[0]["rotated"][B]["jobs"]):
+            for key in ("device_ms", "bwd_device_ms"):
+                lines.append(f"| R B={B} job {i} {key} | " + col(
+                    lambda r: r["rotated"][B]["jobs"][i][key]) + " |")
+    for label in runs[0].get("auction", {}):
+        keys = (("ms", "device_ms", "sha256") if label.startswith("step")
+                else ("ms", "device_ms", "ms_per_round", "sha256"))
+        for key in keys:
+            if key == "sha256":
+                lines.append(f"| M {label} sha256 | " + " | ".join(
+                    r.get("auction", {}).get(label, {}).get(key, "-")
+                    for r in runs) + " |")
+            else:
+                lines.append(f"| M {label} {key} | " + col(
+                    lambda r: r["auction"][label][key]) + " |")
     for route in ("keyed", "mapped") if "eval_step" in has else ():
         for b in ("1", "4"):
             for key in ("step_ms_per_scene", "forward_ms_per_scene"):
