@@ -107,6 +107,23 @@ Phases, each printing its own lines:
      peak memory); one step each under iou_type "diou" and "iou" (ms,
      peak memory); the CLI on fabricated SUN RGB-D scans in VoteNet's
      layout (train, --test_only --auto_test, resume);
+  9. data parallel (run after 7, before 8's lines), each group of ranks
+     spawned under a time limit (`vdetr_tpu_torch/tools/dp_step.py`):
+     (a) world size 1 on NCCL: the published model (keyed, batch 1, the
+     auction, dropout on) under DDP and sync-BN against the plain Trainer
+     in one process: two whole steps from one state leave the parameters
+     and running statistics bit for bit equal, with equal losses and
+     launches; the two steps' medians in turns; the collectives of one
+     profiled step of each (none without a group) with their device ms;
+     (b) two ranks on the one card over gloo (NCCL refuses two ranks on
+     one device), the small config: the loss, every gradient and the
+     updated parameters against the same two ranks on the CPU, at the
+     small train step's tolerances, both ranks bit-equal; (c) two ranks
+     on the card over gloo at the published width (dropout on, the
+     auction), two steps: finite losses, both ranks' parameters and
+     statistics bit-equal, each rank's launches per kernel as the
+     single-card step's (phase 5), ms per step, peak memory per rank and
+     a profiled step's collectives;
   8. a JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}} -- printed only when every phase
      passed.
@@ -131,7 +148,8 @@ import torch.nn.functional as F
 
 from vdetr_tpu_torch.tools import (PEAK_BYTES, PEAK_F32_FLOPS,
                                    PEAK_TF32_FLOPS, bound_ms,
-                                   bound_split_tf32_ms, card, time_ms)
+                                   bound_split_tf32_ms, card,
+                                   launch_counters, time_ms)
 
 SEED = 0
 REPO_SOURCES = {
@@ -1256,32 +1274,6 @@ def expected_launches(model, cfg, train: bool = False):
     return out
 
 
-def launch_counters():
-    from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask
-    from vdetr_tpu_torch.ops.hungarian import auction
-    from vdetr_tpu_torch.ops.rotated_iou import rotated_intersection_areas
-    from vdetr_tpu_torch.ops.fps import furthest_point_sample
-    from vdetr_tpu_torch.ops.map_kernel import kernel_map
-    from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
-                                                   rpe_cross_attention_bwd,
-                                                   rpe_table_sum)
-    from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
-                                                       keyed_conv_dw)
-    from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
-                                                        mapped_conv_dw)
-    from vdetr_tpu_torch.tools.dot_micro import dot_micro
-    from vdetr_tpu_torch.tools.rpe_ablate import rpe_ablate
-
-    return {"keyed_conv": keyed_conv, "fps": furthest_point_sample,
-            "rpe_cross_attention": rpe_cross_attention,
-            "keyed_conv_dw": keyed_conv_dw,
-            "rpe_cross_attention_bwd": rpe_cross_attention_bwd,
-            "rpe_table_sum": rpe_table_sum, "kernel_map": kernel_map, "mapped_conv": mapped_conv,
-            "mapped_conv_dw": mapped_conv_dw, "rpe_ablate": rpe_ablate,
-            "dot_micro": dot_micro, "nms": nms_3d_samecls_mask,
-            "auction": auction, "rotated_iou": rotated_intersection_areas}
-
-
 def fmt_counts(counts, expected):
     return ", ".join(f"{k} {counts[k]} (expected {e})"
                      for k, e in expected.items())
@@ -2224,6 +2216,62 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
     return ok, launches, stats
 
 
+def small_train_config(base=None):
+    """The small config (dropout 0, JV) of the card-against-CPU steps."""
+    return (base or tiny_config()).replace(
+        voxel_size=0.05, num_points=1024, nqueries=32, repeat_num=2,
+        matcher_impl="jv", dec_dropout=0.0, mlp_dropout=0.0,
+        warm_lr_epochs=0, max_epoch=10, base_lr=1e-3)
+
+
+# a train step on the card against the same step on the CPU
+TRAIN_TOL = {"loss": 1e-4, "grads": 1e-3, "worst": 5e-2, "updates": 1e-3}
+
+
+def train_errors(ref, got, before):
+    """The errors of a train step `got` against `ref`, each (loss,
+    {name: (gradient, parameter after the step)}) on the CPU, from the
+    parameters `before`: the loss's relative error, the gradients'
+    relative L2 error, the worst tensor's max error over its max (of the
+    tensors that are not rounding noise), and the updates' relative L2
+    error where the gradient is not rounding noise (Adam's first step
+    moves those by +-lr on the noise's sign)."""
+    (l_ref, p_ref), (l_got, p_got) = ref, got
+    g_ref = torch.cat([g.flatten() for g, _ in p_ref.values()])
+    g_got = torch.cat([p_got[n][0].flatten() for n in p_ref])
+    top = float(g_ref.abs().max())
+    u_ref, u_got = [], []
+    for n, (g, p) in p_ref.items():
+        keep = g.abs() > 1e-6 * top
+        u_ref.append((p - before[n])[keep])
+        u_got.append((p_got[n][1] - before[n])[keep])
+    u_ref, u_got = torch.cat(u_ref), torch.cat(u_got)
+    return {"loss": abs(l_got - l_ref) / abs(l_ref),
+            "grads": float((g_got - g_ref).norm() / g_ref.norm()),
+            "worst": max(float((p_got[n][0] - g).abs().max()
+                               / g.abs().max().clamp(min=1e-30))
+                         for n, (g, _) in p_ref.items()
+                         if float(g.abs().max()) > 1e-6 * top),
+            "updates": float((u_got - u_ref).norm() / u_ref.norm())}
+
+
+def fmt_train_errors(err, ref_loss, got_loss) -> str:
+    return (f"loss {got_loss:.6f} vs {ref_loss:.6f} (rel err "
+            f"{err['loss']:.2e}, tol {TRAIN_TOL['loss']:.0e}); gradients "
+            f"rel L2 err {err['grads']:.2e} (tol {TRAIN_TOL['grads']:.0e}), "
+            f"worst tensor {err['worst']:.2e} of its max (tol "
+            f"{TRAIN_TOL['worst']:.0e}); updates rel L2 err "
+            f"{err['updates']:.2e} (tol {TRAIN_TOL['updates']:.0e})")
+
+
+TRAIN_TOL_REASON = (
+    "  tolerance reason: f32 sums in other orders (~1e-6 relative per "
+    "op) through ~80 layers of forward and backward; a ReLU input "
+    "within rounding of 0 may take the other one-sided derivative on "
+    "the card, which moves a few entries of some tensors by ~1% of "
+    "their largest: hence the tensor-wise 5e-2 and the global 1e-3")
+
+
 def check_small_train_against_cpu(device, route, base=None):
     """One train step of a small model (dropout 0) on `route` (`base`: a
     small config of another dataset) on the card against the same step on
@@ -2233,10 +2281,7 @@ def check_small_train_against_cpu(device, route, base=None):
     from vdetr_tpu_torch.models.vdetr import build_model
     from vdetr_tpu_torch.train.engine import Trainer
 
-    cfg = (base or tiny_config()).replace(
-        voxel_size=0.05, num_points=1024, nqueries=32, repeat_num=2,
-        matcher_impl="jv", dec_dropout=0.0, mlp_dropout=0.0,
-        warm_lr_epochs=0, max_epoch=10, base_lr=1e-3)
+    cfg = small_train_config(base)
     ds = dataset_of(cfg)
     cpu = build_model(cfg, ds, generator=torch.Generator().manual_seed(SEED),
                       device="cpu", conv_route=route)
@@ -2249,36 +2294,12 @@ def check_small_train_against_cpu(device, route, base=None):
         loss, _ = tr.train_step(batch, torch.Generator(device=dev))
         res[name] = (loss, {n: (p.grad.cpu(), p.detach().cpu())
                             for n, p in model.named_parameters()})
-    (l_cpu, p_cpu), (l_card, p_card) = res["cpu"], res["card"]
-    g_cpu = torch.cat([g.flatten() for g, _ in p_cpu.values()])
-    g_card = torch.cat([p_card[n][0].flatten() for n in p_cpu])
-    g_err = float((g_card - g_cpu).norm() / g_cpu.norm())
-    worst = max(float((p_card[n][0] - g).abs().max() / g.abs().max().clamp(
-        min=1e-30)) for n, (g, _) in p_cpu.items()
-        if float(g.abs().max()) > 1e-6 * float(g_cpu.abs().max()))
-    # the update of each parameter, where its gradient is not rounding
-    # noise (Adam's first step moves those by +-lr on the noise's sign)
-    top = float(g_cpu.abs().max())
-    u_cpu, u_card = [], []
-    for n, (g, p) in p_cpu.items():
-        keep = g.abs() > 1e-6 * top
-        u_cpu.append((p - before[n])[keep])
-        u_card.append((p_card[n][1] - before[n])[keep])
-    u_cpu, u_card = torch.cat(u_cpu), torch.cat(u_card)
-    u_err = float((u_card - u_cpu).norm() / u_cpu.norm())
-    l_err = abs(l_card - l_cpu) / abs(l_cpu)
-    ok = l_err <= 1e-4 and g_err <= 1e-3 and worst <= 5e-2 and u_err <= 1e-3
+    err = train_errors(res["cpu"], res["card"], before)
+    ok = all(err[k] <= TRAIN_TOL[k] for k in TRAIN_TOL)
     log(f"train {route} step small {cfg.dataset_name} config on card vs CPU "
-        "plain path: loss "
-        f"{l_card:.6f} vs {l_cpu:.6f} (rel err {l_err:.2e}, tol 1e-4); "
-        f"gradients rel L2 err {g_err:.2e} (tol 1e-3), worst tensor "
-        f"{worst:.2e} of its max (tol 5e-2); updates rel L2 err {u_err:.2e}"
-        f" (tol 1e-3) -> {'ok' if ok else 'FAIL'}")
-    log("  tolerance reason: f32 sums in other orders (~1e-6 relative per "
-        "op) through ~80 layers of forward and backward; a ReLU input "
-        "within rounding of 0 may take the other one-sided derivative on "
-        "the card, which moves a few entries of some tensors by ~1% of "
-        "their largest: hence the tensor-wise 5e-2 and the global 1e-3")
+        "plain path: " + fmt_train_errors(err, res["cpu"][0], res["card"][0])
+        + f" -> {'ok' if ok else 'FAIL'}")
+    log(TRAIN_TOL_REASON)
     return ok
 
 
@@ -3077,6 +3098,189 @@ def write_sunrgbd_scans(root):
     return names
 
 
+# --------------------------------------------------------------------------
+# phase 9: data parallel (one process a rank, spawned under a time limit)
+# --------------------------------------------------------------------------
+
+# a rank's collectives wait at most this long (NCCL's watchdog or gloo
+# then raises); a group of ranks at most DP_GROUP_S s, its start included
+DP_COLLECTIVE_S = 240
+DP_GROUP_S = 420
+
+
+def dp_spec(tmp, name, world, backend, device, cfg, batches, **kw):
+    import datetime
+
+    return dict(world=world, init_method=f"file://{tmp}/{name}",
+                backend=backend, device=device, cfg=cfg, batches=batches,
+                weights_seed=SEED,
+                timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S), **kw)
+
+
+def fmt_collectives(c) -> str:
+    return (f"{c['count']} collectives {c['by_name']}, host ms "
+            f"{c['host_ms']:.2f}, NCCL kernels {c['device_kernels']} of "
+            f"{c['device_ms']:.3f} device ms")
+
+
+def dp_world1(cfg, tmp, power):
+    """(a) World size 1 on NCCL: the published model (keyed, B = 1, the
+    auction, dropout on) under DDP and sync-BN against the plain
+    `Trainer` in one process: two whole steps from one state leave the
+    same parameters and running statistics bit for bit, with the same
+    losses and launches; then their steps in turns, timed; then one step
+    of each under torch.profiler, its collectives counted (the plain
+    step's must be 0)."""
+    from vdetr_tpu_torch.models.norm import BatchNorm1d
+    from vdetr_tpu_torch.tools import run_ranks
+    from vdetr_tpu_torch.tools.dp_step import plain_vs_world1
+
+    batches = [train_batch(cfg, 1, first=i) for i in range(8)]
+    r = run_ranks(plain_vs_world1, 1, dp_spec(
+        tmp, "a", 1, "nccl", "cuda:0", cfg, batches), DP_GROUP_S)[0]
+    norms = sum(isinstance(m, BatchNorm1d) for m in
+                published_model(cfg, "cpu", "keyed").modules())
+    coll = r["collectives"]
+    ok = (not r["state_differs"] and r["losses_equal"]
+          and r["launches_equal"] and coll["plain"]["count"] == 0
+          and coll["data parallel"]["count"] >= 2 * norms + 2)
+    log(f"data parallel (a) world 1 on NCCL, published model, keyed, B=1, "
+        f"auction, dropout on: two whole steps against the plain Trainer: "
+        f"{len(r['state_differs'])} of {r['state_compared']} parameters "
+        f"and buffers differ {r['state_differs'][:5]}; losses "
+        f"{'equal' if r['losses_equal'] else 'differ'} "
+        f"{[s[0] for s in r['steps']['plain']]} vs "
+        f"{[s[0] for s in r['steps']['data parallel']]}; launches "
+        f"{'equal' if r['launches_equal'] else 'differ'}")
+    log(f"data parallel (a) medians in turns over {len(batches) - 2} steps: "
+        + "; ".join(f"{k} {v:.1f} ms [" + ", ".join(
+            f"{t:.1f}" for t in r["ms"][k]) + "]"
+            for k, v in r["median_ms"].items()) + f"; card {power}")
+    log(f"data parallel (a) collectives of one profiled step: plain "
+        + fmt_collectives(coll["plain"]) + "; data parallel "
+        + fmt_collectives(coll["data parallel"])
+        + f" (sync-BN's {norms} batch norms: {2 * norms} all-reduces, one "
+        "forward and one backward each; the criterion's mean GT count and "
+        "the loss's mean one each; DDP's gradient buckets and buffer "
+        f"broadcast the rest) -> {'ok' if ok else 'FAIL'}")
+    return ok, r
+
+
+def rank_step(r, i: int = 0):
+    """A rank's (loss, {name: (gradient, parameter)}) after its steps."""
+    return (r["steps"][i][0],
+            {n: (g, r["params"][n]) for n, g in r["grads"].items()})
+
+
+def ranks_equal(ranks, keys=("grads", "params", "buffers")):
+    """The names whose tensors are not bit-equal across the ranks."""
+    first = ranks[0]
+    return [f"{k}:{n}" for r in ranks[1:] for k in keys
+            for n, v in first[k].items() if not torch.equal(v, r[k][n])]
+
+
+def dp_two_ranks_small(tmp):
+    """(b) Two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), the small config, a scene each: rank 0's loss, every
+    gradient and the updated parameters against the same 2-rank step on
+    the CPU, at the card-against-CPU tolerances; both ranks bit-equal."""
+    from vdetr_tpu_torch.tools import run_ranks
+    from vdetr_tpu_torch.tools.dp_step import train_rank
+
+    cfg = small_train_config()
+    batch = train_batch(cfg, 2, first=3)
+    before = {n: p.detach().clone() for n, p in published_model(
+        cfg, "cpu", "keyed").named_parameters()}
+    card = run_ranks(train_rank, 2, dp_spec(
+        tmp, "b_card", 2, "gloo", "cuda:0", cfg, [batch]), DP_GROUP_S)
+    cpu = run_ranks(train_rank, 2, dp_spec(
+        tmp, "b_cpu", 2, "gloo", "cpu", cfg, [batch], threads=4),
+        DP_GROUP_S)
+    err = train_errors(rank_step(cpu[0]), rank_step(card[0]), before)
+    differ = ranks_equal(card)
+    ok = all(err[k] <= TRAIN_TOL[k] for k in TRAIN_TOL) and not differ
+    log("data parallel (b) two ranks on the card over gloo, small config, "
+        "against the same two ranks on the CPU (plain path): "
+        + fmt_train_errors(err, cpu[0]["steps"][0][0],
+                           card[0]["steps"][0][0])
+        + f"; the card's ranks differ in {len(differ)} tensors "
+        f"{differ[:5]} -> {'ok' if ok else 'FAIL'}")
+    log(TRAIN_TOL_REASON)
+    return ok, err
+
+
+def dp_two_ranks_published(cfg, tmp, power, single_launches):
+    """(c) Two ranks on the card over gloo at the published width
+    (keyed, dropout on, the auction), a scene each, two steps: finite
+    losses, both ranks' parameters and buffers bit-equal after them, each
+    rank's launches per step as the single-card step's (phase 5), ms per
+    step and peak memory per rank; then a profiled step's collectives."""
+    from vdetr_tpu_torch.tools import run_ranks
+    from vdetr_tpu_torch.tools.dp_step import train_rank
+
+    batches = [train_batch(cfg, 2, first=2 * i) for i in range(2)]
+    ranks = run_ranks(train_rank, 2, dp_spec(
+        tmp, "c", 2, "gloo", "cuda:0", cfg, batches, profile=True),
+        DP_GROUP_S)
+    differ = ranks_equal(ranks, ("params", "buffers"))
+    finite = all(math.isfinite(s[0]) for r in ranks for s in r["steps"])
+    launches_ok = all(s[3] == single_launches for r in ranks
+                      for s in r["steps"])
+    ok = finite and not differ and launches_ok
+    for rank, r in enumerate(ranks):
+        log(f"data parallel (c) rank {rank} of 2 over gloo on one card, "
+            "published model, keyed, B=1 a rank, auction, dropout on: "
+            "losses (the ranks' mean) "
+            + ", ".join(f"{s[0]:.4f}" for s in r["steps"]) + "; ms a step "
+            + ", ".join(f"{s[2]:.1f}" for s in r["steps"]) + "; peak "
+            + ", ".join(f"{s[4]:.2f}" for s in r["steps"])
+            + " GiB; launches " + "; ".join(fmt_counts(s[3], {
+                k: e for k, e in single_launches.items() if e or s[3][k]})
+                for s in r["steps"])
+            + "; profiled step: " + fmt_collectives(r["collectives"]))
+    log(f"data parallel (c) both ranks' parameters and buffers after two "
+        f"steps: {len(differ)} differ {differ[:5]}; losses "
+        f"{'finite' if finite else 'NOT finite'}; launches "
+        f"{'as' if launches_ok else 'NOT as'} the single-card step's; card "
+        f"{power} -> {'ok' if ok else 'FAIL'}")
+    return ok, ranks
+
+
+def run_data_parallel(cfg, power, single_launches):
+    """Phase 9: (a), (b) and (c), each group of ranks spawned under a time
+    limit (a rank that raises, dies or hangs fails the phase)."""
+    import tempfile
+
+    parts = {
+        "world1_nccl": lambda tmp: dp_world1(cfg, tmp, power),
+        "two_ranks_small_vs_cpu": dp_two_ranks_small,
+        "two_ranks_published": lambda tmp: dp_two_ranks_published(
+            cfg, tmp, power, single_launches)}
+    ok, out = True, {"card": power}
+    for name, part in parts.items():
+        with tempfile.TemporaryDirectory(prefix="vdetr_dp_") as tmp:
+            try:
+                part_ok, res = part(tmp)
+            except Exception:  # a rank raised, died or timed out
+                import traceback
+
+                log(f"data parallel {name}: FAIL\n"
+                    + traceback.format_exc())
+                ok = False
+                continue
+        ok &= part_ok
+        if name == "world1_nccl":
+            res = {k: res[k] for k in ("state_differs", "median_ms", "ms",
+                                       "collectives")}
+        elif name == "two_ranks_published":
+            res = [{"steps_ms": [s[2] for s in r["steps"]],
+                    "peak_gib": [s[4] for s in r["steps"]],
+                    "losses": [s[0] for s in r["steps"]],
+                    "collectives": r["collectives"]} for r in res]
+        out[name] = res
+    return ok, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3193,6 +3397,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_si, sun_iou = run_iou_types(scfg, device, smi)
     ok_sc, sun_cli = run_cli(device, smi, dataset="sunrgbd")
+    torch.cuda.empty_cache()
+
+    # 9. data parallel: world 1 on NCCL against the plain step, two ranks
+    # on the one card over gloo against the CPU (small) and at the
+    # published width
+    ok_dp, dp = run_data_parallel(cfg, smi, train_launches["keyed"])
     log("keyed vs mapped route (ms): forward/scene B=1 "
         f"{per_scene['keyed'][1]:.2f} vs {per_scene['mapped'][1]:.2f}, B=4 "
         f"{per_scene['keyed'][4]:.2f} vs {per_scene['mapped'][4]:.2f}; "
@@ -3273,12 +3483,13 @@ def main() -> int:
                       for route in ROUTES},
         "ap_end_to_end": {"device_nms": sun_ap, "rotated_nms": sun_ap_rot},
         "train": sun_train, "iou_types": sun_iou, "cli": sun_cli}
+    record["data_parallel"] = dp
     record["card"] = smi
     log(json.dumps(record))
     if not (all(r["ok"] for r in res.values()) and ok_f and ok_fpn and ok_s
             and ok_e and ok_ap and ok_se and ok_t and ok_ts and ok_c
             and ok_sev and ok_sap and ok_sapr and all(ok_ss) and ok_st
-            and ok_si and ok_sc):
+            and ok_si and ok_sc and ok_dp):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

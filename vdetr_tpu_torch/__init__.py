@@ -3,7 +3,8 @@
 AP (`train.engine.Trainer.eval_step`, `eval/`), the train step
 (`train.engine.Trainer`) of the published model, and the CLI that
 trains, checkpoints, resumes and evaluates it on ScanNet-format scans
-(`python -m vdetr_tpu_torch.main`).
+(`python -m vdetr_tpu_torch.main`), on one card or, launched by
+`torchrun`, data-parallel over one process a card (`parallel/`).
 
 A port of `vdetr_tpu` (JAX on a TPU), which stays in the repository as
 the reference. Module names mirror `vdetr_tpu/` so each counterpart is

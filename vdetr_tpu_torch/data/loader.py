@@ -10,6 +10,12 @@ Batch contract matches data/synthetic.make_loader: optional shuffling,
 drop_last, and pad_last (static batch shape + per-sample `sample_valid`
 mask so tail scans are scored, never dropped). The batches and their
 order are the JAX package's for the same seed.
+
+Under data parallelism (`rank`, `world`) every rank draws the plan of
+the global batch and fetches only its own rows of each batch (rank r of
+n: rows [r b, (r + 1) b) of n b, `parallel.dist.rows`), so that the
+ranks' rows together are the batch one process would load; `pad_last`
+pads the global batch, and every rank's rows keep the static shape.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
+
+from vdetr_tpu_torch.parallel.dist import rows
 
 
 def _batch_indices(n, batch_size, shuffle, seed, drop_last, pad_last):
@@ -48,15 +56,30 @@ def _collate(samples, nvalid, pad_last):
     return batch
 
 
+def _shard(plan, batch_size, rank, world):
+    """Rank `rank`'s rows of each batch of `plan`, with their count of
+    valid rows."""
+    mine = rows(batch_size, rank, world)
+    return [(take[mine], min(max(nvalid - mine.start, 0), len(take[mine])))
+            for take, nvalid in plan]
+
+
 def prefetch_loader(dataset, batch_size: int, shuffle: bool = True,
                     seed: int = 0, drop_last: bool = True,
                     pad_last: bool = False, num_workers: int = 0,
-                    prefetch_batches: int = 2) -> Iterator:
+                    prefetch_batches: int = 2, rank: int = 0,
+                    world: int = 1) -> Iterator:
     """Yields collated batches; with num_workers > 0, up to
     `prefetch_batches` future batches are being fetched concurrently while
-    the consumer runs the current step."""
+    the consumer runs the current step. `batch_size` is the global batch:
+    with `world` > 1 each batch holds rank `rank`'s share of it."""
     plan = _batch_indices(len(dataset), batch_size, shuffle, seed,
                           drop_last, pad_last)
+    if world > 1:
+        if not (drop_last or pad_last):
+            raise ValueError("a short last batch does not split over the "
+                             "ranks: pass drop_last or pad_last")
+        plan = _shard(plan, batch_size, rank, world)
     if num_workers <= 0:
         for take, nvalid in plan:
             yield _collate([dataset[int(j)] for j in take], nvalid, pad_last)

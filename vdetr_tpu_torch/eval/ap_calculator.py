@@ -28,6 +28,10 @@ from vdetr_tpu_torch.geometry.nms import (
     nms_3d_rotated_samecls_np,
 )
 
+# the batch fields `APCalculator.step` reads
+AP_TARGET_KEYS = ("point_clouds", "gt_box_corners", "gt_box_sem_cls_label",
+                  "gt_box_present", "sample_valid")
+
 
 def _host(x) -> np.ndarray:
     """A tensor (on any device) or array as a numpy array: one copy."""
@@ -304,9 +308,8 @@ class APCalculator:
             corners_key, "sem_cls_prob", "objectness_prob", "angle_prob",
             "center_unnormalized", "size_unnormalized", "angle_continuous",
             "nms_keep") if k in outputs}
-        targets = {k: _host(targets[k]) for k in (
-            "point_clouds", "gt_box_corners", "gt_box_sem_cls_label",
-            "gt_box_present", "sample_valid") if k in targets}
+        targets = {k: _host(targets[k]) for k in AP_TARGET_KEYS
+                   if k in targets}
         csa = np.concatenate(
             [outputs["center_unnormalized"], outputs["size_unnormalized"],
              outputs["angle_continuous"][..., None]], axis=-1,

@@ -1,10 +1,19 @@
-"""CLI: training / evaluation orchestration on one CUDA card (the port of
+"""CLI: training / evaluation orchestration on CUDA cards (the port of
 `vdetr_tpu/main.py`; reference main.py).
 
 The flag surface is the JAX package's: every VDETRConfig field becomes a
-flag, bools as 0/1, except the mesh fields (one card, so the global batch
-is `--batchsize_per_gpu`). The sparse convs run on the keyed route, the
-port's default. The flow is the JAX `main`'s: an epoch loop of
+flag, bools as 0/1, except the mesh fields: the world is whatever
+launched the processes. `python -m vdetr_tpu_torch.main` is one process
+on one card; `torchrun --standalone --nproc_per_node N -m
+vdetr_tpu_torch.main` is N ranks, one a card (LOCAL_RANK), in an NCCL
+group (`parallel/dist.py`), the reference's published 8-GPU recipe: the
+global batch is `--batchsize_per_gpu` x N, each rank steps on its rows,
+the gradients are averaged and the batch norms synced
+(`--mink_syncbn`); rank 0 alone prints and writes the checkpoints, the
+metrics and `final_eval.*`, after which every rank waits; rank 0's eval
+metrics reach every rank, so that every rank takes the same decisions
+and `main` returns the same metrics on each. The sparse convs run on the
+keyed route, the port's default. The flow is the JAX `main`'s: an epoch loop of
 `train_one_epoch`, a checkpoint every epoch and numbered snapshots in the
 last tenth, eval passes (`epoch % eval_every_epoch == 0`, the last epoch
 and epoch 10) over the whole val set (`pad_last`), the best checkpoint by
@@ -15,6 +24,9 @@ checkpoint directory or a reference `.pth`, with `--auto_test`
 
 Usage:
   python -m vdetr_tpu_torch.main --dataset_name synthetic --max_epoch 2
+  torchrun --standalone --nproc_per_node 8 -m vdetr_tpu_torch.main \\
+      --dataset_name scannet --dataset_root_dir scannet_data/ \\
+      --checkpoint_dir ckpt/
   python -m vdetr_tpu_torch.main --dataset_name scannet \\
       --dataset_root_dir scannet_data/ --checkpoint_dir ckpt/
   python -m vdetr_tpu_torch.main --dataset_name scannet --test_only 1 \\
@@ -24,7 +36,7 @@ Usage:
       --checkpoint_dir ckpt_sun/
 
 `main(argv, device=None)`: the card unless the caller passes `device`
-(the tests pass "cpu").
+(the tests pass "cpu"; ranks on the CPU meet over gloo).
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ import numpy as np
 
 from vdetr_tpu_torch.config import AUTO_TEST_IGNORE_KEYS, VDETRConfig
 
-# the JAX package's mesh fields: one card here, nothing to shard
+# the JAX package's mesh fields: the launcher sets the world here
 _NOT_FLAGS = ("grid_extent", "mesh_shape", "mesh_axis_names")
 
 
@@ -51,7 +63,7 @@ def make_args_parser() -> argparse.ArgumentParser:
     """Every VDETRConfig field becomes a flag (bools as 0/1, so that a
     True default can be turned off)."""
     parser = argparse.ArgumentParser(
-        "V-DETR 3D detection on one CUDA card (vdetr_tpu_torch)",
+        "V-DETR 3D detection on CUDA cards (vdetr_tpu_torch)",
         add_help=True)
     defaults = VDETRConfig()
     for f in dataclasses.fields(VDETRConfig):
@@ -114,7 +126,7 @@ def _reference_checkpoint(cfg: VDETRConfig):
     return ckpt, cfg
 
 
-def _load_reference_weights(model, ckpt) -> None:
+def _load_reference_weights(model, ckpt, log=print) -> None:
     from vdetr_tpu_torch.convert import from_reference_state_dict
 
     sd = from_reference_state_dict(ckpt["model"] if "model" in ckpt
@@ -124,26 +136,48 @@ def _load_reference_weights(model, ckpt) -> None:
         raise ValueError(f"torch checkpoint missing {len(missing)} tensors, "
                          f"e.g. {missing[:5]}")
     if unused:
-        print(f"warning: {len(unused)} unused ckpt tensors, e.g. "
-              f"{unused[:5]}")
-    print(f"imported torch checkpoint at epoch {ckpt.get('epoch')}")
+        log(f"warning: {len(unused)} unused ckpt tensors, e.g. "
+            f"{unused[:5]}")
+    log(f"imported torch checkpoint at epoch {ckpt.get('epoch')}")
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The printer of the ranks other than 0."""
 
 
 def main(argv: Optional[list] = None, device=None):
     import torch
 
+    from vdetr_tpu_torch.models.vdetr import resolve_device
+    from vdetr_tpu_torch.parallel import dist
+
+    args = make_args_parser().parse_args(argv)
+    device = resolve_device(device)
+    group = dist.init_from_env(device)
+    try:
+        if group is not None and device.type == "cuda":
+            device = torch.device("cuda", dist.local_rank())
+        return _run(config_from_args(args), device, group)
+    finally:
+        dist.destroy(group)
+
+
+def _run(cfg: VDETRConfig, device, group):
+    import torch
+
     from vdetr_tpu_torch.data.loader import prefetch_loader
     from vdetr_tpu_torch.eval.ap_calculator import (APCalculator,
                                                     config_dict_from_cfg)
-    from vdetr_tpu_torch.models.vdetr import build_model, resolve_device
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.parallel import dist
     from vdetr_tpu_torch.train import checkpoint as ckpt_io
     from vdetr_tpu_torch.train.engine import (Trainer, epoch_generator,
                                               evaluate, train_one_epoch)
     from vdetr_tpu_torch.utils.logging import MetricsLogger
 
-    args = make_args_parser().parse_args(argv)
-    cfg = config_from_args(args)
-    device = resolve_device(device)
+    rank, world = dist.rank(group), dist.world(group)
+    main_rank = rank == 0
+    log = print if main_rank else _quiet
 
     torch_ckpt = None
     if cfg.test_only and cfg.test_ckpt and cfg.test_ckpt.endswith(".pth"):
@@ -153,12 +187,13 @@ def main(argv: Optional[list] = None, device=None):
 
     np.random.seed(cfg.seed)
     datasets, ds_cfg = build_datasets(cfg)
-    batch = cfg.batchsize_per_gpu
+    batch = cfg.batchsize_per_gpu * world  # the global batch
     steps_per_epoch = max(len(datasets["train"]) // batch, 1)
     model = build_model(cfg, ds_cfg,
                         generator=torch.Generator().manual_seed(cfg.seed),
                         device=device)
-    trainer = Trainer(cfg, model, ds_cfg, steps_per_epoch, device=device)
+    trainer = Trainer(cfg, model, ds_cfg, steps_per_epoch, device=device,
+                      group=group)
 
     def eval_pass():
         calc = APCalculator(
@@ -171,30 +206,34 @@ def main(argv: Optional[list] = None, device=None):
         # scans at bs=1, engine.py:125-192; dropping the tail biases mAP)
         loader = prefetch_loader(datasets["test"], batch, shuffle=False,
                                  pad_last=True,
-                                 num_workers=cfg.dataset_num_workers)
+                                 num_workers=cfg.dataset_num_workers,
+                                 rank=rank, world=world)
+        eval_fn = None
         if cfg.tta:
             from vdetr_tpu_torch.eval.tta import tta_eval_step
 
-            for b in loader:
-                calc.step(tta_eval_step(trainer.eval_step, b), b)
-        else:
-            evaluate(trainer, loader, calc)
-        overall = calc.compute_metrics()
-        print(calc.metrics_to_str(overall))
+            def eval_fn(b):
+                return tta_eval_step(trainer.eval_step, b)
+        evaluate(trainer, loader, calc, logger=log,
+                 eval_fn=eval_fn)
+        # rank 0's calculator holds every scan
+        overall = dist.broadcast_object(
+            calc.compute_metrics() if main_rank else None, group)
+        log(calc.metrics_to_str(overall))
         return calc, overall
 
     if cfg.test_only:
         if torch_ckpt is not None:
-            _load_reference_weights(trainer.model, torch_ckpt)
+            _load_reference_weights(trainer.model, torch_ckpt, log)
         elif cfg.test_ckpt and ckpt_io.is_jax_checkpoint(cfg.test_ckpt):
             header = ckpt_io.load_jax_checkpoint(cfg.test_ckpt,
                                                  trainer.model, cfg)
-            print(f"loaded JAX checkpoint at epoch {header.get('epoch')}")
+            log(f"loaded JAX checkpoint at epoch {header.get('epoch')}")
         elif cfg.test_ckpt:
             header = ckpt_io.load_checkpoint(cfg.test_ckpt, trainer)
-            print(f"loaded checkpoint at epoch {header.get('epoch')}")
+            log(f"loaded checkpoint at epoch {header.get('epoch')}")
         calc, overall = eval_pass()
-        if cfg.test_size:
+        if cfg.test_size and main_rank:  # rank 0's calculator holds them
             for size in ("S", "M", "L"):
                 print(f"==== size bucket {size} ====")
                 print(calc.metrics_to_str(calc.compute_metrics(size=size)))
@@ -204,13 +243,16 @@ def main(argv: Optional[list] = None, device=None):
     start_epoch = 0
     best = {}
     if cfg.checkpoint_dir:
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        if main_rank:
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        dist.barrier(group)
         last_epoch, best = ckpt_io.resume_if_possible(cfg.checkpoint_dir,
                                                       trainer)
         start_epoch = last_epoch + 1
-    mlogger = MetricsLogger(cfg.checkpoint_dir, run_name="train")
+    mlogger = MetricsLogger(cfg.checkpoint_dir, run_name="train",
+                            group=group)
     wandb = None
-    if cfg.wandb_activate:
+    if cfg.wandb_activate and main_rank:
         try:  # optional: the JSONL log is always written
             import wandb as _wandb
 
@@ -226,12 +268,14 @@ def main(argv: Optional[list] = None, device=None):
         for epoch in range(start_epoch, cfg.max_epoch):
             loader = prefetch_loader(datasets["train"], batch, shuffle=True,
                                      seed=cfg.seed + epoch,
-                                     num_workers=cfg.dataset_num_workers)
+                                     num_workers=cfg.dataset_num_workers,
+                                     rank=rank, world=world)
             mean_loss, loss_dict = train_one_epoch(
                 trainer, loader, epoch, epoch_generator(trainer, epoch),
-                log_every=cfg.log_every, metrics_logger=mlogger,
+                log_every=cfg.log_every, logger=log,
+                metrics_logger=mlogger,
                 log_metrics_every=cfg.log_metrics_every,
-                profile_dir=cfg.profile_dir)
+                profile_dir=cfg.profile_dir if main_rank else None)
             if cfg.checkpoint_dir:
                 ckpt_io.save_checkpoint(cfg.checkpoint_dir, trainer, cfg,
                                         epoch, best)
@@ -269,20 +313,21 @@ def main(argv: Optional[list] = None, device=None):
                         ckpt_io.save_checkpoint(cfg.checkpoint_dir, trainer,
                                                 cfg, epoch, best,
                                                 filename=ckpt_io.BEST)
-                print(f"epoch {epoch}: loss {mean_loss:.3f} "
-                      f"mAP@0.25 {cur * 100:.2f} (best {best})")
+                log(f"epoch {epoch}: loss {mean_loss:.3f} "
+                    f"mAP@0.25 {cur * 100:.2f} (best {best})")
     finally:
         mlogger.close()
 
     # final artifacts (reference main.py:260-261, 422-434)
     calc, overall = eval_pass()
-    if cfg.checkpoint_dir:
+    if cfg.checkpoint_dir and main_rank:
         with open(os.path.join(cfg.checkpoint_dir, "final_eval.txt"),
                   "w") as f:
             f.write(calc.metrics_to_str(overall))
         with open(os.path.join(cfg.checkpoint_dir, "final_eval.pkl"),
                   "wb") as f:
             pickle.dump({float(k): dict(v) for k, v in overall.items()}, f)
+    dist.barrier(group)
     return overall
 
 

@@ -14,12 +14,22 @@ masked voxel norm and over all of (B, N) for the dense one. The running
 statistics then move by momentum 0.1 towards the batch mean and the
 unbiased variance. In eval mode they normalize with the running
 statistics.
+
+Sync-BN (`sync_batch_norms`, the JAX package's `axis_name`): with a
+process group of several ranks, each batch norm sums its (count, sum,
+sum of squares) over the ranks in one all-reduce, whose backward sums
+the cotangents over the ranks; the mean, the biased variance and the
+running statistics' unbiased variance then come from the global count,
+as the ranks' batches were one batch. Without a group nothing of this
+runs.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from vdetr_tpu_torch.parallel.dist import all_reduce_sum
 
 MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
@@ -34,6 +44,7 @@ class BatchNorm1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.group = None  # sync-BN's process group (`sync_batch_norms`)
 
     def normalize(self, x, mask=None):
         """Normalize x (B, N, C); in train mode with statistics over the
@@ -45,8 +56,15 @@ class BatchNorm1d(nn.Module):
                 s, sq = x.sum(dim=(0, 1)), (x * x).sum(dim=(0, 1))
             else:
                 m = mask.to(x.dtype)[..., None]
-                cnt = m.sum().clamp(min=1.0)
+                cnt = m.sum()
                 s, sq = (x * m).sum(dim=(0, 1)), (x * x * m).sum(dim=(0, 1))
+            if self.group is not None:
+                c = s.shape[0]
+                packed = all_reduce_sum(torch.cat([cnt.reshape(1), s, sq]),
+                                        self.group)
+                cnt, s, sq = packed[0], packed[1:c + 1], packed[c + 1:]
+            if mask is not None:
+                cnt = cnt.clamp(min=1.0)
             mean = s / cnt
             var = (sq / cnt - mean * mean).clamp(min=0.0)
             with torch.no_grad():
@@ -93,3 +111,12 @@ class MaskedInstanceNorm(nn.Module):
         var = ((x - mean) ** 2 * m).sum(dim=1, keepdim=True) / cnt
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[..., None], y, 0.0)
+
+
+def sync_batch_norms(model: nn.Module, group) -> None:
+    """Sync-BN: every batch norm of `model` takes its train-mode
+    statistics over the ranks of `group` (None: over its own batch). The
+    state_dict's names do not change."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm1d):
+            m.group = group

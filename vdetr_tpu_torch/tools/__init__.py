@@ -1,6 +1,6 @@
 """Probes of the port's Hopper kernels, run as `python -m
-vdetr_tpu_torch.tools.<name>`, and the timing and bound helpers they share
-with `chip_smoke.py`.
+vdetr_tpu_torch.tools.<name>`, and the timing, bound, launch-count and
+process helpers they share with `chip_smoke.py` and the tests.
 
 Nothing here runs at import time; `time_ms`, `device_ms`, `graph_ms`
 and `card` need the card.
@@ -8,7 +8,10 @@ and `card` need the card.
 
 from __future__ import annotations
 
+import os
 import subprocess
+import tempfile
+import time
 
 import torch
 
@@ -95,3 +98,65 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def launch_counters():
+    """{kernel name: its wrapper}: each wrapper counts its launches on
+    its `launches` attribute (CUDA tensors only; the plain versions count
+    nothing)."""
+    from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask
+    from vdetr_tpu_torch.ops.fps import furthest_point_sample
+    from vdetr_tpu_torch.ops.hungarian import auction
+    from vdetr_tpu_torch.ops.map_kernel import kernel_map
+    from vdetr_tpu_torch.ops.rotated_iou import rotated_intersection_areas
+    from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
+                                                   rpe_cross_attention_bwd,
+                                                   rpe_table_sum)
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
+                                                       keyed_conv_dw)
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
+                                                        mapped_conv_dw)
+    from vdetr_tpu_torch.tools.dot_micro import dot_micro
+    from vdetr_tpu_torch.tools.rpe_ablate import rpe_ablate
+
+    return {"keyed_conv": keyed_conv, "fps": furthest_point_sample,
+            "rpe_cross_attention": rpe_cross_attention,
+            "keyed_conv_dw": keyed_conv_dw,
+            "rpe_cross_attention_bwd": rpe_cross_attention_bwd,
+            "rpe_table_sum": rpe_table_sum, "kernel_map": kernel_map,
+            "mapped_conv": mapped_conv, "mapped_conv_dw": mapped_conv_dw,
+            "rpe_ablate": rpe_ablate, "dot_micro": dot_micro,
+            "nms": nms_3d_samecls_mask, "auction": auction,
+            "rotated_iou": rotated_intersection_areas}
+
+
+def _rank_main(rank: int, fn, spec: dict, out: str) -> None:
+    torch.save(fn(rank, spec), os.path.join(out, f"rank{rank}.pt"))
+
+
+def run_ranks(fn, world: int, spec: dict, timeout: float) -> list:
+    """`fn(rank, spec)` in `world` spawned processes, ranks 0 to world - 1,
+    under a time limit of `timeout` s; returns each rank's return value
+    (saved with torch.save), in rank order. `fn` must be importable by
+    module (the processes are spawned). Raises when a rank raises or dies
+    (the others are stopped) or when the time runs out (every rank is
+    killed): a rank that fails never leaves the others waiting here."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(_rank_main, args=(fn, spec, out),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"{fn.__name__} on {world} ranks: "
+                                       f"not done after {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(os.path.join(out, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]

@@ -9,6 +9,10 @@ A checkpoint is a directory, laid out as the JAX package lays it out
 train step, beside `header.json`, the JAX package's header: the epoch,
 the best metrics, the whole config and `format_version`. The header is
 what `--auto_test` reads, from a port or a JAX checkpoint alike.
+Under data parallelism rank 0 alone writes (each file to a temporary
+name, then renamed over the old one) and every rank waits for it; every
+rank reads. The names are those of one process: a checkpoint written by
+N ranks loads into one and the other way round.
 
 A JAX checkpoint directory holds `state.msgpack` instead, written by
 `flax.serialization.msgpack_serialize`. This module reads it with a
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from vdetr_tpu_torch.config import AUTO_TEST_IGNORE_KEYS, VDETRConfig
+from vdetr_tpu_torch.parallel import dist
 
 STATE_FILE = "state.pt"
 JAX_STATE_FILE = "state.msgpack"
@@ -43,24 +48,29 @@ def save_checkpoint(checkpoint_dir: str, trainer, cfg: VDETRConfig,
                     epoch: int, best_val_metrics: Optional[Dict] = None,
                     filename: str = LATEST) -> str:
     """Write `trainer`'s model, AdamW state and step, and the header, to
-    `<checkpoint_dir>/<filename>/`. Returns that directory."""
+    `<checkpoint_dir>/<filename>/` (rank 0 of `trainer.group`; every rank
+    returns once it is written). Returns that directory."""
     path = os.path.join(checkpoint_dir, filename)
-    os.makedirs(path, exist_ok=True)
-    state = {"model": {k: v.detach().cpu() for k, v in
-                       trainer.model.state_dict().items()},
-             "optimizer": trainer.optimizer.state_dict(),
-             "step": trainer.step}
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(state, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
-    header = {
-        "epoch": epoch,
-        "best_val_metrics": best_val_metrics or {},
-        "config": dataclasses.asdict(cfg),
-        "format_version": 1,
-    }
-    with open(os.path.join(path, HEADER_FILE), "w") as f:
-        json.dump(header, f, indent=1, default=str)
+    if dist.rank(trainer.group) == 0:
+        os.makedirs(path, exist_ok=True)
+        state = {"model": {k: v.detach().cpu() for k, v in
+                           trainer.model.state_dict().items()},
+                 "optimizer": trainer.optimizer.state_dict(),
+                 "step": trainer.step}
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+        header = {
+            "epoch": epoch,
+            "best_val_metrics": best_val_metrics or {},
+            "config": dataclasses.asdict(cfg),
+            "format_version": 1,
+        }
+        tmp = os.path.join(path, HEADER_FILE + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(header, f, indent=1, default=str)
+        os.replace(tmp, os.path.join(path, HEADER_FILE))
+    dist.barrier(trainer.group)
     return path
 
 

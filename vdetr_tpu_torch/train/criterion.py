@@ -14,7 +14,10 @@ a group, no device-to-host copy); under `"jv"` by exact JV on the host,
 the costs of all jobs leaving the device in one copy. The assignments
 feed the losses: focal classification, angle class and residual, center
 L1, GIoU and log-size L1, each normalized by the number of (repeated)
-boxes, plus the encoder point-classification loss.
+boxes, plus the encoder point-classification loss. Under data
+parallelism (`group`) the number of boxes is the mean of the ranks' GT
+counts (JAX's pmean), the same on every rank; whether a rank has any GT
+stays its own.
 
 The box overlap of the costs and the loss follows `iou_type`: "giou"
 (the default) is the corner GIoU, axis-aligned for ScanNet (one angle
@@ -38,6 +41,7 @@ from vdetr_tpu_torch.geometry.iou import (diff_diou_rotated_3d,
 from vdetr_tpu_torch.geometry.points_in_boxes import points_in_boxes_all
 from vdetr_tpu_torch.ops.hungarian import (auction, auction_capacity,
                                            hungarian)
+from vdetr_tpu_torch.parallel.dist import all_reduce_mean
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -100,11 +104,12 @@ def _take(x, inds):
 class SetCriterion:
     """Stateless; construct once per config (reference criterion.py:231)."""
 
-    def __init__(self, cfg, dataset_config):
+    def __init__(self, cfg, dataset_config, group=None):
         if cfg.matcher_impl not in ("auction", "jv"):
             raise ValueError(f"unknown matcher_impl {cfg.matcher_impl!r}")
         self.cfg = cfg
         self.ds = dataset_config
+        self.group = group
         self.rotated = dataset_config.num_angle_bin > 1
         self.loss_weights = {
             "loss_giou": cfg.loss_giou_weight,
@@ -356,14 +361,15 @@ class SetCriterion:
         nactual = targets["gt_box_present"].sum(1).to(torch.int64)
         targets["nactual_gt"] = nactual
         total_gt = nactual.sum().float()
+        mean_gt = all_reduce_mean({"gt": total_gt}, self.group)["gt"]
         # jobs against repeated GT normalize by repeat * N, the
         # un-repeated bilabel aux0 and the point-cls loss by N
         # (reference criterion.py:612-616, 670-676)
-        num_boxes = total_gt.clamp(min=1.0)
+        num_boxes = mean_gt.clamp(min=1.0)
         has_boxes = (total_gt > 0).float()
         if c.repeat_num > 1:
             targets_rep = repeat_ground_truth(targets, c.repeat_num)
-            num_boxes_rep = (total_gt * c.repeat_num).clamp(min=1.0)
+            num_boxes_rep = (mean_gt * c.repeat_num).clamp(min=1.0)
         else:
             targets_rep, num_boxes_rep = targets, num_boxes
 

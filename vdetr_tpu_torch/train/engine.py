@@ -1,4 +1,4 @@
-"""The train step and the eval step on one device (torch counterpart of
+"""The train step and the eval step (torch counterpart of
 `vdetr_tpu/train/engine.py`; reference engine.py:59-192).
 
 `Trainer.train_step` runs the model in train mode (batch statistics,
@@ -13,11 +13,20 @@ sigmoid, and, for the published NMS variant, empty-box removal and the
 greedy same-class NMS on the device (kernel N), whose keep mask the AP
 calculator takes instead of its host NMS. `train_one_epoch` and
 `evaluate` are the loops around the two steps; `epoch_generator` seeds
-an epoch's dropout masks from (cfg.seed, epoch), so that a resumed run
-draws the masks an unbroken run draws.
+an epoch's dropout masks from (cfg.seed, epoch, rank), so that a resumed
+run draws the masks an unbroken run draws.
 
-One device, no mesh and no retries: the JAX engine's data-parallel
-shard_map and its transient-error re-dispatch are TPU machinery.
+Data parallelism, the JAX engine's `shard_map` step over the "data"
+axis (`group`, a process group of one process per card,
+`parallel/dist.py`): each rank steps on its rows of the global batch;
+`DistributedDataParallel` averages the gradients over the ranks before
+the clip (JAX's pmean before optax's clip); the batch norms sync their
+statistics (`cfg.mink_syncbn`, `models/norm.py`), the criterion
+normalizes by the ranks' mean GT count, and the step returns the ranks'
+mean loss and loss dict, whose finiteness every rank checks alike. The
+eval step stays on each rank's rows; `evaluate` gathers them to rank 0's
+AP calculator. Without a group none of this runs. No retries: the JAX
+engine's re-dispatch of transient TPU errors has no counterpart here.
 """
 
 from __future__ import annotations
@@ -30,11 +39,14 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from vdetr_tpu_torch.eval.ap_calculator import (config_dict_from_cfg,
+from vdetr_tpu_torch.eval.ap_calculator import (AP_TARGET_KEYS,
+                                                config_dict_from_cfg,
                                                 device_nms_supported)
 from vdetr_tpu_torch.geometry.nms import nms_3d_samecls_mask
 from vdetr_tpu_torch.geometry.points_in_boxes import points_in_boxes_count
+from vdetr_tpu_torch.models.norm import sync_batch_norms
 from vdetr_tpu_torch.models.vdetr import resolve_device
+from vdetr_tpu_torch.parallel import dist
 from vdetr_tpu_torch.train.criterion import SetCriterion
 from vdetr_tpu_torch.train.optimizer import (build_optimizer,
                                              clip_by_global_norm)
@@ -58,14 +70,29 @@ EMPTY_BOX_POINTS = 40000
 class Trainer:
     """Owns the criterion, the optimizer and the step count for one model
     on one device: `device` (default: the CUDA card; raises without one).
-    The model is moved there."""
+    The model is moved there. `group`: the process group of data
+    parallelism (None: one process); the model is then wrapped for the
+    train step (`net`) and, under `cfg.mink_syncbn`, its batch norms
+    synced. `model` stays the unwrapped module, so checkpoints keep their
+    names."""
 
     def __init__(self, cfg, model: torch.nn.Module, dataset_config,
-                 steps_per_epoch: int, device=None):
+                 steps_per_epoch: int, device=None, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.criterion = SetCriterion(cfg, dataset_config)
+        self.group = group
+        self.net = self.model
+        if group is not None:
+            if cfg.mink_syncbn:
+                sync_batch_norms(self.model, group)
+            # every parameter gets a gradient each step: no search for
+            # unused ones. Each forward takes rank 0's buffers (the
+            # running statistics: equal on every rank under sync-BN, else
+            # rank 0's, as JAX's replicated out_specs keep device 0's)
+            self.net = torch.nn.parallel.DistributedDataParallel(
+                self.model, process_group=group)
+        self.criterion = SetCriterion(cfg, dataset_config, group)
         self.lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.optimizer = build_optimizer(cfg, self.model)
         self.step = 0
@@ -98,12 +125,16 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.model(inputs, generator=generator)
+        outputs = self.net(inputs, generator=generator)
         loss, loss_dict = self.criterion(outputs, batch)
         loss.backward()
         if self.cfg.clip_gradient > 0:
             clip_by_global_norm(self.model.parameters(),
                                 self.cfg.clip_gradient)
+        if self.group is not None:
+            loss_dict = dist.all_reduce_mean({"loss": loss, **loss_dict},
+                                             self.group)
+            loss = loss_dict.pop("loss")
         loss_val = float(loss.detach())
         if not math.isfinite(loss_val):
             raise FloatingPointError(
@@ -186,9 +217,12 @@ class Trainer:
 
 def epoch_generator(trainer: Trainer, epoch: int) -> torch.Generator:
     """The generator of epoch `epoch`'s dropout masks, on the trainer's
-    device, seeded from (cfg.seed, epoch): an epoch draws the same masks
-    whether the run was resumed before it or not."""
-    seed = (trainer.cfg.seed * 1000003 + epoch) % (2 ** 63)
+    device, seeded from (cfg.seed, epoch, rank): an epoch draws the same
+    masks whether the run was resumed before it or not, each rank its own
+    (JAX folds the device index into the key), rank 0 those of one
+    process."""
+    rank = dist.rank(trainer.group)
+    seed = (trainer.cfg.seed * 1000003 + epoch + (rank << 40)) % (2 ** 63)
     return torch.Generator(device=trainer.device).manual_seed(seed)
 
 
@@ -254,13 +288,31 @@ def train_one_epoch(trainer: Trainer, loader, epoch: int,
     return sum(losses) / max(len(losses), 1), last_dict
 
 
+def _on(values, keys, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(values[k]).to(device) for k in keys
+            if k in values}
+
+
 def evaluate(trainer: Trainer, loader, ap_calculator, log_every: int = 10,
-             logger: Optional[Callable[[str], None]] = print):
-    """The eval step over `loader`, each batch's outputs handed to the AP
-    calculator (vdetr_tpu/train/engine.py:410-421; reference
-    engine.py:125-192). Returns the calculator."""
+             logger: Optional[Callable[[str], None]] = print,
+             eval_fn: Optional[Callable] = None):
+    """`eval_fn` (default `trainer.eval_step`; TTA's ensemble, say) over
+    `loader`, each batch's outputs handed to the AP calculator
+    (vdetr_tpu/train/engine.py:410-421; reference engine.py:125-192).
+    Under data parallelism each rank evaluates its rows and rank 0's
+    calculator takes every rank's outputs and GT, in rank order: the
+    global batch one process would see (reference engine.py:180-181); the
+    other ranks' calculators take nothing. Returns the calculator."""
+    eval_fn = eval_fn or trainer.eval_step
+    group = trainer.group
     for it, batch in enumerate(loader):
-        ap_calculator.step(trainer.eval_step(batch), batch)
+        out = eval_fn(batch)
+        if group is not None:
+            out = dist.all_gather(_on(out, out, trainer.device), group)
+            batch = dist.all_gather(
+                _on(batch, AP_TARGET_KEYS, trainer.device), group)
+        if dist.rank(group) == 0:
+            ap_calculator.step(out, batch)
         if logger and it % log_every == 0:
             logger(f"Evaluate; Batch [{it}]")
     return ap_calculator

@@ -5,7 +5,8 @@ The reference logs to wandb (main.py:558-567) and ships an unused
 tensorboardX wrapper (utils/logger.py). Zero-egress environments can't
 reach wandb, so the default sink is a JSONL file per run (trivially
 importable into wandb/TensorBoard later); a TensorBoard writer is used
-when `tensorboardX` happens to be installed.
+when `tensorboardX` happens to be installed. Under data parallelism
+rank 0 of the group alone writes.
 """
 
 from __future__ import annotations
@@ -15,13 +16,16 @@ import os
 import time
 from typing import Dict, Optional
 
+from vdetr_tpu_torch.parallel import dist
+
 
 class MetricsLogger:
-    def __init__(self, log_dir: Optional[str] = None, run_name: str = "run"):
+    def __init__(self, log_dir: Optional[str] = None, run_name: str = "run",
+                 group=None):
         self.log_dir = log_dir
         self._fh = None
         self._tb = None
-        if log_dir:
+        if log_dir and dist.rank(group) == 0:
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, f"{run_name}.jsonl"), "a")
             try:
