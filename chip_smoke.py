@@ -31,7 +31,12 @@ Phases, each printing its own lines:
      error, its tolerance, both times and the kernel's bound (for A, D, H
      and I, which multiply on the tensor cores in split TF32, against the
      TF32 rate, with the f32 CUDA-core bound beside it); I bit for bit
-     against D and against a second call of itself;
+     against D and against a second call of itself; the bf16 forms of A,
+     D, H and I (compute_dtype="bfloat16": bf16 features and weights, one
+     bf16 MMA a product; D and I against f32 dout split in two bf16
+     halves) against their plain versions at the same shapes, each beside
+     the f32 form's ms of the call and the bf16 bound, H bit for bit
+     against A's bf16 form and I against D's;
   3b. probes of kernel C, the work of the entry points
      `python -m vdetr_tpu_torch.tools.rpe_ablate` and `.dot_micro` at the
      tool shapes: each stage-ablation level 0-5 against its plain version,
@@ -68,7 +73,8 @@ Phases, each printing its own lines:
      the same batches: three warm steps, then timed steps with finite
      loss and gradients and the expected launches per step (A, D or G,
      H, I; B, C, F and its slices' sum; M twice under the auction),
-     median ms per step, peak memory and a breakdown by phase (host ms,
+     median ms per step, peak memory, and for the auction's two variants
+     a breakdown by phase (host ms,
      the matcher alone, and the backward's stream spans), the criterion
      under torch.cuda.set_sync_debug_mode("error") (the auction's makes
      no synchronizing call), the same breakdown under torch.profiler
@@ -103,7 +109,8 @@ Phases, each printing its own lines:
      and with the host's rotated NMS; a small forward, eval step and
      train step per route on the card against the CPU; the train step on
      both routes under the auction (launches, R included, bit-equal
-     parameters after two whole steps, the profiled breakdown, median,
+     parameters after two whole steps, the profiled step, the keyed
+     route's breakdown, median,
      peak memory); one step each under iou_type "diou" and "iou" (ms,
      peak memory); the CLI on fabricated SUN RGB-D scans in VoteNet's
      layout (train, --test_only --auto_test, resume);
@@ -124,6 +131,22 @@ Phases, each printing its own lines:
      statistics bit-equal, each rank's launches per kernel as the
      single-card step's (phase 5), ms per step, peak memory per rank and
      a profiled step's collectives;
+  10. the JAX model's other configurations at published widths: (a) the
+     bf16 backbone (`VDETRConfig(compute_dtype="bfloat16")`): the eval
+     step on both routes at batch 1 and 4 and the train step on both
+     routes (as phases 4b and 5: launches per form, two steps bit for
+     bit, the profiled step), its A/D (keyed) and H/I (mapped) launches
+     in all equal to the f32 step's, peak memory and median beside the
+     f32 step's; (b) `VDETRConfig(depth=50)` (Bottleneck) and (c) every
+     decoder and head flag (`pos_for_key`, `share_selfattn`,
+     `querypos_mlp=False`, `mlp_norm="ln"`, `mlp_act="gelu"`,
+     `random_fps`) on the keyed route: one eval step and two train steps,
+     launches, ms, peak memory; (d) small configs of each on the card
+     against the CPU: the bf16 forward (well-posed, its queries matched),
+     the flags' and depth 50's forward and eval step, the flags' train
+     step, and the bf16 and depth-50 train steps' loss and every sparse
+     conv call in them against the CPU on the same inputs (those two
+     steps sit on kinks of the loss where whole gradients are ill-posed);
   8. a JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}} -- printed only when every phase
      passed.
@@ -147,7 +170,7 @@ import torch
 import torch.nn.functional as F
 
 from vdetr_tpu_torch.tools import (PEAK_BYTES, PEAK_F32_FLOPS,
-                                   PEAK_TF32_FLOPS, bound_ms,
+                                   PEAK_TF32_FLOPS, bound_bf16_ms, bound_ms,
                                    bound_split_tf32_ms, card,
                                    launch_counters, time_ms)
 
@@ -189,6 +212,10 @@ REPO_SOURCES = {
                     "at :141 rotated_intersection_areas (jax.lax.fori_loop "
                     "in XLA, not a pallas_call)"),
 }
+# the bf16 forms (compute_dtype="bfloat16"): second entries of their f32
+# forms' sources, the same TPU kernels replaced
+for _name in ("keyed_conv", "keyed_conv_dw", "mapped_conv", "mapped_conv_dw"):
+    REPO_SOURCES[_name + "_bf16"] = REPO_SOURCES[_name]
 PROBES = ("rpe_ablate", "dot_micro")
 ROUTES = ("keyed", "mapped")
 # no single PyTorch call computes any of these kernels' functions
@@ -214,6 +241,8 @@ LIBRARY_NONE = {
     "rotated_iou": "no torch op clips one quad by another (the "
                    "intersection area of two rotated rectangles)",
 }
+for _name in ("keyed_conv", "keyed_conv_dw", "mapped_conv", "mapped_conv_dw"):
+    LIBRARY_NONE[_name + "_bf16"] = LIBRARY_NONE[_name]
 
 
 def log(*args):
@@ -315,7 +344,8 @@ def tile_rows(nbr, capacity: int, rows: int = 64) -> int:
 
 
 def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
-                      kargs_of, computed):
+                      kargs_of, computed, bound_fn=bound_split_tf32_ms,
+                      bound_note=None):
     """A conv kernel (A, D, H or I) against its plain version on each conv
     case, called on `kargs_of(case)`; per case the error, both times and
     the bound (each tensor argument read once, the result written once;
@@ -343,7 +373,7 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
               + ref.numel() * 4)
         flops = 2.0 * cin * cout * hits
         f_ms, f_by = bound_ms(io, flops)
-        b_ms, b_by = bound_split_tf32_ms(io, flops)
+        b_ms, b_by = bound_fn(io, flops)
         ok = err <= tol
         # the share of the computed products with a hit
         share = hits / computed(case)
@@ -355,7 +385,9 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
             f"(max|ref|={scale:.3e}) tol={tol:.3e} -> "
             f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms "
             f"({rec['tflops']:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, split TF32 on the tensor cores; f32 "
+            f"{b_ms:.4f} ms ({b_by}, "
+            + ("split TF32" if bound_fn is bound_split_tf32_ms else "bf16")
+            + " on the tensor cores; f32 "
             f"CUDA cores {f_ms:.4f} ms, {f_by}; {100 * share:.1f}% of the "
             "computed products have a neighbour)")
         errs.append((err, ok))
@@ -369,10 +401,10 @@ def check_conv_kernel(name, cases, kernel, plain, rel_tol, reason,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=_dominant(out_cases), cases=out_cases,
                 bound_f32_ms=bound_f32,
-                bound_note="bound_ms: split TF32 on the tensor cores (3 x "
-                           "flops / 495 TFLOP/s against bytes / 3.35 TB/s);"
-                           " bound_f32_ms: flops / 67 TFLOP/s on the CUDA "
-                           "cores")
+                bound_note=bound_note or (
+                    "bound_ms: split TF32 on the tensor cores (3 x flops / "
+                    "495 TFLOP/s against bytes / 3.35 TB/s); bound_f32_ms: "
+                    "flops / 67 TFLOP/s on the CUDA cores"))
 
 
 CONV_REASON = ("float32 sums of up to 27*C_in products taken in another "
@@ -1251,19 +1283,22 @@ def expected_launches(model, cfg, train: bool = False):
     k3 = [m for m in model.modules()
           if isinstance(m, (SparseConv, SparseConvDown))
           and m.kernel_size == 3]
-    conv = sum(isinstance(m, SparseConv) for m in k3) if train else 0
-    conv += len(k3)
+    # each submanifold conv's dFeats: the conv again, on flipped weights,
+    # in the f32 form (the f32 cotangent, also under bf16)
+    dfeats = sum(isinstance(m, SparseConv) for m in k3) if train else 0
+    # under compute_dtype="bfloat16" the forward and the weight gradient
+    # take the bf16 forms
+    form = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
     layers = cfg.dec_nlayers - 1
     out = {k: 0 for k in launch_counters()}
     out.update(fps=1, rpe_cross_attention=layers)
-    if model.conv_route == "keyed":
-        out["keyed_conv"] = conv
-    else:
+    conv = "keyed_conv" if model.conv_route == "keyed" else "mapped_conv"
+    out[conv + form] += len(k3)
+    out[conv] += dfeats
+    if model.conv_route == "mapped":
         out["kernel_map"] = sum(isinstance(m, SparseConvDown) for m in k3)
-        out["mapped_conv"] = conv
     if train:
-        out["keyed_conv_dw" if model.conv_route == "keyed"
-            else "mapped_conv_dw"] = len(k3)
+        out[conv + "_dw" + form] = len(k3)
         out["rpe_cross_attention_bwd"] = layers
         out["rpe_table_sum"] = layers
         if cfg.matcher_impl == "auction":
@@ -2063,14 +2098,18 @@ def profile_step(trainer, batch, gen):
                      for name, (ms, n) in top])
 
 
-def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
+def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5,
+              detail=True):
     """The published model's train step at batch 1 in each variant, name
     -> (conv route, matcher), each with its own model (the same initial weights), optimizer and
     dropout generator (the same seed): `warm` steps, then `steps` timed
     steps, the variants in turn on the same batch (the order
     alternating), so that their medians share the call's conditions.
     Each step's launches are counted. The model, its scenes and its
-    criterion are those of `cfg`'s dataset."""
+    criterion are those of `cfg`'s dataset. `detail`: True, or the names
+    of the variants that take every per-variant analysis; the others take
+    only two whole steps bit for bit and the profiled step (no phase
+    breakdowns, matcher timing, sync check or gradient spread)."""
     from vdetr_tpu_torch.tools.determinism import grad_spread, step_twice
     from vdetr_tpu_torch.train.engine import Trainer
 
@@ -2131,6 +2170,27 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
             f"[{', '.join(f'{t:.1f}' for t in all_times[name])}]; peak "
             f"memory {peak[name]:.2f} GiB (every variant's weights and "
             f"optimizer states resident); card {power}")
+        stats[name] = dict(matcher=matcher, ms_per_step=med,
+                           steps=times[name], all_steps=all_times[name],
+                           peak_gib=peak[name])
+        if detail is not True and name not in detail:
+            differ, count = step_twice(trainer, batches[1])
+            log(f"train {cfg.dataset_name} {name} two whole steps from the "
+                f"same state, batch and seed: {len(differ)} of {count} "
+                f"parameters differ {differ[:5]} -> "
+                f"{'ok' if not differ else 'FAIL'}")
+            ok &= not differ
+            stats[name]["step_twice_differing"] = differ
+            prof = profile_step(trainer, batches[2], gens[name])
+            prof["busy_share_of_median_step"] = prof["device_busy_ms"] / med
+            stats[name]["profile"] = prof
+            log(f"train {cfg.dataset_name} {name} step under torch.profiler:"
+                f" device busy {prof['device_busy_ms']:.1f} ms = "
+                f"{100 * prof['busy_share_of_median_step']:.1f}% of the "
+                f"median step; per port kernel (ms, launches): "
+                + "; ".join(f"{k} {v['ms']:.2f} ({v['launches']})"
+                            for k, v in sorted(prof["by_kernel"].items())))
+            continue
         brk = step_breakdown(trainer, batches[1], gens[name])
         brk[f"matcher alone ({matcher}: "
             + ("cost copy and JV on the host" if matcher == "jv"
@@ -2175,9 +2235,7 @@ def run_train(cfg, device, power, variants, warm: int = 3, steps: int = 5):
             f"parameters differ {differ[:5]} -> "
             f"{'ok' if not differ else 'FAIL'}")
         ok &= repeat_ok and not differ
-        stats[name] = dict(matcher=matcher, ms_per_step=med,
-                           steps=times[name], all_steps=all_times[name],
-                           peak_gib=peak[name], breakdown=brk,
+        stats[name].update(breakdown=brk,
                            breakdown_profiled=dev_brk,
                            criterion_sync=sync,
                            grad_spread=spread["groups"],
@@ -3281,6 +3339,431 @@ def run_data_parallel(cfg, power, single_launches):
     return ok, out
 
 
+# --------------------------------------------------------------------------
+# phase 10: the JAX model's other configurations: bf16 (the bf16 forms of
+# A, H, D and I), the Bottleneck backbone, the decoder and head flags
+# --------------------------------------------------------------------------
+
+BF16_CONV_REASON = (
+    "bf16 products are exact in f32: the kernel and its plain version "
+    "(the f32 gather-and-matmul of the bf16 values) differ only in the "
+    "order of their f32 sums, as the f32 form does (its tolerance)")
+BF16_DW_REASON = (
+    "each dout is split into two bf16 halves (~2^-17 of it against a bf16 "
+    "feature, ~2.7e-6 of max|ref| at the published shapes), then f32 sums "
+    "over up to 65536 rows in another order than the plain GEMM's; the f32 "
+    "form's 2e-5 of max|ref|")
+BF16_BOUND_NOTE = ("bound_ms: bf16 on the tensor cores (flops, x 2 for the "
+                   "weight gradient's two halves, / 989 TFLOP/s against "
+                   "bytes, features and weights at 2 bytes, / 3.35 TB/s); "
+                   "bound_f32_ms: flops / 67 TFLOP/s on the CUDA cores")
+# the decoder and head flags of the JAX model (random_fps permutes the
+# voxels from the step's generator in training)
+FLAGS = dict(pos_for_key=True, share_selfattn=True, querypos_mlp=False,
+             mlp_norm="ln", mlp_act="gelu", random_fps=True)
+
+
+def bf16_cases(cases):
+    """The conv cases with bf16 features and weights (dout stays f32, the
+    cotangent of the JAX package's bf16 backward)."""
+    out = []
+    for label, args, dout, hits, nbr in cases:
+        args = (args[0].bfloat16(),) + args[1:5] + (args[5].bfloat16(),)
+        out.append((label, args, dout, hits, nbr))
+    return out
+
+
+def check_bf16_forms(cases, f32_res):
+    """The bf16 forms of A, D, H and I against their plain versions at the
+    published shapes, each case's ms beside the f32 form's of this call
+    (`f32_res`); H bit for bit against A's bf16 form, I against D's."""
+    from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv_bf16,
+                                                       keyed_conv_dw_bf16,
+                                                       keyed_conv_dw_plain,
+                                                       keyed_conv_plain)
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv_bf16,
+                                                        mapped_conv_dw_bf16,
+                                                        mapped_conv_dw_plain,
+                                                        mapped_conv_plain)
+
+    bcases = bf16_cases(cases)
+    dw_bound = lambda io, flops: bound_bf16_ms(io, flops, 2)  # noqa: E731
+    res = {
+        "keyed_conv_bf16": check_conv_kernel(
+            "keyed_conv_bf16", bcases, keyed_conv_bf16, keyed_conv_plain,
+            1e-4, BF16_CONV_REASON, lambda c: c[1], conv_tile_rows,
+            bound_bf16_ms, BF16_BOUND_NOTE),
+        "keyed_conv_dw_bf16": check_conv_kernel(
+            "keyed_conv_dw_bf16", bcases, keyed_conv_dw_bf16,
+            keyed_conv_dw_plain, 2e-5, BF16_DW_REASON,
+            lambda c: c[1][:5] + (c[2],), dw_rows, dw_bound,
+            BF16_BOUND_NOTE),
+        "mapped_conv_bf16": check_conv_kernel(
+            "mapped_conv_bf16", bcases, mapped_conv_bf16, mapped_conv_plain,
+            1e-4, BF16_CONV_REASON, lambda c: (c[1][0], c[4], c[1][5]),
+            conv_tile_rows, bound_bf16_ms, BF16_BOUND_NOTE),
+        "mapped_conv_dw_bf16": check_conv_kernel(
+            "mapped_conv_dw_bf16", bcases, mapped_conv_dw_bf16,
+            mapped_conv_dw_plain, 2e-5, BF16_DW_REASON,
+            lambda c: (c[1][0], c[4], c[2]), dw_rows, dw_bound,
+            BF16_BOUND_NOTE)}
+    for i, (label, args, dout, _, nbr) in enumerate(bcases):
+        same = {"H vs A": torch.equal(mapped_conv_bf16(args[0], nbr, args[5]),
+                                      keyed_conv_bf16(*args)),
+                "I vs D": torch.equal(mapped_conv_dw_bf16(args[0], nbr, dout),
+                                      keyed_conv_dw_bf16(*args[:5], dout))}
+        res["mapped_conv_bf16"]["ok"] &= same["H vs A"]
+        res["mapped_conv_dw_bf16"]["ok"] &= same["I vs D"]
+        log(f"check bf16 forms {label}: bit-equal "
+            + ", ".join(f"{k} {v}" for k, v in same.items())
+            + f" -> {'ok' if all(same.values()) else 'FAIL'}")
+    for name, r in res.items():
+        f32 = f32_res[name[:-len("_bf16")]]
+        r["f32_ms"] = f32["ms"]
+        for rec, frec in zip(r["cases"], f32["cases"]):
+            rec["f32_ms"] = frec["ms"]
+        log(f"check {name}: bf16 form {r['ms']:.4f} ms over the four "
+            f"published cases against the f32 form's {f32['ms']:.4f} ms "
+            "in this call ("
+            + "; ".join(f"{c['ms']:.4f} vs {c['f32_ms']:.4f}"
+                        for c in r["cases"]) + ")")
+    return res
+
+
+def align_queries(ref, got):
+    """`got`'s final outputs reordered to `ref`'s queries, each matched to
+    the query whose proposal center is nearest (well-posed configs take
+    every seed as a proposal, in an order bf16 may change); None when a
+    query has no match within 1e-2 m."""
+    order = []
+    for r, g in zip(ref["pre_box_center_unnormalized"],
+                    got["pre_box_center_unnormalized"]):
+        d = (r[:, None, :] - g[None, :, :]).abs().amax(-1)
+        if float(d.amin(1).max()) > 1e-2:
+            return None
+        order.append(d.argmin(1))
+    order = torch.stack(order)
+    return {k: v.gather(1, order.reshape(order.shape + (1,) * (v.ndim - 2))
+                        .expand((-1, -1) + v.shape[2:]))
+            for k, v in got.items()}
+
+
+def well_posed(cfg):
+    """`cfg` with outputs continuous in the backbone's features, for
+    comparing bf16 computations: every seed a proposal with its own
+    features as the query, unit anchors (the published top-k cut, slot
+    order and anchor-class argmax are near-ties at random weights, which
+    one bf16 ulp flips: tests/test_torch_bf16.py)."""
+    return cfg.replace(nqueries=cfg.preenc_npoints, q_content="sample",
+                       hard_anchor=True)
+
+
+@contextlib.contextmanager
+def conv_calls_against_cpu(record):
+    """Every call of the sparse convs' autograd Functions (`_KeyedConv`,
+    `_MappedConv`) on the card, forward and backward, recomputed on the
+    CPU's plain path from the same inputs; appends (kind, feats shape,
+    weights shape, dtype, max err / max of each output) to `record`."""
+    from vdetr_tpu_torch.ops import sparse_conv_keyed, sparse_conv_kernel
+
+    def rel(got, ref):
+        if got is None:
+            return 0.0
+        ref = ref.float()
+        return float((got.cpu().float() - ref).abs().max()
+                     / ref.abs().max().clamp(min=1e-30))
+
+    class Ctx:  # a Function's context on the CPU: what it saves and reads
+        def __init__(self, ctx=None):
+            if ctx is not None:
+                self.saved_tensors = tuple(t.cpu() for t in ctx.saved_tensors)
+                for k in ("extent", "submanifold", "needs_input_grad"):
+                    if hasattr(ctx, k):
+                        setattr(self, k, getattr(ctx, k))
+
+        def save_for_backward(self, *tensors):
+            self.saved_tensors = tensors
+
+    patched = []
+    for fn in (sparse_conv_keyed._KeyedConv, sparse_conv_kernel._MappedConv):
+        fwd, bwd = fn.forward, fn.backward
+
+        def forward(ctx, feats, weights, *rest, fwd=fwd, name=fn.__name__):
+            out = fwd(ctx, feats, weights, *rest)
+            if feats.is_cuda:
+                ref = fwd(Ctx(), feats.cpu(), weights.cpu(),
+                          *(r.cpu() if torch.is_tensor(r) else r
+                            for r in rest))
+                record.append((name + " forward", tuple(feats.shape),
+                               tuple(weights.shape), str(feats.dtype),
+                               [rel(out, ref)]))
+            return out
+
+        def backward(ctx, dout, bwd=bwd, name=fn.__name__):
+            out = bwd(ctx, dout)
+            if dout.is_cuda:
+                ref = bwd(Ctx(ctx), dout.cpu())
+                feats, weights = ctx.saved_tensors[:2]
+                record.append((name + " backward", tuple(feats.shape),
+                               tuple(weights.shape), str(feats.dtype),
+                               [rel(g, r) for g, r in zip(out[:2], ref[:2])
+                                if r is not None]))
+            return out
+
+        patched.append((fn, fn.forward, fn.backward))
+        fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield record
+    finally:
+        for fn, fwd, bwd in patched:
+            fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+
+
+# the conv calls of a step on the card against the CPU: f32 sums in other
+# orders (f32 forms: the conv tolerance, 1e-4 of max); under bf16 each
+# dFeats and dW is rounded to bf16 once, which another order of the f32
+# sum below it can move by one ulp (2^-8 of a value)
+CONV_CALL_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2 ** -7}
+
+
+def check_small_step_calls_against_cpu(device, route, base, label):
+    """A small model's train step (dropout 0) on the card: its loss against
+    the same step's on the CPU, and every sparse conv call of it, forward
+    and backward, against the CPU's plain path on the same inputs. The
+    whole step's gradients are not compared: at these configs the step
+    sits on a kink (on the CPU, weights moved by 3e-7 of themselves move
+    the depth-50 gradients by 0.4%, the bf16 ones by 15%, its loss not at
+    all), so the card's f32 sums in another order pick other one-sided
+    derivatives; the calls are where the kernels act."""
+    import copy
+
+    from vdetr_tpu_torch.models.vdetr import build_model
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    cfg = small_train_config(base)
+    ds = dataset_of(cfg)
+    cpu = build_model(cfg, ds, generator=torch.Generator().manual_seed(SEED),
+                      device="cpu", conv_route=route)
+    card = copy.deepcopy(cpu).to(device)
+    batch = train_batch(cfg, 2, first=3)
+    losses, calls = {}, []
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, device)):
+        tr = Trainer(cfg, model, ds, steps_per_epoch=1, device=dev)
+        with conv_calls_against_cpu(calls):
+            losses[name], _ = tr.train_step(batch, torch.Generator(device=dev))
+    loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    loss_tol = 1e-3 if cfg.compute_dtype == "bfloat16" else 1e-4
+    worst = max(calls, default=None,
+                key=lambda c: max(c[4]) / CONV_CALL_TOL[c[3]])
+    bad = [c for c in calls if max(c[4]) > CONV_CALL_TOL[c[3]]]
+    ok = loss_err <= loss_tol and not bad and worst is not None
+    log(f"train {route} step small {label} config on card vs CPU: loss "
+        f"{losses['card']:.6f} vs {losses['cpu']:.6f} (rel err "
+        f"{loss_err:.2e}, tol {loss_tol:.0e}); {len(calls)} sparse conv "
+        f"calls each against the CPU on the same inputs, worst {worst}, "
+        f"{len(bad)} over the tolerance {CONV_CALL_TOL} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_small_bf16_forward_against_cpu(device, route):
+    """A small bf16 model (`well_posed`) on `route`: the eval forward on
+    the card against the CPU's plain path, query by query: the logits'
+    cosine > 0.9999 and the median center deviation < 0.02 m (the JAX
+    package's own bf16 bounds are 0.999 and 0.02, bf16 against f32).
+    Element by element the two differ by whole bf16 ulps wherever the
+    card's sums round a stored feature the other way."""
+    import copy
+
+    from vdetr_tpu_torch.models.vdetr import build_model
+
+    cfg = well_posed(small_train_config(
+        tiny_config().replace(compute_dtype="bfloat16")))
+    cpu = build_model(cfg, dataset_of(cfg),
+                      generator=torch.Generator().manual_seed(SEED),
+                      device="cpu", conv_route=route)
+    card = copy.deepcopy(cpu).to(device)
+    inputs = synthetic_batch(cfg.num_points, 2, "cpu")
+    with torch.inference_mode():
+        ref = cpu(inputs)["outputs"]
+        got = card({k: v.to(device) for k, v in inputs.items()})["outputs"]
+        got = align_queries(ref, {k: v.cpu() for k, v in got.items()})
+    if got is None:
+        log(f"forward {route} small bf16 config on card vs CPU: a query "
+            "without a match -> FAIL")
+        return False
+    a, b = ref["sem_cls_logits"].double(), got["sem_cls_logits"].double()
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    dev = float((ref["center_unnormalized"] - got["center_unnormalized"]
+                 ).abs().median())
+    ok = cos > 0.9999 and dev < 0.02
+    log(f"forward {route} small bf16 config on card vs CPU plain path "
+        f"(queries matched by proposal center): logits cosine {cos:.7f} "
+        f"(> 0.9999), median center deviation {dev:.2e} m (< 0.02) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_bf16(cfg32, device, power, f32_train_launches, f32_train):
+    """Phase 10 (a): the published model with the bf16 backbone
+    (compute_dtype="bfloat16"): the eval step on both routes at B = 1 and
+    4 and the train step on both routes at B = 1 under the auction (run_eval
+    and run_train: launches per form, bit-equal parameters after two whole
+    steps); A/D (keyed) and H/I (mapped) launches of a step in all equal to
+    the f32 step's (`f32_train_launches`), peak memory beside the f32
+    step's."""
+    cfg = cfg32.replace(compute_dtype="bfloat16")
+    models = {route: published_model(cfg, device, route) for route in ROUTES}
+    ok_e, eval_launches, eval_per, _, trainers = run_eval(
+        models, eval_config(cfg), device, power, reps=3)
+    del models, trainers
+    torch.cuda.empty_cache()
+    ok_t, train_launches, train = run_train(
+        cfg, device, power, variants={"keyed": ("keyed", "auction"),
+                                      "mapped": ("mapped", "auction")},
+        detail=())
+    ok_l = True
+    for route, conv in (("keyed", "keyed_conv"), ("mapped", "mapped_conv")):
+        b, f = train_launches[route], f32_train_launches[route]
+        got = (b[conv] + b[conv + "_bf16"], b[conv + "_dw_bf16"])
+        want = (f[conv], f[conv + "_dw"])
+        same = got == want and b[conv + "_dw"] == 0
+        ok_l &= same
+        log(f"train bf16 {route}: {conv} launches {b[conv]} f32 form "
+            f"(dFeats) + {b[conv + '_bf16']} bf16 form = {got[0]}, "
+            f"{conv}_dw_bf16 {got[1]}; the f32 step's {want[0]} and "
+            f"{want[1]} -> {'ok' if same else 'FAIL'}; peak memory "
+            f"{train[route]['peak_gib']:.2f} GiB against the f32 step's "
+            f"{f32_train[route]['peak_gib']:.2f} GiB; median "
+            f"{train[route]['ms_per_step']:.1f} ms against "
+            f"{f32_train[route]['ms_per_step']:.1f} ms; card {power}")
+    return ok_e and ok_t and ok_l, eval_launches, eval_per, \
+        train_launches, train
+
+
+def run_config_steps(cfg, device, power, label, steps: int = 2,
+                     route: str = "keyed"):
+    """Phase 10 (b) and (c): the model of `cfg` at the published width on
+    `route`: one eval step (`test_only`; launches, boxes kept, ms, peak
+    memory), then `steps` train steps at B = 1 under the auction (each
+    step's launches, finite loss and gradients, ms, peak memory), then one
+    more under torch.profiler (device busy, device ms per port kernel)."""
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    ds = dataset_of(cfg)
+    model = published_model(cfg, device, route)
+    counters = launch_counters()
+    ecfg = eval_config(cfg)
+    trainer = Trainer(ecfg, model, ds, steps_per_epoch=1000, device=device)
+    inputs = synthetic_batch(cfg.num_points, 1, device, ds=ds)
+    expected = expected_launches(model, cfg)
+    expected["nms"] = 1
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.eval_step(inputs)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: fn.launches for k, fn in counters.items()}
+    bad = [k for k, v in out.items()
+           if not bool(torch.isfinite(v.float()).all())]
+    kept = int(out["nms_keep"].sum())
+    ok = counts == expected and not bad and kept > 0
+    rec = {"eval": {"ms": eval_ms, "kept": kept, "launches": counts,
+                    "peak_gib": torch.cuda.max_memory_allocated(device)
+                    / 2 ** 30}}
+    log(f"{label} eval step (test_only) {route} B=1: launches "
+        + fmt_counts(counts, expected)
+        + f"; outputs {'finite' if not bad else bad[:5]}; {kept} boxes "
+        f"kept; {eval_ms:.1f} ms (first call); peak memory "
+        f"{rec['eval']['peak_gib']:.2f} GiB -> {'ok' if ok else 'FAIL'}")
+    del out
+    trainer = Trainer(cfg, model, ds, steps_per_epoch=1000, device=device)
+    expected = expected_launches(model, cfg, train=True)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rec["train"] = []
+    for i in range(steps):
+        batch = train_batch(cfg, 1, first=i)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        counts = {k: fn.launches for k, fn in counters.items()}
+        nonfinite = grads_finite(trainer.model)
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        step_ok = (math.isfinite(loss) and not nonfinite
+                   and counts == expected)
+        ok &= step_ok
+        rec["train"].append({"ms": dt, "loss": loss, "peak_gib": peak,
+                             "launches": counts})
+        log(f"{label} train step {i} {route} B=1: loss {loss:.4f}, "
+            f"{dt:.1f} ms, grads "
+            f"{'finite' if not nonfinite else nonfinite[:3]}, launches "
+            + fmt_counts(counts, expected)
+            + f", peak memory {peak:.2f} GiB -> "
+            f"{'ok' if step_ok else 'FAIL'}; card {power}")
+    prof = profile_step(trainer, batch, gen)
+    rec["profile"] = {k: prof[k] for k in ("device_busy_ms", "wall_ms",
+                                           "port_kernels_ms", "by_kernel")}
+    log(f"{label} train step under torch.profiler: device busy "
+        f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms host "
+        f"clock, in the port's kernels {prof['port_kernels_ms']:.1f}; per "
+        "port kernel (ms, launches): " + "; ".join(
+            f"{k} {v['ms']:.2f} ({v['launches']})"
+            for k, v in sorted(prof["by_kernel"].items())))
+    del trainer, model
+    torch.cuda.empty_cache()
+    return ok, rec
+
+
+def run_configs(cfg32, device, power, res, f32_train_launches, f32_train):
+    """Phase 10: (a) bf16, (b) depth 50, (c) the decoder and head flags at
+    published widths, (d) small configs of each on the card against the
+    CPU. Adds the bf16 forms' kernel checks to `res`."""
+    from vdetr_tpu_torch.config import VDETRConfig
+
+    ok_a, eval_l, eval_per, train_l, train = run_bf16(
+        cfg32, device, power, f32_train_launches, f32_train)
+    ok_b, depth50 = run_config_steps(VDETRConfig(depth=50), device, power,
+                                     "depth 50 (Bottleneck)")
+    ok_c, flags = run_config_steps(VDETRConfig(**FLAGS), device, power,
+                                   "decoder and head flags")
+    tiny = tiny_config()
+    bf16 = well_posed(tiny.replace(compute_dtype="bfloat16"))
+    ok_d = []
+    for route in ROUTES:
+        ok_d.append(check_small_bf16_forward_against_cpu(device, route))
+        ok_d.append(check_small_step_calls_against_cpu(device, route, bf16,
+                                                       "bf16"))
+    for base in (tiny.replace(depth=50), tiny.replace(**FLAGS)):
+        ok_d.append(check_small_forward_against_cpu(
+            device, torch.Generator().manual_seed(SEED + 1), "keyed", base))
+        ok_d.append(check_small_eval_against_cpu(device, "keyed", base))
+    ok_d.append(check_small_step_calls_against_cpu(
+        device, "keyed", tiny.replace(depth=50), "depth 50"))
+    # train mode draws random_fps's permutation from the step's generator,
+    # which differs between the card and the CPU: the flags' train step
+    # is compared without it
+    ok_d.append(check_small_train_against_cpu(
+        device, "keyed", tiny.replace(**{k: v for k, v in FLAGS.items()
+                                         if k != "random_fps"})))
+    log(f"configurations small on card vs CPU: {sum(ok_d)} of {len(ok_d)} "
+        "ok")
+    rec = {"bf16": {"eval_step": {route: {f"B={b}": v for b, v in
+                                          eval_per[route].items()}
+                                  for route in ROUTES},
+                    "train": train, "eval_launches": eval_l,
+                    "train_launches": train_l},
+           "depth50": depth50, "flags": flags}
+    return ok_a and ok_b and ok_c and all(ok_d), rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3292,6 +3775,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    start = time.perf_counter()
+
+    def phase(n):
+        log(f"phase {n} starts at {time.perf_counter() - start:.1f} s")
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -3306,6 +3793,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in paths.values()))
 
+    phase("3")
     # 3. kernels against their plain versions
     cfg = VDETRConfig()
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -3316,6 +3804,7 @@ def main() -> int:
     res["keyed_conv_dw"] = check_keyed_conv_dw(cases)
     res["mapped_conv"] = check_mapped_conv(cases)
     res["mapped_conv_dw"] = check_mapped_conv_dw(cases)
+    res16 = check_bf16_forms(cases, res)
     del cases
     res["fps"] = check_fps(cfg, grids)
     res["rpe_cross_attention"], case = check_rpe(cfg, device, gen)
@@ -3324,16 +3813,19 @@ def main() -> int:
     del case, grids
     res["auction"] = check_auction(cfg, device, smi)
 
+    phase("3b")
     # 3b. the probes of kernel C
     res["rpe_ablate"] = check_rpe_ablate(device)
     res["dot_micro"] = check_dot_micro(device)
 
+    phase("4")
     # 4. the published forward on both routes, then a small one on each
     # against the CPU
     models = {route: published_model(cfg, device, route) for route in ROUTES}
     ok_f, fwd_launches, per_scene = run_forward(models, cfg, device, smi)
     ok_fpn, fpn_err = compare_fpn(models, cfg, device)
 
+    phase("4b")
     # 4b. the published eval step (test_only) on both routes, kernel N
     # against its plain loop (random boxes and the steps' own NMS inputs),
     # the AP end to end
@@ -3350,20 +3842,24 @@ def main() -> int:
     ok_se = all(check_small_eval_against_cpu(device, route)
                 for route in ROUTES)
 
+    phase("5")
     # 5. the published train step on both routes under the auction, and
     # under JV on the keyed route, then a small one on each route against
     # the CPU
     ok_t, train_launches, train = run_train(
         cfg, device, smi, variants={"keyed": ("keyed", "auction"),
                                     "mapped": ("mapped", "auction"),
-                                    "keyed jv": ("keyed", "jv")})
+                                    "keyed jv": ("keyed", "jv")},
+        detail=("keyed", "mapped"))
     ok_ts = all(check_small_train_against_cpu(device, route)
                 for route in ROUTES)
     torch.cuda.empty_cache()
 
+    phase("6")
     # 6. the CLI at the published width on fabricated ScanNet scans
     ok_c, cli = run_cli(device, smi)
 
+    phase("7")
     # 7. SUN RGB-D at the published width: kernel R against its plain
     # version, the eval step and the AP (the device NMS, then the host's
     # rotated NMS), a small forward, eval and train step per route against
@@ -3393,16 +3889,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_st, sun_train_launches, sun_train = run_train(
         scfg, device, smi, variants={"keyed": ("keyed", "auction"),
-                                     "mapped": ("mapped", "auction")})
+                                     "mapped": ("mapped", "auction")},
+        detail=("keyed",))
     torch.cuda.empty_cache()
     ok_si, sun_iou = run_iou_types(scfg, device, smi)
     ok_sc, sun_cli = run_cli(device, smi, dataset="sunrgbd")
     torch.cuda.empty_cache()
 
+    phase("9")
     # 9. data parallel: world 1 on NCCL against the plain step, two ranks
     # on the one card over gloo against the CPU (small) and at the
     # published width
     ok_dp, dp = run_data_parallel(cfg, smi, train_launches["keyed"])
+    torch.cuda.empty_cache()
+
+    phase("10")
+    # 10. the JAX model's other configurations: bf16, depth 50, the
+    # decoder and head flags, and small ones against the CPU
+    ok_cfg, configs = run_configs(cfg, device, smi, res16, train_launches,
+                                  train)
     log("keyed vs mapped route (ms): forward/scene B=1 "
         f"{per_scene['keyed'][1]:.2f} vs {per_scene['mapped'][1]:.2f}, B=4 "
         f"{per_scene['keyed'][4]:.2f} vs {per_scene['mapped'][4]:.2f}; "
@@ -3468,6 +3973,27 @@ def main() -> int:
                               "launches there; ms, plain_ms and bound_ms sum "
                               "its cases")
         record["kernels"].append(entry)
+    for kname, r in res16.items():
+        src, repl = REPO_SOURCES[kname]
+        route = "mapped" if kname.startswith("mapped") else "keyed"
+        bf16 = configs["bf16"]
+        record["kernels"].append({
+            "name": kname, "route": "cuda", "source": src, "replaces": repl,
+            "launches": bf16["train_launches"][route][kname],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": "none: " + LIBRARY_NONE[kname],
+            "form": "bf16 (compute_dtype='bfloat16')",
+            "f32_ms": r["f32_ms"], "cases": r["cases"],
+            "bound_f32_ms": r["bound_f32_ms"],
+            "bound_note": r["bound_note"],
+            "launches_note": "per train step of the bf16 model on its route "
+                             "(0 on the f32 path)",
+            "launches_by_route": {
+                rt: {"bf16_eval_step": bf16["eval_launches"][rt][kname],
+                     "bf16_train_step": bf16["train_launches"][rt][kname]}
+                for rt in ROUTES}})
     record["forward_ms_per_scene"] = {
         route: {f"B={b}": t for b, t in per_scene[route].items()}
         for route in ROUTES}
@@ -3484,12 +4010,15 @@ def main() -> int:
         "ap_end_to_end": {"device_nms": sun_ap, "rotated_nms": sun_ap_rot},
         "train": sun_train, "iou_types": sun_iou, "cli": sun_cli}
     record["data_parallel"] = dp
+    record["configurations"] = configs
     record["card"] = smi
+    record["seconds"] = time.perf_counter() - start
     log(json.dumps(record))
-    if not (all(r["ok"] for r in res.values()) and ok_f and ok_fpn and ok_s
-            and ok_e and ok_ap and ok_se and ok_t and ok_ts and ok_c
+    if not (all(r["ok"] for r in res.values())
+            and all(r["ok"] for r in res16.values()) and ok_f and ok_fpn
+            and ok_s and ok_e and ok_ap and ok_se and ok_t and ok_ts and ok_c
             and ok_sev and ok_sap and ok_sapr and all(ok_ss) and ok_st
-            and ok_si and ok_sc and ok_dp):
+            and ok_si and ok_sc and ok_dp and ok_cfg):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

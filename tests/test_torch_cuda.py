@@ -22,7 +22,9 @@ at a tiny config (train, checkpoint, --test_only --auto_test); the
 rotated GIoU's clip (R): forward bit for bit against its plain version
 on random and exact edge-case quads, its backward against autograd of
 the plain version and bit for bit from launch to launch, its launch
-counts, and a small SUN RGB-D train step that repeats bit for bit.
+counts, and a small SUN RGB-D train step that repeats bit for bit; the
+bf16 forms of A, H, D and I against their plain versions and each other,
+and the autograd Functions' bf16 dtypes on the card against the CPU.
 chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
@@ -54,12 +56,16 @@ from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
                                                rpe_table_sum_plain)
 from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                    keyed_conv_ad,
+                                                   keyed_conv_bf16,
                                                    keyed_conv_dw,
+                                                   keyed_conv_dw_bf16,
                                                    keyed_conv_dw_plain,
                                                    keyed_conv_plain)
 from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
                                                     mapped_conv_ad,
+                                                    mapped_conv_bf16,
                                                     mapped_conv_dw,
+                                                    mapped_conv_dw_bf16,
                                                     mapped_conv_dw_plain,
                                                     mapped_conv_plain)
 from vdetr_tpu_torch.ops.voxelize import downsample_grid, voxelize
@@ -254,6 +260,69 @@ def test_mapped_conv_and_dw_kernels_match_plain(rng, cuda, cin, cout,
     dw_ref = mapped_conv_dw_plain(args[0], nbr, dout)
     np.testing.assert_allclose(dw.cpu().numpy(), dw_ref.cpu().numpy(),
                                atol=1e-5 * float(dw_ref.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("cin,cout,stride", [(3, 64, 2), (64, 64, 1),
+                                             (64, 128, 2), (512, 512, 1),
+                                             (40, 8, 1), (24, 16, 2)],
+                         ids=["stem", "64-64", "stride-2", "512-512",
+                              "ragged", "24-16"])
+def test_bf16_forms_match_plain(rng, cuda, cin, cout, stride):
+    """The bf16 forms of A, H, D and I (bf16 features and weights; D and I
+    against f32 dout in two bf16 halves) against their plain versions:
+    A/H's exact products summed in another order, 1e-5; D/I's split dout,
+    1e-5 of the largest entry; H bit for bit against A, I against D; the
+    wrappers pick the form by the features' dtype and count it."""
+    args, dout = conv_case(rng, cuda, cin, cout, stride)
+    args = (args[0].bfloat16(),) + args[1:5] + (args[5].bfloat16(),)
+    nbr = kernel_map(*map_args(args))
+    counts = lambda: (keyed_conv_bf16.launches,  # noqa: E731
+                      keyed_conv_dw_bf16.launches, mapped_conv_bf16.launches,
+                      mapped_conv_dw_bf16.launches, keyed_conv.launches,
+                      keyed_conv_dw.launches)
+    before = counts()
+    a = keyed_conv(*args)
+    d = keyed_conv_dw(*args[:5], dout)
+    h = mapped_conv(args[0], nbr, args[5])
+    i = mapped_conv_dw(args[0], nbr, dout)
+    assert [c - b for c, b in zip(counts(), before)] == [1, 1, 1, 1, 0, 0]
+    assert a.dtype == d.dtype == torch.float32
+    ref = keyed_conv_plain(*args)
+    np.testing.assert_allclose(a.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    dref = keyed_conv_dw_plain(*args[:5], dout)
+    np.testing.assert_allclose(d.cpu().numpy(), dref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(dref.abs().max()))
+    assert torch.equal(h, a) and torch.equal(i, d)
+
+
+@pytest.mark.parametrize("route", ["keyed", "mapped"])
+@pytest.mark.parametrize("stride", [1, 2], ids=["submanifold", "stride-2"])
+def test_bf16_conv_function_dtypes_kernel_vs_plain(rng, cuda, route,
+                                                   stride):
+    """The autograd Functions under bf16 on the card against the CPU:
+    float32 out, bf16 dFeats (the f32 cotangent times the bf16 weights,
+    rounded once), dW the f32 sum rounded to bf16; within one bf16 ulp."""
+    args, dout = conv_case(rng, cuda, 24, 40, stride)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        f = args[0].to(dev).bfloat16().requires_grad_()
+        w = args[5].to(dev).requires_grad_()
+        if route == "keyed":
+            out = keyed_conv_ad(f, args[1].to(dev), args[2].to(dev),
+                                args[3].to(dev), args[4], w.bfloat16(),
+                                submanifold=stride == 1)
+        else:
+            nbr = neighbour_map(*(a.to(dev) for a in map_args(args)[:3]),
+                                args[4])
+            out = mapped_conv_ad(f, nbr, w.bfloat16(),
+                                 submanifold=stride == 1)
+        df, dw = torch.autograd.grad(out, (f, w), dout.to(dev))
+        assert out.dtype == torch.float32 and df.dtype == torch.bfloat16
+        res.append([x.float().cpu() for x in (out.detach(), df, dw)])
+    for got, ref in zip(*res):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2 ** -7,
+                                   atol=1e-5 * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("cin,cout,stride,capacity,flat", [

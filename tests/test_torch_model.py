@@ -249,8 +249,14 @@ def test_chip_smoke_fails_without_gpu(tmp_path, alone):
     dict(share_selfattn=True), dict(compute_dtype="bfloat16"),
     dict(mlp_act="gelu"), dict(random_fps=True)])
 def test_build_model_refuses_unported_options(option):
-    """Options the JAX model has and this slice does not port fail loudly
-    instead of running something else."""
-    with pytest.raises(NotImplementedError):
-        build_port_model(tiny_config(**option), PortScannetConfig(),
-                         device="cpu")
+    """Every option of the JAX model is ported now: each one that an
+    earlier slice refused builds (`tests/test_torch_configs.py` and
+    `tests/test_torch_bf16.py` hold them to JAX), and a value that the
+    configuration rejects still fails loudly instead of running something
+    else."""
+    model = build_port_model(tiny_config(**option), PortScannetConfig(),
+                             device="cpu")
+    assert model.cfg == tiny_config(**option)
+    with pytest.raises(ValueError):
+        build_port_model(tiny_config(**{**option, "compute_dtype": "float16"}),
+                         PortScannetConfig(), device="cpu")

@@ -2,12 +2,17 @@
 and between the reference's checkpoints and the port.
 
 The port's parameters are named after the reference V-DETR state_dict.
-`build_reference_state_dict` renames a flax (params, batch_stats) tree,
-as numpy arrays, to those names; it is this package's own copy of the
-mapping in `vdetr_tpu/train/torch_import.py` (for the BasicBlock depths
-the port builds), so that the port imports nothing of the JAX package.
-Linear and 1x1 kernels are transposed to torch's (out, in) layout and
-the packed self-attention in_proj is rebuilt from q/k/v.
+`build_reference_state_dict` renames a flax (params, batch_stats,
+constants) tree, as numpy arrays, to those names, and
+`jax_trees` renames the port's back; they are this package's own copy of
+the mapping in `vdetr_tpu/train/torch_import.py`, so that the port
+imports nothing of the JAX package, for every configuration the JAX
+model builds: BasicBlock and Bottleneck depths, `share_selfattn`,
+`pos_for_key` (`decoder.key_pos_projection.<i>`), `querypos_mlp=False`
+(`pos_embedding.gauss_B`, the JAX constant, and `query_projection`) and
+the heads' `mlp_norm`. Linear and 1x1 kernels are transposed to torch's
+(out, in) layout and the packed self-attention in_proj is rebuilt from
+q/k/v.
 
 Sparse-conv kernel offsets: the reference layout (MinkowskiEngine) is
 x-fastest, the JAX package and the port are z-fastest, so
@@ -58,6 +63,7 @@ class _NameMap:
     def __init__(self):
         self.params: Dict[str, Tuple[Path, str]] = {}
         self.stats: Dict[str, Path] = {}
+        self.constants: Dict[str, Path] = {}
 
     def linear(self, tname, path, bias=True):
         self.params[tname + ".weight"] = (path + ("kernel",), "linear_w")
@@ -90,14 +96,20 @@ class _NameMap:
                                                 "packed_qkv_bias")
 
 
-def _map_generic_mlp(m: _NameMap, tname: str, path, n_hidden: int = 2):
-    """GenericMLP Sequential indices: conv, bn, act, dropout per hidden
-    layer, then the output conv (reference models/helpers.py:102-128)."""
+def _map_generic_mlp(m: _NameMap, tname: str, path, n_hidden: int = 2,
+                     norm="bn1d", dropout: bool = True, hidden_bias=False):
+    """GenericMLP Sequential indices (reference models/helpers.py:102-128,
+    `models/mlp.py`): per hidden layer conv, norm (unless None), act,
+    dropout (if any), then the output conv. A "bn1d" norm carries running
+    statistics, "ln" only its scale and bias, "id" nothing."""
     idx = 0
     for h in range(n_hidden):
-        m.conv1d(f"{tname}.layers.{idx}", path + (f"layer{h}",), bias=False)
-        m.norm(f"{tname}.layers.{idx + 1}", path + (f"norm{h}",))
-        idx += 4
+        m.conv1d(f"{tname}.layers.{idx}", path + (f"layer{h}",),
+                 bias=hidden_bias)
+        if norm in ("bn1d", "ln"):
+            m.norm(f"{tname}.layers.{idx + 1}", path + (f"norm{h}",),
+                   stats=norm == "bn1d")
+        idx += 2 + (norm is not None) + dropout
     m.conv1d(f"{tname}.layers.{idx}", path + ("out",))
 
 
@@ -123,17 +135,24 @@ def _map_pos_embed(m: _NameMap, tname: str, path):
     m.conv1d(f"{tname}.position_embedding_head.3", path + ("out",))
 
 
+ARCH = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+        101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
 def _map_backbone(m: _NameMap, cfg: VDETRConfig):
-    arch = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}[cfg.depth]
+    """The stem and each block's convs and norms (a Bottleneck, depth >=
+    50, has three of each), and its downsample where it has one."""
+    convs = ("conv1", "conv2", "conv3") if cfg.depth >= 50 \
+        else ("conv1", "conv2")
     p = ("pre_encoder",)
     m.mink_kernel("pre_encoder.conv1", p + ("conv1",))
     m.norm("pre_encoder.norm1.bn" if cfg.stem_bn else "pre_encoder.norm1",
            p + ("norm1",), stats=cfg.stem_bn)
     for i in range(cfg.num_stages):
-        for b in range(arch[i]):
+        for b in range(ARCH[cfg.depth][i]):
             t = f"pre_encoder.layer{i + 1}.{b}"
             q = p + (f"layer{i + 1}_block{b}",)
-            for j, cname in enumerate(("conv1", "conv2"), start=1):
+            for j, cname in enumerate(convs, start=1):
                 m.mink_kernel(f"{t}.{cname}", q + (cname,))
                 m.norm(f"{t}.norm{j}.bn", q + (f"norm{j}",))
             # blocks without a downsample branch have no such flax path
@@ -167,10 +186,18 @@ def _map_decoder(m: _NameMap, cfg: VDETRConfig):
     for i in range(num_layers):
         _map_pos_embed(m, f"decoder.query_pos_projection.{i}",
                        d + (f"query_pos_projection{i}",))
+        if cfg.pos_for_key:
+            _map_pos_embed(m, f"decoder.key_pos_projection.{i}",
+                           d + (f"key_pos_projection{i}",))
         t = f"decoder.layers.{i}"
         q = d + (f"layer{i}",)
-        m.packed_qkv(f"{t}.self_attn", q + ("self_attn",))
-        m.linear(f"{t}.self_attn.out_proj", q + ("self_attn", "out_proj"))
+        if cfg.share_selfattn:
+            for nm in ("q", "k", "v", "proj"):
+                m.linear(f"{t}.self_attn.{nm}", q + ("self_attn", nm))
+        else:
+            m.packed_qkv(f"{t}.self_attn", q + ("self_attn",))
+            m.linear(f"{t}.self_attn.out_proj",
+                     q + ("self_attn", "out_proj"))
         for nm in ("q", "k", "v", "proj"):
             m.linear(f"{t}.multihead_attn.{nm}", q + ("cross_attn", nm))
         for j in range(8):
@@ -186,8 +213,31 @@ def _map_decoder(m: _NameMap, cfg: VDETRConfig):
     for i in range(num_layers + 1):
         for h in heads:
             _map_generic_mlp(m, f"decoder.mlp_heads.{i}.{h}_head",
-                             d + (f"mlp_heads{i}", f"{h}_head"))
-    _map_generic_mlp(m, "decoder.pointcls_heads", ("pointcls_heads", "head"))
+                             d + (f"mlp_heads{i}", f"{h}_head"),
+                             norm=cfg.mlp_norm)
+    _map_generic_mlp(m, "decoder.pointcls_heads", ("pointcls_heads", "head"),
+                     norm=cfg.mlp_norm)
+
+
+def _map_query_embedding(m: _NameMap, cfg: VDETRConfig):
+    """querypos_mlp=False: the Fourier embedding's matrix (a constant of
+    the JAX model, a buffer of the port) and the query projection, conv
+    (bias), relu, conv (bias), relu (JAX vdetr.py:208-218)."""
+    if cfg.querypos_mlp:
+        return
+    m.constants["pos_embedding.gauss_B"] = ("pos_embedding", "gauss_B")
+    _map_generic_mlp(m, "query_projection", ("query_projection",),
+                     n_hidden=1, norm=None, dropout=False, hidden_bias=True)
+
+
+def _name_map(cfg: VDETRConfig) -> _NameMap:
+    m = _NameMap()
+    _map_backbone(m, cfg)
+    _map_fpn(m, cfg)
+    _map_proj(m, cfg)
+    _map_decoder(m, cfg)
+    _map_query_embedding(m, cfg)
+    return m
 
 
 def _flatten(tree, prefix=()) -> Dict[Path, np.ndarray]:
@@ -201,15 +251,14 @@ def _flatten(tree, prefix=()) -> Dict[Path, np.ndarray]:
 
 
 def build_reference_state_dict(params: Dict, batch_stats: Dict,
-                               cfg: VDETRConfig) -> Dict[str, np.ndarray]:
-    """A flax (params, batch_stats) tree -> the reference-shaped state
-    dict (reference names and layouts, x-fastest kernel offsets)."""
-    m = _NameMap()
-    _map_backbone(m, cfg)
-    _map_fpn(m, cfg)
-    _map_proj(m, cfg)
-    _map_decoder(m, cfg)
+                               cfg: VDETRConfig, constants: Dict = None
+                               ) -> Dict[str, np.ndarray]:
+    """A flax (params, batch_stats, constants) tree -> the
+    reference-shaped state dict (reference names and layouts, x-fastest
+    kernel offsets)."""
+    m = _name_map(cfg)
     flat_p, flat_s = _flatten(params), _flatten(batch_stats)
+    flat_c = _flatten(constants or {})
     sd: Dict[str, np.ndarray] = {}
     for tname, (path, kind) in m.params.items():
         if path not in flat_p:
@@ -232,12 +281,52 @@ def build_reference_state_dict(params: Dict, batch_stats: Dict,
     for tname, path in m.stats.items():
         if path in flat_s:
             sd[tname] = flat_s[path]
+    for tname, path in m.constants.items():
+        if path in flat_c:
+            sd[tname] = flat_c[path]
     return sd
 
 
+def _set(tree: Dict, path: Path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def jax_trees(state_dict: Dict, cfg: VDETRConfig):
+    """The port's state_dict (or any {name: tensor} of its parameters,
+    such as their gradients) -> flax (params, batch_stats, constants)
+    trees of numpy arrays: `load_jax_params`' inverse. Every name must be
+    one the mapping knows."""
+    m = _name_map(cfg)
+    params, stats, consts = {}, {}, {}
+    for tname, v in state_dict.items():
+        v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+        if tname in m.params:
+            path, kind = m.params[tname]
+            if kind == "linear_w":
+                v = v.T
+            elif kind == "conv1d_w":
+                v = v[:, :, 0].T
+            elif kind in ("packed_qkv", "packed_qkv_bias"):
+                base, leaf = path[:-2], path[-1]
+                for j, part in enumerate(np.split(v, 3, axis=0)):
+                    _set(params, base + ("qkv"[j], leaf),
+                         part.T if kind == "packed_qkv" else part)
+                continue
+            _set(params, path, v)  # sparse kernels: z-fastest in both
+        elif tname in m.stats:
+            _set(stats, m.stats[tname], v)
+        elif tname in m.constants:
+            _set(consts, m.constants[tname], v)
+        else:
+            raise KeyError(f"{tname}: no flax path for this name")
+    return params, stats, consts
+
+
 def _is_offset_kernel(name: str, value) -> bool:
-    return name.endswith(".kernel") and value.shape[0] in \
-        KERNEL_OFFSET_PERMUTATION
+    return (name.endswith(".kernel") and value.ndim == 3
+            and value.shape[0] in KERNEL_OFFSET_PERMUTATION)
 
 
 def from_reference_state_dict(sd: Dict) -> Dict[str, torch.Tensor]:
@@ -246,6 +335,8 @@ def from_reference_state_dict(sd: Dict) -> Dict[str, torch.Tensor]:
     out = {}
     for name, v in sd.items():
         v = np.asarray(v)
+        if name.endswith(".kernel") and v.ndim == 2:
+            v = v[None]  # MinkowskiEngine keeps 1x1 kernels (C_in, C_out)
         if _is_offset_kernel(name, v):
             v = v[KERNEL_OFFSET_PERMUTATION[v.shape[0]]]
         out[name] = torch.from_numpy(np.ascontiguousarray(v))
@@ -266,11 +357,16 @@ def reference_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
 
 
 def load_jax_params(model: nn.Module, params: Dict, batch_stats: Dict,
-                    cfg: VDETRConfig) -> nn.Module:
-    """Load flax (params, batch_stats) trees, as numpy arrays, into the
-    port. Every tensor of the port must be covered (strict load)."""
+                    cfg: VDETRConfig, constants: Dict = None) -> nn.Module:
+    """Load flax (params, batch_stats, constants) trees, as numpy arrays,
+    into the port. Every tensor of the port must be covered (strict
+    load); without `constants` the port keeps its own (the Fourier
+    matrix, drawn as the JAX model draws it)."""
     sd = from_reference_state_dict(
-        build_reference_state_dict(params, batch_stats, cfg))
+        build_reference_state_dict(params, batch_stats, cfg, constants))
+    own = model.state_dict()
+    for tname in _name_map(cfg).constants:
+        sd.setdefault(tname, own[tname])
     model.load_state_dict(sd, strict=True)
     return model
 

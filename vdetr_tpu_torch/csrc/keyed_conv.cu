@@ -35,6 +35,13 @@
 // so the caller splits the offsets over `splits` blocks
 // (`ops.sparse_conv_kernel.conv_splits`), which write partial sums that a
 // second kernel adds in a fixed order.
+//
+// The bf16 form (keyed_conv_bf16, compute_dtype="bfloat16", as the TPU
+// kernel feeds the MXU): the same kernel on bf16 features and weights,
+// each product one mma.sync.m16n8k16 bf16 MMA into the f32 accumulators
+// (exact products), the gathered rows and weight tiles half the bytes.
+// It reads rows in 16-byte pieces: C and Co multiples of 8 (the caller
+// pads the stem's 3 channels to 8).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,13 +52,13 @@ namespace {
 
 using namespace sparse_conv;
 
-template <int BK, int STAGES>
+template <typename T, int BK, int STAGES>
 __global__ void __launch_bounds__(CONV_NT)
-keyed_conv_kernel(const float* __restrict__ feats,   // (B, V_in, C)
+keyed_conv_kernel(const T* __restrict__ feats,       // (B, V_in, C)
                   const int* __restrict__ in_keys,   // (B, V_in) ascending
                   const int* __restrict__ q_coords,  // (B, V, 3)
                   const uint8_t* __restrict__ q_valid,  // (B, V)
-                  const float* __restrict__ w,       // (27, C, Co)
+                  const T* __restrict__ w,           // (27, C, Co)
                   float* __restrict__ out,           // (splits, B, V, Co)
                   int V_in, int V, int C, int Co, int gx, int gy, int gz,
                   int splits, bool a16, bool b16) {
@@ -91,9 +98,42 @@ keyed_conv_kernel(const float* __restrict__ feats,   // (B, V_in, C)
   __syncthreads();
 
   ConvAcc acc = {};
-  conv_tile<BK, STAGES>(feats + (size_t)b * V_in * C, w, s_nbr, k_begin, nk,
-                        C, Co, n0, a16, b16, acc);
+  conv_tile<T, BK, STAGES>(feats + (size_t)b * V_in * C, w, s_nbr, k_begin,
+                           nk, C, Co, n0, a16, b16, acc);
   store_tile(out + (size_t)b * V * Co, V, Co, m0, n0, acc);
+}
+
+// One launch of either form: the conv kernel into `out` or, with splits
+// > 1, into `scratch`, then the fixed-order sum of the splits.
+template <typename T>
+int launch(const void* feats, const void* in_keys, const void* q_coords,
+           const void* q_valid, const void* weights, void* out,
+           void* scratch, int B, int V_in, int V, int C, int Co, int gx,
+           int gy, int gz, int splits, void* stream) {
+  if (splits < 1 || splits > KV) return (int)cudaErrorInvalidValue;
+  constexpr int EPC = 16 / sizeof(T);
+  const bool a16 = C % EPC == 0 && aligned16(feats);
+  const bool b16 = Co % EPC == 0 && aligned16(weights);
+  if (!is_f32<T>() && !(a16 && b16)) return (int)cudaErrorInvalidValue;
+  if (B > 0 && V > 0 && Co > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    float* dst = splits > 1 ? (float*)scratch : (float*)out;
+    dim3 grid((V + BM - 1) / BM, (Co + BN - 1) / BN, B * splits);
+    // 32-channel stages two deep; the stem's 3 channels (8 in the bf16
+    // form), whose one k step leaves little work to overlap, 16-channel
+    // stages three deep
+    auto kernel = C <= 8 ? keyed_conv_kernel<T, 16, 3>
+                         : keyed_conv_kernel<T, 32, 2>;
+    kernel<<<grid, CONV_NT, 0, st>>>(
+        (const T*)feats, (const int*)in_keys, (const int*)q_coords,
+        (const uint8_t*)q_valid, (const T*)weights, dst, V_in, V, C, Co, gx,
+        gy, gz, splits, a16, b16);
+    if (splits > 1) {
+      const size_t n = (size_t)B * V * Co;
+      conv_sum_splits(dst, (float*)out, n, splits, st);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -104,23 +144,18 @@ extern "C" int keyed_conv_f32(const void* feats, const void* in_keys,
                               const void* weights, void* out, void* scratch,
                               int B, int V_in, int V, int C, int Co, int gx,
                               int gy, int gz, int splits, void* stream) {
-  if (splits < 1 || splits > KV) return (int)cudaErrorInvalidValue;
-  if (B > 0 && V > 0 && Co > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    float* dst = splits > 1 ? (float*)scratch : (float*)out;
-    dim3 grid((V + BM - 1) / BM, (Co + BN - 1) / BN, B * splits);
-    // 32-channel stages two deep; the stem's 3 channels, whose one k8
-    // step leaves little work to overlap, 16-channel stages three deep
-    auto kernel = C <= 8 ? keyed_conv_kernel<16, 3> : keyed_conv_kernel<32, 2>;
-    kernel<<<grid, CONV_NT, 0, st>>>(
-        (const float*)feats, (const int*)in_keys, (const int*)q_coords,
-        (const uint8_t*)q_valid, (const float*)weights, dst, V_in, V, C, Co,
-        gx, gy, gz, splits, C % 4 == 0 && aligned16(feats),
-        Co % 4 == 0 && aligned16(weights));
-    if (splits > 1) {
-      const size_t n = (size_t)B * V * Co;
-      conv_sum_splits(dst, (float*)out, n, splits, st);
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(feats, in_keys, q_coords, q_valid, weights, out,
+                       scratch, B, V_in, V, C, Co, gx, gy, gz, splits,
+                       stream);
+}
+
+// The bf16 form: feats and weights bf16, C and Co multiples of 8 and both
+// 16-byte aligned; out and scratch as keyed_conv_f32's.
+extern "C" int keyed_conv_bf16(const void* feats, const void* in_keys,
+                               const void* q_coords, const void* q_valid,
+                               const void* weights, void* out, void* scratch,
+                               int B, int V_in, int V, int C, int Co, int gx,
+                               int gy, int gz, int splits, void* stream) {
+  return launch<bf16>(feats, in_keys, q_coords, q_valid, weights, out,
+                      scratch, B, V_in, V, C, Co, gx, gy, gz, splits, stream);
 }

@@ -35,6 +35,12 @@
 // a 3-deep cp.async ring. Where the tiles are too few to fill the card,
 // the rows are split over blocks whose partial dW a last kernel adds in a
 // fixed order. Every step is deterministic: two calls give the same bits.
+//
+// The bf16 form (keyed_conv_dw_bf16, compute_dtype="bfloat16"): the
+// features bf16 (half the gathered bytes), dout f32 as the JAX package's
+// cotangent, split into bf16 high and low halves against them (two
+// m16n8k16 MMAs per product, ~2^-17 of each), per offset only (C a
+// multiple of 8: the caller pads the stem's channels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +83,34 @@ __global__ void neighbour_map_kernel(SearchMap search, int* __restrict__ nbr,
     nbr[i] = search((int)(i / rows), (int)(i % rows));
 }
 
+// One launch of either form; T the features' type.
+template <typename T>
+int launch(const void* feats, const void* in_keys, const void* q_coords,
+           const void* q_valid, const void* dout, void* dw, void* nbr,
+           void* scratch, int B, int V_in, int V, int C, int Co, int gx,
+           int gy, int gz, int splits, int rows_per_split, void* stream) {
+  const int rows = B * V;
+  if (splits < 1 || rows_per_split % DW_BR != 0 ||
+      (long long)splits * rows_per_split < rows)
+    return (int)cudaErrorInvalidValue;
+  if (C > 0 && Co > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const SearchMap search{(const int*)in_keys, (const int*)q_coords,
+                           (const uint8_t*)q_valid, V_in, V, gx, gy, gz};
+    if (is_f32<T>() && dw_dense(C) && rows > 0)
+      neighbour_map_kernel<<<528, 256, 0, st>>>(search, (int*)nbr, rows);
+    float* dst = splits > 1 ? (float*)scratch : (float*)dw;
+    const cudaError_t err = launch_dw(
+        (const T*)feats, (const float*)dout, search,
+        FlatMap{(const int*)nbr, rows}, (int*)nbr, dst, rows, C, Co, splits,
+        rows_per_split, st);
+    if (err != cudaSuccess) return (int)err;
+    if (splits > 1)
+      dw_sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // nbr: int32 scratch, the dense form's (27, B * V) map when 27 C <= 96,
@@ -90,24 +124,21 @@ extern "C" int keyed_conv_dw_f32(const void* feats, const void* in_keys,
                                  int C, int Co, int gx, int gy, int gz,
                                  int splits, int rows_per_split,
                                  void* stream) {
-  const int rows = B * V;
-  if (splits < 1 || rows_per_split % DW_BR != 0 ||
-      (long long)splits * rows_per_split < rows)
-    return (int)cudaErrorInvalidValue;
-  if (C > 0 && Co > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    const SearchMap search{(const int*)in_keys, (const int*)q_coords,
-                           (const uint8_t*)q_valid, V_in, V, gx, gy, gz};
-    if (dw_dense(C) && rows > 0)
-      neighbour_map_kernel<<<528, 256, 0, st>>>(search, (int*)nbr, rows);
-    float* dst = splits > 1 ? (float*)scratch : (float*)dw;
-    const cudaError_t err = launch_dw(
-        (const float*)feats, (const float*)dout, search,
-        FlatMap{(const int*)nbr, rows}, (int*)nbr, dst, rows, C, Co, splits,
-        rows_per_split, st);
-    if (err != cudaSuccess) return (int)err;
-    if (splits > 1)
-      dw_sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(feats, in_keys, q_coords, q_valid, dout, dw, nbr,
+                       scratch, B, V_in, V, C, Co, gx, gy, gz, splits,
+                       rows_per_split, stream);
+}
+
+// The bf16 form: feats bf16 (C a multiple of 8, 16-byte aligned), dout
+// f32; nbr the rulebook, the rest as keyed_conv_dw_f32's.
+extern "C" int keyed_conv_dw_bf16(const void* feats, const void* in_keys,
+                                  const void* q_coords, const void* q_valid,
+                                  const void* dout, void* dw, void* nbr,
+                                  void* scratch, int B, int V_in, int V,
+                                  int C, int Co, int gx, int gy, int gz,
+                                  int splits, int rows_per_split,
+                                  void* stream) {
+  return launch<bf16>(feats, in_keys, q_coords, q_valid, dout, dw, nbr,
+                      scratch, B, V_in, V, C, Co, gx, gy, gz, splits,
+                      rows_per_split, stream);
 }

@@ -25,7 +25,8 @@
 // sparse_conv.cuh), so H and A are bit-equal. As for A, the caller
 // splits the offsets over `splits` blocks from 64 input channels
 // (`ops.sparse_conv_kernel.conv_splits`), whose partial sums a second
-// kernel adds in a fixed order.
+// kernel adds in a fixed order. The bf16 form (mapped_conv_bf16) is A's
+// bf16 form over the map (keyed_conv.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,11 +37,11 @@ namespace {
 
 using namespace sparse_conv;
 
-template <int BK, int STAGES>
+template <typename T, int BK, int STAGES>
 __global__ void __launch_bounds__(CONV_NT)
-mapped_conv_kernel(const float* __restrict__ feats,  // (B, V_in, C)
+mapped_conv_kernel(const T* __restrict__ feats,      // (B, V_in, C)
                    const int* __restrict__ nbr,      // (B, 27, V)
-                   const float* __restrict__ w,      // (27, C, Co)
+                   const T* __restrict__ w,          // (27, C, Co)
                    float* __restrict__ out,          // (splits, B, V, Co)
                    int V_in, int V, int C, int Co, int splits, bool a16,
                    bool b16) {
@@ -69,9 +70,35 @@ mapped_conv_kernel(const float* __restrict__ feats,  // (B, V_in, C)
   __syncthreads();
 
   ConvAcc acc = {};
-  conv_tile<BK, STAGES>(feats + (size_t)b * V_in * C, w, s_nbr, k_begin, nk,
-                        C, Co, n0, a16, b16, acc);
+  conv_tile<T, BK, STAGES>(feats + (size_t)b * V_in * C, w, s_nbr, k_begin,
+                           nk, C, Co, n0, a16, b16, acc);
   store_tile(out + (size_t)b * V * Co, V, Co, m0, n0, acc);
+}
+
+// One launch of either form (keyed_conv.cu's `launch` over a map).
+template <typename T>
+int launch(const void* feats, const void* nbr, const void* weights,
+           void* out, void* scratch, int B, int V_in, int V, int C, int Co,
+           int splits, void* stream) {
+  if (splits < 1 || splits > KV) return (int)cudaErrorInvalidValue;
+  constexpr int EPC = 16 / sizeof(T);
+  const bool a16 = C % EPC == 0 && aligned16(feats);
+  const bool b16 = Co % EPC == 0 && aligned16(weights);
+  if (!is_f32<T>() && !(a16 && b16)) return (int)cudaErrorInvalidValue;
+  if (B > 0 && V > 0 && Co > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    float* dst = splits > 1 ? (float*)scratch : (float*)out;
+    dim3 grid((V + BM - 1) / BM, (Co + BN - 1) / BN, B * splits);
+    // kernel A's choice of stage width and depth (keyed_conv.cu)
+    auto kernel = C <= 8 ? mapped_conv_kernel<T, 16, 3>
+                         : mapped_conv_kernel<T, 32, 2>;
+    kernel<<<grid, CONV_NT, 0, st>>>(
+        (const T*)feats, (const int*)nbr, (const T*)weights, dst, V_in, V,
+        C, Co, splits, a16, b16);
+    if (splits > 1)
+      conv_sum_splits(dst, (float*)out, (size_t)B * V * Co, splits, st);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -81,20 +108,16 @@ extern "C" int mapped_conv_f32(const void* feats, const void* nbr,
                                const void* weights, void* out, void* scratch,
                                int B, int V_in, int V, int C, int Co,
                                int splits, void* stream) {
-  if (splits < 1 || splits > KV) return (int)cudaErrorInvalidValue;
-  if (B > 0 && V > 0 && Co > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    float* dst = splits > 1 ? (float*)scratch : (float*)out;
-    dim3 grid((V + BM - 1) / BM, (Co + BN - 1) / BN, B * splits);
-    // kernel A's choice of stage width and depth (keyed_conv.cu)
-    auto kernel =
-        C <= 8 ? mapped_conv_kernel<16, 3> : mapped_conv_kernel<32, 2>;
-    kernel<<<grid, CONV_NT, 0, st>>>(
-        (const float*)feats, (const int*)nbr, (const float*)weights, dst,
-        V_in, V, C, Co, splits, C % 4 == 0 && aligned16(feats),
-        Co % 4 == 0 && aligned16(weights));
-    if (splits > 1)
-      conv_sum_splits(dst, (float*)out, (size_t)B * V * Co, splits, st);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(feats, nbr, weights, out, scratch, B, V_in, V, C, Co,
+                       splits, stream);
+}
+
+// The bf16 form: feats and weights bf16, C and Co multiples of 8 and both
+// 16-byte aligned.
+extern "C" int mapped_conv_bf16(const void* feats, const void* nbr,
+                                const void* weights, void* out, void* scratch,
+                                int B, int V_in, int V, int C, int Co,
+                                int splits, void* stream) {
+  return launch<bf16>(feats, nbr, weights, out, scratch, B, V_in, V, C, Co,
+                      splits, stream);
 }

@@ -32,15 +32,13 @@
 
 using namespace sparse_conv;
 
-// scratch: (splits, 27, C, Co) floats when splits > 1, then, from the
-// next multiple of 4 floats and when 27 C > 96, the rulebook
-// (dw_rulebook_ints(splits, rows_per_split) ints).
-// rows_per_split must be a multiple of 32.
-extern "C" int mapped_conv_dw_f32(const void* feats, const void* nbr,
-                                  const void* dout, void* dw, void* scratch,
-                                  int B, int V_in, int V, int C, int Co,
-                                  int splits, int rows_per_split,
-                                  void* stream) {
+namespace {
+
+// One launch of either form; T the features' type.
+template <typename T>
+int launch(const void* feats, const void* nbr, const void* dout, void* dw,
+           void* scratch, int B, int V_in, int V, int C, int Co, int splits,
+           int rows_per_split, void* stream) {
   const int rows = B * V;
   if (splits < 1 || rows_per_split % DW_BR != 0 ||
       (long long)splits * rows_per_split < rows)
@@ -53,7 +51,7 @@ extern "C" int mapped_conv_dw_f32(const void* feats, const void* nbr,
         splits > 1 ? ((size_t)splits * KV * C * Co + 3) / 4 * 4 : 0;
     float* dst = splits > 1 ? (float*)scratch : (float*)dw;
     const cudaError_t err = launch_dw(
-        (const float*)feats, (const float*)dout, map, map,
+        (const T*)feats, (const float*)dout, map, map,
         (int*)((float*)scratch + part), dst, rows, C, Co, splits,
         rows_per_split, st);
     if (err != cudaSuccess) return (int)err;
@@ -61,4 +59,30 @@ extern "C" int mapped_conv_dw_f32(const void* feats, const void* nbr,
       dw_sum_splits(dst, (float*)dw, (size_t)KV * C * Co, splits, st);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// scratch: (splits, 27, C, Co) floats when splits > 1, then, from the
+// next multiple of 4 floats and when 27 C > 96, the rulebook
+// (dw_rulebook_ints(splits, rows_per_split) ints).
+// rows_per_split must be a multiple of 32.
+extern "C" int mapped_conv_dw_f32(const void* feats, const void* nbr,
+                                  const void* dout, void* dw, void* scratch,
+                                  int B, int V_in, int V, int C, int Co,
+                                  int splits, int rows_per_split,
+                                  void* stream) {
+  return launch<float>(feats, nbr, dout, dw, scratch, B, V_in, V, C, Co,
+                       splits, rows_per_split, stream);
+}
+
+// The bf16 form (D's, keyed_conv_dw.cu): feats bf16 (C a multiple of 8,
+// 16-byte aligned), dout f32; scratch as mapped_conv_dw_f32's.
+extern "C" int mapped_conv_dw_bf16(const void* feats, const void* nbr,
+                                   const void* dout, void* dw, void* scratch,
+                                   int B, int V_in, int V, int C, int Co,
+                                   int splits, int rows_per_split,
+                                   void* stream) {
+  return launch<bf16>(feats, nbr, dout, dw, scratch, B, V_in, V, C, Co,
+                      splits, rows_per_split, stream);
 }

@@ -1,17 +1,21 @@
 // Device code shared by the sparse-convolution kernels (Hopper).
 //
 // - conv_tile / store_tile: a conv block's gather-GEMM over neighbour
-//   rows it has resolved into shared memory, on the tensor cores in
-//   split TF32 (three m16n8k8 MMAs per f32 product) behind a cp.async
-//   ring. The keyed conv (keyed_conv.cu) resolves the rows by binary
-//   search, the mapped conv (mapped_conv.cu) reads them from a neighbour
-//   map; the GEMM is the same, so the two are bit-equal.
+//   rows it has resolved into shared memory, on the tensor cores behind a
+//   cp.async ring: for f32 features and weights in split TF32 (three
+//   m16n8k8 MMAs per f32 product), for bf16 ones one m16n8k16 MMA per
+//   product (the bf16 form), f32 accumulators either way. The keyed conv
+//   (keyed_conv.cu) resolves the rows by binary search, the mapped conv
+//   (mapped_conv.cu) reads them from a neighbour map; the GEMM is the
+//   same, so the two are bit-equal.
 // - dw_rulebook_kernel / dw_kernel (launch_dw): the weight gradient. The
 //   rulebook compacts each offset's hits into an ordered list of (input
 //   row, query row) pairs without atomics; the GEMM runs over the hits
 //   only, on the tensor cores in split TF32 behind a cp.async ring, or,
 //   where 27 C fits one tile (the stem), over every row with all 27
-//   offsets in one block. The keyed dW (keyed_conv_dw.cu) finds the
+//   offsets in one block. The bf16 form reads bf16 features against the
+//   f32 dout split into two bf16 halves (two m16n8k16 MMAs per product),
+//   per offset only. The keyed dW (keyed_conv_dw.cu) finds the
 //   neighbours by binary search, the mapped dW (mapped_conv_dw.cu) reads
 //   a (B, 27, V) map; the GEMM is the same, so the two are bit-equal.
 // - conv_sum_splits_kernel / dw_sum_splits_kernel: add a kernel's
@@ -19,8 +23,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -51,8 +58,19 @@ using tc::cp_async16;
 using tc::cp_async4;
 using tc::cp_commit;
 using tc::cp_wait;
+using tc::mma_bf16;
 using tc::mma_tf32;
+using tc::pack_bf16;
+using tc::split_bf16;
 using tc::split_tf32;
+
+using bf16 = __nv_bfloat16;
+
+// the element type of a form: float (split TF32) or bf16
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
 
 // A thread's share of a 64 x 64 conv tile: warp w holds rows 32 (w & 1)
 // + 16 mi + {g, g + 8} and columns 32 (w >> 1) + 8 ni + {2t, 2t + 1},
@@ -63,28 +81,34 @@ struct ConvAcc {
 
 // acc += sum over the block's nk offsets of X[s_nbr[k][m]] @ w[k_begin +
 // k], a row of -1 contributing 0. X is one batch row's (V_in, C)
-// features, w the (27, C, Co) weights. Offsets with no hit in the tile
-// are skipped. The K loop runs over (offset with a hit, BK-channel chunk)
-// through a STAGES-deep cp.async ring: gathered rows and the weight tile
-// land in shared memory while the tensor cores work on an earlier stage,
-// each f32 operand split into two TF32 halves (split_tf32) and multiplied
-// in three m16n8k8 MMAs; each stage's products are summed apart and added
-// to the f32 accumulators with rounding f32 adds. a16 / b16: X rows /
-// weight rows may be copied in 16-byte pieces (C resp. Co a multiple of
-// 4, bases 16-byte aligned), otherwise in 4-byte copies (the stem's C = 3
-// rows are 12 bytes). A chunk multiplies its channels rounded up to 8,
-// one k8 step per 8. Every thread of the block calls it, after s_nbr is
+// features, w the (27, C, Co) weights, both of element type T. Offsets
+// with no hit in the tile are skipped. The K loop runs over (offset with
+// a hit, BK-channel chunk) through a STAGES-deep cp.async ring: gathered
+// rows and the weight tile land in shared memory while the tensor cores
+// work on an earlier stage. T = float: each f32 operand split into two
+// TF32 halves (split_tf32) and multiplied in three m16n8k8 MMAs; T = bf16:
+// one m16n8k16 MMA per product. Each stage's products are summed apart
+// and added to the f32 accumulators with rounding f32 adds. a16 / b16: X
+// rows / weight rows may be copied in 16-byte pieces (C resp. Co a
+// multiple of 16 / sizeof(T), bases 16-byte aligned), otherwise in 4-byte
+// copies (f32 only: the stem's C = 3 rows are 12 bytes; the bf16 form
+// needs a16 and b16). A chunk multiplies its channels rounded up to the
+// MMA's k (8 or 16). Every thread of the block calls it, after s_nbr is
 // written and the block synchronized.
-template <int BK, int STAGES>
-__device__ __forceinline__ void conv_tile(const float* __restrict__ X,
-                                          const float* __restrict__ w,
+template <typename T, int BK, int STAGES>
+__device__ __forceinline__ void conv_tile(const T* __restrict__ X,
+                                          const T* __restrict__ w,
                                           int (*s_nbr)[BM], int k_begin,
                                           int nk, int C, int Co, int n0,
                                           bool a16, bool b16,
                                           ConvAcc& acc) {
-  constexpr int AS = BK + 4;  // As row stride: A fragments conflict-free
-  __shared__ __align__(16) float As[STAGES][BM][AS];
-  __shared__ __align__(16) float Bs[STAGES][BK][BS];
+  constexpr bool F32 = is_f32<T>();
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int KS = F32 ? 8 : 16;     // k of one MMA
+  // As row stride: A fragments conflict-free (16-byte rows for bf16)
+  constexpr int AS = BK + (F32 ? 4 : 8);
+  __shared__ __align__(16) T As[STAGES][BM][AS];
+  __shared__ __align__(16) T Bs[STAGES][BK][BS];
   __shared__ int s_koff[KV];
   __shared__ int s_nkh;
   const int tid = threadIdx.x;
@@ -107,9 +131,9 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ X,
   __syncthreads();
   const int nchunks = (C + BK - 1) / BK;
   const int total = s_nkh * nchunks;
-  // the channels K step `it` multiplies: its chunk's, rounded up to 8
+  // the channels K step `it` multiplies: its chunk's, rounded up to KS
   auto width = [&](int it) {
-    return min(BK, (C - (it % nchunks) * BK + 7) / 8 * 8);
+    return min(BK, (C - (it % nchunks) * BK + KS - 1) / KS * KS);
   };
 
   // issue the copies of K step `it` into ring slot `slot`
@@ -118,9 +142,9 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ X,
     const int c0 = (it % nchunks) * BK;
     const int kw = width(it);
     const int* nb = s_nbr[kk];
-    if (a16) {
-      for (int i = tid; i < BM * kw / 4; i += CONV_NT) {
-        const int m = i / (kw / 4), c = (i % (kw / 4)) * 4;
+    if (!F32 || a16) {
+      for (int i = tid; i < BM * kw / EPC; i += CONV_NT) {
+        const int m = i / (kw / EPC), c = (i % (kw / EPC)) * EPC;
         const int r = nb[m];
         const bool p = r >= 0 && c0 + c < C;
         cp_async16(&As[slot][m][c], p ? X + (size_t)r * C + c0 + c : X, p);
@@ -133,10 +157,10 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ X,
         cp_async4(&As[slot][m][c], p ? X + (size_t)r * C + c0 + c : X, p);
       }
     }
-    const float* Wk = w + ((size_t)(k_begin + kk) * C + c0) * Co + n0;
-    if (b16) {
-      for (int i = tid; i < kw * BN / 4; i += CONV_NT) {
-        const int c = i / (BN / 4), n = (i % (BN / 4)) * 4;
+    const T* Wk = w + ((size_t)(k_begin + kk) * C + c0) * Co + n0;
+    if (!F32 || b16) {
+      for (int i = tid; i < kw * BN / EPC; i += CONV_NT) {
+        const int c = i / (BN / EPC), n = (i % (BN / EPC)) * EPC;
         const bool p = c0 + c < C && n0 + n < Co;
         cp_async16(&Bs[slot][c][n], p ? Wk + (size_t)c * Co + n : w, p);
       }
@@ -161,45 +185,76 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ X,
       load(it + STAGES - 1, (it + STAGES - 1) % STAGES);
     cp_commit();
     const int slot = it % STAGES;
-    const int nks = width(it) / 8;
+    const int nks = width(it) / KS;
     // the stage's products go to a partial sum started at 0, added to acc
     // with f32 adds: the tensor cores' own accumulation does not round to
     // nearest, so a long chain of MMAs into one large sum drifts
     float part[2][4][4];
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {
+    for (int ks = 0; ks < BK / KS; ++ks) {
       if (ks == nks) break;
-      const int kb = ks * 8;
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+      const int kb = ks * KS;
+      if constexpr (F32) {
+        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* a0 = &As[slot][wm + mi * 16 + g][kb + t];
-        const float* a1 = a0 + 8 * AS;
-        split_tf32(a0[0], ah[mi][0], al[mi][0]);
-        split_tf32(a1[0], ah[mi][1], al[mi][1]);
-        split_tf32(a0[4], ah[mi][2], al[mi][2]);
-        split_tf32(a1[4], ah[mi][3], al[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* b0 = &Bs[slot][kb + t][wn + ni * 8 + g];
-        split_tf32(b0[0], bh[ni][0], bl[ni][0]);
-        split_tf32(b0[4 * BS], bh[ni][1], bl[ni][1]);
-      }
-      // the small cross terms first, then hi * hi
-      const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* a0 = &As[slot][wm + mi * 16 + g][kb + t];
+          const float* a1 = a0 + 8 * AS;
+          split_tf32(a0[0], ah[mi][0], al[mi][0]);
+          split_tf32(a1[0], ah[mi][1], al[mi][1]);
+          split_tf32(a0[4], ah[mi][2], al[mi][2]);
+          split_tf32(a1[4], ah[mi][3], al[mi][3]);
+        }
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          float(&p)[4] = part[mi][ni];
-          if (ks == 0)
-            mma_tf32(p, al[mi], bh[ni], zero);
-          else
-            mma_tf32(p, al[mi], bh[ni], p);
-          mma_tf32(p, ah[mi], bl[ni], p);
-          mma_tf32(p, ah[mi], bh[ni], p);
+          const float* b0 = &Bs[slot][kb + t][wn + ni * 8 + g];
+          split_tf32(b0[0], bh[ni][0], bl[ni][0]);
+          split_tf32(b0[4 * BS], bh[ni][1], bl[ni][1]);
         }
+        // the small cross terms first, then hi * hi
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            float(&p)[4] = part[mi][ni];
+            if (ks == 0)
+              mma_tf32(p, al[mi], bh[ni], zero);
+            else
+              mma_tf32(p, al[mi], bh[ni], p);
+            mma_tf32(p, ah[mi], bl[ni], p);
+            mma_tf32(p, ah[mi], bh[ni], p);
+          }
+      } else {
+        // A: rows g and g + 8, k pairs 2t and 2t + 8, one 32-bit read
+        // each; B: k pairs 2t and 2t + 8 of column g, two 16-bit reads
+        uint32_t a[2][4], b[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const T* a0 = &As[slot][wm + mi * 16 + g][kb + 2 * t];
+          const T* a1 = a0 + 8 * AS;
+          a[mi][0] = *reinterpret_cast<const uint32_t*>(a0);
+          a[mi][1] = *reinterpret_cast<const uint32_t*>(a1);
+          a[mi][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
+          a[mi][3] = *reinterpret_cast<const uint32_t*>(a1 + 8);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const T* b0 = &Bs[slot][kb + 2 * t][wn + ni * 8 + g];
+          b[ni][0] = pack_bf16(b0[0], b0[BS]);
+          b[ni][1] = pack_bf16(b0[8 * BS], b0[9 * BS]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            float(&p)[4] = part[mi][ni];
+            if (ks == 0)
+              mma_bf16(p, a[mi], b[ni], zero);
+            else
+              mma_bf16(p, a[mi], b[ni], p);
+          }
+      }
     }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -286,12 +341,22 @@ __host__ __device__ inline bool dw_dense(int C) {
   return KV * C <= DW_DENSE_M;
 }
 
-// Dynamic shared memory of a dw_kernel block: the A ring (rows x dW rows),
-// the B ring (rows x 64) and the index ring (per row: the 27 raw map
-// entries in the dense form, the input and query row otherwise).
+// The B ring's row stride (dout, f32): fragments conflict-free. The bf16
+// form reads rows 2t and 2t + 1 of a k16 step, the f32 form rows t.
+template <typename T>
+__host__ __device__ constexpr int dw_ds() {
+  return is_f32<T>() ? DW_DS : DW_BO + 4;
+}
+
+// Dynamic shared memory of a dw_kernel block: the A ring (rows x dW rows,
+// of the features' type T), the B ring (rows x 64, f32) and the index
+// ring (per row: the 27 raw map entries in the dense form, the input and
+// query row otherwise).
+template <typename T>
 inline size_t dw_smem_bytes(bool dense) {
   const int as = (dense ? DW_DENSE_M : DW_BC) + 8;
-  return sizeof(float) * DW_STAGES * DW_BR * (as + DW_DS) +
+  return sizeof(T) * DW_STAGES * DW_BR * as +
+         sizeof(float) * DW_STAGES * DW_BR * dw_ds<T>() +
          sizeof(int) * DW_STAGES * (dense ? KV : 2) * DW_BR;
 }
 
@@ -346,11 +411,12 @@ dw_rulebook_kernel(Lookup nbr, int rows, int rows_per_split,
 }
 
 // dW = sum over rows r of feats[nbr_k(r)]^T dout[r], f32 (27, C, Co), or
-// the split's partial, on the tensor cores in split TF32 (conv_tile's
-// recipe: three m16n8k8 MMAs per f32 product; each 32-row stage's MMAs
-// start from 0 and the stage's partial is added to the accumulators with
-// f32 adds) behind a DW_STAGES-deep cp.async ring that carries each
-// stage's indices one ring ahead of its rows.
+// the split's partial, on the tensor cores (T = float: split TF32,
+// conv_tile's recipe, three m16n8k8 MMAs per f32 product; T = bf16: the
+// bf16 features against dout's two bf16 halves, two m16n8k16 MMAs; each
+// 32-row stage's MMAs start from 0 and the stage's partial is added to
+// the accumulators with f32 adds) behind a DW_STAGES-deep cp.async ring
+// that carries each stage's indices one ring ahead of its rows.
 // - DENSE (dw_dense(C)): grid (Co tiles, 1, splits); a block walks the
 //   rows of its split and gathers, per row, all 27 neighbours' C channels
 //   into one A row of 27 C (<= 96) values, zero at a miss: dout is read
@@ -358,25 +424,31 @@ dw_rulebook_kernel(Lookup nbr, int rows, int rows_per_split,
 // - per offset: grid (C tiles x Co tiles, 27, splits); a block walks its
 //   offset's rulebook segment (dw_rulebook_kernel), hits only, 32 at a
 //   time; the last stage's missing rows are zero.
-// feats (B * V_in, C), dout (rows, Co), dw (splits, 27, C, Co); a16 / b16:
-// feats / dout rows may be copied in 16-byte pieces.
-template <bool DENSE, class Map>
+// feats (B * V_in, C) of type T, dout (rows, Co) f32, dw (splits, 27, C,
+// Co); a16 / b16: feats / dout rows may be copied in 16-byte pieces (the
+// bf16 form is per offset and needs both).
+template <typename T, bool DENSE, class Map>
 __global__ void __launch_bounds__(DW_NT)
-dw_kernel(const float* __restrict__ feats, const float* __restrict__ dout,
+dw_kernel(const T* __restrict__ feats, const float* __restrict__ dout,
           Map map, const int* __restrict__ src, const int* __restrict__ row,
           const int* __restrict__ count, float* __restrict__ dw, int rows,
           int C, int Co, int rows_per_split, bool a16, bool b16) {
+  constexpr bool F32 = is_f32<T>();
+  static_assert(F32 || !DENSE, "the bf16 form is per offset");
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int MI = DENSE ? 3 : 2;  // m16 tiles per warp
   constexpr int BM = 32 * MI;        // dW rows per block
   constexpr int AS = BM + 8;         // As row stride: fragments conflict-free
+  constexpr int DS = dw_ds<T>();
   constexpr int NIDX = DENSE ? KV : 2;
   static_assert(BM == (DENSE ? DW_DENSE_M : DW_BC), "tile rows");
   extern __shared__ __align__(16) unsigned char dw_smem[];
-  float(*As)[DW_BR][AS] = reinterpret_cast<float(*)[DW_BR][AS]>(dw_smem);
-  float(*Ds)[DW_BR][DW_DS] = reinterpret_cast<float(*)[DW_BR][DW_DS]>(
-      dw_smem + sizeof(float) * DW_STAGES * DW_BR * AS);
+  T(*As)[DW_BR][AS] = reinterpret_cast<T(*)[DW_BR][AS]>(dw_smem);
+  float(*Ds)[DW_BR][DS] = reinterpret_cast<float(*)[DW_BR][DS]>(
+      dw_smem + sizeof(T) * DW_STAGES * DW_BR * AS);
   int(*Ix)[NIDX][DW_BR] = reinterpret_cast<int(*)[NIDX][DW_BR]>(
-      dw_smem + sizeof(float) * DW_STAGES * DW_BR * (AS + DW_DS));
+      dw_smem + sizeof(T) * DW_STAGES * DW_BR * AS +
+      sizeof(float) * DW_STAGES * DW_BR * DS);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -395,7 +467,7 @@ dw_kernel(const float* __restrict__ feats, const float* __restrict__ dout,
   const int total = (n + DW_BR - 1) / DW_BR;
   const int mk = KV * C;  // dense: the used columns of an A row
 
-  if (DENSE) {  // A's columns past 27 C are never copied: zero them once
+  if constexpr (DENSE) {  // A's columns past 27 C are never copied: zero
     for (int i = tid; i < DW_STAGES * DW_BR * (BM - mk); i += DW_NT) {
       const int st = i / (DW_BR * (BM - mk)), rem = i % (DW_BR * (BM - mk));
       As[st][rem / (BM - mk)][mk + rem % (BM - mk)] = 0.f;
@@ -435,9 +507,9 @@ dw_kernel(const float* __restrict__ feats, const float* __restrict__ dout,
                   s >= 0 ? (const void*)(feats + (size_t)s * C + c) : dout,
                   s >= 0);
       }
-    } else if (a16) {
-      for (int i = tid; i < DW_BR * BM / 4; i += DW_NT) {
-        const int e = i / (BM / 4), c = (i % (BM / 4)) * 4;
+    } else if (!F32 || a16) {
+      for (int i = tid; i < DW_BR * BM / EPC; i += DW_NT) {
+        const int e = i / (BM / EPC), c = (i % (BM / EPC)) * EPC;
         const bool p = e0 + e < n && c0 + c < C;
         const int s = p ? Ix[slot][0][e] : 0;
         cp_async16(&As[slot][e][c],
@@ -505,37 +577,82 @@ dw_kernel(const float* __restrict__ feats, const float* __restrict__ dout,
     const int slot = it % DW_STAGES;
     float part[MI][4][4];
     const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (F32) {
 #pragma unroll
-    for (int ks = 0; ks < DW_BR / 8; ++ks) {
-      const int kb = ks * 8;
-      uint32_t ah[MI][4], al[MI][4], bh[4][2], bl[4][2];
+      for (int ks = 0; ks < DW_BR / 8; ++ks) {
+        const int kb = ks * 8;
+        uint32_t ah[MI][4], al[MI][4], bh[4][2], bl[4][2];
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {  // A[m][r] = As[r][m]
-        const float* a0 = &As[slot][kb + t][wm + mi * 16 + g];
-        const float* a1 = a0 + 4 * AS;
-        split_tf32(a0[0], ah[mi][0], al[mi][0]);
-        split_tf32(a0[8], ah[mi][1], al[mi][1]);
-        split_tf32(a1[0], ah[mi][2], al[mi][2]);
-        split_tf32(a1[8], ah[mi][3], al[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* b0 = &Ds[slot][kb + t][wn + ni * 8 + g];
-        split_tf32(b0[0], bh[ni][0], bl[ni][0]);
-        split_tf32(b0[4 * DW_DS], bh[ni][1], bl[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
+        for (int mi = 0; mi < MI; ++mi) {  // A[m][r] = As[r][m]
+          const float* a0 = &As[slot][kb + t][wm + mi * 16 + g];
+          const float* a1 = a0 + 4 * AS;
+          split_tf32(a0[0], ah[mi][0], al[mi][0]);
+          split_tf32(a0[8], ah[mi][1], al[mi][1]);
+          split_tf32(a1[0], ah[mi][2], al[mi][2]);
+          split_tf32(a1[8], ah[mi][3], al[mi][3]);
+        }
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          float(&p)[4] = part[mi][ni];
-          if (ks == 0)
-            mma_tf32(p, al[mi], bh[ni], zero);
-          else
-            mma_tf32(p, al[mi], bh[ni], p);
-          mma_tf32(p, ah[mi], bl[ni], p);
-          mma_tf32(p, ah[mi], bh[ni], p);
+          const float* b0 = &Ds[slot][kb + t][wn + ni * 8 + g];
+          split_tf32(b0[0], bh[ni][0], bl[ni][0]);
+          split_tf32(b0[4 * DS], bh[ni][1], bl[ni][1]);
         }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            float(&p)[4] = part[mi][ni];
+            if (ks == 0)
+              mma_tf32(p, al[mi], bh[ni], zero);
+            else
+              mma_tf32(p, al[mi], bh[ni], p);
+            mma_tf32(p, ah[mi], bl[ni], p);
+            mma_tf32(p, ah[mi], bh[ni], p);
+          }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < DW_BR / 16; ++ks) {
+        const int kb = ks * 16;
+        // A[m][r] = As[r][m]: the k pairs (rows 2t, 2t + 1 and 2t + 8,
+        // 2t + 9) of dW rows g and g + 8, two 16-bit reads a register;
+        // B[r][o] = Ds[r][o] split into bf16 halves, the same k pairs of
+        // column g
+        uint32_t a[MI][4], bh[4][2], bl[4][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const T* a0 = &As[slot][kb + 2 * t][wm + mi * 16 + g];
+          a[mi][0] = pack_bf16(a0[0], a0[AS]);
+          a[mi][1] = pack_bf16(a0[8], a0[AS + 8]);
+          a[mi][2] = pack_bf16(a0[8 * AS], a0[9 * AS]);
+          a[mi][3] = pack_bf16(a0[8 * AS + 8], a0[9 * AS + 8]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const float* b0 = &Ds[slot][kb + 2 * t][wn + ni * 8 + g];
+          bf16 h0, l0, h1, l1;
+          split_bf16(b0[0], h0, l0);
+          split_bf16(b0[DS], h1, l1);
+          bh[ni][0] = pack_bf16(h0, h1);
+          bl[ni][0] = pack_bf16(l0, l1);
+          split_bf16(b0[8 * DS], h0, l0);
+          split_bf16(b0[9 * DS], h1, l1);
+          bh[ni][1] = pack_bf16(h0, h1);
+          bl[ni][1] = pack_bf16(l0, l1);
+        }
+        // the low halves first, then the high
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            float(&p)[4] = part[mi][ni];
+            if (ks == 0)
+              mma_bf16(p, a[mi], bl[ni], zero);
+            else
+              mma_bf16(p, a[mi], bl[ni], p);
+            mma_bf16(p, a[mi], bh[ni], p);
+          }
+      }
     }
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
@@ -574,41 +691,46 @@ inline size_t dw_rulebook_ints(int splits, int rows_per_split) {
 // Launches the weight gradient of one conv into `dst` ((splits, 27, C,
 // Co)): the rulebook (per-offset form; `lookup` finds the neighbours, the
 // lists go to `rb`, dw_rulebook_ints of them), then dw_kernel; the dense
-// form reads `map` instead. Returns the first launch error.
-template <class Lookup, class Map>
-inline cudaError_t launch_dw(const float* feats, const float* dout,
+// form reads `map` instead. T: the features' type (bf16: per offset only,
+// 16-byte rows). Returns the first launch error.
+template <typename T, class Lookup, class Map>
+inline cudaError_t launch_dw(const T* feats, const float* dout,
                              Lookup lookup, Map map, int* rb, float* dst,
                              int rows, int C, int Co, int splits,
                              int rows_per_split, cudaStream_t st) {
   const bool dense = dw_dense(C);
-  const size_t smem = dw_smem_bytes(dense);
-  const bool a16 = C % 4 == 0 && aligned16(feats);
+  const size_t smem = dw_smem_bytes<T>(dense);
+  const bool a16 = C % (16 / sizeof(T)) == 0 && aligned16(feats);
   const bool b16 = Co % 4 == 0 && aligned16(dout);
   const int otiles = (Co + DW_BO - 1) / DW_BO;
   cudaError_t err;
-  if (dense) {
-    err = cudaFuncSetAttribute(dw_kernel<true, Map>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    dw_kernel<true, Map><<<dim3(otiles, 1, splits), DW_NT, smem, st>>>(
-        feats, dout, map, nullptr, nullptr, nullptr, dst, rows, C, Co,
-        rows_per_split, a16, b16);
-    return cudaGetLastError();
+  if constexpr (is_f32<T>()) {
+    if (dense) {
+      err = cudaFuncSetAttribute(dw_kernel<T, true, Map>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return err;
+      dw_kernel<T, true, Map><<<dim3(otiles, 1, splits), DW_NT, smem, st>>>(
+          feats, dout, map, nullptr, nullptr, nullptr, dst, rows, C, Co,
+          rows_per_split, a16, b16);
+      return cudaGetLastError();
+    }
+  } else if (dense || !a16 || !b16) {
+    return cudaErrorInvalidValue;
   }
   int* src = rb;
   int* row = src + (size_t)KV * splits * rows_per_split;
   int* count = row + (size_t)KV * splits * rows_per_split;
   dw_rulebook_kernel<<<dim3(splits, KV), RB_NT, 0, st>>>(
       lookup, rows, rows_per_split, src, row, count);
-  err = cudaFuncSetAttribute(dw_kernel<false, Map>,
+  err = cudaFuncSetAttribute(dw_kernel<T, false, Map>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const int ctiles = (C + DW_BC - 1) / DW_BC;
-  dw_kernel<false, Map><<<dim3(ctiles * otiles, KV, splits), DW_NT, smem,
-                          st>>>(feats, dout, map, src, row, count, dst, rows,
-                                C, Co, rows_per_split, a16, b16);
+  dw_kernel<T, false, Map><<<dim3(ctiles * otiles, KV, splits), DW_NT, smem,
+                             st>>>(feats, dout, map, src, row, count, dst,
+                                   rows, C, Co, rows_per_split, a16, b16);
   return cudaGetLastError();
 }
 

@@ -4,9 +4,10 @@ box helpers; this one is numpy only).
 
 ScanNet: 18 detection classes, axis-aligned boxes (1 angle bin), per-class
 mean box sizes (reference datasets/scannet.py:38-199). The synthetic
-config is ScanNet's, for the generator of `data/synthetic.py`. SUN RGB-D
-(12 angle bins) needs the rotated boxes, which are not ported yet:
-`get_dataset_config("sunrgbd")` raises.
+config is ScanNet's, for the generator of `data/synthetic.py`. SUN RGB-D:
+10 classes, oriented boxes in 12 angle bins, per-class mean sizes
+(reference datasets/sunrgbd.py); `get_dataset_config("sunrgbd")` returns
+`SunrgbdDatasetConfig`.
 """
 
 from __future__ import annotations

@@ -158,7 +158,7 @@ class ScannetDetectionDataset:
             if not os.path.isfile(npath):
                 raise FileNotFoundError(
                     f"use_normals=True but {npath} is missing; re-run "
-                    "vdetr_tpu.data.prep_scannet to export normals"
+                    "vdetr_tpu_torch.data.prep_scannet to export normals"
                 )
             pc = np.concatenate([pc, np.load(npath)], axis=1)
 

@@ -90,3 +90,15 @@ def rotate_aligned_boxes_np(input_boxes: np.ndarray, rot_mat: np.ndarray):
     new_dy = 2.0 * crnrs[..., 1].max(axis=1)
     new_lengths = np.stack([new_dx, new_dy, lengths[:, 2]], axis=1)
     return np.concatenate([new_centers, new_lengths], axis=1)
+
+
+def shift_scale_points(pred_xyz, src_range, dst_range=None):
+    """Map points (B, N, 3) from src_range ([min, max], each (B, 3)) to
+    dst_range (default [0, 1]) (reference utils/pc_util.py:38-67)."""
+    if dst_range is None:
+        dst_range = [torch.zeros_like(src_range[0]),
+                     torch.ones_like(src_range[0])]
+    src_diff = src_range[1][:, None, :] - src_range[0][:, None, :]
+    dst_diff = dst_range[1][:, None, :] - dst_range[0][:, None, :]
+    return ((pred_xyz - src_range[0][:, None, :]) * dst_diff / src_diff
+            + dst_range[0][:, None, :])

@@ -70,6 +70,29 @@ _SIGNATURES = {
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
+# Entries beyond a source's first: name -> (source, C function, argtypes).
+# The bf16 forms of the sparse convs are second entries of their f32
+# forms' sources, instantiations of the same templated bodies.
+_CONV = _SIGNATURES["keyed_conv"][1]
+_CONV_DW = _SIGNATURES["keyed_conv_dw"][1]
+_EXTRA = {
+    "keyed_conv_bf16": ("keyed_conv", "keyed_conv_bf16", _CONV),
+    "keyed_conv_dw_bf16": ("keyed_conv_dw", "keyed_conv_dw_bf16", _CONV_DW),
+    "mapped_conv_bf16": ("mapped_conv", "mapped_conv_bf16",
+                         _SIGNATURES["mapped_conv"][1]),
+    "mapped_conv_dw_bf16": ("mapped_conv_dw", "mapped_conv_dw_bf16",
+                            _SIGNATURES["mapped_conv_dw"][1]),
+}
+
+
+def _entry(name: str):
+    """(source, C function, argtypes) of kernel entry `name`."""
+    if name in _EXTRA:
+        return _EXTRA[name]
+    fn_name, argtypes = _SIGNATURES[name]
+    return name, fn_name, argtypes
+
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -133,18 +156,19 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built on first use."""
-    lib = _loaded.get(name)
+    """The loaded library of kernel entry `name` (its source's), built on
+    first use, with the entry's C function typed."""
+    source, fn_name, argtypes = _entry(name)
+    lib = _loaded.get(source)
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(source)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
+        lib = _loaded[source] = ctypes.CDLL(str(path))
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = lib
     return lib
 
 
@@ -161,7 +185,7 @@ def check(t, dtype, shape, name: str) -> None:
 
 def call(name: str, *args) -> None:
     """Launch kernel `name` with C arguments; raise on a CUDA error."""
-    fn_name, _ = _SIGNATURES[name]
+    fn_name = _entry(name)[1]
     err = getattr(load(name), fn_name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA error {err} launching {fn_name}")

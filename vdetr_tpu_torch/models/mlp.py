@@ -55,12 +55,50 @@ class Dropout(nn.Module):
         return x * keep / (1.0 - self.p)
 
 
+# flax.linen.LayerNorm's default epsilon, which the JAX package uses
+LN_EPS = 1e-6
+
+
+def make_norm(norm: Optional[str], dim: int) -> Optional[nn.Module]:
+    """The module of a GenericMLP norm name (JAX `mlp.py:_norm`): None for
+    no norm, an identity for "id" (which keeps the reference's Sequential
+    index), the dense batch norm for "bn1d", a LayerNorm over the
+    channels with flax's epsilon for "ln"."""
+    if norm is None:
+        return None
+    if norm == "id":
+        return nn.Identity()
+    if norm == "bn1d":
+        return BatchNorm1d(dim)
+    if norm == "ln":
+        return nn.LayerNorm(dim, eps=LN_EPS)
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def make_activation(name: str) -> nn.Module:
+    """The module of a GenericMLP activation name (JAX `mlp.py:_act`):
+    flax's `nn.gelu` is the tanh approximation, and the JAX package's
+    leaky ReLU has slope 0.1."""
+    if name == "relu":
+        return nn.ReLU()
+    if name == "gelu":
+        return nn.GELU(approximate="tanh")
+    if name == "leakyrelu":
+        return nn.LeakyReLU(0.1)
+    raise ValueError(f"unknown activation {name!r}")
+
+
 class GenericMLP(nn.Module):
-    """Reference models/helpers.py:74-141 with the published choices:
-    BatchNorm and ReLU. Each hidden layer is conv, norm, relu, dropout."""
+    """Reference models/helpers.py:74-141. Each hidden layer is conv,
+    norm, activation, dropout, the norm and the dropout where given;
+    `norm` is None, "id", "bn1d" (the default, as every caller but the
+    query projection uses it) or "ln", `activation` "relu", "gelu" or
+    "leakyrelu" (`make_norm`, `make_activation`)."""
 
     def __init__(self, input_dim: int, hidden_dims: Sequence[int],
                  output_dim: int, dropout: Optional[float] = None,
+                 norm: Optional[str] = "bn1d", activation: str = "relu",
+                 hidden_use_bias: bool = False,
                  output_use_bias: bool = True,
                  output_use_activation: bool = False,
                  output_use_norm: bool = False):
@@ -68,16 +106,18 @@ class GenericMLP(nn.Module):
         layers = []
         dim = input_dim
         for h in hidden_dims:
-            layers += [Conv1x1(dim, h, bias=False), BatchNorm1d(h),
-                       nn.ReLU()]
+            layers.append(Conv1x1(dim, h, bias=hidden_use_bias))
+            if norm is not None:
+                layers.append(make_norm(norm, h))
+            layers.append(make_activation(activation))
             if dropout is not None:
                 layers.append(Dropout(dropout))
             dim = h
         layers.append(Conv1x1(dim, output_dim, bias=output_use_bias))
-        if output_use_norm:
-            layers.append(BatchNorm1d(output_dim))
+        if output_use_norm and norm is not None:
+            layers.append(make_norm(norm, output_dim))
         if output_use_activation:
-            layers.append(nn.ReLU())
+            layers.append(make_activation(activation))
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):

@@ -24,15 +24,13 @@ from vdetr_tpu_torch.geometry.boxes import (
     box_parametrization_to_corners,
     convert_corners_camera2lidar,
 )
-from vdetr_tpu_torch.models.mlp import (Dropout, GenericMLP,
+from vdetr_tpu_torch.models.mlp import (LN_EPS, Dropout, GenericMLP,
                                         PositionEmbeddingLearned)
 from vdetr_tpu_torch.ops.rpe import make_coords_table
 from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
                                                rpe_cross_attention_ad)
 
 FOCAL_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
-# flax.linen.LayerNorm's default epsilon, which the JAX package uses
-LN_EPS = 1e-6
 
 
 # --------------------------------------------------------------------------
@@ -150,6 +148,36 @@ class MultiHeadSelfAttention(nn.Module):
         return self.out_proj(out)
 
 
+class ShareSelfAttention(nn.Module):
+    """Self-attention with one K/V head of width dim / heads shared by
+    the query heads (reference vdetr_transformer.py:609-653, JAX
+    `ShareSelfAttention`; `share_selfattn=True`). Dropout acts on the
+    attention weights and again after `proj`."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        hd = dim // num_heads
+        self.q = nn.Linear(dim, dim)
+        self.k = nn.Linear(dim, hd)
+        self.v = nn.Linear(dim, hd)
+        self.proj = nn.Linear(dim, dim)
+        self.attn_drop = Dropout(dropout)
+        self.proj_drop = Dropout(dropout)
+
+    def forward(self, q_in, k_in, v_in, generator=None):
+        B, N, D = q_in.shape
+        H = self.num_heads
+        hd = D // H
+        q = self.q(q_in).reshape(B, N, H, hd) * (hd ** -0.5)
+        attn = torch.softmax(torch.einsum("bqhd,bkd->bhqk", q,
+                                          self.k(k_in)), dim=-1)
+        attn = self.attn_drop(attn, generator)
+        out = torch.einsum("bhqk,bkd->bqhd", attn,
+                           self.v(v_in)).reshape(B, N, D)
+        return self.proj_drop(self.proj(out), generator)
+
+
 class GlobalShareCrossAttention(nn.Module):
     """Cross-attention with the 8-corner RPE bias and one shared K/V head
     (reference vdetr_transformer.py:656-758). The attention itself is the
@@ -249,8 +277,9 @@ class GlobalDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(c.dec_dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(c.dec_dim, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(c.dec_dim, eps=LN_EPS)
-        self.self_attn = MultiHeadSelfAttention(c.dec_dim, c.dec_nhead,
-                                                c.dec_dropout)
+        attn = ShareSelfAttention if c.share_selfattn \
+            else MultiHeadSelfAttention
+        self.self_attn = attn(c.dec_dim, c.dec_nhead, c.dec_dropout)
         self.multihead_attn = GlobalShareCrossAttention(
             c.dec_dim, c.dec_nhead, c.rpe_dim, c.rpe_quant, c.log_scale,
             c.angle_type, c.dec_dropout)
@@ -262,13 +291,17 @@ class GlobalDecoderLayer(nn.Module):
             Dropout(c.dec_dropout) for _ in range(4))
 
     def forward(self, tgt, memory, reference_point, reference_angle,
-                enc_xyz, query_pos, key_valid=None, generator=None):
+                enc_xyz, query_pos, key_valid=None, key_pos=None,
+                generator=None):
+        """`key_pos` (pos_for_key) is added to the cross-attention's key
+        input, from which it projects K and V (JAX transformer.py:419-421)."""
         t2 = self.norm1(tgt)
         q = t2 + query_pos
         tgt = tgt + self.dropout1(self.self_attn(q, q, t2, generator),
                                   generator)
         t2 = self.norm2(tgt)
-        ca = self.multihead_attn(t2 + query_pos, memory, reference_point,
+        key = memory if key_pos is None else memory + key_pos
+        ca = self.multihead_attn(t2 + query_pos, key, reference_point,
                                  reference_angle, enc_xyz, key_valid,
                                  generator)
         tgt = tgt + self.dropout2(ca, generator)
@@ -292,7 +325,8 @@ class BoxHeads(nn.Module):
         for h in _HEADS:
             self.add_module(f"{h}_head", GenericMLP(
                 c.dec_dim, [c.dec_dim, c.dec_dim], outs[h],
-                dropout=c.mlp_dropout))
+                dropout=c.mlp_dropout, norm=c.mlp_norm,
+                activation=c.mlp_act))
 
     def forward(self, x, generator=None) -> Dict[str, torch.Tensor]:
         return {h: getattr(self, f"{h}_head")(x, generator) for h in _HEADS}
@@ -306,7 +340,8 @@ class PointClsHead(GenericMLP):
         c = cfg
         out = num_semcls if c.use_focal else num_semcls + 1
         super().__init__(c.dec_dim, [c.dec_dim, c.dec_dim], out,
-                         dropout=c.mlp_dropout)
+                         dropout=c.mlp_dropout, norm=c.mlp_norm,
+                         activation=c.mlp_act)
 
 
 def select_proposals(obj, nq: int):
@@ -334,6 +369,10 @@ class TransformerDecoder(nn.Module):
             self.query_embed = nn.Embedding(c.nqueries, c.dec_dim)
         self.query_pos_projection = nn.ModuleList([
             PositionEmbeddingLearned(6, c.dec_dim) for _ in range(num_layers)])
+        if c.pos_for_key:  # a learned key embedding of enc_xyz per layer
+            self.key_pos_projection = nn.ModuleList([
+                PositionEmbeddingLearned(3, c.dec_dim)
+                for _ in range(num_layers)])
         self.layers = nn.ModuleList([GlobalDecoderLayer(c)
                                      for _ in range(num_layers)])
         first_cls = 1 if c.is_bilable else num_semcls
@@ -396,9 +435,11 @@ class TransformerDecoder(nn.Module):
                 reference_angle = box_prediction["angle_continuous"].detach()
             query_pos = self.query_pos_projection[idx](
                 torch.cat([reference_center, reference_size], dim=-1))
+            key_pos = (self.key_pos_projection[idx](enc_xyz)
+                       if c.pos_for_key else None)
             output = layer(output, enc_features, reference_point,
                            reference_angle, enc_xyz, query_pos, enc_valid,
-                           generator)
+                           key_pos, generator)
             box_prediction = refine_box_predictions(
                 self.mlp_heads[idx + 1](self.norm(output), generator),
                 proposal_center_norm, proposal_size_norm, point_cloud_dims,

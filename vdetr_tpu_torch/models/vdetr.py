@@ -8,6 +8,13 @@ the keyed conv, or the neighbour map and the mapped conv).
 Pipeline: voxelize @ 1 cm -> SparseResNet34 -> FPN top-down to stride 4
 -> furthest-point-sample 4096 seeds -> seed class head + anchor boxes ->
 TransformerDecoder (top-1024 proposals, 8 RPE cross-attention layers).
+Every value of the configuration that `VDETRConfig.validate` accepts
+builds: Bottleneck depths (50/101/152) widen the FPN by their expansion,
+`compute_dtype="bfloat16"` runs the backbone and the FPN in bf16
+(`models/backbone.py`), `random_fps` permutes the voxels before FPS in
+training, and `querypos_mlp=False` holds the Fourier query embedding's
+parameters (`pos_embedding`, `query_projection`), whose output the JAX
+model discards.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from vdetr_tpu_torch.geometry.boxes import box_parametrization_to_corners
 from vdetr_tpu_torch.models.backbone import (FPNOutBlock, FPNUpBlock,
                                              SparseResNet)
 from vdetr_tpu_torch.models.mlp import GenericMLP
+from vdetr_tpu_torch.models.position_embedding import \
+    PositionEmbeddingCoordsSine
 from vdetr_tpu_torch.models.transformer import (FOCAL_PRIOR_BIAS,
                                                 TransformerDecoder)
 from vdetr_tpu_torch.ops.fps import furthest_point_sample
@@ -45,24 +54,36 @@ class VDETR(nn.Module):
         self.num_semcls = num_semcls
         self.conv_route = conv_route
         caps = c.stage_capacities()
+        cd = self.compute_dtype = compute_dtype(c)
         self.pre_encoder = SparseResNet(
             c.backbone_in_dim, depth=c.depth, inplanes=c.inplanes,
             num_stages=c.num_stages, stem_bn=c.stem_bn,
-            stage_capacities=caps[1:], conv_route=conv_route)
-        channels = [c.inplanes * 2 ** i for i in range(c.num_stages)]
+            stage_capacities=caps[1:], conv_route=conv_route,
+            compute_dtype=cd)
+        expansion = SparseResNet.ARCH[c.depth][0].expansion
+        channels = [c.inplanes * 2 ** i * expansion
+                    for i in range(c.num_stages)]
         for i in range(c.num_stages - 1, c.layer_idx, -1):
             if c.use_fpn:
                 # up_block_{i} lifts stage i to the sites of stage i - 1
                 self.add_module(f"up_block_{i}", FPNUpBlock(
                     channels[i], channels[i - 1],
                     woexpand_conv=c.woexpand_conv,
-                    generative_capacity=caps[i], conv_route=conv_route))
+                    generative_capacity=caps[i], conv_route=conv_route,
+                    compute_dtype=cd))
         self.add_module(f"out_block_{c.layer_idx}", FPNOutBlock(
-            channels[c.layer_idx], c.enc_dim, conv_route=conv_route))
+            channels[c.layer_idx], c.enc_dim, conv_route=conv_route,
+            compute_dtype=cd))
         self.encoder_to_decoder_projection = GenericMLP(
             c.enc_dim, [] if c.proj_nohid else [c.enc_dim], c.dec_dim,
             output_use_activation=True, output_use_norm=True,
             output_use_bias=False)
+        if not c.querypos_mlp:
+            # held for checkpoint parity; JAX discards their output
+            self.pos_embedding = PositionEmbeddingCoordsSine(d_pos=c.dec_dim)
+            self.query_projection = GenericMLP(
+                c.dec_dim, [c.dec_dim], c.dec_dim, norm=None,
+                hidden_use_bias=True, output_use_activation=True)
         self.decoder = TransformerDecoder(c, num_semcls, num_angle_bin)
         self.register_buffer(
             "mean_size_arr",
@@ -113,8 +134,12 @@ class VDETR(nn.Module):
         for i in range(c.num_stages - 1, c.layer_idx - 1, -1):
             if c.use_fpn and i < c.num_stages - 1:
                 up = getattr(self, f"up_block_{i + 1}")(x, stages[i])
-                x = stages[i].replace(features=stages[i].features
-                                      + up.features)
+                if self.compute_dtype is None:
+                    f = stages[i].features + up.features
+                else:  # the skip add in f32, re-stored at the backbone's
+                    f = (stages[i].features.float() + up.features.float()
+                         ).to(self.compute_dtype)
+                x = stages[i].replace(features=f)
             elif not c.use_fpn:
                 x = stages[i]
         out = getattr(self, f"out_block_{c.layer_idx}")(x)
@@ -123,13 +148,20 @@ class VDETR(nn.Module):
 
         # ---- FPS to the seeds ----
         vox_xyz = out.world_xyz() * out.valid[..., None]
+        vox_feats, vox_valid = out.features, out.valid
+        if c.random_fps and self.training and generator is not None:
+            # FPS starts at row 0: a random order of the voxels randomizes
+            # its start (JAX vdetr.py:136-147, under its dropout rng)
+            perm = random_fps_permutation(*vox_valid.shape, generator)
+            vox_xyz, vox_feats, vox_valid = (
+                _gather(x, perm) for x in (vox_xyz, vox_feats, vox_valid))
         seed_inds = furthest_point_sample(vox_xyz.contiguous(),
                                           c.preenc_npoints)
         enc_xyz = _gather(vox_xyz, seed_inds)
-        enc_features = _gather(out.features, seed_inds)
+        enc_features = _gather(vox_feats, seed_inds)
         # with fewer valid voxels than seeds FPS repeats indices; seeds on
         # padded voxel rows are masked out of top-k and attention
-        seed_valid = _gather(out.valid, seed_inds)
+        seed_valid = _gather(vox_valid, seed_inds)
         if debug_stop == 4:
             return {"digest": enc_features.sum() + enc_xyz.sum()
                     + seed_valid.sum()}
@@ -169,26 +201,18 @@ class VDETR(nn.Module):
         return box_predictions
 
 
-def _unsupported(cfg: VDETRConfig):
-    """Config values the JAX model accepts but this slice does not port."""
-    out = []
-    if cfg.depth not in SparseResNet.ARCH:
-        out.append(f"depth={cfg.depth} (Bottleneck)")
-    if not cfg.querypos_mlp:
-        out.append("querypos_mlp=False (Fourier query embedding)")
-    if cfg.pos_for_key:
-        out.append("pos_for_key=True")
-    if cfg.share_selfattn:
-        out.append("share_selfattn=True")
-    if cfg.compute_dtype != "float32":
-        out.append(f"compute_dtype={cfg.compute_dtype}")
-    if cfg.mlp_norm != "bn1d":
-        out.append(f"mlp_norm={cfg.mlp_norm}")
-    if cfg.mlp_act != "relu":
-        out.append(f"mlp_act={cfg.mlp_act}")
-    if cfg.random_fps:
-        out.append("random_fps=True")
-    return out
+def compute_dtype(cfg: VDETRConfig):
+    """The backbone's dtype of `cfg.compute_dtype`: None for float32,
+    torch.bfloat16 for "bfloat16"."""
+    return None if cfg.compute_dtype == "float32" else torch.bfloat16
+
+
+def random_fps_permutation(B: int, V: int, generator: torch.Generator):
+    """The (B, V) voxel order of `random_fps`: a permutation per batch
+    row, drawn from `generator` on its device, row 0 first."""
+    return torch.stack([torch.randperm(V, generator=generator,
+                                       device=generator.device)
+                        for _ in range(B)])
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -258,9 +282,6 @@ def build_model(cfg: VDETRConfig, dataset_config,
     convolves over it, kernel I gives its weight gradient)."""
     device = resolve_device(device)
     cfg.validate()
-    missing = _unsupported(cfg)
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
     model = VDETR(cfg, dataset_config.num_semcls,
                   dataset_config.num_angle_bin,
                   dataset_config.mean_size_arr, conv_route=conv_route)

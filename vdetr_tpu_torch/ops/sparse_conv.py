@@ -13,6 +13,11 @@ two routes, each a Hopper kernel with an autograd Function:
   cache); a stride-2 conv on this route takes the map it is given
   (`attach_kernel_maps` builds it with the new level's own map in one
   launch) or builds its own.
+Under `compute_dtype=torch.bfloat16` (the JAX package's
+`compute_dtype="bfloat16"`, `sparse_conv._gather_matmul`) each conv takes
+its features and weights as bf16 and accumulates in float32: the 3^3
+convs on the bf16 forms of kernels A and H, the others as float32
+products of the bf16 values. Its output stays float32.
 The 1x1 downsample and the kernel-2 transpose convs are plain torch, as
 they are plain XLA in the JAX package: a lookup, a row gather and
 `torch.matmul`, differentiated by autograd. The transpose conv's row
@@ -63,20 +68,36 @@ def attach_kernel_maps(grid: VoxelGrid, out_grid: VoxelGrid):
     return out_grid.replace(nbr_idx=level), down
 
 
-def sparse_conv(grid: VoxelGrid, weights, kernel_size: int = 3) -> VoxelGrid:
+def _cast(feats, weights, compute_dtype):
+    """The conv's operands in `compute_dtype` (None: as they are). The
+    casts are differentiable: the cotangents come back rounded to the
+    operands' dtypes, as the JAX package's `astype` transposes do."""
+    if compute_dtype is None:
+        return feats, weights
+    return feats.to(compute_dtype), weights.to(compute_dtype)
+
+
+def _matmul(x, w):
+    """x @ w with float32 accumulation: bf16 operands are multiplied as
+    the float32 numbers they are (exact products), as XLA does for a
+    bf16 `dot_general` with `preferred_element_type=float32`."""
+    return torch.matmul(x.float(), w.float())
+
+
+def sparse_conv(grid: VoxelGrid, weights, kernel_size: int = 3,
+                compute_dtype=None) -> VoxelGrid:
     """Submanifold (stride-1) conv: output sites == input sites.
     weights: (kernel_size^3, C_in, C_out). A 3^3 conv runs over the
     grid's neighbour map when one is attached (the mapped route), else
-    the keyed kernel."""
+    the keyed kernel. The output is float32."""
+    feats, weights = _cast(grid.features, weights, compute_dtype)
     if kernel_size == 1:
-        out = torch.matmul(grid.features, weights[0])
+        out = _matmul(feats, weights[0])
     elif kernel_size == 3 and grid.nbr_idx is not None:
-        out = mapped_conv_ad(grid.features, grid.nbr_idx, weights,
-                             submanifold=True)
+        out = mapped_conv_ad(feats, grid.nbr_idx, weights, submanifold=True)
     elif kernel_size == 3:
-        out = keyed_conv_ad(grid.features, grid.keys, grid.coords,
-                            grid.valid, grid.extent, weights,
-                            submanifold=True)
+        out = keyed_conv_ad(feats, grid.keys, grid.coords, grid.valid,
+                            grid.extent, weights, submanifold=True)
     else:
         raise ValueError(f"unsupported kernel size {kernel_size}")
     return grid.replace(features=out * grid.valid[..., None])
@@ -84,7 +105,8 @@ def sparse_conv(grid: VoxelGrid, weights, kernel_size: int = 3) -> VoxelGrid:
 
 def sparse_conv_down(grid: VoxelGrid, weights, out_capacity: int = 0,
                      kernel_size: int = 3, out_grid: VoxelGrid = None,
-                     route: str = "keyed", nbr=None) -> VoxelGrid:
+                     route: str = "keyed", nbr=None,
+                     compute_dtype=None) -> VoxelGrid:
     """Stride-2 conv. Output sites = unique(floor(c / 2)); output o reads
     input sites 2*o + d, d in {-1,0,1}^3 (kernel 3), or exactly 2*o
     (kernel 1, the ResNet downsample branch). Pass `out_grid` to share
@@ -96,17 +118,18 @@ def sparse_conv_down(grid: VoxelGrid, weights, out_capacity: int = 0,
     if out_grid is None:
         out_grid = downsample_grid(grid, out_capacity)
     q0 = out_grid.coords * 2
+    feats, weights = _cast(grid.features, weights, compute_dtype)
     if kernel_size == 1:
         qk = torch.where(out_grid.valid, pack_keys(q0, grid.extent),
                          KEY_SENTINEL)
-        x = gather_rows(grid.features, lookup(grid.keys, qk))
-        out = torch.matmul(x, weights[0])
+        x = gather_rows(feats, lookup(grid.keys, qk))
+        out = _matmul(x, weights[0])
     elif kernel_size == 3 and route == "mapped":
         if nbr is None:
             nbr = kernel_map(grid.keys, q0, out_grid.valid, grid.extent)
-        out = mapped_conv_ad(grid.features, nbr, weights, submanifold=False)
+        out = mapped_conv_ad(feats, nbr, weights, submanifold=False)
     elif kernel_size == 3:
-        out = keyed_conv_ad(grid.features, grid.keys, q0, out_grid.valid,
+        out = keyed_conv_ad(feats, grid.keys, q0, out_grid.valid,
                             grid.extent, weights, submanifold=False)
     else:
         raise ValueError(f"unsupported kernel size {kernel_size}")
@@ -156,7 +179,7 @@ class _ParentGather(torch.autograd.Function):
 
 
 def sparse_conv_transpose(coarse: VoxelGrid, fine_sites: VoxelGrid,
-                          weights) -> VoxelGrid:
+                          weights, compute_dtype=None) -> VoxelGrid:
     """Kernel-2 stride-2 transpose conv evaluated at given fine sites (the
     FPN skip grid). Fine site f has one coarse contributor floor(f / 2);
     its weight slot is the offset f - 2*floor(f / 2) in {0,1}^3,
@@ -165,22 +188,25 @@ def sparse_conv_transpose(coarse: VoxelGrid, fine_sites: VoxelGrid,
     parent = fine_sites.coords // 2
     pk = torch.where(fine_sites.valid, pack_keys(parent, coarse.extent),
                      KEY_SENTINEL)
-    x = _ParentGather.apply(coarse.features, lookup(coarse.keys, pk),
+    feats, weights = _cast(coarse.features, weights, compute_dtype)
+    x = _ParentGather.apply(feats, lookup(coarse.keys, pk),
                             coarse.replace(features=None),
                             fine_sites.replace(features=None))
     rel = fine_sites.coords - parent * 2
     slot = (rel[..., 0] * 2 + rel[..., 1]) * 2 + rel[..., 2]
-    out = x.new_zeros(x.shape[:-1] + (weights.shape[-1],))
+    out = x.new_zeros(x.shape[:-1] + (weights.shape[-1],),
+                      dtype=torch.float32)
     # one masked matmul per weight slot, as the JAX package does
     for kk in range(8):
         xm = torch.where((slot == kk)[..., None], x, 0.0)
-        out = out + torch.matmul(xm, weights[kk])
+        out = out + _matmul(xm, weights[kk])
     return fine_sites.replace(features=out * fine_sites.valid[..., None])
 
 
 def sparse_conv_transpose_generative(coarse: VoxelGrid, weights,
-                                     out_capacity: int) -> VoxelGrid:
+                                     out_capacity: int,
+                                     compute_dtype=None) -> VoxelGrid:
     """Kernel-2 stride-2 generative transpose conv: the output sites are
     all 8 children of every coarse voxel."""
     fine = upsample_candidates(coarse, out_capacity)
-    return sparse_conv_transpose(coarse, fine, weights)
+    return sparse_conv_transpose(coarse, fine, weights, compute_dtype)

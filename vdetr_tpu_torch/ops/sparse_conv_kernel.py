@@ -19,11 +19,19 @@ contributing 0; its contract in the JAX package is
 
 The TPU kernels consume the map as window anchors, `le` indices and
 one-hot selection matmuls (`build_window_map`), because Mosaic cannot
-gather rows; the Hopper kernels gather `feats[nbr[k, v]]` directly. The
-TPU kernels feed bf16 to the MXU; these stay float32, as the port runs
-float32 (`compute_dtype="bfloat16"` is not ported). What bounds each
-kernel on the H100, and how its design answers it, is in the source
-notes of `csrc/mapped_conv.cu` and `csrc/mapped_conv_dw.cu`.
+gather rows; the Hopper kernels gather `feats[nbr[k, v]]` directly.
+
+Each kernel has two forms, picked by the dtype of the features: float32
+(split TF32 on the tensor cores, three products per f32 product), and
+bf16 (`compute_dtype="bfloat16"`, as the TPU kernels feed the MXU):
+features and weights read as bf16, one bf16 product each, summed in
+float32; the bf16 weight gradient takes float32 dout split into two bf16
+halves (the JAX package multiplies the f32 cotangent by the bf16
+features). The plain version of a bf16 form is the float32 one on the
+bf16 values: their products are exact in float32, so the two differ only
+in the order of the sums. What bounds each kernel on the H100, and how
+its design answers it, is in the source notes of `csrc/mapped_conv.cu`
+and `csrc/mapped_conv_dw.cu`.
 """
 
 from __future__ import annotations
@@ -42,9 +50,34 @@ def flip_weights(weights):
     return weights.flip(0).transpose(1, 2).contiguous()
 
 
+def pad_channels(feats, weights=None):
+    """feats (B, V, C) and weights (K, C, Co) with C zero-padded to a
+    multiple of 8: the bf16 forms read rows in 16-byte pieces (the stem's
+    3 channels become 8). Unchanged where C is one already."""
+    C = feats.shape[-1]
+    pad = -C % 8
+    if pad:
+        feats = torch.nn.functional.pad(feats, (0, pad))
+        if weights is not None:
+            weights = torch.nn.functional.pad(weights, (0, 0, 0, pad))
+    return feats, weights
+
+
+def conv_form(feats, weights=None) -> bool:
+    """Whether a conv kernel takes its bf16 form: by the features' dtype
+    (float32 or bfloat16); the weights must be of the same dtype. Raises
+    otherwise: no input falls back to another form."""
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feats: float32 or bfloat16, got {feats.dtype}")
+    if weights is not None and weights.dtype != feats.dtype:
+        raise ValueError(f"weights {weights.dtype} with feats {feats.dtype}")
+    return feats.dtype == torch.bfloat16
+
+
 def mapped_conv_plain(feats, nbr, weights):
     """Plain version: per offset, a row gather and a matmul, summed in
-    float32."""
+    float32 (bf16 operands as the float32 numbers they are)."""
+    feats, weights = feats.float(), weights.float()
     idx = nbr.long()
     out = feats.new_zeros(nbr.shape[:1] + nbr.shape[2:] + weights.shape[-1:],
                           dtype=torch.float32)
@@ -56,34 +89,60 @@ def mapped_conv_plain(feats, nbr, weights):
 def mapped_conv(feats, nbr, weights):
     """Sparse 3^3 conv of `feats` over the neighbour map `nbr`.
 
-    feats (B, V_in, C) float32; nbr (B, 27, V) int32 rows into feats, V_in
-    for a miss (`ops/map_kernel.kernel_map`); weights (27, C, Co) float32.
-    Returns (B, V, Co) float32; a row whose 27 entries all miss (an
-    invalid query row) is 0.
+    feats (B, V_in, C) float32 or bfloat16; nbr (B, 27, V) int32 rows
+    into feats, V_in for a miss (`ops/map_kernel.kernel_map`); weights
+    (27, C, Co) of feats' dtype. Returns (B, V, Co) float32; a row whose
+    27 entries all miss (an invalid query row) is 0.
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
+    CUDA tensors launch the Hopper kernel (or raise): bf16 features its
+    bf16 form (`mapped_conv_bf16`); CPU tensors take
     `mapped_conv_plain`."""
     if not feats.is_cuda:
         return mapped_conv_plain(feats, nbr, weights)
-    B, V_in, C = feats.shape
-    V = nbr.shape[-1]
-    Co = weights.shape[-1]
-    _check_common(feats, nbr)
-    kernels.check(weights, torch.float32, (27, C, Co), "weights")
-    dev = feats.device
-    out = torch.empty(B, V, Co, dtype=torch.float32, device=dev)
-    splits = conv_splits(C)
-    scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32, device=dev)
-               if splits > 1 else out)
-    kernels.call("mapped_conv", feats.data_ptr(), nbr.data_ptr(),
-                 weights.data_ptr(), out.data_ptr(), scratch.data_ptr(), B,
-                 V_in, V, C, Co, splits,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    if conv_form(feats, weights):
+        return mapped_conv_bf16(feats, nbr, weights)
+    out = _mapped_conv_launch("mapped_conv", feats, nbr, weights)
     mapped_conv.launches += 1
     return out
 
 
 mapped_conv.launches = 0
+
+
+def mapped_conv_bf16(feats, nbr, weights):
+    """The bf16 form of `mapped_conv`: feats (B, V_in, C) and weights
+    (27, C, Co) bfloat16, Co a multiple of 8; (B, V, Co) float32, each
+    product one bf16 MMA, summed in float32. CPU tensors take
+    `mapped_conv_plain`."""
+    if not feats.is_cuda:
+        return mapped_conv_plain(feats, nbr, weights)
+    feats, weights = pad_channels(feats, weights)
+    out = _mapped_conv_launch("mapped_conv_bf16", feats, nbr, weights)
+    mapped_conv_bf16.launches += 1
+    return out
+
+
+mapped_conv_bf16.launches = 0
+
+
+def _mapped_conv_launch(name, feats, nbr, weights):
+    B, V_in, C = feats.shape
+    V = nbr.shape[-1]
+    Co = weights.shape[-1]
+    _check_common(feats, nbr)
+    kernels.check(weights, feats.dtype, (27, C, Co), "weights")
+    if feats.dtype == torch.bfloat16 and Co % 8:
+        raise ValueError(f"the bf16 form needs Co % 8 == 0, got {Co}")
+    dev = feats.device
+    out = torch.empty(B, V, Co, dtype=torch.float32, device=dev)
+    splits = conv_splits(C)
+    scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32, device=dev)
+               if splits > 1 else out)
+    kernels.call(name, feats.data_ptr(), nbr.data_ptr(),
+                 weights.data_ptr(), out.data_ptr(), scratch.data_ptr(), B,
+                 V_in, V, C, Co, splits,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    return out
 
 
 def conv_splits(C: int) -> int:
@@ -97,7 +156,8 @@ def conv_splits(C: int) -> int:
 
 def mapped_conv_dw_plain(feats, nbr, dout):
     """Plain version of the weight gradient: per offset, the gathered
-    input rows (zero at misses) times dout."""
+    input rows (zero at misses) times dout, in float32."""
+    feats = feats.float()
     C, Co = feats.shape[-1], dout.shape[-1]
     idx = nbr.long()
     d = dout.reshape(-1, Co)
@@ -108,13 +168,42 @@ def mapped_conv_dw_plain(feats, nbr, dout):
 
 def mapped_conv_dw(feats, nbr, dout):
     """Weight gradient of `mapped_conv`: (27, C, Co) float32 from feats
-    (B, V_in, C), the map nbr (B, 27, V) and dout (B, V, Co). Rows that
-    miss contribute nothing, so dout needs no masking.
+    (B, V_in, C) float32 or bfloat16 (its bf16 form,
+    `mapped_conv_dw_bf16`), the map nbr (B, 27, V) and dout (B, V, Co)
+    float32. Rows that miss contribute nothing, so dout needs no masking.
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
     `mapped_conv_dw_plain`."""
     if not feats.is_cuda:
         return mapped_conv_dw_plain(feats, nbr, dout)
+    if conv_form(feats):
+        return mapped_conv_dw_bf16(feats, nbr, dout)
+    dw = _mapped_conv_dw_launch("mapped_conv_dw", feats, nbr, dout)
+    mapped_conv_dw.launches += 1
+    return dw
+
+
+mapped_conv_dw.launches = 0
+
+
+def mapped_conv_dw_bf16(feats, nbr, dout):
+    """The bf16 form of `mapped_conv_dw`: feats bfloat16, dout float32;
+    (27, C, Co) float32, each product two bf16 MMAs (dout's bf16 high and
+    low halves), summed in float32. CPU tensors take
+    `mapped_conv_dw_plain`."""
+    if not feats.is_cuda:
+        return mapped_conv_dw_plain(feats, nbr, dout)
+    C = feats.shape[-1]
+    dw = _mapped_conv_dw_launch("mapped_conv_dw_bf16",
+                                pad_channels(feats)[0], nbr, dout)
+    mapped_conv_dw_bf16.launches += 1
+    return dw[:, :C].contiguous() if dw.shape[1] != C else dw
+
+
+mapped_conv_dw_bf16.launches = 0
+
+
+def _mapped_conv_dw_launch(name, feats, nbr, dout):
     B, V_in, C = feats.shape
     V, Co = nbr.shape[-1], dout.shape[-1]
     _check_common(feats, nbr)
@@ -127,15 +216,11 @@ def mapped_conv_dw(feats, nbr, dout):
     rulebook = 0 if dw_dense(C) else dw_rulebook_ints(splits, rows_per_split)
     scratch = (torch.empty(part + rulebook, dtype=torch.float32, device=dev)
                if part + rulebook > 0 else dw)
-    kernels.call("mapped_conv_dw", feats.data_ptr(), nbr.data_ptr(),
+    kernels.call(name, feats.data_ptr(), nbr.data_ptr(),
                  dout.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, V_in,
                  V, C, Co, splits, rows_per_split,
                  torch.cuda.current_stream(dev).cuda_stream)
-    mapped_conv_dw.launches += 1
     return dw
-
-
-mapped_conv_dw.launches = 0
 
 
 def dw_dense(C: int) -> bool:
@@ -217,14 +302,17 @@ def mapped_conv_dfeats_scatter(dout, nbr, weights, v_in: int):
 
 def _check_common(feats, nbr):
     B, V_in, C = feats.shape
-    kernels.check(feats, torch.float32, (B, V_in, C), "feats")
+    kernels.check(feats, feats.dtype, (B, V_in, C), "feats")
     kernels.check(nbr, torch.int32, (B, 27, nbr.shape[-1]), "nbr")
 
 
 class _MappedConv(torch.autograd.Function):
     """`mapped_conv` with its gradients (module docstring): the
     counterpart of `window_conv_ad` (submanifold) and `window_conv_fwdk`
-    (stride 2)."""
+    (stride 2). Under bf16 (the JAX package's dtypes, `_gather_matmul`'s
+    vjp): dFeats is the float32 cotangent times the bf16 weights, on the
+    float32 form, rounded to bf16; dW is the bf16 form's float32 sum
+    rounded to bf16."""
 
     @staticmethod
     def forward(ctx, feats, weights, nbr, submanifold):
@@ -239,12 +327,14 @@ class _MappedConv(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             if ctx.submanifold:
-                dfeats = mapped_conv(dout, nbr, flip_weights(weights))
+                dfeats = mapped_conv(dout, nbr,
+                                     flip_weights(weights.float()))
             else:
-                dfeats = mapped_conv_dfeats_scatter(dout, nbr, weights,
-                                                    feats.shape[1])
+                dfeats = mapped_conv_dfeats_scatter(
+                    dout, nbr, weights.float(), feats.shape[1])
+            dfeats = dfeats.to(feats.dtype)
         if ctx.needs_input_grad[1]:
-            dw = mapped_conv_dw(feats, nbr, dout)
+            dw = mapped_conv_dw(feats, nbr, dout).to(weights.dtype)
         return dfeats, dw, None, None
 
 

@@ -20,8 +20,11 @@ contract in the JAX package is `sparse_conv._gather_matmul` over
   the JAX package leaves to XLA: here a lookup, a matmul per offset and a
   scatter-add, in plain torch ops.
 
-What bounds each kernel on the H100, and how its design answers it, is
-in the source notes of `csrc/keyed_conv.cu` and `csrc/keyed_conv_dw.cu`.
+Both kernels have a float32 and a bf16 form, picked by the features'
+dtype, with the dtype rules of `ops/sparse_conv_kernel.py` (the mapped
+route's kernels H and I, whose GEMM bodies A and D share). What bounds
+each kernel on the H100, and how its design answers it, is in the source
+notes of `csrc/keyed_conv.cu` and `csrc/keyed_conv_dw.cu`.
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ import torch
 from vdetr_tpu_torch import kernels
 from vdetr_tpu_torch.ops.map_kernel import neighbour_map
 from vdetr_tpu_torch.ops.sparse_conv_kernel import (
-    conv_splits, dw_dense, dw_row_splits, dw_rulebook_ints, flip_weights,
-    mapped_conv_dfeats_scatter, mapped_conv_dw_plain, mapped_conv_plain)
+    conv_form, conv_splits, dw_dense, dw_row_splits, dw_rulebook_ints,
+    flip_weights, mapped_conv_dfeats_scatter, mapped_conv_dw_plain,
+    mapped_conv_plain, pad_channels)
 
 
 def keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent, weights):
@@ -45,36 +49,65 @@ def keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent, weights):
 def keyed_conv(feats, in_keys, q_coords, q_valid, extent, weights):
     """Sparse 3^3 conv of `feats` at query sites.
 
-    feats (B, V_in, C) float32; in_keys (B, V_in) int32 ascending (empty
-    slots KEY_SENTINEL); q_coords (B, V, 3) int32 in the input lattice;
-    q_valid (B, V) bool; extent the input lattice's (GX, GY, GZ);
-    weights (27, C, Co) float32. Returns (B, V, Co) float32, zero at
-    invalid query rows.
+    feats (B, V_in, C) float32 or bfloat16; in_keys (B, V_in) int32
+    ascending (empty slots KEY_SENTINEL); q_coords (B, V, 3) int32 in the
+    input lattice; q_valid (B, V) bool; extent the input lattice's (GX,
+    GY, GZ); weights (27, C, Co) of feats' dtype. Returns (B, V, Co)
+    float32, zero at invalid query rows.
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    `keyed_conv_plain`."""
+    CUDA tensors launch the Hopper kernel (or raise): bf16 features its
+    bf16 form (`keyed_conv_bf16`); CPU tensors take `keyed_conv_plain`."""
     if not feats.is_cuda:
         return keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent,
                                 weights)
-    B, V_in, C = feats.shape
-    V = q_coords.shape[1]
-    Co = weights.shape[-1]
-    gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
-    kernels.check(weights, torch.float32, (27, C, Co), "weights")
-    out = torch.empty(B, V, Co, dtype=torch.float32, device=feats.device)
-    splits = conv_splits(C)
-    scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32,
-                           device=feats.device) if splits > 1 else out)
-    kernels.call("keyed_conv", feats.data_ptr(), in_keys.data_ptr(),
-                 q_coords.data_ptr(), q_valid.data_ptr(), weights.data_ptr(),
-                 out.data_ptr(), scratch.data_ptr(), B, V_in, V, C, Co, gx,
-                 gy, gz, splits,
-                 torch.cuda.current_stream(feats.device).cuda_stream)
+    if conv_form(feats, weights):
+        return keyed_conv_bf16(feats, in_keys, q_coords, q_valid, extent,
+                               weights)
+    out = _keyed_conv_launch("keyed_conv", feats, in_keys, q_coords,
+                             q_valid, extent, weights)
     keyed_conv.launches += 1
     return out
 
 
 keyed_conv.launches = 0
+
+
+def keyed_conv_bf16(feats, in_keys, q_coords, q_valid, extent, weights):
+    """The bf16 form of `keyed_conv`: feats and weights bfloat16, Co a
+    multiple of 8; each product one bf16 MMA, summed in float32. CPU
+    tensors take `keyed_conv_plain`."""
+    if not feats.is_cuda:
+        return keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent,
+                                weights)
+    feats, weights = pad_channels(feats, weights)
+    out = _keyed_conv_launch("keyed_conv_bf16", feats, in_keys, q_coords,
+                             q_valid, extent, weights)
+    keyed_conv_bf16.launches += 1
+    return out
+
+
+keyed_conv_bf16.launches = 0
+
+
+def _keyed_conv_launch(name, feats, in_keys, q_coords, q_valid, extent,
+                       weights):
+    B, V_in, C = feats.shape
+    V = q_coords.shape[1]
+    Co = weights.shape[-1]
+    gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
+    kernels.check(weights, feats.dtype, (27, C, Co), "weights")
+    if feats.dtype == torch.bfloat16 and Co % 8:
+        raise ValueError(f"the bf16 form needs Co % 8 == 0, got {Co}")
+    out = torch.empty(B, V, Co, dtype=torch.float32, device=feats.device)
+    splits = conv_splits(C)
+    scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32,
+                           device=feats.device) if splits > 1 else out)
+    kernels.call(name, feats.data_ptr(), in_keys.data_ptr(),
+                 q_coords.data_ptr(), q_valid.data_ptr(), weights.data_ptr(),
+                 out.data_ptr(), scratch.data_ptr(), B, V_in, V, C, Co, gx,
+                 gy, gz, splits,
+                 torch.cuda.current_stream(feats.device).cuda_stream)
+    return out
 
 
 def keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent, dout):
@@ -86,14 +119,46 @@ def keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent, dout):
 
 def keyed_conv_dw(feats, in_keys, q_coords, q_valid, extent, dout):
     """Weight gradient of `keyed_conv`: (27, C, Co) float32 from feats
-    (B, V_in, C), the conv's sites and dout (B, V, Co). Rows that are
-    invalid or miss contribute nothing, so dout needs no masking.
+    (B, V_in, C) float32 or bfloat16 (its bf16 form, `keyed_conv_dw_bf16`),
+    the conv's sites and dout (B, V, Co) float32. Rows that are invalid or
+    miss contribute nothing, so dout needs no masking.
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
     `keyed_conv_dw_plain`."""
     if not feats.is_cuda:
         return keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent,
                                    dout)
+    if conv_form(feats):
+        return keyed_conv_dw_bf16(feats, in_keys, q_coords, q_valid, extent,
+                                  dout)
+    dw = _keyed_conv_dw_launch("keyed_conv_dw", feats, in_keys, q_coords,
+                               q_valid, extent, dout)
+    keyed_conv_dw.launches += 1
+    return dw
+
+
+keyed_conv_dw.launches = 0
+
+
+def keyed_conv_dw_bf16(feats, in_keys, q_coords, q_valid, extent, dout):
+    """The bf16 form of `keyed_conv_dw`: feats bfloat16, dout float32;
+    each product two bf16 MMAs (dout's bf16 high and low halves), summed
+    in float32. CPU tensors take `keyed_conv_dw_plain`."""
+    if not feats.is_cuda:
+        return keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent,
+                                   dout)
+    C = feats.shape[-1]
+    dw = _keyed_conv_dw_launch("keyed_conv_dw_bf16", pad_channels(feats)[0],
+                               in_keys, q_coords, q_valid, extent, dout)
+    keyed_conv_dw_bf16.launches += 1
+    return dw[:, :C].contiguous() if dw.shape[1] != C else dw
+
+
+keyed_conv_dw_bf16.launches = 0
+
+
+def _keyed_conv_dw_launch(name, feats, in_keys, q_coords, q_valid, extent,
+                          dout):
     B, V_in, C = feats.shape
     V, Co = q_coords.shape[1], dout.shape[-1]
     gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
@@ -108,23 +173,19 @@ def keyed_conv_dw(feats, in_keys, q_coords, q_valid, extent, dout):
                       dtype=torch.int32, device=dev)
     scratch = (torch.empty(splits, 27, C, Co, dtype=torch.float32,
                            device=dev) if splits > 1 else dw)
-    kernels.call("keyed_conv_dw", feats.data_ptr(), in_keys.data_ptr(),
+    kernels.call(name, feats.data_ptr(), in_keys.data_ptr(),
                  q_coords.data_ptr(), q_valid.data_ptr(), dout.data_ptr(),
                  dw.data_ptr(), nbr.data_ptr(), scratch.data_ptr(), B, V_in,
                  V, C, Co, gx, gy, gz, splits, rows_per_split,
                  torch.cuda.current_stream(dev).cuda_stream)
-    keyed_conv_dw.launches += 1
     return dw
-
-
-keyed_conv_dw.launches = 0
 
 
 def _check_common(feats, in_keys, q_coords, q_valid, extent):
     B, V_in, C = feats.shape
     V = q_coords.shape[1]
     gx, gy, gz = (int(e) for e in extent)
-    kernels.check(feats, torch.float32, (B, V_in, C), "feats")
+    kernels.check(feats, feats.dtype, (B, V_in, C), "feats")
     kernels.check(in_keys, torch.int32, (B, V_in), "in_keys")
     kernels.check(q_coords, torch.int32, (B, V, 3), "q_coords")
     kernels.check(q_valid, torch.bool, (B, V), "q_valid")
@@ -134,7 +195,10 @@ def _check_common(feats, in_keys, q_coords, q_valid, extent):
 
 
 class _KeyedConv(torch.autograd.Function):
-    """`keyed_conv` with its gradients (module docstring)."""
+    """`keyed_conv` with its gradients (module docstring). Under bf16, as
+    the JAX package's `_gather_matmul` vjp: dFeats is the float32
+    cotangent times the bf16 weights, on the float32 form, rounded to
+    bf16; dW is the bf16 form's float32 sum rounded to bf16."""
 
     @staticmethod
     def forward(ctx, feats, weights, in_keys, q_coords, q_valid, extent,
@@ -152,14 +216,16 @@ class _KeyedConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             if ctx.submanifold:
                 dfeats = keyed_conv(dout, in_keys, q_coords, q_valid,
-                                    ctx.extent, flip_weights(weights))
+                                    ctx.extent, flip_weights(weights.float()))
             else:
                 dfeats = mapped_conv_dfeats_scatter(
                     dout, neighbour_map(in_keys, q_coords, q_valid,
-                                        ctx.extent), weights, feats.shape[1])
+                                        ctx.extent), weights.float(),
+                    feats.shape[1])
+            dfeats = dfeats.to(feats.dtype)
         if ctx.needs_input_grad[1]:
             dw = keyed_conv_dw(feats, in_keys, q_coords, q_valid, ctx.extent,
-                               dout)
+                               dout).to(weights.dtype)
         return dfeats, dw, None, None, None, None, None
 
 

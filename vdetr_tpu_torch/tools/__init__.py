@@ -20,6 +20,7 @@ import torch
 # bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -27,6 +28,16 @@ def bound_ms(nbytes: float, flops: float):
     """(least ms the card could take, what bounds it): bytes over the
     memory rate against flops over the f32 CUDA-core rate."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_bf16_ms(nbytes: float, flops: float, products: int = 1):
+    """(least ms, what bounds it) for products on the tensor cores in
+    bf16, `products` bf16 MMAs each (2 where an f32 operand is split into
+    two bf16 halves): bytes over the memory rate against products * flops
+    over the dense bf16 rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = products * flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -113,9 +124,13 @@ def launch_counters():
                                                    rpe_cross_attention_bwd,
                                                    rpe_table_sum)
     from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
-                                                       keyed_conv_dw)
+                                                       keyed_conv_bf16,
+                                                       keyed_conv_dw,
+                                                       keyed_conv_dw_bf16)
     from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
-                                                        mapped_conv_dw)
+                                                        mapped_conv_bf16,
+                                                        mapped_conv_dw,
+                                                        mapped_conv_dw_bf16)
     from vdetr_tpu_torch.tools.dot_micro import dot_micro
     from vdetr_tpu_torch.tools.rpe_ablate import rpe_ablate
 
@@ -127,7 +142,11 @@ def launch_counters():
             "mapped_conv": mapped_conv, "mapped_conv_dw": mapped_conv_dw,
             "rpe_ablate": rpe_ablate, "dot_micro": dot_micro,
             "nms": nms_3d_samecls_mask, "auction": auction,
-            "rotated_iou": rotated_intersection_areas}
+            "rotated_iou": rotated_intersection_areas,
+            "keyed_conv_bf16": keyed_conv_bf16,
+            "keyed_conv_dw_bf16": keyed_conv_dw_bf16,
+            "mapped_conv_bf16": mapped_conv_bf16,
+            "mapped_conv_dw_bf16": mapped_conv_dw_bf16}
 
 
 def _rank_main(rank: int, fn, spec: dict, out: str) -> None:

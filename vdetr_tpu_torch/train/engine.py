@@ -86,12 +86,15 @@ class Trainer:
         if group is not None:
             if cfg.mink_syncbn:
                 sync_batch_norms(self.model, group)
-            # every parameter gets a gradient each step: no search for
-            # unused ones. Each forward takes rank 0's buffers (the
-            # running statistics: equal on every rank under sync-BN, else
-            # rank 0's, as JAX's replicated out_specs keep device 0's)
+            # every parameter gets a gradient each step, so no search for
+            # unused ones, but under querypos_mlp=False (whose query
+            # projection's output is discarded). Each forward takes rank
+            # 0's buffers (the running statistics: equal on every rank
+            # under sync-BN, else rank 0's, as JAX's replicated out_specs
+            # keep device 0's)
             self.net = torch.nn.parallel.DistributedDataParallel(
-                self.model, process_group=group)
+                self.model, process_group=group,
+                find_unused_parameters=not cfg.querypos_mlp)
         self.criterion = SetCriterion(cfg, dataset_config, group)
         self.lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.optimizer = build_optimizer(cfg, self.model)
@@ -128,6 +131,12 @@ class Trainer:
         outputs = self.net(inputs, generator=generator)
         loss, loss_dict = self.criterion(outputs, batch)
         loss.backward()
+        # a parameter the loss does not reach (the discarded query
+        # projection of querypos_mlp=False) has gradient 0, as under
+        # jax.grad, so that AdamW decays it as optax does
+        for p in self.model.parameters():
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         if self.cfg.clip_gradient > 0:
             clip_by_global_norm(self.model.parameters(),
                                 self.cfg.clip_gradient)
