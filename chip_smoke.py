@@ -147,6 +147,19 @@ Phases, each printing its own lines:
      step, and the bf16 and depth-50 train steps' loss and every sparse
      conv call in them against the CPU on the same inputs (those two
      steps sit on kinks of the loss where whole gradients are ill-posed);
+  11. key sharding, the large-scene stress config (a "seq" mesh axis):
+     (a) kernel C on each of two shards of 4096 keys (the dropout hash
+     reading global key indices) merged by their log-sum-exps, and kernel
+     F on each shard from the global out and lse, against the plain dense
+     version over 8192 keys at 1024 queries, forward and backward, at
+     dropout 0 and 0.1 under one seed; (b) a small seq step at mesh
+     (1, 2), two ranks on the card over gloo, against the same ranks on
+     the CPU; (c) the pointnet2 SA and FP modules on the card against the
+     CPU; then mesh (1, 2) at `VDETRConfig()` widths with 200000 points a
+     scene (100k a rank), two ranks sharing the card over gloo: one eval
+     step at B = 1 and two train steps, run twice from the same weights
+     (bit-equal), both ranks' parameters equal, every kernel of the path
+     launched, ms a step and peak memory a rank;
   8. a JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}} -- printed only when every phase
      passed.
@@ -3164,6 +3177,9 @@ def write_sunrgbd_scans(root):
 # then raises); a group of ranks at most DP_GROUP_S s, its start included
 DP_COLLECTIVE_S = 240
 DP_GROUP_S = 420
+# (a)'s steps: two compared bit for bit, the rest timed in turns (8 until
+# phase 11 needed the time)
+DP_WORLD1_STEPS = 6
 
 
 def dp_spec(tmp, name, world, backend, device, cfg, batches, **kw):
@@ -3193,7 +3209,7 @@ def dp_world1(cfg, tmp, power):
     from vdetr_tpu_torch.tools import run_ranks
     from vdetr_tpu_torch.tools.dp_step import plain_vs_world1
 
-    batches = [train_batch(cfg, 1, first=i) for i in range(8)]
+    batches = [train_batch(cfg, 1, first=i) for i in range(DP_WORLD1_STEPS)]
     r = run_ranks(plain_vs_world1, 1, dp_spec(
         tmp, "a", 1, "nccl", "cuda:0", cfg, batches), DP_GROUP_S)[0]
     norms = sum(isinstance(m, BatchNorm1d) for m in
@@ -3337,6 +3353,306 @@ def run_data_parallel(cfg, power, single_launches):
                     "collectives": r["collectives"]} for r in res]
         out[name] = res
     return ok, out
+
+
+# --------------------------------------------------------------------------
+# phase 11: key sharding, the large-scene stress config (the seq axis)
+# --------------------------------------------------------------------------
+
+SEQ_POINTS = 200000  # a scene; 100k a shard, the published per-rank size
+# the sharded form's shape: the published decoder's queries against two
+# shards of the published key count
+SEQ_SHARD_KEYS = 4096
+
+
+def seq_config(cfg):
+    """The large-scene stress config: `cfg`'s widths, the points of a
+    scene sharded over two seq ranks of one data rank."""
+    return cfg.replace(mesh_axis_names=("data", "seq"), mesh_shape=(1, 2),
+                       num_points=SEQ_POINTS)
+
+
+def check_sharded_rpe(cfg, device, gen):
+    """(a) Kernel C on each of two key shards of 4096 keys (the global
+    key index through `key_offset`) merged by their log-sum-exps
+    (`shard_merge`, the shards stacked in this process), and kernel F on
+    each shard from the global out and lse (`shard_backward`), against
+    the plain dense version over all 8192 keys, at dropout 0 and 0.1
+    under one seed: the out, dq, dk, dv and dTables. Returns the C and F
+    entries of the kernels line."""
+    from vdetr_tpu_torch.ops.rpe_attention import (
+        rpe_cross_attention, rpe_cross_attention_bwd_plain,
+        rpe_cross_attention_plain, shard_backward, shard_merge)
+
+    S = 2
+    case = rpe_case(cfg.replace(preenc_npoints=S * SEQ_SHARD_KEYS), device,
+                    gen)
+    q, k, v, corners, angles, key_xyz, tables, key_valid = case
+    key_valid[:, :SEQ_SHARD_KEYS // 2] = False  # a partly masked shard
+    n = tables.shape[1]
+    dout = torch.randn(q.shape, generator=gen, device=device)
+    shards = [slice(s * SEQ_SHARD_KEYS, (s + 1) * SEQ_SHARD_KEYS)
+              for s in range(S)]
+    stack_sum = lambda x: x.sum(0, keepdim=True)  # noqa: E731
+    stack_max = lambda x: x.amax(0, keepdim=True)  # noqa: E731
+    ok_all, errs, res = True, [], {}
+    for rate in (0.0, 0.1):
+        seed = torch.tensor([777], dtype=torch.int64, device=device)
+        kw = dict(log_scale=cfg.log_scale, max_value=cfg.rpe_max_value,
+                  rotate=False, dropout_rate=rate)
+
+        def forward():
+            parts = [rpe_cross_attention(
+                q, k[:, sl].contiguous(), v[:, sl].contiguous(), corners,
+                angles, key_xyz[:, sl].contiguous(), tables,
+                key_valid[:, sl].contiguous(), seed=seed,
+                return_stats=True, key_offset=sl.start, **kw)
+                for sl in shards]
+            merged, lse, scale = shard_merge(
+                torch.stack([p[0] for p in parts]),
+                torch.stack([p[1] for p in parts]),
+                torch.stack([key_valid[:, sl] for sl in shards]),
+                SEQ_SHARD_KEYS, stack_sum, stack_max)
+            return merged[0], lse[0], scale, [p[2] for p in parts]
+
+        def backward(out, lse, scale, logits):
+            return [shard_backward(
+                q, k[:, sl].contiguous(), v[:, sl].contiguous(), corners,
+                angles, key_xyz[:, sl].contiguous(),
+                key_valid[:, sl].contiguous(), out, lse, logits[s],
+                scale[s], dout, n, seed, dict(kw, key_offset=sl.start))
+                for s, sl in enumerate(shards)]
+
+        out, lse, scale, logits = forward()
+        grads = backward(out, lse, scale, logits)
+        got = dict(out=out, dq=grads[0][0] + grads[1][0],
+                   dk=torch.cat([g[1] for g in grads], 1),
+                   dv=torch.cat([g[2] for g in grads], 1),
+                   dtables=grads[0][3] + grads[1][3])
+        r_out, r_lse, r_logits = rpe_cross_attention_plain(
+            *case, seed=seed, return_stats=True, **kw)
+        dq, dtab, ds, eg = rpe_cross_attention_bwd_plain(
+            k, v, corners, angles, key_xyz, key_valid, r_out, dout, r_logits,
+            r_lse, n, seed=seed, **kw)
+        ref = dict(out=r_out, dq=dq, dk=torch.einsum("bhqk,bqhd->bkd", ds, q),
+                   dv=torch.einsum("bhqk,bqhd->bkd", eg, dout), dtables=dtab)
+        torch.cuda.synchronize()
+        parts = []
+        for name, want in ref.items():
+            scale_ref = float(want.abs().max())
+            err = float((got[name] - want).abs().max())
+            tol = 1e-4 * max(1.0, scale_ref)
+            ok_all &= err <= tol
+            errs.append(err)
+            parts.append(f"{name} {err:.3e} (tol {tol:.1e})")
+        t_fwd = time_ms(forward, reps=5)
+        t_bwd = time_ms(lambda: backward(out, lse, scale, logits), reps=5)
+        t_pf = time_ms(lambda: rpe_cross_attention_plain(
+            *case, seed=seed, return_stats=True, **kw), reps=2)
+        t_pb = time_ms(lambda: rpe_cross_attention_bwd_plain(
+            k, v, corners, angles, key_xyz, key_valid, r_out, dout, r_logits,
+            r_lse, n, seed=seed, **kw), reps=2)
+        log(f"phase 11 (a) sharded C + merge and F per shard, B=1 nQ="
+            f"{q.shape[1]} 2 x {SEQ_SHARD_KEYS} keys (shard 0 half masked) "
+            f"against the plain dense version over {S * SEQ_SHARD_KEYS} keys, "
+            f"dropout {rate} (one seed, the global key index hashed): "
+            + ", ".join(parts) + f" -> {'ok' if ok_all else 'FAIL'}; forward "
+            f"(2 C launches and the merge) {t_fwd:.3f} ms, plain {t_pf:.3f}; "
+            f"backward (2 F calls) {t_bwd:.3f} ms, plain {t_pb:.3f}")
+        res[rate] = (t_fwd, t_bwd, t_pf, t_pb)
+    log("  tolerance reason: the dense checks' (C 1e-4; F 1e-4 of the "
+        "largest entry): the merge adds two shards' partial sums in "
+        "another order, ~1e-6 relative")
+    fb, fby = rpe_bound(case, train=True)
+    bb, bby = rpe_bound(case, train=True, backward=True,
+                        tensor_core_products=True)
+    t_fwd, t_bwd, t_pf, t_pb = res[0.1]
+    c = dict(ok=ok_all, err=max(errs), ms=t_fwd, plain_ms=t_pf, bound_ms=fb,
+             bound_by=fby, ms_dropout0=res[0.0][0],
+             shape=f"B=1 nQ={q.shape[1]} 2 x {SEQ_SHARD_KEYS} keys")
+    f = dict(ok=ok_all, err=max(errs), ms=t_bwd, plain_ms=t_pb, bound_ms=bb,
+             bound_by=bby, ms_dropout0=res[0.0][1], shape=c["shape"])
+    return c, f
+
+
+def seq_spec(tmp, name, device, cfg, batches, **kw):
+    return dp_spec(tmp, name, 2, "gloo", device, cfg, batches, **kw)
+
+
+def seq_small_vs_cpu(tmp):
+    """(b) A small seq step (mesh (1, 2), two ranks on the card over
+    gloo) against the same two ranks on the CPU (plain versions): the
+    loss, every gradient and the updated parameters, at the small train
+    step's tolerances; both ranks bit-equal."""
+    from vdetr_tpu_torch.tools import run_ranks
+    from vdetr_tpu_torch.tools.dp_step import train_rank
+
+    cfg = small_train_config().replace(mesh_axis_names=("data", "seq"),
+                                       mesh_shape=(1, 2))
+    batch = train_batch(cfg, 1, first=3)
+    before = {n: p.detach().clone() for n, p in published_model(
+        cfg.replace(mesh_axis_names=("data",), mesh_shape=(-1,)), "cpu",
+        "keyed").named_parameters()}
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:  # the two groups side by side
+        card_f = pool.submit(run_ranks, train_rank, 2, seq_spec(
+            tmp, "s_card", "cuda:0", cfg, [batch]), DP_GROUP_S)
+        cpu = run_ranks(train_rank, 2, seq_spec(
+            tmp, "s_cpu", "cpu", cfg, [batch], threads=3), DP_GROUP_S)
+        card_r = card_f.result()
+    err = train_errors(rank_step(cpu[0]), rank_step(card_r[0]), before)
+    differ = ranks_equal(card_r)
+    ok = all(err[k] <= TRAIN_TOL[k] for k in TRAIN_TOL) and not differ
+    log("phase 11 (b) seq step, mesh (1, 2), two ranks on the card over "
+        "gloo, small config, against the same two ranks on the CPU (plain "
+        "path): " + fmt_train_errors(err, cpu[0]["steps"][0][0],
+                                     card_r[0]["steps"][0][0])
+        + f"; the card's ranks differ in {len(differ)} tensors "
+        f"{differ[:5]} -> {'ok' if ok else 'FAIL'}")
+    log(TRAIN_TOL_REASON)
+    return ok, err
+
+
+def check_pointnet2(device):
+    """(c) The pointnet2 set-abstraction (FPS on kernel B) and
+    feature-propagation modules on the card against the CPU, in train
+    mode, same weights and inputs."""
+    import copy
+
+    from vdetr_tpu_torch.models.pointnet2 import (PointnetFPModule,
+                                                  PointnetSAModuleVotes)
+
+    g = torch.Generator().manual_seed(SEED)
+    xyz = torch.rand(2, 4096, 3, generator=g) * 4
+    feats = torch.randn(2, 4096, 16, generator=g)
+    sa = PointnetSAModuleVotes(512, 0.4, 32, [32, 64], in_channels=16)
+    fp = PointnetFPModule([64, 32], in_channels=64 + 16)
+    errs = {}
+    with torch.no_grad():
+        outs = {}
+        for dev in ("cpu", device):
+            a, b = copy.deepcopy(sa).to(dev), copy.deepcopy(fp).to(dev)
+            new_xyz, pooled, inds = a(xyz.to(dev), feats.to(dev))
+            prop = b(xyz.to(dev), new_xyz, feats.to(dev), pooled)
+            outs[str(dev)] = [t.cpu() for t in (inds, pooled, prop)]
+        c, k = outs["cpu"], outs[str(device)]
+    errs["inds_equal"] = bool(torch.equal(c[0].long(), k[0].long()))
+    errs["pooled"] = float((c[1] - k[1]).abs().max())
+    errs["propagated"] = float((c[2] - k[2]).abs().max())
+    ok = (errs["inds_equal"] and errs["pooled"] <= 1e-4
+          and errs["propagated"] <= 1e-4)
+    log(f"phase 11 (c) pointnet2 SA (4096 points -> 512 centers by kernel B, "
+        f"ball query 32) and FP modules, train mode, card against CPU: "
+        f"centers {'equal' if errs['inds_equal'] else 'DIFFER'}, pooled "
+        f"{errs['pooled']:.3e}, propagated {errs['propagated']:.3e} (tol "
+        f"1e-4: f32 sums in another order) -> {'ok' if ok else 'FAIL'}")
+    return ok, errs
+
+
+# the kernels a seq eval step and a seq train step must launch (keyed)
+SEQ_EVAL_KERNELS = ("keyed_conv", "fps", "rpe_cross_attention", "nms")
+SEQ_TRAIN_KERNELS = ("keyed_conv", "keyed_conv_dw", "fps",
+                     "rpe_cross_attention", "rpe_cross_attention_bwd",
+                     "rpe_table_sum", "auction")
+
+
+def seq_published(cfg, tmp, power):
+    """The large-scene stress config on the card: mesh (1, 2), two ranks
+    sharing the card over gloo (NCCL refuses two ranks on one device),
+    200000 points a scene, `VDETRConfig()` widths, keyed: one eval step
+    (test_only) at B = 1, then two train steps (dropout on, the auction),
+    then the same two steps again from the same weights: finite outputs
+    and losses, the two runs bit-equal, both ranks' parameters equal,
+    every kernel of the path launched (counts zeroed before each step and
+    read after it, on each rank), ms a step and peak memory a rank."""
+    from vdetr_tpu_torch.tools import run_ranks
+    from vdetr_tpu_torch.tools.dp_step import train_rank
+
+    scfg = seq_config(cfg)
+    batches = [train_batch(scfg, 1, first=i) for i in range(2)]
+    t0 = time.perf_counter()
+    ranks = run_ranks(train_rank, 2, seq_spec(
+        tmp, "seq", "cuda:0", scfg, batches, eval_cfg=eval_config(scfg),
+        eval_batches=batches[:1], repeat=True), DP_GROUP_S)
+    wall = time.perf_counter() - t0
+    differ = ranks_equal(ranks, ("params", "buffers"))
+    finite = all(math.isfinite(s[0]) for r in ranks for s in r["steps"]) \
+        and all(e[0] for r in ranks for e in r["eval"])
+    missing = sorted({k for r in ranks for s in r["steps"]
+                      for k in SEQ_TRAIN_KERNELS if not s[3][k]}
+                     | {k for r in ranks for e in r["eval"]
+                        for k in SEQ_EVAL_KERNELS if not e[2][k]})
+    repeat = sorted({n for r in ranks for n in r["repeat_differs"]})
+    ok = finite and not differ and not missing and not repeat
+    for rank, r in enumerate(ranks):
+        e = r["eval"][0]
+        log(f"phase 11 seq rank {rank} of mesh (1, 2) on one card over gloo, "
+            f"{SEQ_POINTS} points a scene ({SEQ_POINTS // 2} a rank), "
+            f"published widths, keyed: eval step {e[1]:.1f} ms, peak "
+            f"{e[3]:.2f} GiB, {e[4]} boxes kept, launches "
+            + ", ".join(f"{k} {e[2][k]}" for k in SEQ_EVAL_KERNELS)
+            + "; train steps (dropout on, auction) losses "
+            + ", ".join(f"{s[0]:.4f}" for s in r["steps"]) + "; ms "
+            + ", ".join(f"{s[2]:.1f}" for s in r["steps"]) + "; peak "
+            + ", ".join(f"{s[4]:.2f}" for s in r["steps"]) + " GiB; launches "
+            + "; ".join(", ".join(f"{k} {s[3][k]}" for k in SEQ_TRAIN_KERNELS)
+                        for s in r["steps"]))
+    log(f"phase 11 seq: both ranks' parameters and buffers after two steps: "
+        f"{len(differ)} differ {differ[:5]}; the same two steps again from "
+        f"the same weights: {len(repeat)} differ {repeat[:5]}; outputs and "
+        f"losses {'finite' if finite else 'NOT finite'}; kernels never "
+        f"launched: {missing}; wall {wall:.1f} s (spawn and build included); "
+        f"card {power} -> {'ok' if ok else 'FAIL'}")
+    return ok, ranks
+
+
+def run_seq(cfg, device, power):
+    """Phase 11: (a) the sharded C and F against the dense plain version,
+    (b) a small seq step on the card against the CPU, (c) the pointnet2
+    modules, and the large-scene stress config's eval and train steps,
+    each group of ranks spawned under a time limit."""
+    import tempfile
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    ok, out = True, {"card": power}
+    try:
+        c, f = check_sharded_rpe(cfg, device, gen)
+    except Exception:
+        import traceback
+
+        log("phase 11 (a): FAIL\n" + traceback.format_exc())
+        return False, out, None
+    out["sharded"] = {"rpe_cross_attention_sharded": c,
+                      "rpe_cross_attention_bwd_sharded": f}
+    ok &= c["ok"]
+    ok_p, out["pointnet2"] = check_pointnet2(device)
+    ok &= ok_p
+    torch.cuda.empty_cache()
+    ranks = None
+    for name, part in (("small_vs_cpu", seq_small_vs_cpu),
+                       ("published", lambda t: seq_published(cfg, t,
+                                                             power))):
+        with tempfile.TemporaryDirectory(prefix="vdetr_seq_") as tmp:
+            try:
+                part_ok, res = part(tmp)
+            except Exception:  # a rank raised, died or timed out
+                import traceback
+
+                log(f"phase 11 {name}: FAIL\n" + traceback.format_exc())
+                ok = False
+                continue
+        ok &= part_ok
+        if name == "published":
+            ranks = res
+            res = [{"eval_ms": r["eval"][0][1], "eval_peak_gib":
+                    r["eval"][0][3], "steps_ms": [s[2] for s in r["steps"]],
+                    "peak_gib": [s[4] for s in r["steps"]],
+                    "losses": [s[0] for s in r["steps"]],
+                    "train_launches": r["steps"][0][3],
+                    "eval_launches": r["eval"][0][2]} for r in res]
+        out[name] = res
+    return ok, out, ranks
 
 
 # --------------------------------------------------------------------------
@@ -3908,6 +4224,13 @@ def main() -> int:
     # decoder and head flags, and small ones against the CPU
     ok_cfg, configs = run_configs(cfg, device, smi, res16, train_launches,
                                   train)
+    torch.cuda.empty_cache()
+
+    phase("11")
+    # 11. key sharding: the sharded C and F against the dense plain
+    # version, a small seq step against the CPU, the pointnet2 modules,
+    # and the large-scene stress config on two ranks sharing the card
+    ok_seq, seq, seq_ranks = run_seq(cfg, device, smi)
     log("keyed vs mapped route (ms): forward/scene B=1 "
         f"{per_scene['keyed'][1]:.2f} vs {per_scene['mapped'][1]:.2f}, B=4 "
         f"{per_scene['keyed'][4]:.2f} vs {per_scene['mapped'][4]:.2f}; "
@@ -4009,7 +4332,27 @@ def main() -> int:
                       for route in ROUTES},
         "ap_end_to_end": {"device_nms": sun_ap, "rotated_nms": sun_ap_rot},
         "train": sun_train, "iou_types": sun_iou, "cli": sun_cli}
+    for kname, r in seq.get("sharded", {}).items():
+        base = kname[:-len("_sharded")]
+        src, repl = REPO_SOURCES[base]
+        record["kernels"].append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": repl + " (its key-sharded use: the JAX package's "
+            "seq path materializes each shard's bias in XLA instead, "
+            "vdetr_tpu/models/transformer.py:345-358)",
+            "launches": (seq_ranks[0]["steps"][0][3][base]
+                         if seq_ranks else 0),
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": "none: " + LIBRARY_NONE[base],
+            "form": "per key shard, the shards merged by their log-sum-exps "
+                    "(2 shards: 2 launches and the merge)",
+            "ms_dropout0": r["ms_dropout0"], "shape": r["shape"],
+            "launches_note": "per seq train step of rank 0 of mesh (1, 2) "
+                             "at 200000 points a scene (phase 11)"})
     record["data_parallel"] = dp
+    record["seq"] = seq
     record["configurations"] = configs
     record["card"] = smi
     record["seconds"] = time.perf_counter() - start
@@ -4018,7 +4361,7 @@ def main() -> int:
             and all(r["ok"] for r in res16.values()) and ok_f and ok_fpn
             and ok_s and ok_e and ok_ap and ok_se and ok_t and ok_ts and ok_c
             and ok_sev and ok_sap and ok_sapr and all(ok_ss) and ok_st
-            and ok_si and ok_sc and ok_dp and ok_cfg):
+            and ok_si and ok_sc and ok_dp and ok_cfg and ok_seq):
         log("chip_smoke: FAILED")
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -204,12 +204,14 @@ class VDETRConfig:
     # ---- derived helpers ----
     @property
     def seq_axis(self) -> Optional[str]:
-        """Key/point-sharding mesh axis (BASELINE "large-scene stress"
-        config): present when the mesh declares a "seq" axis. Points are
-        sharded across it; decoder queries stay replicated and the
-        cross-attention combines per-shard logits with one psum/pmax
-        (parallel/seq_attention.py). The reference has nothing comparable
-        (SURVEY.md §2.3)."""
+        """Key/point-sharding mesh axis (the large-scene stress config):
+        present when the mesh declares a "seq" axis. Each rank of it holds
+        a block of each scene's points and runs the encoder on it; the
+        decoder's queries are the same on every rank, and each
+        cross-attention runs kernel C on the rank's keys and merges the
+        shards by their log-sum-exps (`train/engine.py`, `models/
+        transformer.py`, `parallel/seq_attention.py`). The reference has
+        nothing comparable."""
         return "seq" if "seq" in self.mesh_axis_names else None
 
     @property

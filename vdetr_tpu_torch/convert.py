@@ -19,6 +19,11 @@ x-fastest, the JAX package and the port are z-fastest, so
 `k_port = k_ref[KERNEL_OFFSET_PERMUTATION[k^3]]`: the base-k digit
 reversal, an involution (torch_import.py:32-85 derives it).
 
+The pointnet2 modules (`models/pointnet2.py`) have no place in the
+model's tree; `load_jax_pointnet2` and `pointnet2_jax_trees` map a
+module's `SharedMLP` Dense and BN tensors to and from the JAX module's
+trees, by the same rules.
+
 `reference_args_to_config` maps the argparse namespace pickled in a
 reference checkpoint onto `VDETRConfig`, for `--test_only --auto_test
 --test_ckpt x.pth` (the port's copy of torch_import.py:332-358).
@@ -256,7 +261,11 @@ def build_reference_state_dict(params: Dict, batch_stats: Dict,
     """A flax (params, batch_stats, constants) tree -> the
     reference-shaped state dict (reference names and layouts, x-fastest
     kernel offsets)."""
-    m = _name_map(cfg)
+    return _from_trees(_name_map(cfg), params, batch_stats, constants)
+
+
+def _from_trees(m: _NameMap, params: Dict, batch_stats: Dict,
+                constants: Dict = None) -> Dict[str, np.ndarray]:
     flat_p, flat_s = _flatten(params), _flatten(batch_stats)
     flat_c = _flatten(constants or {})
     sd: Dict[str, np.ndarray] = {}
@@ -298,7 +307,10 @@ def jax_trees(state_dict: Dict, cfg: VDETRConfig):
     such as their gradients) -> flax (params, batch_stats, constants)
     trees of numpy arrays: `load_jax_params`' inverse. Every name must be
     one the mapping knows."""
-    m = _name_map(cfg)
+    return _to_trees(_name_map(cfg), state_dict)
+
+
+def _to_trees(m: _NameMap, state_dict: Dict):
     params, stats, consts = {}, {}, {}
     for tname, v in state_dict.items():
         v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
@@ -391,3 +403,38 @@ def reference_args_to_config(ckpt_args, base_cfg: VDETRConfig,
             v = ""  # argparse default-None strings (angle_type etc.)
         kw[k] = v
     return base_cfg.replace(**kw)
+
+
+def _pointnet2_name_map(module: nn.Module) -> _NameMap:
+    """Every `SharedMLP` of a pointnet2 module: `layer<i>` (Dense, no
+    bias) and `norm<i>` (BN) under the flax path of its module names."""
+    from vdetr_tpu_torch.models.pointnet2 import SharedMLP
+
+    m = _NameMap()
+    for name, sub in module.named_modules():
+        if isinstance(sub, SharedMLP):
+            path = tuple(name.split(".")) if name else ()
+            prefix = name + "." if name else ""
+            for i in range(len(sub.dims)):
+                m.linear(f"{prefix}layer{i}", path + (f"layer{i}",),
+                         bias=False)
+                m.norm(f"{prefix}norm{i}", path + (f"norm{i}",))
+    return m
+
+
+def load_jax_pointnet2(module: nn.Module, params: Dict,
+                       batch_stats: Dict) -> nn.Module:
+    """Load the flax (params, batch_stats) trees of a JAX pointnet2
+    module (`QueryAndGroup`, `SharedMLP`, `PointnetSAModuleVotes`,
+    `PointnetFPModule`), as numpy arrays, into the port's (strict)."""
+    sd = _from_trees(_pointnet2_name_map(module), params, batch_stats)
+    module.load_state_dict({k: torch.from_numpy(np.array(v))
+                            for k, v in sd.items()}, strict=True)
+    return module
+
+
+def pointnet2_jax_trees(module: nn.Module, state_dict: Dict):
+    """{name: tensor} of a pointnet2 module (its state_dict, or its
+    gradients) -> flax (params, batch_stats) trees of numpy arrays."""
+    params, stats, _ = _to_trees(_pointnet2_name_map(module), state_dict)
+    return params, stats

@@ -40,7 +40,7 @@ extern "C" int rpe_ablate_f32(const void* q, const void* k, const void* v,
                               void* stream) {
   if (heads != rpe::H || hd != 64) return (int)cudaErrorInvalidValue;
   if (B <= 0 || nQ <= 0 || nK <= 0) return (int)cudaGetLastError();
-  const rpe::TrainOut eval{nullptr, nullptr, nullptr, 0u, 1.f};
+  const rpe::TrainOut eval{nullptr, nullptr, nullptr, 0u, 1.f, 0u};
   auto args = [&](auto fn) {
     return fn((const float*)q, (const float*)k, (const float*)v,
               (const float*)corners, nullptr, (const float*)key_xyz,

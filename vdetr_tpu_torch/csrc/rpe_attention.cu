@@ -59,20 +59,22 @@
 // Returns cudaErrorInvalidValue (1) for a head count or head width the
 // kernel is not built for; the Python wrapper checks both first. lse,
 // logits and seed may be null (eval: none of them); a null seed means no
-// dropout.
+// dropout. key_offset is the global index of key 0 (0 for the dense keys,
+// a shard's first key under key sharding), which the dropout hash reads.
 extern "C" int rpe_cross_attention_f32(
     const void* q, const void* k, const void* v, const void* corners,
     const void* cossin, const void* key_xyz, const void* tables,
     const void* key_valid, void* out, void* lse, void* logits,
     const void* seed, int B, int nQ, int nK, int heads, int hd, int n,
     float log_scale, float max_value, int rotate, int keep_threshold,
-    float drop_scale, void* stream) {
+    float drop_scale, int key_offset, void* stream) {
   if (heads != rpe::H) return (int)cudaErrorInvalidValue;
   if (B <= 0 || nQ <= 0 || nK <= 0) return (int)cudaGetLastError();
   const float* cs = rotate ? (const float*)cossin : nullptr;
   const rpe::TrainOut train{(float*)lse, (float*)logits,
                             (const long long*)seed,
-                            (uint32_t)keep_threshold, drop_scale};
+                            (uint32_t)keep_threshold, drop_scale,
+                            (uint32_t)key_offset};
   auto args = [&](auto fn) {
     return fn((const float*)q, (const float*)k, (const float*)v,
               (const float*)corners, cs, (const float*)key_xyz,

@@ -121,6 +121,7 @@ struct Dropout {
   const long long* seed;  // device scalar; null: no dropout
   uint32_t threshold;
   float scale;
+  uint32_t key_offset;  // global index of key 0, as the forward's
 };
 
 // this thread's two adjacent keys of one row of ds or eg: 8 bytes when
@@ -327,7 +328,8 @@ rpe_pair_bwd_kernel(
           const float e = (rv[r] && ((inside >> bit) & 1))
                               ? (kv ? ex : uniform) : 0.f;
           const float gs =
-              dropout ? (rpe::keep(rowh[r], (uint32_t)(key + c),
+              dropout ? (rpe::keep(rowh[r],
+                                   (uint32_t)(key + c) + drop.key_offset,
                                    drop.threshold) ? drop.scale : 0.f)
                       : 1.f;
           const float dsv =
@@ -702,7 +704,8 @@ int launch(const float* k, const float* v, const float* corners,
 // keys (a multiple of 32): `slices` receives (B, ceil(nQ / 32),
 // ceil(nK / table_keys_per_block)) slices of the 8 tables, each written
 // whole, and rpe_table_sum.cu adds them into dtables. With no keys
-// (nK = 0) nothing is written to them. A null seed means no dropout.
+// (nK = 0) nothing is written to them. A null seed means no dropout;
+// key_offset is the global index of key 0, as the forward's.
 // Returns cudaErrorInvalidValue (1) for a head count, head width or table
 // size the kernels are not built for, or key splits they cannot take.
 extern "C" int rpe_cross_attention_bwd_f32(
@@ -712,8 +715,8 @@ extern "C" int rpe_cross_attention_bwd_f32(
     void* dq, void* dq_parts, void* ds_absmax, void* slices, void* ds,
     void* eg, int B, int nQ, int nK, int heads, int hd, int n,
     float log_scale, float max_value, int rotate, int keep_threshold,
-    float drop_scale, int keys_per_block, int table_keys_per_block,
-    void* stream) {
+    float drop_scale, int key_offset, int keys_per_block,
+    int table_keys_per_block, void* stream) {
   // the item packing holds table indices up to 31
   if (heads != H || n > 31 || keys_per_block <= 0 || keys_per_block % PK ||
       table_keys_per_block <= 0 || table_keys_per_block % 32)
@@ -726,7 +729,7 @@ extern "C" int rpe_cross_attention_bwd_f32(
                                 (cudaStream_t)stream);
   const float* cs = rotate ? (const float*)cossin : nullptr;
   const Dropout drop{(const long long*)seed, (uint32_t)keep_threshold,
-                     drop_scale};
+                     drop_scale, (uint32_t)key_offset};
   auto args = [&](auto fn) {
     return fn((const float*)k, (const float*)v, (const float*)corners, cs,
               (const float*)key_xyz, (const uint8_t*)key_valid,

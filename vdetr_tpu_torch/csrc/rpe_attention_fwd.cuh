@@ -67,6 +67,8 @@ struct TrainOut {
   const long long* seed;   // device scalar; null: no dropout
   uint32_t threshold;      // keep iff hash >> 8 >= threshold
   float scale;             // 1 / (1 - rate)
+  uint32_t key_offset;     // global index of key 0 (a key shard's), which
+                           // the dropout hash reads
 };
 
 __device__ __forceinline__ float hat0(float x) {
@@ -361,7 +363,8 @@ rpe_attention_kernel(const float* __restrict__ q,        // (B, nQ, H, HD)
       // dropout scales the numerator only: the softmax denominator never
       // sees it (post-softmax dropout)
       const float pv =
-          dropout ? (keep(rowh, (uint32_t)(k0 + kk), train.threshold)
+          dropout ? (keep(rowh, (uint32_t)(k0 + kk) + train.key_offset,
+                          train.threshold)
                          ? p * train.scale : 0.f)
                   : p;
 #pragma unroll

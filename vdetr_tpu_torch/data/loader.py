@@ -16,6 +16,11 @@ the global batch and fetches only its own rows of each batch (rank r of
 n: rows [r b, (r + 1) b) of n b, `parallel.dist.rows`), so that the
 ranks' rows together are the batch one process would load; `pad_last`
 pads the global batch, and every rank's rows keep the static shape.
+
+Under key sharding (`seq_rank`, `seq_world`: rank (d, s) of a D x S grid
+takes `rank=d, world=D`) each rank keeps the contiguous block s of S of
+every scene's points (`seq_block`), JAX's `P(data, seq)`; the GT fields
+and the scene extents stay whole.
 """
 
 from __future__ import annotations
@@ -64,15 +69,38 @@ def _shard(plan, batch_size, rank, world):
             for take, nvalid in plan]
 
 
+# the per-point fields that key sharding splits (vdetr_tpu/train/
+# engine.py:111-120); every other field is the whole scene's
+POINT_KEYS = ("point_clouds", "point_validity")
+
+
+def seq_block(batch, s: int, S: int):
+    """`batch` with block `s` of `S` contiguous blocks of its points (the
+    point count must divide evenly)."""
+    out = dict(batch)
+    for k in POINT_KEYS:
+        if k in batch:
+            out[k] = batch[k][:, rows(batch[k].shape[1], s, S)]
+    return out
+
+
 def prefetch_loader(dataset, batch_size: int, shuffle: bool = True,
                     seed: int = 0, drop_last: bool = True,
                     pad_last: bool = False, num_workers: int = 0,
                     prefetch_batches: int = 2, rank: int = 0,
-                    world: int = 1) -> Iterator:
+                    world: int = 1, seq_rank: int = 0,
+                    seq_world: int = 1) -> Iterator:
     """Yields collated batches; with num_workers > 0, up to
     `prefetch_batches` future batches are being fetched concurrently while
     the consumer runs the current step. `batch_size` is the global batch:
-    with `world` > 1 each batch holds rank `rank`'s share of it."""
+    with `world` > 1 each batch holds rank `rank`'s share of it, and with
+    `seq_world` > 1 block `seq_rank` of its points (`seq_block`)."""
+    if seq_world > 1:
+        for b in prefetch_loader(dataset, batch_size, shuffle, seed,
+                                 drop_last, pad_last, num_workers,
+                                 prefetch_batches, rank, world):
+            yield seq_block(b, seq_rank, seq_world)
+        return
     plan = _batch_indices(len(dataset), batch_size, shuffle, seed,
                           drop_last, pad_last)
     if world > 1:

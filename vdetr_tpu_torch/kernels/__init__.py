@@ -53,11 +53,11 @@ _SIGNATURES = {
     "fps": ("fps_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "rpe_attention": ("rpe_cross_attention_f32",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P]),
+                       _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _F, _I, _P]),
     "rpe_attention_bwd": ("rpe_cross_attention_bwd_f32",
                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                           _F, _I, _I, _F, _I, _I, _P]),
+                           _F, _I, _I, _F, _I, _I, _I, _P]),
     "rpe_table_sum": ("rpe_table_sum_f32", [_P, _P, _I, _I, _P]),
     "rpe_ablate": ("rpe_ablate_f32",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

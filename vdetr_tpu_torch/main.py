@@ -37,6 +37,13 @@ Usage:
 
 `main(argv, device=None)`: the card unless the caller passes `device`
 (the tests pass "cpu"; ranks on the CPU meet over gloo).
+
+Key sharding (the JAX package's large-scene stress config, which its CLI
+reaches only from a config set in code): `main(argv, device,
+mesh_axis_names=("data", "seq"), mesh_shape=(D, S))` under a launcher of
+D S ranks; rank (d, s) loads the rows of data rank d of each global batch
+(`--batchsize_per_gpu` x D S scenes, as JAX's) and point block s of them.
+A world that is not the mesh's size raises (`dist.mesh_dims`).
 """
 
 from __future__ import annotations
@@ -145,19 +152,28 @@ def _quiet(*args, **kwargs) -> None:
     """The printer of the ranks other than 0."""
 
 
-def main(argv: Optional[list] = None, device=None):
+def main(argv: Optional[list] = None, device=None,
+         mesh_axis_names: Optional[tuple] = None,
+         mesh_shape: Optional[tuple] = None):
+    """The CLI on `argv`; `mesh_axis_names` / `mesh_shape` set the
+    config's mesh fields, which are no flags."""
     import torch
 
     from vdetr_tpu_torch.models.vdetr import resolve_device
     from vdetr_tpu_torch.parallel import dist
 
     args = make_args_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    if mesh_axis_names is not None:
+        cfg = cfg.replace(mesh_axis_names=tuple(mesh_axis_names))
+    if mesh_shape is not None:
+        cfg = cfg.replace(mesh_shape=tuple(mesh_shape))
     device = resolve_device(device)
     group = dist.init_from_env(device)
     try:
         if group is not None and device.type == "cuda":
             device = torch.device("cuda", dist.local_rank())
-        return _run(config_from_args(args), device, group)
+        return _run(cfg, device, group)
     finally:
         dist.destroy(group)
 
@@ -194,6 +210,9 @@ def _run(cfg: VDETRConfig, device, group):
                         device=device)
     trainer = Trainer(cfg, model, ds_cfg, steps_per_epoch, device=device,
                       group=group)
+    # this rank's rows (its data rank's) and point block (its seq rank's)
+    shard = dict(rank=trainer.grid.d, world=trainer.grid.D,
+                 seq_rank=trainer.grid.s, seq_world=trainer.grid.S)
 
     def eval_pass():
         calc = APCalculator(
@@ -207,7 +226,7 @@ def _run(cfg: VDETRConfig, device, group):
         loader = prefetch_loader(datasets["test"], batch, shuffle=False,
                                  pad_last=True,
                                  num_workers=cfg.dataset_num_workers,
-                                 rank=rank, world=world)
+                                 **shard)
         eval_fn = None
         if cfg.tta:
             from vdetr_tpu_torch.eval.tta import tta_eval_step
@@ -269,7 +288,7 @@ def _run(cfg: VDETRConfig, device, group):
             loader = prefetch_loader(datasets["train"], batch, shuffle=True,
                                      seed=cfg.seed + epoch,
                                      num_workers=cfg.dataset_num_workers,
-                                     rank=rank, world=world)
+                                     **shard)
             mean_loss, loss_dict = train_one_epoch(
                 trainer, loader, epoch, epoch_generator(trainer, epoch),
                 log_every=cfg.log_every, logger=log,

@@ -8,6 +8,16 @@ V-DETR state_dict. In train mode dropout acts at every site where the
 JAX modules have `nn.Dropout(..., deterministic=not train)`, drawing
 from the `generator` passed down the forward, and the boxes that prime
 each layer are detached where the JAX package stops gradients.
+
+Key sharding (the JAX package's "seq" mesh axis, `cfg.seq_axis`): with a
+seq group set (`TransformerDecoder.seq_group`), the seeds are this rank's
+shard. The layer-0 predictions are all-gathered so that aux0 and the
+top-k proposals see every seed, the chosen query features are gathered
+from the rank that owns each (`parallel/seq_attention.py`), and every
+cross-attention runs kernel C on the local keys with the shards merged by
+their log-sum-exps (`ops/rpe_attention.py:sharded_rpe_cross_attention`;
+the JAX package materializes each shard's bias there instead). The query
+path is then the same on every rank of the group.
 """
 
 from __future__ import annotations
@@ -28,7 +38,10 @@ from vdetr_tpu_torch.models.mlp import (LN_EPS, Dropout, GenericMLP,
                                         PositionEmbeddingLearned)
 from vdetr_tpu_torch.ops.rpe import make_coords_table
 from vdetr_tpu_torch.ops.rpe_attention import (rpe_cross_attention,
-                                               rpe_cross_attention_ad)
+                                               rpe_cross_attention_ad,
+                                               sharded_rpe_cross_attention)
+from vdetr_tpu_torch.parallel import dist
+from vdetr_tpu_torch.parallel.seq_attention import gather_selected_sharded
 
 FOCAL_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
@@ -220,7 +233,10 @@ class GlobalShareCrossAttention(nn.Module):
             for mlp in self.cpb_mlps])
 
     def forward(self, query, key, reference_point, reference_angle, key_xyz,
-                key_valid=None, generator=None):
+                key_valid=None, generator=None, seq_group=None,
+                key_offset: int = 0):
+        """`seq_group`: the keys are this rank's shard of the group's,
+        the first at global index `key_offset`."""
         B, nQ, D = query.shape
         H = self.num_heads
         hd = D // H
@@ -233,15 +249,20 @@ class GlobalShareCrossAttention(nn.Module):
                                  "torch.Generator")
             seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                  device=generator.device)
-        attend = (rpe_cross_attention_ad if torch.is_grad_enabled()
-                  else rpe_cross_attention)
+        kw = dict(log_scale=self.log_scale, max_value=self.max_value,
+                  rotate=self.rotate, dropout_rate=rate, seed=seed)
+        if seq_group is not None:
+            attend = sharded_rpe_cross_attention
+            kw.update(group=seq_group, key_offset=key_offset)
+        elif torch.is_grad_enabled():
+            attend = rpe_cross_attention_ad
+        else:
+            attend = rpe_cross_attention
         out = attend(
             q.contiguous(), self.k(key).contiguous(),
             self.v(key).contiguous(), reference_point.contiguous(),
             reference_angle.contiguous(), key_xyz.contiguous(),
-            self.rpe_tables().contiguous(), key_valid,
-            log_scale=self.log_scale, max_value=self.max_value,
-            rotate=self.rotate, dropout_rate=rate, seed=seed)
+            self.rpe_tables().contiguous(), key_valid, **kw)
         return self.proj_drop(self.proj(out.reshape(B, nQ, D)), generator)
 
 
@@ -292,7 +313,7 @@ class GlobalDecoderLayer(nn.Module):
 
     def forward(self, tgt, memory, reference_point, reference_angle,
                 enc_xyz, query_pos, key_valid=None, key_pos=None,
-                generator=None):
+                generator=None, seq_group=None, key_offset: int = 0):
         """`key_pos` (pos_for_key) is added to the cross-attention's key
         input, from which it projects K and V (JAX transformer.py:419-421)."""
         t2 = self.norm1(tgt)
@@ -303,7 +324,7 @@ class GlobalDecoderLayer(nn.Module):
         key = memory if key_pos is None else memory + key_pos
         ca = self.multihead_attn(t2 + query_pos, key, reference_point,
                                  reference_angle, enc_xyz, key_valid,
-                                 generator)
+                                 generator, seq_group, key_offset)
         tgt = tgt + self.dropout2(ca, generator)
         t2 = self.norm3(tgt)
         h = self.dropout3(F.relu(self.linear1(t2)), generator)
@@ -381,24 +402,36 @@ class TransformerDecoder(nn.Module):
             + [BoxHeads(c, num_semcls, num_angle_bin)
                for _ in range(num_layers)])
         self.pointcls_heads = PointClsHead(c, num_semcls)
+        # the seq group whose ranks hold the seeds' shards (None: dense)
+        self.seq_group = None
 
     def forward(self, enc_features, enc_xyz, point_cloud_dims,
                 enc_box_predictions, enc_valid=None,
                 generator: Optional[torch.Generator] = None):
         c = self.cfg
+        seq = self.seq_group
         output = self.first_layer(enc_features, generator)
         pred0 = refine_box_predictions(
             self.mlp_heads[0](self.norm(output), generator),
             enc_box_predictions["center_normalized"],
             enc_box_predictions["size_normalized"],
             point_cloud_dims, self.num_angle_bin, c.use_focal)
+        enc_valid_glob, shard_off = enc_valid, 0
+        if seq is not None:
+            # the seeds are sharded: the layer-0 predictions of every seed
+            # (small), so that aux0 and the top-k are the dense ones
+            # (JAX transformer.py:498-517)
+            shard_off = dist.rank(seq) * output.shape[1]
+            pred0 = _gather_seeds(pred0, seq)
+            if enc_valid is not None:
+                enc_valid_glob = dist.all_gather_dim(enc_valid, 1, seq)
         intermediate: List[Dict[str, torch.Tensor]] = [pred0]
 
         # top-k proposals (the objectness is detached in
         # refine_box_predictions)
         obj = pred0["objectness_prob"]
         if enc_valid is not None:
-            obj = torch.where(enc_valid, obj, -torch.inf)
+            obj = torch.where(enc_valid_glob, obj, -torch.inf)
         nq = min(c.nqueries, obj.shape[1])
         topk = select_proposals(obj, nq)
 
@@ -416,7 +449,8 @@ class TransformerDecoder(nn.Module):
         reference_angle = g(sg["angle_continuous"])
         proposal_center_norm = g(sg["center_normalized"])
         proposal_size_norm = g(sg["size_normalized"])
-        output = g(output)
+        output = (g(output) if seq is None else
+                  gather_selected_sharded(output, topk, shard_off, seq))
         if c.q_content == "zero":
             output = torch.zeros_like(output)
         elif c.q_content in ("random", "random_add"):
@@ -439,7 +473,7 @@ class TransformerDecoder(nn.Module):
                        if c.pos_for_key else None)
             output = layer(output, enc_features, reference_point,
                            reference_angle, enc_xyz, query_pos, enc_valid,
-                           key_pos, generator)
+                           key_pos, generator, seq, shard_off)
             box_prediction = refine_box_predictions(
                 self.mlp_heads[idx + 1](self.norm(output), generator),
                 proposal_center_norm, proposal_size_norm, point_cloud_dims,
@@ -448,3 +482,20 @@ class TransformerDecoder(nn.Module):
 
         return {"outputs": intermediate[-1],
                 "aux_outputs": intermediate[:-1]}
+
+
+def _gather_seeds(pred: Dict[str, torch.Tensor], group
+                  ) -> Dict[str, torch.Tensor]:
+    """Each (B, n_loc, ...) entry of `pred` all-gathered along the seeds
+    over `group`, in rank order (one all-gather of them packed;
+    differentiable)."""
+    keys = list(pred)
+    B, n = pred[keys[0]].shape[:2]
+    flat = [pred[k].reshape(B, n, -1).float() for k in keys]
+    widths = [f.shape[2] for f in flat]
+    full = dist.all_gather_dim(torch.cat(flat, dim=2), 1, group)
+    out = {}
+    for k, part in zip(keys, full.split(widths, dim=2)):
+        out[k] = part.reshape((B, full.shape[1]) + pred[k].shape[2:]).to(
+            pred[k].dtype)
+    return out

@@ -15,6 +15,15 @@ builds: Bottleneck depths (50/101/152) widen the FPN by their expansion,
 training, and `querypos_mlp=False` holds the Fourier query embedding's
 parameters (`pos_embedding`, `query_projection`), whose output the JAX
 model discards.
+
+Key sharding (a config whose mesh has a "seq" axis of S > 1 ranks, the
+JAX package's large-scene stress config): each rank of the seq group
+(`set_seq_group`) holds a contiguous block of each scene's points and
+runs the encoder on it alone, as JAX's shard-local encoder does
+(voxelize, backbone, FPN, FPS to `preenc_npoints` seeds of its block,
+the heads); the decoder takes every rank's seeds
+(`models/transformer.py`). A model of such a config without a seq group
+raises rather than run dense.
 """
 
 from __future__ import annotations
@@ -108,6 +117,13 @@ class VDETR(nn.Module):
         backbone, 3 FPN, 4 FPS, 5 heads/anchors). `generator` (on the
         model's device) drives dropout in train mode."""
         c = self.cfg
+        if self.decoder.seq_group is None and seq_ranks(c) != 1:
+            raise ValueError(
+                f"the config's mesh {tuple(c.mesh_axis_names)} "
+                f"{tuple(c.mesh_shape)} shards the points over a 'seq' axis, "
+                "but the model has no seq group: run it under Trainer with "
+                "a process group of the mesh's ranks, or call "
+                "set_seq_group; a seq config never runs dense")
         point_clouds = inputs["point_clouds"]
         dims_min = inputs["point_cloud_dims_min"]
         dims_max = inputs["point_cloud_dims_max"]
@@ -199,6 +215,23 @@ class VDETR(nn.Module):
         box_predictions["seed_xyz"] = enc_xyz
         box_predictions["enc_outputs"] = enc_box_predictions
         return box_predictions
+
+    def set_seq_group(self, group) -> None:
+        """The seq group whose ranks hold the shards of each scene's
+        points (None: the whole scene here)."""
+        self.decoder.seq_group = group
+
+
+def seq_ranks(cfg: VDETRConfig) -> Optional[int]:
+    """The size the config's mesh gives its "seq" axis: 1 without one,
+    None where it is -1 (the world decides) or the shape does not name
+    it."""
+    names, shape = tuple(cfg.mesh_axis_names), tuple(cfg.mesh_shape)
+    if "seq" not in names:
+        return 1
+    if len(names) != len(shape) or shape[names.index("seq")] == -1:
+        return None
+    return shape[names.index("seq")]
 
 
 def compute_dtype(cfg: VDETRConfig):

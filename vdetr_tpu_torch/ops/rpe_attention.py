@@ -70,15 +70,19 @@ def keep_threshold(rate: float) -> int:
     return int(rate * (1 << 24))
 
 
-def dropout_keep(seed, B: int, H: int, nQ: int, nK: int, rate: float):
+def dropout_keep(seed, B: int, H: int, nQ: int, nK: int, rate: float,
+                 key_offset: int = 0):
     """(B, H, nQ, nK) bool keep mask of attention dropout at `rate`;
     `seed` an int64 tensor of one element. Both kernels evaluate the same
     hash: row = (b * H + h) * nQ + q, x = hash(hash(seed ^ hash(row)) ^
-    key * 0x9E3779B1), keep iff x >> 8 >= floor(rate * 2^24)."""
+    key * 0x9E3779B1), keep iff x >> 8 >= floor(rate * 2^24), with key
+    the global key index, `key_offset` + the local one: a key shard's
+    mask is then the dense mask's slice."""
     dev = seed.device
     row = torch.arange(B * H * nQ, dtype=torch.int64, device=dev)
     rowh = _hash32((seed.reshape(()) & _U32) ^ _hash32(row))
-    key = _mul32(torch.arange(nK, dtype=torch.int64, device=dev), 0x9E3779B1)
+    key = _mul32(torch.arange(key_offset, key_offset + nK, dtype=torch.int64,
+                              device=dev) & _U32, 0x9E3779B1)
     x = _hash32(rowh[:, None] ^ key[None, :])
     return ((x >> 8) >= keep_threshold(rate)).reshape(B, H, nQ, nK)
 
@@ -113,9 +117,11 @@ def rpe_cross_attention_plain(q, k, v, corners, angles, key_xyz, tables,
                               key_valid=None, *, log_scale: float,
                               max_value: float, rotate: bool = False,
                               dropout_rate: float = 0.0, seed=None,
-                              return_stats: bool = False):
+                              return_stats: bool = False,
+                              return_lse: bool = False, key_offset: int = 0):
     """Plain version with the (B, H, nQ, nK) logits materialized. With
-    return_stats, returns (out, lse (B, nQ, H), masked logits)."""
+    return_stats, returns (out, lse (B, nQ, H), masked logits); with
+    return_lse, (out, lse)."""
     B, nQ, H, _ = q.shape
     nK = k.shape[1]
     attn = torch.einsum("bqhd,bkd->bhqk", q, k)
@@ -131,14 +137,17 @@ def rpe_cross_attention_plain(q, k, v, corners, angles, key_xyz, tables,
     p = torch.softmax(attn, dim=-1)
     if dropout_rate > 0:
         scale = torch.tensor(1.0 / (1.0 - dropout_rate), dtype=p.dtype)
-        p = torch.where(dropout_keep(seed, B, H, nQ, nK, dropout_rate),
+        p = torch.where(dropout_keep(seed, B, H, nQ, nK, dropout_rate,
+                                     key_offset),
                         p * scale.to(p.device), 0.0)
     out = torch.einsum("bhqk,bkd->bqhd", p, v)
-    if not return_stats:
+    if not (return_stats or return_lse):
         return out
     lse = torch.logsumexp(attn, dim=-1).permute(0, 2, 1)
     if key_valid is not None:
         lse = torch.where(key_valid.any(dim=1)[:, None, None], lse, 0.0)
+    if not return_stats:
+        return out, lse.contiguous()
     return out, lse.contiguous(), attn
 
 
@@ -167,18 +176,23 @@ def rpe_cross_attention(q, k, v, corners, angles, key_xyz, tables,
                         key_valid=None, *, log_scale: float,
                         max_value: float, rotate: bool = False,
                         dropout_rate: float = 0.0, seed=None,
-                        return_stats: bool = False):
+                        return_stats: bool = False, return_lse: bool = False,
+                        key_offset: int = 0):
     """q (B, nQ, H, hd) pre-scaled by hd^-0.5; k, v (B, nK, hd);
     corners (B, nQ, 8, 3); angles (B, nQ); key_xyz (B, nK, 3); tables
     (8, n, n, n, H); key_valid (B, nK) bool or None; seed an int64
     tensor (1,) on q's device when dropout_rate > 0. Returns (B, nQ, H,
     hd) float32, and with return_stats also the row log-sum-exp (B, nQ,
-    H) and the masked logits (B, H, nQ, nK) for the backward.
+    H) and the masked logits (B, H, nQ, nK) for the backward; with
+    return_lse, (out, lse) and no logits. `key_offset`: the global index
+    of the first key, which the dropout hash reads (a key shard's mask is
+    the dense mask's slice; 0: the dense keys).
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
     `rpe_cross_attention_plain`."""
     kw = dict(log_scale=log_scale, max_value=max_value, rotate=rotate,
-              dropout_rate=dropout_rate, seed=seed, return_stats=return_stats)
+              dropout_rate=dropout_rate, seed=seed, return_stats=return_stats,
+              return_lse=return_lse, key_offset=key_offset)
     if not q.is_cuda:
         return rpe_cross_attention_plain(q, k, v, corners, angles, key_xyz,
                                          tables, key_valid, **kw)
@@ -201,8 +215,9 @@ def rpe_cross_attention(q, k, v, corners, angles, key_xyz, tables,
     seed_ptr, threshold, scale = _dropout_args(dropout_rate, seed)
     out = torch.empty_like(q)
     lse = logits = None
-    if return_stats:
+    if return_stats or return_lse:
         lse = torch.empty(B, nQ, H, dtype=f32, device=q.device)
+    if return_stats:
         logits = torch.empty(B, H, nQ, nK, dtype=f32, device=q.device)
     kernels.call(
         "rpe_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -212,9 +227,12 @@ def rpe_cross_attention(q, k, v, corners, angles, key_xyz, tables,
         None if lse is None else lse.data_ptr(),
         None if logits is None else logits.data_ptr(), seed_ptr,
         B, nQ, nK, H, hd, n, float(log_scale), float(max_value), int(rotate),
-        threshold, scale, torch.cuda.current_stream(q.device).cuda_stream)
+        threshold, scale, int(key_offset),
+        torch.cuda.current_stream(q.device).cuda_stream)
     rpe_cross_attention.launches += 1
-    return (out, lse, logits) if return_stats else out
+    if return_stats:
+        return out, lse, logits
+    return (out, lse) if return_lse else out
 
 
 rpe_cross_attention.launches = 0
@@ -228,7 +246,8 @@ def rpe_cross_attention_bwd_plain(k, v, corners, angles, key_xyz, key_valid,
                                   out, dout, logits, lse, n: int, *,
                                   log_scale: float, max_value: float,
                                   rotate: bool = False,
-                                  dropout_rate: float = 0.0, seed=None):
+                                  dropout_rate: float = 0.0, seed=None,
+                                  key_offset: int = 0):
     """Plain version of the flash backward: (dq, dtables, ds, eg), the
     function the source note of `csrc/rpe_attention_bwd.cu` states."""
     B, nQ, H, _ = dout.shape
@@ -242,7 +261,8 @@ def rpe_cross_attention_bwd_plain(k, v, corners, angles, key_xyz, key_valid,
                     torch.where(any_valid, 0.0, 1.0 / nK))
     dp = torch.einsum("bqhd,bkd->bhqk", dout, v)
     if dropout_rate > 0:
-        g = torch.where(dropout_keep(seed, B, H, nQ, nK, dropout_rate),
+        g = torch.where(dropout_keep(seed, B, H, nQ, nK, dropout_rate,
+                                     key_offset),
                         1.0 / (1.0 - dropout_rate), 0.0).to(e.dtype)
         dp = g * dp
         eg = e * g
@@ -327,7 +347,8 @@ rpe_table_sum.launches = 0
 def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
                             dout, logits, lse, n: int, *, log_scale: float,
                             max_value: float, rotate: bool = False,
-                            dropout_rate: float = 0.0, seed=None):
+                            dropout_rate: float = 0.0, seed=None,
+                            key_offset: int = 0):
     """The flash backward from the training forward's logits and lse:
     returns dq (B, nQ, H, hd), dtables (8, n, n, n, H), ds and eg (B, H,
     nQ, nK), with dK = sum_h ds^T q and dV = sum_h eg^T dout left to the
@@ -338,7 +359,7 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
     bits from call to call; CPU tensors take
     `rpe_cross_attention_bwd_plain`."""
     kw = dict(log_scale=log_scale, max_value=max_value, rotate=rotate,
-              dropout_rate=dropout_rate, seed=seed)
+              dropout_rate=dropout_rate, seed=seed, key_offset=key_offset)
     if not dout.is_cuda:
         return rpe_cross_attention_bwd_plain(k, v, corners, angles, key_xyz,
                                              key_valid, out, dout, logits,
@@ -382,7 +403,7 @@ def rpe_cross_attention_bwd(k, v, corners, angles, key_xyz, key_valid, out,
         dq.data_ptr(), None if dq_parts is None else dq_parts.data_ptr(),
         ds_absmax.data_ptr(), slices.data_ptr(), ds.data_ptr(), eg.data_ptr(),
         B, nQ, nK, H, hd, n, float(log_scale), float(max_value), int(rotate),
-        threshold, scale, per_block, table_per_block,
+        threshold, scale, int(key_offset), per_block, table_per_block,
         torch.cuda.current_stream(dev).cuda_stream)
     rpe_cross_attention_bwd.launches += 1
     dtables = (rpe_table_sum(slices) if nK > 0 and B > 0 and nQ > 0 else
@@ -432,3 +453,125 @@ def rpe_cross_attention_ad(q, k, v, corners, angles, key_xyz, tables,
                 dropout_rate=dropout_rate)
     return _RPECrossAttention.apply(q, k, v, tables, corners, angles,
                                     key_xyz, key_valid, seed, opts)
+
+
+# --------------------------------------------------------------------------
+# key-sharded form: kernel C on each shard, the shards merged by their
+# log-sum-exps; kernel F on each shard from the global out and lse
+# --------------------------------------------------------------------------
+
+def shard_merge(out, lse, key_valid, nK: int, reduce_sum, reduce_max):
+    """The global (out, lse) from each key shard's kernel-C output over
+    its own nK keys: LSE = log sum_s exp(lse_s), by a max and then a sum
+    over the shards; out = sum_s exp(lse_s - LSE) out_s. `reduce_sum` /
+    `reduce_max` reduce over the shards: all-reduces over a seq group, or,
+    for shards stacked on a leading axis in one process, sums and maxima
+    over it (keepdim). out (..., B, nQ, H, hd), lse (..., B, nQ, H),
+    key_valid (..., B, nK) or None. A shard whose keys are all masked in
+    a batch row weighs 0 there when another shard has a valid key (its
+    lse is written as 0, which must not count: JAX's `m_safe`), and
+    nK_s / nK when no shard has one, where the dense kernel averages V
+    over every key. Returns (out, LSE, the per-row scale of the shard's
+    cotangent in the backward: 1, or its weight where it has no valid
+    key)."""
+    B = lse.shape[-3]
+    local_any = (torch.ones(lse.shape[:-2], dtype=torch.bool,
+                            device=lse.device)
+                 if key_valid is None else key_valid.any(dim=-1))
+    meta = reduce_sum(torch.cat([local_any.float(), torch.full(
+        lse.shape[:-3] + (1,), float(nK), device=lse.device)], dim=-1))
+    global_any, share = meta[..., :B] > 0, float(nK) / meta[..., B:]
+    rows = lambda m: m[..., None, None]  # noqa: E731 (B,) -> (B, 1, 1)
+    lse_eff = torch.where(rows(local_any), lse,
+                          torch.where(rows(global_any), -torch.inf,
+                                      rows(torch.log(share))))
+    m = reduce_max(lse_eff)
+    LSE = m + torch.log(reduce_sum(torch.exp(lse_eff - m)))
+    merged = reduce_sum(torch.exp(lse_eff - LSE)[..., None] * out)
+    scale = torch.where(local_any, 1.0,
+                        torch.where(global_any, 0.0, share))
+    return merged, LSE, scale
+
+
+def shard_backward(q, k, v, corners, angles, key_xyz, key_valid, out, lse,
+                   logits, scale, dout, n: int, seed, opts):
+    """Kernel F on one key shard from the global out and lse and the
+    cotangent of the merged out (summed over the ranks that read it),
+    scaled per row by `shard_merge`'s scale (0, or nK_s / nK, which F's
+    uniform 1 / nK_s over a row with no valid key then makes 1 / nK):
+    this shard's share of dQ and the tables' gradient, and its dK, dV."""
+    dout = (dout * scale[:, None, None, None]).contiguous()
+    dq, dtables, ds, eg = rpe_cross_attention_bwd(
+        k, v, corners, angles, key_xyz, key_valid, out, dout, logits, lse,
+        n, seed=seed, **opts)
+    dk = torch.einsum("bhqk,bqhd->bkd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkd", eg, dout)
+    return dq, dk, dv, dtables
+
+
+def _group_reductions(group):
+    from vdetr_tpu_torch.parallel import dist
+
+    return (lambda x: dist.all_reduce_sum(x, group),
+            lambda x: dist.all_reduce_max(x, group))
+
+
+class _ShardedRPE(torch.autograd.Function):
+    """Forward: kernel C on this rank's keys (lse and logits kept), the
+    shards merged (`shard_merge`). Backward: the cotangent of the merged
+    out summed over the group (each rank's loss reads its own copy of the
+    sum), then kernel F on this rank's keys (`shard_backward`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, tables, corners, angles, key_xyz, key_valid,
+                seed, opts, group):
+        out, lse, logits = rpe_cross_attention(
+            q, k, v, corners, angles, key_xyz, tables, key_valid,
+            seed=seed, return_stats=True, **opts)
+        merged, LSE, scale = shard_merge(out, lse, key_valid, k.shape[1],
+                                         *_group_reductions(group))
+        ctx.save_for_backward(q, k, v, corners, angles, key_xyz, key_valid,
+                              seed, merged, LSE, logits, scale)
+        ctx.opts, ctx.group, ctx.n = opts, group, tables.shape[1]
+        return merged
+
+    @staticmethod
+    def backward(ctx, dout):
+        from vdetr_tpu_torch.parallel import dist
+
+        (q, k, v, corners, angles, key_xyz, key_valid, seed, out, lse,
+         logits, scale) = ctx.saved_tensors
+        dq, dk, dv, dtables = shard_backward(
+            q, k, v, corners, angles, key_xyz, key_valid, out, lse, logits,
+            scale, dist.all_reduce_sum(dout.contiguous(), ctx.group), ctx.n,
+            seed, ctx.opts)
+        return (dq, dk, dv, dtables, None, None, None, None, None, None,
+                None)
+
+
+def sharded_rpe_cross_attention(q, k, v, corners, angles, key_xyz, tables,
+                                key_valid=None, *, group, key_offset: int,
+                                log_scale: float, max_value: float,
+                                rotate: bool = False,
+                                dropout_rate: float = 0.0, seed=None):
+    """`rpe_cross_attention_ad` over keys sharded across the ranks of
+    `group`: k, v, key_xyz and key_valid are this rank's shard, whose
+    first key has the global index `key_offset`; q, corners, angles,
+    tables and seed are the same on every rank. Returns the attention
+    over all the ranks' keys, the same on every rank: the dense form's
+    value, its dropout mask included (the hash reads global key
+    indices). Differentiable when grad is enabled (`_ShardedRPE`); else
+    only the forward runs, kernel C without its logits. CUDA tensors
+    launch the kernels, CPU tensors take their plain versions."""
+    if seed is None:
+        seed = torch.zeros(1, dtype=torch.int64, device=q.device)
+    opts = dict(log_scale=log_scale, max_value=max_value, rotate=rotate,
+                dropout_rate=dropout_rate, key_offset=key_offset)
+    if torch.is_grad_enabled():
+        return _ShardedRPE.apply(q, k, v, tables, corners, angles, key_xyz,
+                                 key_valid, seed, opts, group)
+    out, lse = rpe_cross_attention(q, k, v, corners, angles, key_xyz, tables,
+                                   key_valid, seed=seed, return_lse=True,
+                                   **opts)
+    return shard_merge(out, lse, key_valid, k.shape[1],
+                       *_group_reductions(group))[0]

@@ -11,14 +11,21 @@ identity (rank 0 of a world of 1) and runs no collective.
 
 Rank r of a world of n holds rows [r b, (r + 1) b) of a global batch of
 n b rows (`rows`), as `shard_map` shards dim 0 over the mesh.
+
+The JAX package's two-axis mesh `make_mesh(("data", "seq"), (D, S))` is
+a `Grid` here (`make_grid`): rank r of a world of D S is (d, s) with
+r = d S + s, the row-major order of the mesh's devices; the data group
+holds the ranks of one s, the seq group those of one d. A world of 1, or
+S = 1, has no seq group, and then every seq function is the dense one.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -159,3 +166,112 @@ def broadcast_object(obj, group, src: int = 0):
     box = [obj]
     dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `x` over the ranks of `group` (not
+    differentiable; `x` itself when `group` is None)."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's `x` (one shape on every rank) concatenated along
+    `dim` in rank order, differentiable: the backward sums the cotangents
+    over the ranks and keeps this rank's slice, the transpose of JAX's
+    tiled all_gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        x = x.contiguous()
+        flag = x.dtype == torch.bool  # gloo gathers no bools
+        parts = [torch.empty_like(x.to(torch.uint8) if flag else x)
+                 for _ in range(world(group))]
+        dist.all_gather(parts, x.to(torch.uint8) if flag else x, group=group)
+        out = torch.cat(parts, dim=dim)
+        return out.bool() if flag else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        r = rank(ctx.group)
+        return grad.narrow(ctx.dim, r * ctx.size, ctx.size), None, None
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """`x` of every rank of `group` concatenated along `dim` in rank
+    order (differentiable; `x` itself when `group` is None)."""
+    return x if group is None else _AllGather.apply(x, dim, group)
+
+
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Rank `src` (of `group`)'s `x` on every rank of `group` (`x` itself
+    when `group` is None)."""
+    if group is None:
+        return x
+    flag = x.dtype == torch.bool
+    x = (x.to(torch.uint8) if flag else x).contiguous().clone()
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    return x.bool() if flag else x
+
+
+class Grid(NamedTuple):
+    """The ranks as a (data, seq) grid: rank (d, s) of D x S."""
+
+    D: int
+    S: int
+    d: int
+    s: int
+    world: Optional[dist.ProcessGroup]  # every rank (DDP, sync-BN)
+    # the ranks of this s: the world when S = 1, None when D = 1 < S
+    data: Optional[dist.ProcessGroup]
+    seq: Optional[dist.ProcessGroup]    # the ranks of this d (None: S = 1)
+
+
+def mesh_dims(axis_names: Sequence[str], shape: Sequence[int],
+              n: int) -> Tuple[int, int]:
+    """(D, S) of the JAX package's mesh fields on a world of `n` ranks:
+    a -1 takes what the others leave, as `make_mesh` does; an axis that
+    is absent has size 1. Raises for another axis name or a product that
+    is not the world (`make_mesh` would take fewer devices; here every
+    rank must have its place)."""
+    names, shape = tuple(axis_names), list(shape)
+    if len(names) != len(shape) or set(names) - {"data", "seq"}:
+        raise ValueError(f"mesh {names} {tuple(shape)}: want the axes "
+                         "'data' and/or 'seq', one size each")
+    if -1 in shape:
+        known = int(np.prod([x for x in shape if x != -1])) or 1
+        shape[shape.index(-1)] = n // known
+    dims = dict(zip(names, shape))
+    D, S = dims.get("data", 1), dims.get("seq", 1)
+    if D * S != n or D < 1 or S < 1:
+        raise ValueError(f"mesh {names} {tuple(shape)} is {D} x {S} ranks, "
+                         f"but the world has {n}")
+    return D, S
+
+
+def make_grid(group, D: int, S: int) -> Grid:
+    """The (D, S) grid of the ranks of `group` (the world; None: one
+    process). Every rank must call this at the same point: each creates
+    every subgroup, in the same order (`dist.new_group`)."""
+    n, r = world(group), rank(group)
+    if D * S != n:
+        raise ValueError(f"a {D} x {S} grid needs {D * S} ranks, not {n}")
+    d, s = divmod(r, S)
+    data = seq = None
+    if group is not None and S > 1:
+        for dd in range(D):
+            g = dist.new_group([dd * S + ss for ss in range(S)])
+            seq = g if dd == d else seq
+        if D > 1:
+            for ss in range(S):
+                g = dist.new_group([dd * S + ss for dd in range(D)])
+                data = g if ss == s else data
+    else:
+        data = group
+    return Grid(D, S, d, s, group, data, seq)

@@ -18,8 +18,10 @@ weights, synthetic scenes):
   digests: two trees computed the same bits on the same seeded inputs);
 - the RPE forward C in its eval form and its train form (dropout 0.1,
   lse and logits) on chip_smoke's decoder-shaped case: ms per launch
-  (mean of 10) and the error against the plain version;
-- the flash-RPE backward F at dropout 0 and 0.1: ms per launch, and its
+  (mean of 10), the error against the plain version and a digest of the
+  outputs' bits;
+- the flash-RPE backward F at dropout 0 and 0.1 (dq, dtables, ds and eg
+  digested): ms per launch, and its
   pair kernel, the sum of the pair kernel's key shares, its table kernel
   and the sum of the table kernel's slices (a tree that has them) apart
   (torch.profiler, device ms per call), and whether a second call gives
@@ -282,10 +284,11 @@ def measure_rpe(cfg, dev, cs, gen) -> dict:
                    **extra)
         got = rpe_cross_attention(*case, **ckw)
         ref = rpe_cross_attention_plain(*case, **ckw)
+        sha = digest(*(got if isinstance(got, tuple) else (got,)))
         got, ref = (x[0] if isinstance(x, tuple) else x for x in (got, ref))
         res["rpe_fwd"][form] = {
             "ms": time_ms(lambda: rpe_cross_attention(*case, **ckw), reps=10),
-            "max_abs_err": float((got - ref).abs().max())}
+            "max_abs_err": float((got - ref).abs().max()), "sha256": sha}
         del got, ref
     seed = torch.tensor([777], dtype=torch.int64, device=dev)
     dout = torch.randn(q.shape, generator=torch.Generator(
@@ -309,7 +312,8 @@ def measure_rpe(cfg, dev, cs, gen) -> dict:
                           reps=10),
             "parts": profile_by_kernel(
                 lambda: rpe_cross_attention_bwd(*a, **fkw), reps=5),
-            "max_abs_err": errs, "dtables_bit_equal": dtables_repeat}
+            "max_abs_err": errs, "dtables_bit_equal": dtables_repeat,
+            "sha256": digest(*got)}
         del got, ref, out, lse, logits
     return res
 

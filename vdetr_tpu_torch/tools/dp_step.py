@@ -13,10 +13,12 @@ ms (the first two steps dropped) and, for the plain step and both, one
 step's host ops by self CPU time under torch.profiler, then the card.
 
 `train_rank(rank, spec)` is one rank of a group that takes
-`Trainer.train_step`s on its rows of global batches and returns what it
-saw: each step's loss, loss dict, host ms, launches per kernel and peak
-memory, then its gradients, parameters and buffers, and optionally the
-collectives of one more step under torch.profiler. `plain_vs_world1` is
+`Trainer.train_step`s on its rows of global batches (and, under key
+sharding, its block of their points: `chip_smoke.py` phase 11) and
+returns what it saw: each step's loss, loss dict, host ms, launches per
+kernel and peak memory, then its gradients, parameters and buffers, and
+optionally the eval steps before them, the same steps again from the
+same state, and the collectives of one more step under torch.profiler. `plain_vs_world1` is
 the one rank of a world of 1 that holds the data-parallel step to the
 plain one in the same process. Run either with
 `vdetr_tpu_torch.tools.run_ranks`, which spawns the ranks under a time
@@ -88,6 +90,28 @@ def timed_step(trainer, batch, gen, counters=None):
             {k: fn.launches for k, fn in (counters or {}).items()}, peak)
 
 
+def timed_eval(trainer, batch, counters=None):
+    """One eval step: (whether every output is finite, host ms ending in
+    a sync, launches per kernel, peak GiB on the card, boxes kept)."""
+    dev = trainer.device
+    for fn in (counters or {}).values():
+        fn.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = trainer.eval_step(batch)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values()
+                 if v.is_floating_point())
+    kept = int(out["nms_keep"].sum()) if "nms_keep" in out else -1
+    return (finite, ms, {k: fn.launches for k, fn in (counters or {}).items()},
+            peak, kept)
+
+
 def collectives(trainer, batch, gen) -> dict:
     """One train step under torch.profiler: the collectives it ran (the
     process group's host events, "nccl:*" or "gloo:*", by name) and the
@@ -131,10 +155,17 @@ def train_rank(rank: int, spec: dict) -> dict:
     step on its rows of each global batch of `batches` (numpy dicts),
     dropout from the rank's `epoch_generator` of epoch 0; with `profile`,
     one more step (on the last batch) under torch.profiler, after the
-    state is taken. Returns {"steps": [(loss, loss dict, ms, launches,
-    peak GiB)], "grads", "params", "buffers" (after the steps, on the
-    CPU), "collectives"}."""
+    state is taken. The ranks form the grid of `cfg`'s mesh: rank (d, s)
+    steps on data rank d's rows and point block s. `eval_cfg` and
+    `eval_batches`: first an eval step of `eval_cfg`'s trainer on each,
+    from the same weights; `repeat`: then the same steps again with a new
+    trainer from the same weights, and whether they left every parameter
+    and buffer the same bits. Returns {"steps": [(loss, loss dict, ms,
+    launches, peak GiB)], "grads", "params", "buffers" (after the steps,
+    on the CPU), "eval": [`timed_eval`], "repeat_differs": [names],
+    "collectives"}."""
     from vdetr_tpu_torch.data.dataset_config import get_dataset_config
+    from vdetr_tpu_torch.data.loader import seq_block
     from vdetr_tpu_torch.parallel import dist
     from vdetr_tpu_torch.tools import launch_counters
     from vdetr_tpu_torch.train.engine import Trainer, epoch_generator
@@ -142,21 +173,44 @@ def train_rank(rank: int, spec: dict) -> dict:
     device, group = _setup(rank, spec)
     try:
         cfg = spec["cfg"]
-        trainer = Trainer(cfg, _model(spec, device),
-                          get_dataset_config(cfg.dataset_name),
-                          steps_per_epoch=spec.get("steps_per_epoch", 1),
-                          device=device, group=group)
-        gen = epoch_generator(trainer, 0)
+        ds = get_dataset_config(cfg.dataset_name)
+
+        def trainer_of(c):
+            return Trainer(c, _model(spec, device), ds,
+                           steps_per_epoch=spec.get("steps_per_epoch", 1),
+                           device=device, group=group)
+
+        trainer = trainer_of(cfg)
+        g = trainer.grid
+
+        def mine(b):
+            rows = dist.rows(len(b["point_clouds"]), g.d, g.D)
+            return seq_block({k: v[rows] for k, v in b.items()}, g.s, g.S)
+
         counters = launch_counters()
-        mine = []
-        for b in spec["batches"]:
-            rows = dist.rows(len(b["point_clouds"]), rank, spec["world"])
-            mine.append({k: v[rows] for k, v in b.items()})
-        out = {"steps": [timed_step(trainer, b, gen, counters)
-                         for b in mine]}
+        out = {}
+        if spec.get("eval_batches"):
+            ev = trainer_of(spec["eval_cfg"])
+            out["eval"] = [timed_eval(ev, mine(b), counters)
+                           for b in spec["eval_batches"]]
+            del ev
+        mine_b = [mine(b) for b in spec["batches"]]
+        gen = epoch_generator(trainer, 0)
+        out["steps"] = [timed_step(trainer, b, gen, counters)
+                        for b in mine_b]
         out.update(_state(trainer.model))
+        if spec.get("repeat"):
+            again = trainer_of(cfg)
+            gen = epoch_generator(again, 0)
+            for b in mine_b:
+                again.train_step(b, gen)
+            twin = dict(again.model.state_dict())
+            out["repeat_differs"] = [
+                n for n, v in trainer.model.state_dict().items()
+                if not torch.equal(v, twin[n])]
+            del again
         if spec.get("profile"):
-            out["collectives"] = collectives(trainer, mine[-1], gen)
+            out["collectives"] = collectives(trainer, mine_b[-1], gen)
         dist.barrier(group)
         return out
     finally:

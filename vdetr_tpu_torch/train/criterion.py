@@ -17,7 +17,10 @@ L1, GIoU and log-size L1, each normalized by the number of (repeated)
 boxes, plus the encoder point-classification loss. Under data
 parallelism (`group`) the number of boxes is the mean of the ranks' GT
 counts (JAX's pmean), the same on every rank; whether a rank has any GT
-stays its own.
+stays its own. Under key sharding (`seq_group`, the ranks that hold one
+scene's seed shards) the point-classification loss of a rank's seeds is
+summed over the group (JAX criterion.py:400-401); the decoder's losses
+are already the same on every rank of it.
 
 The box overlap of the costs and the loss follows `iou_type`: "giou"
 (the default) is the corner GIoU, axis-aligned for ScanNet (one angle
@@ -41,7 +44,7 @@ from vdetr_tpu_torch.geometry.iou import (diff_diou_rotated_3d,
 from vdetr_tpu_torch.geometry.points_in_boxes import points_in_boxes_all
 from vdetr_tpu_torch.ops.hungarian import (auction, auction_capacity,
                                            hungarian)
-from vdetr_tpu_torch.parallel.dist import all_reduce_mean
+from vdetr_tpu_torch.parallel.dist import all_reduce_mean, all_reduce_sum
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -104,12 +107,13 @@ def _take(x, inds):
 class SetCriterion:
     """Stateless; construct once per config (reference criterion.py:231)."""
 
-    def __init__(self, cfg, dataset_config, group=None):
+    def __init__(self, cfg, dataset_config, group=None, seq_group=None):
         if cfg.matcher_impl not in ("auction", "jv"):
             raise ValueError(f"unknown matcher_impl {cfg.matcher_impl!r}")
         self.cfg = cfg
         self.ds = dataset_config
         self.group = group
+        self.seq_group = seq_group
         self.rotated = dataset_config.num_angle_bin > 1
         self.loss_weights = {
             "loss_giou": cfg.loss_giou_weight,
@@ -352,6 +356,7 @@ class SetCriterion:
         gt_label = torch.where(matched, gt_label, C)
         onehot = F.one_hot(gt_label, C + 1)[..., :C].to(logits.dtype)
         loss = sigmoid_focal_loss_sum(logits, onehot, alpha=c.focal_alpha)
+        loss = all_reduce_sum(loss, self.seq_group)
         return loss / num_boxes * has_boxes
 
     def __call__(self, outputs, targets: Tensors):

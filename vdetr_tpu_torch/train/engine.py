@@ -27,6 +27,28 @@ mean loss and loss dict, whose finiteness every rank checks alike. The
 eval step stays on each rank's rows; `evaluate` gathers them to rank 0's
 AP calculator. Without a group none of this runs. No retries: the JAX
 engine's re-dispatch of transient TPU errors has no counterpart here.
+
+Key sharding, the JAX engine's "seq" axis (a config whose mesh is
+("data", "seq") = (D, S), `cfg.mesh_axis_names` / `mesh_shape`; the
+group's world must be D S): the trainer lays the ranks out as a grid
+(`dist.make_grid`: rank (d, s), r = d S + s), and each rank steps on the
+rows of data rank d and point block s of them (`data/loader.py:
+seq_block`), the GT whole. The model's seeds are then sharded over the
+seq group (`models/vdetr.py`), the batch norms sync over every rank (JAX's
+`bn_axes`, all the mesh's axes), the criterion normalizes by the data
+group's mean GT count and sums the point-classification loss over the seq
+group, and the dropout masks come from the data index alone, so that the
+query path draws the same masks on every seq rank (JAX folds in the data
+index only). Each rank keeps its loss unscaled and every collective's
+backward sums the cotangents over the ranks: the sum over a data row's S
+ranks of their gradients is then S times that row's gradient, and DDP's
+mean over the D S ranks is the mean over the rows of their gradients, the
+step JAX's pmean over "seq", psum over "seq" and pmean over "data" mean
+to take (JAX's psum transposes to a psum, so its own step's gradients
+come out S times that: `tests/test_torch_seq_model.py`). The eval step
+returns seq rank 0's outputs, as JAX's `out_specs=P(data)`: its empty-box
+counts read that rank's point block only, as JAX's do inside its
+`shard_map`.
 """
 
 from __future__ import annotations
@@ -70,11 +92,13 @@ EMPTY_BOX_POINTS = 40000
 class Trainer:
     """Owns the criterion, the optimizer and the step count for one model
     on one device: `device` (default: the CUDA card; raises without one).
-    The model is moved there. `group`: the process group of data
-    parallelism (None: one process); the model is then wrapped for the
-    train step (`net`) and, under `cfg.mink_syncbn`, its batch norms
-    synced. `model` stays the unwrapped module, so checkpoints keep their
-    names."""
+    The model is moved there. `group`: the process group of every rank
+    (None: one process); the model is then wrapped for the train step
+    (`net`) and, under `cfg.mink_syncbn`, its batch norms synced. The
+    ranks form the grid of the config's mesh (`grid`; raises when the
+    world is not the mesh's size): D data ranks by default, D x S under
+    key sharding. `model` stays the unwrapped module, so checkpoints keep
+    their names."""
 
     def __init__(self, cfg, model: torch.nn.Module, dataset_config,
                  steps_per_epoch: int, device=None, group=None):
@@ -82,6 +106,9 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.group = group
+        self.grid = dist.make_grid(group, *dist.mesh_dims(
+            cfg.mesh_axis_names, cfg.mesh_shape, dist.world(group)))
+        self.model.set_seq_group(self.grid.seq)
         self.net = self.model
         if group is not None:
             if cfg.mink_syncbn:
@@ -95,7 +122,8 @@ class Trainer:
             self.net = torch.nn.parallel.DistributedDataParallel(
                 self.model, process_group=group,
                 find_unused_parameters=not cfg.querypos_mlp)
-        self.criterion = SetCriterion(cfg, dataset_config, group)
+        self.criterion = SetCriterion(cfg, dataset_config, self.grid.data,
+                                      self.grid.seq)
         self.lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.optimizer = build_optimizer(cfg, self.model)
         self.step = 0
@@ -140,9 +168,9 @@ class Trainer:
         if self.cfg.clip_gradient > 0:
             clip_by_global_norm(self.model.parameters(),
                                 self.cfg.clip_gradient)
-        if self.group is not None:
+        if self.grid.data is not None:
             loss_dict = dist.all_reduce_mean({"loss": loss, **loss_dict},
-                                             self.group)
+                                             self.grid.data)
             loss = loss_dict.pop("loss")
         loss_val = float(loss.detach())
         if not math.isfinite(loss_val):
@@ -211,7 +239,8 @@ class Trainer:
         calculator consumes, and, when the configured NMS variant is the
         device one (`device_nms_supported`), "nms_keep": the (B, K) keep
         mask of empty-box removal (when configured: `test_only`) and the
-        same-class NMS. Every output stays on the trainer's device."""
+        same-class NMS. Every output stays on the trainer's device. Under
+        key sharding every rank returns seq rank 0's outputs."""
         batch = self._to_device(batch, INPUT_KEYS)
         self.model.eval()
         with torch.inference_mode():
@@ -221,16 +250,17 @@ class Trainer:
             out = {k: final[k] for k in EVAL_KEYS}
             if device_nms_supported(self.ap_config):
                 out["nms_keep"] = self._nms_keep(out, batch["point_clouds"])
+            out = {k: dist.broadcast(v, self.grid.seq) for k, v in out.items()}
         return out
 
 
 def epoch_generator(trainer: Trainer, epoch: int) -> torch.Generator:
     """The generator of epoch `epoch`'s dropout masks, on the trainer's
-    device, seeded from (cfg.seed, epoch, rank): an epoch draws the same
-    masks whether the run was resumed before it or not, each rank its own
-    (JAX folds the device index into the key), rank 0 those of one
-    process."""
-    rank = dist.rank(trainer.group)
+    device, seeded from (cfg.seed, epoch, data rank): an epoch draws the
+    same masks whether the run was resumed before it or not, each data
+    rank its own (JAX folds the data index into the key), the seq ranks
+    of one data rank the same, rank 0 those of one process."""
+    rank = trainer.grid.d
     seed = (trainer.cfg.seed * 1000003 + epoch + (rank << 40)) % (2 ** 63)
     return torch.Generator(device=trainer.device).manual_seed(seed)
 
@@ -311,16 +341,22 @@ def evaluate(trainer: Trainer, loader, ap_calculator, log_every: int = 10,
     Under data parallelism each rank evaluates its rows and rank 0's
     calculator takes every rank's outputs and GT, in rank order: the
     global batch one process would see (reference engine.py:180-181); the
-    other ranks' calculators take nothing. Returns the calculator."""
+    other ranks' calculators take nothing. Under key sharding each
+    batch's point blocks are gathered whole over the seq group first, and
+    the outputs and GT over the data group. Returns the calculator."""
     eval_fn = eval_fn or trainer.eval_step
-    group = trainer.group
+    grid = trainer.grid
     for it, batch in enumerate(loader):
         out = eval_fn(batch)
-        if group is not None:
-            out = dist.all_gather(_on(out, out, trainer.device), group)
+        if grid.seq is not None:
+            batch = dict(batch, point_clouds=dist.all_gather_dim(
+                torch.as_tensor(batch["point_clouds"]).to(trainer.device),
+                1, grid.seq))
+        if grid.data is not None:
+            out = dist.all_gather(_on(out, out, trainer.device), grid.data)
             batch = dist.all_gather(
-                _on(batch, AP_TARGET_KEYS, trainer.device), group)
-        if dist.rank(group) == 0:
+                _on(batch, AP_TARGET_KEYS, trainer.device), grid.data)
+        if dist.rank(trainer.group) == 0:
             ap_calculator.step(out, batch)
         if logger and it % log_every == 0:
             logger(f"Evaluate; Batch [{it}]")
