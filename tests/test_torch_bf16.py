@@ -38,6 +38,8 @@ to bf16 (`jax_rpe_in_f32`).
 """
 
 import contextlib
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +48,7 @@ import pytest
 import torch
 
 from test_torch_configs import jax_and_port_step
-from test_torch_model import _random_tree, make_inputs
+from test_torch_model import _random_tree, flax_shapes, make_inputs
 from test_torch_train_step import TINY
 from vdetr_tpu.config import VDETRConfig as JaxConfig
 from vdetr_tpu.data import ScannetDatasetConfig
@@ -56,7 +58,7 @@ from vdetr_tpu.ops.sparse_conv import _gather_matmul
 from vdetr_tpu.ops.voxelize import voxelize as jax_voxelize
 from vdetr_tpu_torch.config import VDETRConfig
 from vdetr_tpu_torch.convert import (build_reference_state_dict,
-                                     from_reference_state_dict,
+                                     from_reference_state_dict, jax_trees,
                                      load_jax_params)
 from vdetr_tpu_torch.data.dataset_config import \
     ScannetDatasetConfig as PortScannetConfig
@@ -143,19 +145,22 @@ def test_bf16_backbone_stages_match_jax_bf16():
                          jnp.ones((2, pts.shape[1]), bool), **kw)
     jm = JaxResNet(depth=18, inplanes=16, stage_capacities=caps,
                    compute_dtype=jnp.bfloat16)
-    shapes = jax.eval_shape(lambda k: jm.init(k, jgrid, train=False),
-                            jax.random.PRNGKey(0))
+    cfg = VDETRConfig(depth=18, inplanes=16)
+    port = SparseResNet(3, depth=18, inplanes=16, stage_capacities=caps,
+                        compute_dtype=torch.bfloat16)
+    # the flax trees' paths and shapes off the port's backbone, the model's
+    # "pre_encoder" (test_torch_model.flax_shapes)
+    shapes = [t["pre_encoder"] for t in jax_trees(
+        {"pre_encoder." + k: v for k, v in port.state_dict().items()},
+        cfg)[:2]]
     rng = np.random.RandomState(1)
-    params = _random_tree(shapes["params"], rng)
-    stats = _random_tree(shapes["batch_stats"], rng, stats=True)
+    params = _random_tree(shapes[0], rng)
+    stats = _random_tree(shapes[1], rng, stats=True)
     want = jax.jit(lambda v, g: jm.apply(v, g, train=False))(
         {"params": params, "batch_stats": stats}, jgrid)
 
-    cfg = VDETRConfig(depth=18, inplanes=16)
     sd = from_reference_state_dict(build_reference_state_dict(
         {"pre_encoder": params}, {"pre_encoder": stats}, cfg))
-    port = SparseResNet(3, depth=18, inplanes=16, stage_capacities=caps,
-                        compute_dtype=torch.bfloat16)
     port.load_state_dict({k[len("pre_encoder."):]: v for k, v in sd.items()},
                          strict=True)
     port.eval()
@@ -203,22 +208,41 @@ def _align(ref, got):
         for k, v in got.items()}
 
 
-@pytest.fixture(scope="module")
-def eval_outputs():
-    """The eval forward of the tiny model on the same weights: the port in
-    bf16, JAX in float32, the port's queries aligned to JAX's."""
-    inputs = make_inputs()
-    jin = jax.tree.map(jnp.asarray, inputs)
+def jax_f32_eval(variables, inputs):
+    """JAX's float32 eval forward of the tiny model (a spawned process's
+    work): the last layer's outputs."""
     jm = build_jax_model(JaxConfig(**{**TINY, **WELL_POSED}),
                          ScannetDatasetConfig())
-    shapes = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
-                            jax.random.PRNGKey(0), jin)
+    return jax.tree.map(np.asarray, jax.jit(
+        lambda v, i: jm.apply(v, i, train=False)["outputs"])(
+            variables, jax.tree.map(jnp.asarray, inputs)))
+
+
+@pytest.fixture(scope="module")
+def jax_sides():
+    """JAX's float32 eval forward (weights of seed 1) in a spawned process
+    while the bf16 train step of JAX and the port (`jax_and_port_step`)
+    runs here: (eval outputs, eval weights, step)."""
+    shapes = flax_shapes(VDETRConfig(**{**TINY, **WELL_POSED}),
+                         PortScannetConfig())
     rng = np.random.RandomState(1)
     variables = {"params": _random_tree(shapes["params"], rng),
                  "batch_stats": _random_tree(shapes["batch_stats"], rng,
                                              stats=True)}
-    ref = jax.tree.map(np.asarray, jax.jit(
-        lambda v, i: jm.apply(v, i, train=False)["outputs"])(variables, jin))
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=spawn) as procs:
+        ref = procs.submit(jax_f32_eval, variables, make_inputs())
+        with jax_rpe_in_f32():
+            step = jax_and_port_step({**BF16, **WELL_POSED})
+        return ref.result(), variables, step
+
+
+@pytest.fixture(scope="module")
+def eval_outputs(jax_sides):
+    """The eval forward of the tiny model on the same weights: the port in
+    bf16, JAX in float32, the port's queries aligned to JAX's."""
+    ref, variables, _ = jax_sides
+    inputs = make_inputs()
     cfg = VDETRConfig(**{**TINY, **BF16, **WELL_POSED})
     port = build_model(cfg, PortScannetConfig(), device="cpu")
     load_jax_params(port, variables["params"], variables["batch_stats"], cfg)
@@ -243,9 +267,8 @@ def test_bf16_logits_track_jax_f32_within_its_own_bounds(eval_outputs):
 
 
 @pytest.fixture(scope="module")
-def bf16_step():
-    with jax_rpe_in_f32():
-        return jax_and_port_step({**BF16, **WELL_POSED})
+def bf16_step(jax_sides):
+    return jax_sides[2]
 
 
 def test_bf16_step_loss_matches_jax_bf16(bf16_step):

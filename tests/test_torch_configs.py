@@ -20,13 +20,16 @@ against the JAX package on the CPU.
   `furthest_point_sample` picks on the same permutation.
 """
 
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_model import _random_tree, make_inputs
+from test_torch_model import _random_tree, flax_shapes, make_inputs
 from test_torch_train_step import (GRAD_FLOOR, GRAD_TOL, LOSS_RTOL,
                                    STATS_ATOL, STATS_RTOL, TINY)
 from vdetr_tpu.config import VDETRConfig as JaxConfig
@@ -182,14 +185,13 @@ def jax_and_port_step(kw, seed=5):
     inputs = {k: jnp.asarray(batch[k]) for k in INPUT_KEYS}
     targets = {k: jnp.asarray(v) for k, v in batch.items()}
     jm = build_jax_model(jcfg, ScannetDatasetConfig())
-    shapes = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
-                            jax.random.PRNGKey(0), inputs)
+    shapes = flax_shapes(cfg, PortScannetConfig())
     rng = np.random.RandomState(seed)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)
     # querypos_mlp=False: the Fourier matrix, JAX's constant
     consts = jax.tree.map(lambda s: rng.randn(*s.shape).astype(np.float32),
-                          shapes.get("constants", {}))
+                          shapes["constants"])
     crit = JaxCriterion(jcfg, ScannetDatasetConfig())
 
     def loss_fn(p):
@@ -224,9 +226,35 @@ def jax_and_port_step(kw, seed=5):
     return ref, got
 
 
+def deep_jax_trees(depth):
+    """The JAX model's params and batch_stats at `depth` (the trees of
+    `jax.eval_shape` of its init), drawn from RandomState(0): a spawned
+    process's work."""
+    cfg = JaxConfig(**{**TINY, "depth": depth, "dec_nlayers": 2})
+    jm = build_jax_model(cfg, ScannetDatasetConfig())
+    shapes = jax.eval_shape(
+        lambda k, i: jm.init(k, i, train=False), jax.random.PRNGKey(0),
+        jax.tree.map(jnp.asarray, make_inputs()))
+    rng = np.random.RandomState(0)
+    return (_random_tree(shapes["params"], rng),
+            _random_tree(shapes["batch_stats"], rng, stats=True))
+
+
 @pytest.fixture(scope="module")
-def flags_step():
-    return jax_and_port_step(dict(depth=50, dec_nlayers=2, **FLAGS))
+def steps_and_trees():
+    """The depth-50 flags step here, and meanwhile JAX's trees at depths
+    101 and 152 in a spawned process (tracing holds the interpreter
+    lock): (step, {depth: (params, batch_stats)})."""
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=spawn) as procs:
+        trees = {d: procs.submit(deep_jax_trees, d) for d in (101, 152)}
+        step = jax_and_port_step(dict(depth=50, dec_nlayers=2, **FLAGS))
+        return step, {d: f.result() for d, f in trees.items()}
+
+
+@pytest.fixture(scope="module")
+def flags_step(steps_and_trees):
+    return steps_and_trees[0]
 
 
 def test_flags_step_loss_and_terms_match_jax(flags_step):
@@ -269,17 +297,11 @@ def test_flags_step_running_stats_match_jax(flags_step):
 
 
 @pytest.mark.parametrize("depth", [101, 152])
-def test_deep_bottleneck_trees_cross_the_bridge_both_ways(depth):
+def test_deep_bottleneck_trees_cross_the_bridge_both_ways(depth,
+                                                          steps_and_trees):
     """Every leaf of the JAX model's params and batch_stats at this depth
     loads into the port (a strict load) and comes back equal."""
-    cfg = JaxConfig(**{**TINY, "depth": depth, "dec_nlayers": 2})
-    jm = build_jax_model(cfg, ScannetDatasetConfig())
-    shapes = jax.eval_shape(
-        lambda k, i: jm.init(k, i, train=False), jax.random.PRNGKey(0),
-        jax.tree.map(jnp.asarray, make_inputs()))
-    rng = np.random.RandomState(0)
-    params = _random_tree(shapes["params"], rng)
-    stats = _random_tree(shapes["batch_stats"], rng, stats=True)
+    params, stats = steps_and_trees[1][depth]
     pcfg = VDETRConfig(**{**TINY, "depth": depth, "dec_nlayers": 2})
     port = build_model(pcfg, PortScannetConfig(), device="cpu")
     load_jax_params(port, params, stats, pcfg)

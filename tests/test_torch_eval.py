@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from test_torch_model import (MODEL_ATOL, MODEL_RTOL, _random_tree,
-                              make_inputs, tiny_config)
+                              flax_shapes, make_inputs, tiny_config)
 from vdetr_tpu.data import ScannetDatasetConfig
 from vdetr_tpu.eval import ap_calculator as jap
 from vdetr_tpu.eval import native as jnative
@@ -370,8 +370,7 @@ def _eval_steps(jcfg, inputs, subsample=None, before_port=None):
     jds = ScannetDatasetConfig()
     jm = build_jax_model(jcfg, jds, axis_name="data")
     batch = {k: jnp.asarray(v) for k, v in inputs.items()}
-    shapes = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
-                            jax.random.PRNGKey(0), batch)
+    shapes = flax_shapes(cfg, PortScannetConfig())
     rng = np.random.RandomState(1)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)

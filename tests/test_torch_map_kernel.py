@@ -74,16 +74,21 @@ def maps():
                              features=jnp.zeros(keys.shape + (1,)),
                              origin=jnp.zeros((len(LAYOUTS), 3), jnp.int32))
     out = {}
+    # each JAX map one compiled program (op by op, the interpret-mode
+    # kernel ran each of its operations apart)
+    zrun_map = jax.jit(jax.vmap(lambda k, c, v: jsc._zrun_neighbors(
+        k, c, v, extent, 1)))
+    stencil_map = jax.jit(lambda k, c, v: jmk.stencil_map(
+        k, c, v, extent, interpret=True))
     for stride in (1, 2):
         if stride == 1:
             q, qv = coords, valid
         else:
-            down = jax_downsample(table, CAPACITY // 256 * 128)
+            down = jax.jit(lambda g: jax_downsample(
+                g, CAPACITY // 256 * 128))(table)
             q, qv = down.coords * 2, down.valid
-        zrun = jax.vmap(lambda k, c, v: jsc._zrun_neighbors(
-            k, c, v, extent, 1))(keys, q, qv)
-        stencil, n_unpatched = jmk.stencil_map(keys, q, qv, extent,
-                                               interpret=True)
+        zrun = zrun_map(keys, q, qv)
+        stencil, n_unpatched = stencil_map(keys, q, qv)
         assert int(n_unpatched) == 0  # the TPU kernel's map is exact here
         got = kernel_map(t(keys), t(q), t(qv), extent)
         out[stride] = (np.asarray(qv), got, np.asarray(zrun),

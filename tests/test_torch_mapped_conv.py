@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from test_torch_model import (MODEL_ATOL, MODEL_RTOL, jax_and_port,
-                              make_inputs, run_jax, run_port, tiny_config)
+                              jax_vjp, make_inputs, run_jax, run_port,
+                              tiny_config)
 from tests.test_window_conv import _comb_wall_grid, _grid
 from vdetr_tpu.ops import sparse_conv as jsc
 from vdetr_tpu.ops import sparse_conv_kernel as jsk
@@ -42,6 +43,11 @@ REL = 1e-5
 
 def t(a):
     return torch.from_numpy(np.array(a))
+
+
+def window_map(nbr, V):
+    return jax.jit(lambda n: jsk.build_window_map(n, V, 128, 128))(
+        jnp.asarray(nbr[0].numpy()))
 
 
 def port_grid(jg):
@@ -79,10 +85,9 @@ def test_plain_conv_and_dw_match_gather_matmul(rng, cin, cout, stride):
     """H's and I's plain versions against `_gather_matmul` over the same
     map and its vjp with respect to W."""
     _, _, nbr, f, w, dout = conv_case(rng, cin, cout, stride)
-    ref, vjp = jax.vjp(
+    ref, (dw_ref,) = jax_vjp(
         lambda ww: jax.vmap(lambda ff, ii: jsc._gather_matmul(ff, ii, ww))(
-            jnp.asarray(f), jnp.asarray(nbr.numpy())), jnp.asarray(w))
-    (dw_ref,) = vjp(jnp.asarray(dout))
+            jnp.asarray(f), jnp.asarray(nbr.numpy())), (w,), dout)
     assert_close(tsk.mapped_conv_plain(t(f), nbr, t(w)), ref, "out")
     assert_close(tsk.mapped_conv_dw_plain(t(f), nbr, t(dout)), dw_ref, "dW")
 
@@ -100,12 +105,12 @@ def test_plain_conv_matches_window_conv_interpret(rng, layout):
     jg = (_grid(rng, V=512) if layout == "clustered" else _comb_wall_grid())
     V = jg.keys.shape[1]
     nbr = tmk.neighbour_map(t(jg.keys), t(jg.coords), t(jg.valid), jg.extent)
-    blk, le, bad = jsk.build_window_map(jnp.asarray(nbr[0].numpy()), V, 128,
-                                        128)
+    blk, le, bad = window_map(nbr, V)
     f = _bf16(rng.randn(1, V, 16) * np.asarray(jg.valid)[..., None])
     w = _bf16(rng.randn(27, 16, 8) / np.sqrt(27 * 16))
-    ref = jsk.window_conv(jnp.asarray(f), blk[None], le[None], jnp.asarray(w),
-                          tile=128, wb=128, interpret=True)
+    ref = jax.jit(lambda *a: jsk.window_conv(*a, tile=128, wb=128,
+                                             interpret=True))(
+        jnp.asarray(f), blk[None], le[None], jnp.asarray(w))
     rows = np.asarray(jg.valid)[0] & ~np.asarray(bad)
     assert (layout == "comb-wall") == bool(np.asarray(bad).any())
     got = tsk.mapped_conv_plain(t(f), nbr, t(w))
@@ -117,15 +122,14 @@ def test_plain_dw_matches_window_conv_dw_interpret(rng):
     cover entirely (no `bad` row)."""
     jg = _grid(rng, V=512)
     nbr = tmk.neighbour_map(t(jg.keys), t(jg.coords), t(jg.valid), jg.extent)
-    blk, le, bad = jsk.build_window_map(jnp.asarray(nbr[0].numpy()), 512, 128,
-                                        128)
+    blk, le, bad = window_map(nbr, 512)
     assert not bool(np.asarray(bad).any())
     valid = np.asarray(jg.valid)[..., None]
     f = _bf16(rng.randn(1, 512, 16) * valid)
     dout = _bf16(rng.randn(1, 512, 8) * valid)
-    ref = jsk.window_conv_dw(jnp.asarray(f), blk[None], le[None],
-                             jnp.asarray(dout), tile=128, wb=128,
-                             interpret=True)
+    ref = jax.jit(lambda *a: jsk.window_conv_dw(*a, tile=128, wb=128,
+                                                interpret=True))(
+        jnp.asarray(f), blk[None], le[None], jnp.asarray(dout))
     assert_close(tsk.mapped_conv_dw_plain(t(f), nbr, t(dout)), ref)
 
 
@@ -144,8 +148,7 @@ def test_mapped_conv_gradients_match_jax_sparse_conv(rng, stride):
             return jsc.sparse_conv(jsc.attach_kernel_map(g), ww).features
         return jsc.sparse_conv_down(g, ww, out_grid=jout).features
 
-    ref, vjp = jax.vjp(jax_fn, jnp.asarray(f), jnp.asarray(w))
-    df_ref, dw_ref = vjp(jnp.asarray(dout))
+    ref, (df_ref, dw_ref) = jax_vjp(jax_fn, (f, w), dout)
 
     f_t, w_t = t(f).requires_grad_(), t(w).requires_grad_()
     g = tg.replace(features=f_t)

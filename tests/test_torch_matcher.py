@@ -29,10 +29,13 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def jax_auction(cost, n_valid, repeat=None, **kw):
+    """JAX's auction compiled, as its criterion runs it (op by op, each
+    primitive compiled apart)."""
     c, n = jnp.asarray(cost), jnp.asarray(n_valid)
     if repeat is None:
-        return np.asarray(j_auction(c, n, **kw))
-    return np.asarray(j_capacity(c, n, repeat, **kw))
+        return np.asarray(jax.jit(lambda c, n: j_auction(c, n, **kw))(c, n))
+    return np.asarray(jax.jit(lambda c, n: j_capacity(c, n, repeat, **kw))(
+        c, n))
 
 
 def port_auction(cost, n_valid, repeat=None, **kw):

@@ -25,7 +25,7 @@ from vdetr_tpu.models import build_model as build_jax_model
 from vdetr_tpu.train.torch_import import (_flatten,
                                           build_reference_state_dict,
                                           convert_torch_state_dict)
-from vdetr_tpu_torch.convert import (from_reference_state_dict,
+from vdetr_tpu_torch.convert import (from_reference_state_dict, jax_trees,
                                      load_jax_params, reference_state_dict)
 from vdetr_tpu_torch.data.dataset_config import \
     ScannetDatasetConfig as PortScannetConfig
@@ -90,15 +90,38 @@ def _random_tree(tree, rng, stats=False):
     return jax.tree_util.tree_map_with_path(one, tree)
 
 
+def flax_shapes(cfg, dataset_config):
+    """The JAX model's variable trees at `cfg` ({"params", "batch_stats",
+    "constants"}: the paths and shapes `jax.eval_shape` of its init
+    gives), read off the port's model through the weight bridge
+    (`convert.jax_trees`) instead of a trace of JAX's init (~8 s on the
+    CPU). The leaves are the port's initial values: draw the weights on
+    their shapes (`_random_tree`). `test_port_trees_are_jax_init_trees`
+    holds the trees to JAX's init."""
+    port = build_port_model(cfg, dataset_config, device="cpu")
+    params, stats, consts = jax_trees(port.state_dict(), cfg)
+    return {"params": params, "batch_stats": stats, "constants": consts}
+
+
+def jax_vjp(fn, primals, cotangent):
+    """`fn`'s value at `primals` and its vjp at `cotangent`, as one
+    compiled program (op by op, JAX compiles each primitive at each shape
+    apart)."""
+    def run(p, c):
+        out, vjp = jax.vjp(fn, *p)
+        return out, vjp(c)
+
+    return jax.jit(run)(tuple(map(jnp.asarray, primals)),
+                        jnp.asarray(cotangent))
+
+
 def jax_and_port(cfg, conv_route="keyed"):
     """(jax model, its variables as numpy, the port model with the same
     weights through the bridge, its sparse convs on `conv_route`). The
-    flax tree's structure comes from `jax.eval_shape` (no compile); its
-    values from a numpy seed."""
+    flax tree's structure comes from `flax_shapes`; its values from a
+    numpy seed."""
     jm = build_jax_model(cfg, ScannetDatasetConfig())
-    inp = jax.tree.map(jnp.asarray, make_inputs())
-    shapes = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
-                            jax.random.PRNGKey(0), inp)
+    shapes = flax_shapes(cfg, PortScannetConfig())
     rng = np.random.RandomState(1)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)
@@ -168,6 +191,25 @@ def test_forward_matches_jax(models, n_valid):
         _assert_preds_close(a, b, f"aux{i}")
     for k, v in got["outputs"].items():
         assert np.isfinite(v).all(), k
+
+
+def test_port_trees_are_jax_init_trees(models):
+    """`flax_shapes`, on whose trees the tests draw the weights they hand
+    both packages, gives the trees of `jax.eval_shape` of JAX's init: the
+    same paths in the same order (so `_random_tree` draws the same
+    values), the same shapes."""
+    cfg, jm, _, _ = models
+    want = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
+                          jax.random.PRNGKey(0),
+                          jax.tree.map(jnp.asarray, make_inputs()))
+    got = flax_shapes(cfg, PortScannetConfig())
+    assert set(want) == {"params", "batch_stats"}
+    for name in want:
+        w = jax.tree_util.tree_flatten_with_path(want[name])[0]
+        g = jax.tree_util.tree_flatten_with_path(got[name])[0]
+        assert [(p, x.shape) for p, x in g] == \
+            [(p, x.shape) for p, x in w], name
+    assert got["constants"] == {}
 
 
 def test_topk_order_matches_lax_top_k():

@@ -77,9 +77,12 @@ def make_points(rng, B=2, N=1500, n_invalid=100):
 
 
 def both_grids(rng, capacity, voxel_size=0.02):
+    """The JAX package's voxelize (compiled, as the model runs it) and
+    the port's on the same points."""
     pts, feats, valid = make_points(rng)
-    jg = jvox.voxelize(pts, feats, valid, voxel_size=voxel_size,
-                       capacity=capacity, extent=EXTENT)
+    jg = jax.jit(lambda p, f, m: jvox.voxelize(
+        p, f, m, voxel_size=voxel_size, capacity=capacity,
+        extent=EXTENT))(pts, feats, valid)
     tg = tvox.voxelize(t(pts), t(feats), t(valid), voxel_size=voxel_size,
                        capacity=capacity, extent=EXTENT)
     return jg, tg
@@ -132,9 +135,10 @@ def test_voxelize_matches_compiled_jax_on_voxel_boundaries(rng, voxel_size):
 
 def test_downsample_and_upsample_match_jax(rng):
     jg, tg = both_grids(rng, 2048)
-    jd, td = jvox.downsample_grid(jg, 512), tvox.downsample_grid(tg, 512)
+    jd, ju = jax.jit(lambda g: (lambda d: (d, jvox.upsample_candidates(
+        d, 2048)))(jvox.downsample_grid(g, 512)))(jg)
+    td = tvox.downsample_grid(tg, 512)
     assert_grid_sites(jd, td)
-    ju = jvox.upsample_candidates(jd, 2048)
     tu = tvox.upsample_candidates(td, 2048)
     assert_grid_sites(ju, tu)
 
@@ -143,7 +147,7 @@ def test_lookup_matches_jax(rng):
     jg, tg = both_grids(rng, 2048)
     q = rng.randint(0, 40 * 128 * 64, size=(2, 700)).astype(np.int32)
     q[:, :300] = np.asarray(jg.keys)[:, :300]  # hits, sentinels included
-    ref = jax.vmap(jvox.lookup)(jg.keys, jnp.asarray(q))
+    ref = jax.jit(jax.vmap(jvox.lookup))(jg.keys, jnp.asarray(q))
     np.testing.assert_array_equal(tvox.lookup(tg.keys, t(q)).numpy(),
                                   np.asarray(ref))
 
@@ -168,25 +172,26 @@ def _weights(rng, k, cin, cout):
 def test_sparse_convs_match_jax(rng, kind, cin, cout):
     jg, tg = both_grids(rng, 2048)
     jg, tg = _with_features(jg, tg, rng, cin)
+    jit = jax.jit  # each JAX conv one compiled program
     if kind == "submanifold":
         w = _weights(rng, 27, cin, cout)
-        ref = jsc.sparse_conv(jg, jnp.asarray(w), 3)
+        ref = jit(lambda g, ww: jsc.sparse_conv(g, ww, 3))(jg, w)
         got = tsc.sparse_conv(tg, t(w), 3)
     elif kind in ("down3", "down1"):
         k = 3 if kind == "down3" else 1
         w = _weights(rng, k ** 3, cin, cout)
-        ref = jsc.sparse_conv_down(jg, jnp.asarray(w), 512, k)
+        ref = jit(lambda g, ww: jsc.sparse_conv_down(g, ww, 512, k))(jg, w)
         got = tsc.sparse_conv_down(tg, t(w), 512, k)
     else:
-        jc, tc = _with_features(jvox.downsample_grid(jg, 512),
-                                tvox.downsample_grid(tg, 512), rng, cin)
+        jc, tc = _with_features(jit(lambda g: jvox.downsample_grid(
+            g, 512))(jg), tvox.downsample_grid(tg, 512), rng, cin)
         w = _weights(rng, 8, cin, cout)
         if kind == "transpose":
-            ref = jsc.sparse_conv_transpose(jc, jg, jnp.asarray(w))
+            ref = jit(jsc.sparse_conv_transpose)(jc, jg, w)
             got = tsc.sparse_conv_transpose(tc, tg, t(w))
         else:
-            ref = jsc.sparse_conv_transpose_generative(jc, jnp.asarray(w),
-                                                       2048)
+            ref = jit(lambda c, ww: jsc.sparse_conv_transpose_generative(
+                c, ww, 2048))(jc, w)
             got = tsc.sparse_conv_transpose_generative(tc, t(w), 2048)
     assert_grid_sites(ref, got)
     np.testing.assert_allclose(got.features.numpy(),

@@ -33,6 +33,7 @@ hangs or raises fails the test).
 """
 
 import datetime
+import functools
 import multiprocessing
 import os
 import socket
@@ -47,7 +48,7 @@ import torch
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from test_torch_model import _random_tree
+from test_torch_model import _random_tree, flax_shapes
 from test_torch_train_step import (GRAD_FLOOR, GRAD_TOL, LOSS_RTOL,
                                    STATS_ATOL, STATS_RTOL, TINY, _port_tree)
 from torch_dp_ranks import cli_rank, eval_rank, evaluate_scenes
@@ -192,18 +193,16 @@ def one_process_grads(state, batch):
 def runs(tmp_path_factory):
     """Every run the tests compare, started at once: the port's groups,
     each in a thread that waits on its spawned ranks, JAX's synced step in
-    a thread and its unsynced step in a spawned process (tracing holds
-    the interpreter lock), so that the file takes about as long as the
-    longest of them. The steps against JAX share two scenes (GT counts 4
-    and 3, voxel counts 994 and 985) and the numpy-seeded weights, which
-    reach the ranks as the port's state_dict on disk. {name: future}."""
+    a thread, its unsynced and single-device steps in spawned processes
+    (tracing holds the interpreter lock), so that the file takes about as
+    long as the longest of them. The steps against JAX share two scenes
+    (GT counts 4 and 3, voxel counts 994 and 985) and the numpy-seeded
+    weights, which reach the ranks as the port's state_dict on disk.
+    {name: future}."""
     tmp = tmp_path_factory.mktemp("dp")
     batch = scenes(10)
     jcfg = JaxConfig(**TINY)
-    jm = build_jax_model(jcfg, JaxScannetConfig())
-    shapes = jax.eval_shape(
-        lambda k, i: jm.init(k, i, train=False), jax.random.PRNGKey(0),
-        {k: jnp.asarray(batch[k]) for k in INPUT_KEYS})
+    shapes = flax_shapes(VDETRConfig(**TINY), ScannetDatasetConfig())
     rng = np.random.RandomState(5)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)
@@ -218,9 +217,13 @@ def runs(tmp_path_factory):
     jobs = {"batch": batch, "ckpt": str(tmp / "ckpt")}
     spawn = multiprocessing.get_context("spawn")
     with ThreadPoolExecutor(max_workers=8) as pool, \
-            ProcessPoolExecutor(max_workers=1, mp_context=spawn) as procs:
+            ProcessPoolExecutor(max_workers=2, mp_context=spawn) as procs:
         jobs["jax", False] = procs.submit(jax_dp_step_np, jcfg, params,
                                           stats, batch, False)
+        jobs["jax single"] = procs.submit(
+            jax_single_steps, jcfg, params, stats,
+            [b for seed in (5, 7) for b in (scenes(seed),
+                                            swapped(scenes(seed)))])
         for synced in (True, False):
             jobs["port", synced] = pool.submit(
                 run_ranks, train_rank, WORLD, _spec(
@@ -232,10 +235,6 @@ def runs(tmp_path_factory):
                 run_ranks, train_rank, WORLD, _spec(
                     tmp, f"rdzv_{seed}", cfg=VDETRConfig(**TINY),
                     state=state, batches=[scenes(seed)]), RANKS_TIMEOUT)
-        jobs["jax single"] = pool.submit(
-            jax_single_steps, jcfg, params, stats,
-            [b for seed in (5, 7) for b in (scenes(seed),
-                                            swapped(scenes(seed)))])
         jobs["one process", 5] = pool.submit(one_process_grads, state,
                                              scenes(5))
         jobs["eval"] = pool.submit(run_ranks, eval_rank, WORLD, dict(
@@ -265,11 +264,12 @@ def jax_and_ranks(jax_step, ranks, cfg):
     port clips."""
     loss, parts, grads, new_params, new_stats = jax_step
     flat = lambda t: _port_tree(t, cfg)  # noqa: E731
-    gnorm = float(optax.global_norm(grads))
+    grads = flat_tree(grads)
+    gnorm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                        for g in grads.values()))
     clip = min(1.0, cfg.clip_gradient / gnorm)
     ref = dict(loss=float(loss), parts=jax.tree.map(float, parts),
-               grads={k: np.asarray(v) * clip for k, v in
-                      flat_tree(grads).items()},
+               grads={k: v * clip for k, v in grads.items()},
                params=flat_tree(new_params), stats=flat_tree(new_stats))
     got = []
     for r in ranks:
@@ -297,8 +297,15 @@ def unsynced(runs):
     return both_steps(runs, False)
 
 
+@functools.lru_cache(maxsize=None)
+def first_lr():
+    """The JAX schedule's learning rate at step 0 (jitted: op by op, each
+    primitive compiled apart)."""
+    return float(jax.jit(make_lr_schedule(JaxConfig(**TINY), 1))(0))
+
+
 def check_against_jax(ref, got):
-    lr = make_lr_schedule(JaxConfig(**TINY), 1)(0)
+    lr = first_lr()
     assert got["loss"] == pytest.approx(ref["loss"], rel=LOSS_RTOL)
     assert set(got["parts"]) == set(ref["parts"])
     for k, v in ref["parts"].items():

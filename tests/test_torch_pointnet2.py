@@ -106,17 +106,23 @@ def test_three_nn_and_interpolate_match_jax():
 
 
 def _jax_module(module, *args, train=False, init_args=None):
-    """(variables, (outputs, mutated)) of a flax module on args."""
-    v = module.init(jax.random.PRNGKey(0), *(init_args or args))
+    """(variables, (outputs, mutated)) of a flax module on args: the
+    variables' shapes from `jax.eval_shape` of its init, the apply one
+    compiled program (op by op, each primitive compiled apart)."""
+    shapes = jax.eval_shape(lambda k, *a: module.init(k, *a),
+                            jax.random.PRNGKey(0), *(init_args or args))
     rng = np.random.RandomState(7)
     # random weights and statistics, not the initial ones
-    v = jax.tree.map(lambda x: jnp.asarray(
+    v = jax.tree.map(lambda x: (
         rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        * np.sign(rng.randn(*x.shape)).astype(np.float32)), v)
-    v["batch_stats"] = jax.tree.map(jnp.abs, v["batch_stats"])
-    out = module.apply(v, *args, train=train, mutable=["batch_stats"]) \
-        if train else (module.apply(v, *args), None)
-    return jax.tree.map(np.asarray, v), out
+        * np.sign(rng.randn(*x.shape)).astype(np.float32)), shapes)
+    v["batch_stats"] = jax.tree.map(np.abs, v["batch_stats"])
+    if train:
+        out = jax.jit(lambda v, *a: module.apply(
+            v, *a, train=True, mutable=["batch_stats"]))(v, *args)
+    else:
+        out = (jax.jit(module.apply)(v, *args), None)
+    return v, out
 
 
 def _port(module, v, train):
@@ -173,8 +179,8 @@ def test_query_and_group_and_shared_mlp_gradients_match_jax():
     xyz = rng.rand(1, 64, 3).astype(np.float32)
     feats = rng.randn(1, 64, 2).astype(np.float32)
     g = jp2.QueryAndGroup(radius=0.5, nsample=8)
-    want = g.apply({}, jnp.asarray(xyz), jnp.asarray(xyz[:, :4]),
-                   jnp.asarray(feats))
+    want = jax.jit(g.apply)({}, jnp.asarray(xyz), jnp.asarray(xyz[:, :4]),
+                            jnp.asarray(feats))
     got = tp2.QueryAndGroup(0.5, 8)(torch.from_numpy(xyz),
                                     torch.from_numpy(xyz[:, :4]),
                                     torch.from_numpy(feats))
@@ -191,7 +197,7 @@ def test_query_and_group_and_shared_mlp_gradients_match_jax():
                           mutable=["batch_stats"])
         return (out * w).sum()
 
-    want = jax.grad(jloss)(v["params"])
+    want = jax.jit(jax.grad(jloss))(v["params"])
     tm = _port(tp2.SharedMLP(5, [7, 4]), v, True)
     (tm(torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
     got, _ = pointnet2_jax_trees(tm, {n: p.grad for n, p in

@@ -33,7 +33,9 @@ devices, on the same numpy-seeded weights (`convert.py`) and scenes.
 """
 
 import datetime
+import multiprocessing
 import threading
+from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +46,7 @@ import torch
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from test_torch_model import _random_tree
+from test_torch_model import _random_tree, flax_shapes
 from test_torch_parallel import check_against_jax, flat_tree
 from test_torch_train_step import TINY
 from torch_seq_ranks import seq_model_rank
@@ -179,21 +181,25 @@ def jax_seq_decoder(jcfg, params, stats, dec):
     return jax.tree.map(np.asarray, out)
 
 
+def jax_eval_side(jcfg, params, stats, dec, batch):
+    """JAX's seq decoder and its test_only eval step (a spawned process's
+    work)."""
+    return (jax_seq_decoder(jcfg, params, stats, dec),
+            jax_seq_eval(jcfg.replace(test_only=True,
+                                      empty_pt_thre=EMPTY_PT_THRE),
+                         params, stats, batch))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The port's four ranks, started first (spawned processes, waited on
-    in a thread), then JAX's decoder, train step and eval step in this
-    process: {"ranks", "jax_step", "jax_eval", "jax_dec", "batch",
-    "params", "dec"}."""
+    in a thread), JAX's decoder and eval step in a spawned process and its
+    train step in this one: {"ranks", "jax_step", "jax_eval", "jax_dec",
+    "batch", "params", "dec"}."""
     tmp = tmp_path_factory.mktemp("seq_model")
     batch = scenes()
     jcfg = JaxConfig(**SEQ_TINY, **MESH)
-    jm = build_jax_model(jcfg.replace(mesh_axis_names=("data",),
-                                      mesh_shape=(-1,)), JaxScannetConfig())
-    shapes = jax.eval_shape(
-        lambda k, i: jm.init(k, i, train=False), jax.random.PRNGKey(0),
-        {k: jnp.asarray(batch[k][:, :512]) for k in INPUT_KEYS
-         if k in batch})
+    shapes = flax_shapes(VDETRConfig(**SEQ_TINY), ScannetDatasetConfig())
     rng = np.random.RandomState(5)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)
@@ -215,22 +221,19 @@ def runs(tmp_path_factory):
             state=state, batch=batch, decoder=dec,
             output_keys=OUTPUT_KEYS), 400)
 
-    def jax_eval():
-        res["jax_dec"] = jax_seq_decoder(jcfg, params, stats, dec)
-        res["jax_eval"] = jax_seq_eval(
-            jcfg.replace(test_only=True, empty_pt_thre=EMPTY_PT_THRE),
-            params, stats, batch)
-
-    # XLA compiles outside the interpreter lock: the two JAX programs
-    # compile side by side while the ranks run
-    threads = [threading.Thread(target=f) for f in (ranks, jax_eval)]
-    for t in threads:
-        t.start()
+    # JAX's decoder and eval step in a spawned process (tracing holds the
+    # interpreter lock), its train step here, while the ranks run
+    spawn = multiprocessing.get_context("spawn")
+    rank_thread = threading.Thread(target=ranks)
+    rank_thread.start()
     try:
-        res["jax_step"] = jax_seq_step(jcfg, params, stats, batch)
+        with ProcessPoolExecutor(max_workers=1, mp_context=spawn) as procs:
+            jax_eval = procs.submit(jax_eval_side, jcfg, params, stats, dec,
+                                    batch)
+            res["jax_step"] = jax_seq_step(jcfg, params, stats, batch)
+            res["jax_dec"], res["jax_eval"] = jax_eval.result()
     finally:
-        for t in threads:
-            t.join()
+        rank_thread.join()
     missing = {"ranks", "jax_dec", "jax_eval"} - set(res)
     assert not missing, f"{missing} failed (see the log above)"
     return res

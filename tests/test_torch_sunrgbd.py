@@ -27,6 +27,7 @@
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_model import MODEL_ATOL, MODEL_RTOL, _random_tree
+from test_torch_model import (MODEL_ATOL, MODEL_RTOL, _random_tree,
+                              flax_shapes)
 from test_torch_rotated_iou import jax_guarded
 from test_torch_train_step import _port_tree
 from vdetr_tpu.config import VDETRConfig as JaxConfig
@@ -170,29 +172,28 @@ def _batch(n=2, seed=4):
     return collate([data[i] for i in range(n)])
 
 
-def _jax_variables(jm, inputs, seed):
-    shapes = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
-                            jax.random.PRNGKey(0), inputs)
+def _jax_variables(seed):
+    shapes = flax_shapes(VDETRConfig(**TINY), SunrgbdDatasetConfig())
     rng = np.random.RandomState(seed)
     return (_random_tree(shapes["params"], rng),
             _random_tree(shapes["batch_stats"], rng, stats=True))
 
 
-@pytest.fixture(scope="module")
-def train_steps():
-    """JAX's loss and gradients under JV and the auction, and the port's
-    train step under each from the same weights. The JAX model's forward
-    is compiled once with its pullback as an output, the pullback once,
-    and each criterion's value and gradient in the model's outputs apart
-    (in one function the two criteria's backward passes through the model
-    were compiled twice)."""
+def jax_train_refs():
+    """JAX's loss and gradients under JV and the auction on the scenes of
+    seed 4 and the weights of seed 5: (params, stats, {matcher: (loss,
+    loss dict, gradients)}). The JAX model's forward is compiled once
+    with its pullback as an output, the pullback once, and each
+    criterion's value and gradient in the model's outputs apart (in one
+    function the two criteria's backward passes through the model were
+    compiled twice); those three compile side by side."""
     batch = _batch()
     inputs = {k: jnp.asarray(batch[k]) for k in INPUT_KEYS}
     targets = {k: jnp.asarray(v) for k, v in batch.items()}
     jds = JaxSunConfig()
     jcfg = JaxConfig(**TINY)
     jm = build_jax_model(jcfg, jds)
-    params, stats = _jax_variables(jm, inputs, 5)
+    params, stats = _jax_variables(5)
     crits = {m: JaxCriterion(jcfg.replace(matcher_impl=m), jds)
              for m in ("jv", "auction")}
 
@@ -201,19 +202,63 @@ def train_steps():
                         train=True, mutable=["batch_stats"])[0]
 
     out, pullback = jax.jit(lambda p: jax.vjp(forward, p))(params)
-    pull = jax.jit(lambda f, cot: f(cot)[0])
-    ref = {}
+
+    def cotangent(g):
+        return jax.tree.map(
+            lambda x, d: d if jnp.issubdtype(x.dtype, jnp.floating)
+            else np.zeros(x.shape, jax.dtypes.float0), out, g)
+
     with jax_guarded():
-        for m, crit in crits.items():
-            (loss, parts), g = jax.jit(jax.value_and_grad(
-                crit, has_aux=True, allow_int=True))(out, targets)
-            cot = jax.tree.map(
-                lambda x, d: d if jnp.issubdtype(x.dtype, jnp.floating)
-                else np.zeros(x.shape, jax.dtypes.float0), out, g)
-            ref[m] = (loss, parts, pull(pullback, cot))
+        lowered = [jax.jit(jax.value_and_grad(
+            crit, has_aux=True, allow_int=True)).lower(out, targets)
+            for crit in crits.values()]
+    lowered.append(jax.jit(lambda f, cot: f(cot)[0]).lower(
+        pullback, cotangent(out)))
+    with ThreadPoolExecutor(max_workers=len(lowered)) as pool:
+        *steps, pull = pool.map(lambda f: f.compile(), lowered)
+    ref = {}
+    for m, step in zip(crits, steps):
+        (loss, parts), g = step(out, targets)
+        ref[m] = (loss, parts, pull(pullback, cotangent(g)))
+    return params, stats, ref
+
+
+def jax_eval_step():
+    """JAX's test_only `Trainer.eval_step` on the scenes of seed 6 and the
+    weights of seed 7: (params, stats, outputs)."""
+    batch = _batch(n=2, seed=6)
+    jcfg = JaxConfig(**{**TINY, "test_only": True})
+    jds = JaxSunConfig()
+    jm = build_jax_model(jcfg, jds, axis_name="data")
+    params, stats = _jax_variables(7)
+    mesh = make_mesh(("data",), (1,), devices=jax.devices()[:1])
+    jt = JaxTrainer(jcfg, jm, jds, mesh, steps_per_epoch=1)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=stats, opt_state=jt.tx.init(params))
+    out = jt.eval_step(state, {k: jnp.asarray(batch[k]) for k in INPUT_KEYS},
+                       retries=0)
+    return params, stats, jax.tree.map(np.asarray, out)
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """JAX's side of the train-step and eval-step tests, side by side: the
+    eval step traces and compiles in a thread while the train step's
+    programs do here (XLA compiles outside the interpreter lock)."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        eval_step = pool.submit(jax_eval_step)
+        return {"train": jax_train_refs(), "eval": eval_step.result()}
+
+
+@pytest.fixture(scope="module")
+def train_steps(jax_refs):
+    """The port's train step under JV and the auction from JAX's
+    weights, and JAX's loss and gradients under each."""
+    params, stats, ref = jax_refs["train"]
+    batch = _batch()
     cfg = VDETRConfig(**TINY)
     got = {}
-    for m in crits:
+    for m in ref:
         port = build_port_model(cfg, SunrgbdDatasetConfig(), device="cpu")
         load_jax_params(port, params, stats, cfg)
         tr = Trainer(cfg.replace(matcher_impl=m), port,
@@ -260,7 +305,7 @@ def test_sunrgbd_train_step_matches_jax(train_steps, matcher):
 # the eval step and the AP
 # --------------------------------------------------------------------------
 
-def test_sunrgbd_eval_step_and_ap_match_jax():
+def test_sunrgbd_eval_step_and_ap_match_jax(jax_refs):
     """The test_only eval step (yawed empty-box removal on every point at
     this size, then the device NMS): outputs within the forward's
     tolerance, the keep mask equal; then each AP variant's dict equal to
@@ -272,14 +317,7 @@ def test_sunrgbd_eval_step_and_ap_match_jax():
     inputs = {k: batch[k] for k in INPUT_KEYS}
     jcfg = JaxConfig(**{**TINY, "test_only": True})
     jds = JaxSunConfig()
-    jm = build_jax_model(jcfg, jds, axis_name="data")
-    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
-    params, stats = _jax_variables(jm, jin, 7)
-    mesh = make_mesh(("data",), (1,), devices=jax.devices()[:1])
-    jt = JaxTrainer(jcfg, jm, jds, mesh, steps_per_epoch=1)
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                       batch_stats=stats, opt_state=jt.tx.init(params))
-    want = jax.tree.map(np.asarray, jt.eval_step(state, jin, retries=0))
+    params, stats, want = jax_refs["eval"]
 
     cfg = VDETRConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(VDETRConfig)})

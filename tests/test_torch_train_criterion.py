@@ -16,6 +16,8 @@ against NaN gradients (`test_torch_rotated_iou.jax_guarded`: unguarded,
 every JAX gradient of a rotated job is NaN).
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -76,33 +78,71 @@ def make_case(seed=0, B=2, nseed=64, nq=24, nlayers=3, sunrgbd=False):
     return f32(layers), f32(enc), batch, sunrgbd
 
 
-def jax_loss(layers, enc, batch, sunrgbd, jit=False, **kw):
+def _jax_value_and_grad(kw, sunrgbd):
+    """The JAX criterion's loss dict and its gradient in the head outputs
+    at KW + `kw`, jitted."""
     cfg = JaxConfig(**{**KW, **kw})
     ds = SunrgbdDatasetConfig() if sunrgbd else ScannetDatasetConfig()
     crit = JaxCriterion(cfg, ds)
-    dims = [jnp.asarray(batch["point_cloud_dims_min"]),
-            jnp.asarray(batch["point_cloud_dims_max"])]
-    targets = {k: jnp.asarray(v) for k, v in batch.items()}
 
-    def f(heads, point_cls):
-        preds = [jax_refine(h, jnp.asarray(L["pre_center"]),
-                            jnp.asarray(L["pre_size"]), dims,
-                            ds.num_angle_bin, True)
-                 for h, L in zip(heads, layers)]
+    def f(heads, point_cls, anchors, seed_xyz, dims, targets):
+        preds = [jax_refine(h, center, size, dims, ds.num_angle_bin, True)
+                 for h, (center, size) in zip(heads, anchors)]
         out = {"outputs": preds[-1], "aux_outputs": preds[:-1],
                "enc_outputs": {"point_cls_logits": point_cls},
-               "seed_xyz": jnp.asarray(enc["seed_xyz"])}
+               "seed_xyz": seed_xyz}
         return crit(out, targets)
 
-    heads = [{k: jnp.asarray(L["heads"][k]) for k in HEADS} for L in layers]
-    vg = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)
-    (loss, parts), grads = (jax.jit(vg) if jit else vg)(
-        heads, jnp.asarray(enc["point_cls_logits"]))
+    return jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))
+
+
+def _jax_args(layers, enc, batch, sunrgbd):
+    a = jnp.asarray
+    return ([{k: a(L["heads"][k]) for k in HEADS} for L in layers],
+            a(enc["point_cls_logits"]),
+            [(a(L["pre_center"]), a(L["pre_size"])) for L in layers],
+            a(enc["seed_xyz"]),
+            [a(batch["point_cloud_dims_min"]),
+             a(batch["point_cloud_dims_max"])],
+            {k: a(v) for k, v in batch.items()})
+
+
+def _key(kw, sunrgbd):
+    return tuple(sorted(kw.items())), sunrgbd
+
+
+SUN_COSTS = dict(matcher_anglecls_cost=0.5, matcher_anglereg_cost=0.5)
+SUN_CASES = [("giou", "jv"), ("giou", "auction"), ("diou", "jv"),
+             ("iou", "jv")]
+CONFIGS = ([({}, False), ({"matcher_impl": "auction"}, False)]
+           + [(dict(iou_type=i, matcher_impl=m, **SUN_COSTS), True)
+              for i, m in SUN_CASES])
+
+
+@pytest.fixture(scope="module")
+def jax_criteria():
+    """Every configuration's JAX criterion, traced here and compiled side
+    by side (XLA compiles outside the interpreter lock), each program
+    run by every case of its configuration: {`_key`: compiled}. JAX's
+    rotated overlaps carry the port's guard against NaN gradients
+    (tests/test_torch_rotated_iou.py); ScanNet's path never reaches
+    them."""
+    with jax_guarded():
+        lowered = [_jax_value_and_grad(kw, sun).lower(*_jax_args(
+            *make_case(2 if sun else 0, sunrgbd=sun))) for kw, sun in CONFIGS]
+    with ThreadPoolExecutor(max_workers=len(lowered)) as pool:
+        return dict(zip((_key(kw, sun) for kw, sun in CONFIGS),
+                        pool.map(lambda f: f.compile(), lowered)))
+
+
+def jax_loss(criteria, layers, enc, batch, sunrgbd, **kw):
+    (loss, parts), grads = criteria[_key(kw, sunrgbd)](
+        *_jax_args(layers, enc, batch, sunrgbd))
     return float(loss), jax.tree.map(float, parts), \
         jax.tree.map(np.asarray, grads)
 
 
-def port_loss(layers, enc, batch, sunrgbd, jit=False, **kw):
+def port_loss(layers, enc, batch, sunrgbd, **kw):
     cfg = VDETRConfig(**{**KW, **kw})
     ds = PortSunrgbdConfig() if sunrgbd else PortScannetConfig()
     crit = SetCriterion(cfg, ds)
@@ -126,37 +166,29 @@ def port_loss(layers, enc, batch, sunrgbd, jit=False, **kw):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_loss_dict_and_gradients_match_jax(seed):
-    check_against_jax(make_case(seed))
+def test_loss_dict_and_gradients_match_jax(seed, jax_criteria):
+    check_against_jax(jax_criteria, make_case(seed))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_loss_dict_and_gradients_match_jax_auction(seed):
+def test_loss_dict_and_gradients_match_jax_auction(seed, jax_criteria):
     """The auction's assignments are JAX's bit for bit
     (tests/test_torch_matcher.py), so the losses meet the JV tolerances."""
-    check_against_jax(make_case(seed), matcher_impl="auction")
+    check_against_jax(jax_criteria, make_case(seed), matcher_impl="auction")
 
 
-SUN_COSTS = dict(matcher_anglecls_cost=0.5, matcher_anglereg_cost=0.5)
-
-
-@pytest.mark.parametrize("iou_type,matcher", [
-    ("giou", "jv"), ("giou", "auction"), ("diou", "jv"), ("iou", "jv")])
-def test_sunrgbd_loss_dict_and_gradients_match_jax(iou_type, matcher):
+@pytest.mark.parametrize("iou_type,matcher", SUN_CASES)
+def test_sunrgbd_loss_dict_and_gradients_match_jax(iou_type, matcher,
+                                                   jax_criteria):
     """12 angle bins, rotated ground truth, nonzero angle matcher costs:
     the rotated GIoU (kernel R's plain version), or the differentiable
-    DIoU / IoU, through the costs, the matching and every loss. The JAX
-    criterion runs under jax.jit (its rotated loops compile ~5x faster
-    than op by op)."""
-    check_against_jax(make_case(2, sunrgbd=True), iou_type=iou_type,
-                      matcher_impl=matcher, jit=True, **SUN_COSTS)
+    DIoU / IoU, through the costs, the matching and every loss."""
+    check_against_jax(jax_criteria, make_case(2, sunrgbd=True),
+                      iou_type=iou_type, matcher_impl=matcher, **SUN_COSTS)
 
 
-def check_against_jax(case, **kw):
-    # JAX's rotated overlaps with the port's guard against NaN gradients
-    # (tests/test_torch_rotated_iou.py); ScanNet's path never reaches them
-    with jax_guarded():
-        loss_j, parts_j, grads_j = jax_loss(*case, **kw)
+def check_against_jax(criteria, case, **kw):
+    loss_j, parts_j, grads_j = jax_loss(criteria, *case, **kw)
     loss_p, parts_p, grads_p = port_loss(*case, **kw)
     assert loss_p == pytest.approx(loss_j, rel=LOSS_RTOL)
     assert set(parts_p) == set(parts_j)

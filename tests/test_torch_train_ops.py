@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_model import jax_vjp
 from vdetr_tpu.config import VDETRConfig as JaxConfig
 from vdetr_tpu.geometry.boxes import \
     box_parametrization_to_corners as jax_corners
@@ -113,13 +114,13 @@ def test_keyed_conv_gradients_match_jax_vjp(rng, stride, cin, cout):
     dout = (rng.randn(2, go.capacity, cout) * go.valid.numpy()[..., None]
             ).astype(np.float32)
 
-    nbr = jax.vmap(lambda k, c, v: _zrun_neighbors(k, c, v, g.extent, 1))(
+    nbr = jax.jit(jax.vmap(
+        lambda k, c, v: _zrun_neighbors(k, c, v, g.extent, 1)))(
         jnp.asarray(g.keys.numpy()), jnp.asarray(q.numpy()),
         jnp.asarray(go.valid.numpy()))
-    out_j, vjp = jax.vjp(
+    out_j, (df_j, dw_j) = jax_vjp(
         lambda f, ww: jax.vmap(lambda ff, ii: _gather_matmul(ff, ii, ww))(
-            f, nbr), jnp.asarray(feats), jnp.asarray(w))
-    df_j, dw_j = vjp(jnp.asarray(dout))
+            f, nbr), (feats, w), dout)
 
     f_t, w_t = T(feats).requires_grad_(), T(w).requires_grad_()
     out = keyed_conv_ad(f_t, g.keys, q, go.valid, g.extent, w_t,
@@ -148,11 +149,12 @@ def test_transpose_conv_gradients_match_jax_vjp(rng, kind):
     jvox = importlib.import_module("vdetr_tpu.ops.voxelize")
     pts = (rng.rand(2, 900, 3) * [0.5, 0.4, 0.3]).astype(np.float32)
     valid = rng.rand(2, 900) > 0.05
-    jg = jvox.voxelize(pts, pts, valid, voxel_size=0.02, capacity=1024,
-                       extent=(64, 64, 32))
+    jg, jc = jax.jit(lambda p, v: (lambda g: (g, jvox.downsample_grid(
+        g, 512)))(jvox.voxelize(p, p, v, voxel_size=0.02, capacity=1024,
+                                extent=(64, 64, 32))))(pts, valid)
     tg = voxelize(T(pts), T(pts), T(valid), voxel_size=0.02, capacity=1024,
                   extent=(64, 64, 32))
-    jc, tc = jvox.downsample_grid(jg, 512), downsample_grid(tg, 512)
+    tc = downsample_grid(tg, 512)
     cin, cout = 6, 5
     feats = (rng.randn(2, 512, cin) * tc.valid.numpy()[..., None]
              ).astype(np.float32)
@@ -166,8 +168,7 @@ def test_transpose_conv_gradients_match_jax_vjp(rng, kind):
                else jsc.sparse_conv_transpose_generative(c, ww, fine_cap))
         return out.features
 
-    out_j, vjp = jax.vjp(jax_fn, jnp.asarray(feats), jnp.asarray(w))
-    df_j, dw_j = vjp(jnp.asarray(dout))
+    out_j, (df_j, dw_j) = jax_vjp(jax_fn, (feats, w), dout)
     grads = []
     for _ in range(2):
         f_t, w_t = T(feats).requires_grad_(), T(w).requires_grad_()
@@ -324,11 +325,13 @@ def test_giou_matches_jax(rng):
     def corners(n):
         c = (rng.rand(B, n, 3) * 1.5).astype(np.float32)
         s = (rng.rand(B, n, 3) * 1.5 + 0.05).astype(np.float32)
-        return np.asarray(jax_corners(c, s, np.zeros((B, n), np.float32)))
+        return np.asarray(jax.jit(jax_corners)(
+            c, s, np.zeros((B, n), np.float32)))
 
     c1, c2 = corners(K1), corners(K2)
     nums = np.array([9, 4])
-    ref = jax_giou(jnp.asarray(c1), jnp.asarray(c2), jnp.asarray(nums))
+    ref = jax.jit(jax_giou)(jnp.asarray(c1), jnp.asarray(c2),
+                            jnp.asarray(nums))
     got = generalized_box3d_iou(T(c1), T(c2), T(nums))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
                                atol=1e-6)

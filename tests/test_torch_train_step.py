@@ -18,7 +18,7 @@ import optax
 import pytest
 import torch
 
-from test_torch_model import _random_tree
+from test_torch_model import _random_tree, flax_shapes
 from vdetr_tpu.config import VDETRConfig as JaxConfig
 from vdetr_tpu.data import ScannetDatasetConfig
 from vdetr_tpu.models import build_model as build_jax_model
@@ -73,6 +73,26 @@ def _port_tree(named, cfg):
     return _flatten(params), _flatten(stats)
 
 
+def jax_update(jcfg, params, grads):
+    """optax's first AdamW step of `build_optimizer` (its global-norm clip
+    included), the gradients after that clip, and the step's learning
+    rate: one compiled program (op by op, each leaf's shape compiled its
+    own kernels)."""
+    schedule = make_lr_schedule(jcfg, 1)
+    tx = jax_optimizer(jcfg, schedule)
+
+    @jax.jit
+    def update(params, grads):
+        updates, _ = tx.update(grads, tx.init(params), params)
+        gnorm = optax.global_norm(grads)
+        scale = jnp.where(gnorm >= jcfg.clip_gradient,
+                          jcfg.clip_gradient / gnorm, 1.0)
+        return (optax.apply_updates(params, updates),
+                jax.tree.map(lambda g: g * scale, grads), schedule(0))
+
+    return update(params, grads)
+
+
 @pytest.fixture(scope="module")
 def step():
     jcfg = JaxConfig(**TINY)
@@ -84,8 +104,7 @@ def step():
     targets = {k: jnp.asarray(v) for k, v in batch.items()}
 
     jm = build_jax_model(jcfg, ScannetDatasetConfig())
-    shapes = jax.eval_shape(lambda k, i: jm.init(k, i, train=False),
-                            jax.random.PRNGKey(0), inputs)
+    shapes = flax_shapes(cfg, PortScannetConfig())
     rng = np.random.RandomState(5)
     params = _random_tree(shapes["params"], rng)
     stats = _random_tree(shapes["batch_stats"], rng, stats=True)
@@ -99,16 +118,12 @@ def step():
 
     (loss, (parts, new_stats)), grads = jax.jit(
         jax.value_and_grad(loss_fn, has_aux=True))(params, stats)
-    tx = jax_optimizer(jcfg, make_lr_schedule(jcfg, 1))
-    updates, _ = tx.update(grads, tx.init(params), params)
-    new_params = optax.apply_updates(params, updates)
-    gnorm = float(optax.global_norm(grads))
-    clipped = jax.tree.map(lambda g: g * min(1.0, cfg.clip_gradient / gnorm)
-                           if gnorm >= cfg.clip_gradient else g, grads)
+    new_params, clipped, lr = jax_update(jcfg, params, grads)
     ref = dict(loss=float(loss), parts=jax.tree.map(float, parts),
                grads=_flatten(jax.tree.map(np.asarray, clipped)),
                params=_flatten(jax.tree.map(np.asarray, new_params)),
-               stats=_flatten(jax.tree.map(np.asarray, new_stats)))
+               stats=_flatten(jax.tree.map(np.asarray, new_stats)),
+               lr=float(lr))
 
     port = build_port_model(cfg, PortScannetConfig(), device="cpu")
     load_jax_params(port, params, stats, cfg)
@@ -151,7 +166,7 @@ def test_adamw_step_matches_optax(step):
     min(2, d / (|g| + eps)) plus f32 rounding of the update. A gradient
     that is zero in exact arithmetic gets the full +-lr of its sign."""
     _, ref, got = step
-    lr = make_lr_schedule(JaxConfig(**TINY), 1)(0)
+    lr = ref["lr"]
     top = max(np.abs(g).max() for g in ref["grads"].values())
     for k, want in ref["params"].items():
         g = ref["grads"][k]
