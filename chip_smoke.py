@@ -32,11 +32,12 @@ Phases, each printing its own lines:
      and I, which multiply on the tensor cores in split TF32, against the
      TF32 rate, with the f32 CUDA-core bound beside it); I bit for bit
      against D and against a second call of itself; the bf16 forms of A,
-     D, H and I (compute_dtype="bfloat16": bf16 features and weights, one
-     bf16 MMA a product; D and I against f32 dout split in two bf16
-     halves) against their plain versions at the same shapes, each beside
-     the f32 form's ms of the call and the bf16 bound, H bit for bit
-     against A's bf16 form and I against D's;
+     D, H and I (compute_dtype="bfloat16": bf16 features and weights; A
+     and H on wgmma behind an mbarrier ring, csrc/sparse_conv_sm90.cuh;
+     D and I one mma.sync a bf16 half of f32 dout) against their plain
+     versions at the same shapes, each beside the f32 form's ms of the
+     call and the bf16 bound, H bit for bit against A's bf16 form and I
+     against D's, A's and H's bf16 forms bit for bit from call to call;
   3b. probes of kernel C, the work of the entry points
      `python -m vdetr_tpu_torch.tools.rpe_ablate` and `.dot_micro` at the
      tool shapes: each stage-ablation level 0-5 against its plain version,
@@ -135,7 +136,8 @@ Phases, each printing its own lines:
      bf16 backbone (`VDETRConfig(compute_dtype="bfloat16")`): the eval
      step on both routes at batch 1 and 4 and the train step on both
      routes (as phases 4b and 5: launches per form, two steps bit for
-     bit, the profiled step), its A/D (keyed) and H/I (mapped) launches
+     bit, the profiled step: the bf16 forms' device ms a step go into
+     the kernels line), its A/D (keyed) and H/I (mapped) launches
      in all equal to the f32 step's, peak memory and median beside the
      f32 step's; (b) `VDETRConfig(depth=50)` (Bottleneck) and (c) every
      decoder and head flag (`pos_for_key`, `share_selfattn`,
@@ -2030,13 +2032,18 @@ def criterion_sync(trainer, batch, gen):
 
 # kernel function names (as the profiler reports them) -> the port's
 # kernels and the part of it; the first match wins; "conv" is the route's
-# 3^3 conv (A or H, which share conv_sum_splits_kernel), "dW" its weight
-# gradient (D or I, which share dw_kernel and dw_sum_splits_kernel); F
+# 3^3 conv (A or H, which share conv_sum_splits_kernel), "conv_bf16" its
+# bf16 form's (keyed_conv_bf16 or mapped_conv_bf16, with their sum of the
+# live splits), "dW" its weight gradient (D or I, which share dw_kernel
+# and dw_sum_splits_kernel); F
 # runs the pair kernel, the sum of its key shares' dQ and the dTables
 # table kernel
 PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
                    ("dw_rulebook_kernel", "dW", "rulebook"),
                    ("conv_sum_splits_kernel", "conv", "split sums"),
+                   ("conv_sum_live_splits_kernel", "conv_bf16", "split sums"),
+                   ("keyed_conv_bf16_kernel", "keyed_conv_bf16", "conv"),
+                   ("mapped_conv_bf16_kernel", "mapped_conv_bf16", "conv"),
                    ("dw_sum_splits_kernel", "dW", "split sums"),
                    ("dw_kernel", "dW", "dW GEMM"),
                    ("keyed_conv_kernel", "keyed_conv", "conv"),
@@ -2082,7 +2089,7 @@ def profile_step(trainer, batch, gen):
             busy_us += b - max(a, end)
             end = b
     conv = f"{trainer.model.conv_route}_conv"
-    alias = {"conv": conv, "dW": conv + "_dw"}
+    alias = {"conv": conv, "dW": conv + "_dw", "conv_bf16": conv + "_bf16"}
     by_name, by_kernel, by_part = {}, {}, {}
     for e in dev:
         us = e.time_range.end - e.time_range.start
@@ -3662,8 +3669,11 @@ def run_seq(cfg, device, power):
 
 BF16_CONV_REASON = (
     "bf16 products are exact in f32: the kernel and its plain version "
-    "(the f32 gather-and-matmul of the bf16 values) differ only in the "
-    "order of their f32 sums, as the f32 form does (its tolerance)")
+    "(the f32 gather-and-matmul of the bf16 values) differ in the order "
+    "of their f32 sums and in the kernel's 64-wide stages, each a chain of "
+    "four wgmma k16 steps truncated to f32 and added to the running sum "
+    "in f32; emulated, ~6e-7 of max|ref| at K = 27*512, a hundredth of "
+    "the f32 form's tolerance (tests/test_torch_kernel_premises.py)")
 BF16_DW_REASON = (
     "each dout is split into two bf16 halves (~2^-17 of it against a bf16 "
     "feature, ~2.7e-6 of max|ref| at the published shapes), then f32 sums "
@@ -3692,7 +3702,8 @@ def bf16_cases(cases):
 def check_bf16_forms(cases, f32_res):
     """The bf16 forms of A, D, H and I against their plain versions at the
     published shapes, each case's ms beside the f32 form's of this call
-    (`f32_res`); H bit for bit against A's bf16 form, I against D's."""
+    (`f32_res`); H bit for bit against A's bf16 form, I against D's, A and
+    H against a second call of themselves."""
     from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv_bf16,
                                                        keyed_conv_dw_bf16,
                                                        keyed_conv_dw_plain,
@@ -3724,11 +3735,16 @@ def check_bf16_forms(cases, f32_res):
             lambda c: (c[1][0], c[4], c[2]), dw_rows, dw_bound,
             BF16_BOUND_NOTE)}
     for i, (label, args, dout, _, nbr) in enumerate(bcases):
-        same = {"H vs A": torch.equal(mapped_conv_bf16(args[0], nbr, args[5]),
-                                      keyed_conv_bf16(*args)),
+        a = keyed_conv_bf16(*args)
+        h = mapped_conv_bf16(args[0], nbr, args[5])
+        same = {"H vs A": torch.equal(h, a),
                 "I vs D": torch.equal(mapped_conv_dw_bf16(args[0], nbr, dout),
-                                      keyed_conv_dw_bf16(*args[:5], dout))}
-        res["mapped_conv_bf16"]["ok"] &= same["H vs A"]
+                                      keyed_conv_dw_bf16(*args[:5], dout)),
+                "A twice": torch.equal(keyed_conv_bf16(*args), a),
+                "H twice": torch.equal(mapped_conv_bf16(args[0], nbr,
+                                                        args[5]), h)}
+        res["keyed_conv_bf16"]["ok"] &= same["A twice"]
+        res["mapped_conv_bf16"]["ok"] &= same["H vs A"] and same["H twice"]
         res["mapped_conv_dw_bf16"]["ok"] &= same["I vs D"]
         log(f"check bf16 forms {label}: bit-equal "
             + ", ".join(f"{k} {v}" for k, v in same.items())
@@ -3744,6 +3760,16 @@ def check_bf16_forms(cases, f32_res):
             + "; ".join(f"{c['ms']:.4f} vs {c['f32_ms']:.4f}"
                         for c in r["cases"]) + ")")
     return res
+
+
+def bf16_step_ms(train, kname):
+    """Device ms of a bf16 form's launches in phase 10's profiled bf16
+    train step of its route (`profile_step`): A and H by their own kernel
+    names, with their split sums; D and I as the step's weight gradients
+    (every one of them is the bf16 form there)."""
+    by_kernel = train["profile"]["by_kernel"]
+    key = kname[:-len("_bf16")] if "_dw" in kname else kname
+    return by_kernel.get(key, {}).get("ms")
 
 
 def align_queries(ref, got):
@@ -4313,6 +4339,8 @@ def main() -> int:
             "bound_note": r["bound_note"],
             "launches_note": "per train step of the bf16 model on its route "
                              "(0 on the f32 path)",
+            "train_step_device_ms": bf16_step_ms(bf16["train"][route],
+                                                 kname),
             "launches_by_route": {
                 rt: {"bf16_eval_step": bf16["eval_launches"][rt][kname],
                      "bf16_train_step": bf16["train_launches"][rt][kname]}

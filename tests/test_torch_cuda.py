@@ -24,6 +24,7 @@ on random and exact edge-case quads, its backward against autograd of
 the plain version and bit for bit from launch to launch, its launch
 counts, and a small SUN RGB-D train step that repeats bit for bit; the
 bf16 forms of A, H, D and I against their plain versions and each other,
+A and H's wgmma body on ragged tiles, split offsets and the padded stem,
 and the autograd Functions' bf16 dtypes on the card against the CPU.
 chip_smoke.py checks the published shapes.
 
@@ -61,7 +62,8 @@ from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv,
                                                    keyed_conv_dw_bf16,
                                                    keyed_conv_dw_plain,
                                                    keyed_conv_plain)
-from vdetr_tpu_torch.ops.sparse_conv_kernel import (mapped_conv,
+from vdetr_tpu_torch.ops.sparse_conv_kernel import (conv_splits,
+                                                    mapped_conv,
                                                     mapped_conv_ad,
                                                     mapped_conv_bf16,
                                                     mapped_conv_dw,
@@ -294,6 +296,42 @@ def test_bf16_forms_match_plain(rng, cuda, cin, cout, stride):
     np.testing.assert_allclose(d.cpu().numpy(), dref.cpu().numpy(), rtol=0,
                                atol=1e-5 * float(dref.abs().max()))
     assert torch.equal(h, a) and torch.equal(i, d)
+
+
+@pytest.mark.parametrize("cin,cout,stride,capacity", [
+    (3, 64, 2, 4003), (64, 64, 1, 4001), (64, 128, 2, 4096),
+    (128, 256, 1, 4001), (256, 256, 1, 4096), (512, 512, 1, 4003),
+    (24, 16, 2, 4096), (40, 8, 1, 4001)],
+    ids=["stem-ragged-V", "64-ragged-V", "64-128", "128-256-ragged-V",
+         "256-splits", "512-splits-ragged-V", "24-16", "40-8-ragged-V"])
+def test_bf16_wgmma_body_ragged_cases(rng, cuda, cin, cout, stride,
+                                      capacity):
+    """The bf16 forms' wgmma body (csrc/sparse_conv_sm90.cuh) on its edges:
+    row counts off its 64- and 128-row tiles, one and several 64- and
+    128-channel column tiles and widths below them, offsets split over
+    blocks (C 256 and 512), the padded stem (eight offsets a stage), stages
+    that mix offsets (C 24 and 40), and tiles with no live row (~1.4k
+    voxels in ~4k rows): within chip_smoke's 1e-4 of max(1, max|ref|) of
+    the plain version, zero at invalid rows, H bit-equal to A, two calls
+    bit-equal, one launch counted a call."""
+    args, _ = conv_case(rng, cuda, cin, cout, stride, capacity)
+    args = (args[0].bfloat16(),) + args[1:5] + (args[5].bfloat16(),)
+    valid = args[3]
+    assert bool((~valid[:, -64:]).all())  # the last tiles have no hit
+    if cin >= 256:
+        assert conv_splits(cin, bf16=True) > 1
+    nbr = kernel_map(*map_args(args))
+    before = (keyed_conv_bf16.launches, mapped_conv_bf16.launches)
+    a = [keyed_conv(*args) for _ in range(2)]
+    h = [mapped_conv(args[0], nbr, args[5]) for _ in range(2)]
+    assert (keyed_conv_bf16.launches - before[0],
+            mapped_conv_bf16.launches - before[1]) == (2, 2)
+    ref = keyed_conv_plain(*args)
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    assert float((a[0] - ref).abs().max()) <= tol
+    assert float(a[0][~valid].abs().max()) == 0.0
+    assert torch.equal(a[0], a[1]) and torch.equal(h[0], h[1])
+    assert torch.equal(h[0], a[0])
 
 
 @pytest.mark.parametrize("route", ["keyed", "mapped"])

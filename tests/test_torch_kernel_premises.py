@@ -8,6 +8,15 @@
   in torch, it stays within the conv check's 1e-4 of max|ref| of the f64
   product at the published contraction depths (27 offsets x 64 and x 512
   input channels), and one TF32 pass does not: the split is needed.
+- The bf16 form of that tile GEMM (`conv_tile_sm90` in
+  `csrc/sparse_conv_sm90.cuh`) runs 64-wide K stages of four wgmma k16
+  steps, each step's exact sum of bf16 products added to its chain and
+  truncated to f32, each stage's chain started from 0 and its sum added
+  to the running sum in f32. Emulated here, it stays within a hundredth
+  of the conv check's 1e-4 of max|ref| of the f64 product at 27 x 64 and
+  27 x 512, where one chain over the whole K does not; and a row's bits
+  are the same whether the other rows of its tile are there or zero and
+  whether the stages it misses are computed or skipped.
 - The sparse-conv weight gradient (`dw_kernel` in `sparse_conv.cuh`,
   kernels D and I) runs the same split on the tensor cores over reduction
   depths of up to 65536 rows, each 32-row stage's products summed apart
@@ -308,6 +317,99 @@ def test_dp_accumulator_fragment_is_dq_a_fragment_with_k_rows_2t():
         a_frag.append((c[0], c[2], c[1], c[3]))
         b_frag.append((k[2 * t, g], k[2 * t + 1, g]))
     np.testing.assert_array_equal(mma_fragments(a_frag, b_frag), ds @ k)
+
+
+WG_STAGE = 64  # K of a stage of the bf16 conv body (sparse_conv_sm90.cuh)
+WG_K = 16  # k of one wgmma step
+
+
+def bf16_round(x):
+    return x.bfloat16().float()
+
+
+def wgmma_stages(a, w, live=None):
+    """The bf16 conv body's sums: per 64-wide K stage (`live`: the stages
+    computed, all by default) four k16 steps chained from 0, each an
+    exact sum of 16 bf16 products added to the chain and truncated to f32
+    (`mma`), then the stage's sum added to the running f32 sum; a (M, K)
+    and w (K, N) hold bf16 values."""
+    K = a.shape[1]
+    stages = range(-(-K // WG_STAGE)) if live is None else live
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for j in stages:
+        part = torch.zeros_like(acc)
+        for c in range(j * WG_STAGE, min(K, (j + 1) * WG_STAGE), WG_K):
+            part = mma(part, a[:, c:c + WG_K], w[c:c + WG_K].t())
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("K", [27 * 64, 27 * 512], ids=["27x64", "27x512"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_wgmma_stages_meet_a_hundredth_of_the_conv_tolerance(K, seed):
+    """The bf16 conv body's truncating k16 chains in 64-wide stages, the
+    stage sums added in f32, stay within a hundredth of chip_smoke's 1e-4
+    of max|ref| of the f64 product of the same bf16 values."""
+    a, w, _ = conv_operands(K, seed)
+    a, w = bf16_round(a), bf16_round(w)
+    err = rel_err(wgmma_stages(a, w), a.double() @ w.double())
+    assert err <= 0.01 * CONV_RTOL, err
+
+
+@pytest.mark.parametrize("K", [27 * 64, 27 * 512], ids=["27x64", "27x512"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_one_bf16_wgmma_chain_misses_a_hundredth_of_the_conv_tolerance(
+        K, seed):
+    """One truncating chain over the whole K, no stage sums, drifts past a
+    hundredth of the tolerance: the stage sums are needed for it."""
+    a, w, _ = conv_operands(K, seed)
+    a, w = bf16_round(a), bf16_round(w)
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for c in range(0, K, WG_K):
+        acc = mma(acc, a[:, c:c + WG_K], w[c:c + WG_K].t())
+    err = rel_err(acc, a.double() @ w.double())
+    assert 0.01 * CONV_RTOL < err <= CONV_RTOL, err
+
+
+def conv_tile(C, seed, rows=64, nk=27):
+    """A row tile's gathered bf16 features, (rows, nk C) with the offsets
+    flattened as the body flattens them (offset-major), ~60% of (row,
+    offset) pairs missing (zero), row 0 missing every third offset and
+    offsets 8-15 (a whole stem stage); and bf16 weights (nk C, 64)."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.relu(torch.randn(rows, nk, C, generator=g))
+    hit = torch.rand(rows, nk, 1, generator=g) < 0.4
+    k = torch.arange(nk)
+    hit[0] = ((k % 3 != 0) & ((k < 8) | (k >= 16)))[:, None]
+    a = bf16_round(a * hit).reshape(rows, nk * C)
+    w = bf16_round(torch.randn(nk * C, 64, generator=g) / math.sqrt(nk * C))
+    return a, w
+
+
+@pytest.mark.parametrize("C", [8, 64, 512], ids=["stem-8", "64", "512"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_wgmma_row_sum_ignores_its_tile_and_skipped_stages(C, seed):
+    """A row's bits from the bf16 body do not depend on the rest of its
+    tile: the whole tile with every stage computed, the whole tile with the
+    stages that no row hits skipped (the kernel's live list), and the row
+    alone (the other rows zero) with only the stages it hits give row 0
+    the same bits. A stage is 64 channels of one offset (C 64, 512) or
+    eight offsets' 8 channels (the stem)."""
+    a, w = conv_tile(C, seed)
+    stages = -(-a.shape[1] // WG_STAGE)
+
+    def hit_stages(x):
+        return [j for j in range(stages)
+                if bool(x[:, j * WG_STAGE:(j + 1) * WG_STAGE].any())]
+
+    alone = torch.zeros_like(a)
+    alone[0] = a[0]
+    every = wgmma_stages(a, w)[0]
+    tile_live = wgmma_stages(a, w, hit_stages(a))[0]
+    row_live = wgmma_stages(alone, w, hit_stages(alone))[0]
+    assert len(hit_stages(alone)) < stages
+    assert torch.equal(every, tile_live) and torch.equal(every, row_live)
+    assert float(every.abs().max()) > 0
 
 
 def box_corners(angles, seed):

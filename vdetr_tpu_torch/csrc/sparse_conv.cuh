@@ -1,10 +1,10 @@
 // Device code shared by the sparse-convolution kernels (Hopper).
 //
-// - conv_tile / store_tile: a conv block's gather-GEMM over neighbour
-//   rows it has resolved into shared memory, on the tensor cores behind a
-//   cp.async ring: for f32 features and weights in split TF32 (three
-//   m16n8k8 MMAs per f32 product), for bf16 ones one m16n8k16 MMA per
-//   product (the bf16 form), f32 accumulators either way. The keyed conv
+// - conv_tile / store_tile: the f32 conv block's gather-GEMM over
+//   neighbour rows it has resolved into shared memory, on the tensor cores
+//   in split TF32 (three m16n8k8 MMAs per f32 product) behind a cp.async
+//   ring, f32 accumulators; the bf16 form's is sparse_conv_sm90.cuh's
+//   conv_tile_sm90 (wgmma behind an mbarrier ring). The keyed conv
 //   (keyed_conv.cu) resolves the rows by binary search, the mapped conv
 //   (mapped_conv.cu) reads them from a neighbour map; the GEMM is the
 //   same, so the two are bit-equal.
@@ -35,8 +35,9 @@ namespace sparse_conv {
 
 constexpr int KV = 27;   // kernel volume
 
-// conv tiles (conv_tile): CONV_NT threads, 4 warps of 32 x 32 outputs;
-// the input channels per stage and the ring depth are template arguments
+// f32 conv tiles (conv_tile): CONV_NT threads, 4 warps of 32 x 32
+// outputs; the input channels per stage and the ring depth are template
+// arguments
 constexpr int CONV_NT = 128;
 constexpr int BM = 64;      // query rows per block
 constexpr int BN = 64;      // output channels per block
@@ -80,35 +81,32 @@ struct ConvAcc {
 };
 
 // acc += sum over the block's nk offsets of X[s_nbr[k][m]] @ w[k_begin +
-// k], a row of -1 contributing 0. X is one batch row's (V_in, C)
-// features, w the (27, C, Co) weights, both of element type T. Offsets
-// with no hit in the tile are skipped. The K loop runs over (offset with
-// a hit, BK-channel chunk) through a STAGES-deep cp.async ring: gathered
-// rows and the weight tile land in shared memory while the tensor cores
-// work on an earlier stage. T = float: each f32 operand split into two
-// TF32 halves (split_tf32) and multiplied in three m16n8k8 MMAs; T = bf16:
-// one m16n8k16 MMA per product. Each stage's products are summed apart
+// k], a row of -1 contributing 0. X is one batch row's (V_in, C) f32
+// features, w the (27, C, Co) f32 weights. Offsets with no hit in the tile
+// are skipped. The K loop runs over (offset with a hit, BK-channel chunk)
+// through a STAGES-deep cp.async ring: gathered rows and the weight tile
+// land in shared memory while the tensor cores work on an earlier stage.
+// Each f32 operand is split into two TF32 halves (split_tf32) and
+// multiplied in three m16n8k8 MMAs. Each stage's products are summed apart
 // and added to the f32 accumulators with rounding f32 adds. a16 / b16: X
 // rows / weight rows may be copied in 16-byte pieces (C resp. Co a
-// multiple of 16 / sizeof(T), bases 16-byte aligned), otherwise in 4-byte
-// copies (f32 only: the stem's C = 3 rows are 12 bytes; the bf16 form
-// needs a16 and b16). A chunk multiplies its channels rounded up to the
-// MMA's k (8 or 16). Every thread of the block calls it, after s_nbr is
-// written and the block synchronized.
-template <typename T, int BK, int STAGES>
-__device__ __forceinline__ void conv_tile(const T* __restrict__ X,
-                                          const T* __restrict__ w,
+// multiple of 4, bases 16-byte aligned), otherwise in 4-byte copies (the
+// stem's C = 3 rows are 12 bytes). A chunk multiplies its channels rounded
+// up to the MMA's k (8). Every thread of the block calls it, after s_nbr
+// is written and the block synchronized. (The bf16 form has its own body,
+// sparse_conv_sm90.cuh.)
+template <int BK, int STAGES>
+__device__ __forceinline__ void conv_tile(const float* __restrict__ X,
+                                          const float* __restrict__ w,
                                           int (*s_nbr)[BM], int k_begin,
                                           int nk, int C, int Co, int n0,
                                           bool a16, bool b16,
                                           ConvAcc& acc) {
-  constexpr bool F32 = is_f32<T>();
-  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
-  constexpr int KS = F32 ? 8 : 16;     // k of one MMA
-  // As row stride: A fragments conflict-free (16-byte rows for bf16)
-  constexpr int AS = BK + (F32 ? 4 : 8);
-  __shared__ __align__(16) T As[STAGES][BM][AS];
-  __shared__ __align__(16) T Bs[STAGES][BK][BS];
+  constexpr int KS = 8;  // k of one MMA
+  // As row stride: A fragments conflict-free
+  constexpr int AS = BK + 4;
+  __shared__ __align__(16) float As[STAGES][BM][AS];
+  __shared__ __align__(16) float Bs[STAGES][BK][BS];
   __shared__ int s_koff[KV];
   __shared__ int s_nkh;
   const int tid = threadIdx.x;
@@ -142,9 +140,9 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ X,
     const int c0 = (it % nchunks) * BK;
     const int kw = width(it);
     const int* nb = s_nbr[kk];
-    if (!F32 || a16) {
-      for (int i = tid; i < BM * kw / EPC; i += CONV_NT) {
-        const int m = i / (kw / EPC), c = (i % (kw / EPC)) * EPC;
+    if (a16) {
+      for (int i = tid; i < BM * kw / 4; i += CONV_NT) {
+        const int m = i / (kw / 4), c = (i % (kw / 4)) * 4;
         const int r = nb[m];
         const bool p = r >= 0 && c0 + c < C;
         cp_async16(&As[slot][m][c], p ? X + (size_t)r * C + c0 + c : X, p);
@@ -157,10 +155,10 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ X,
         cp_async4(&As[slot][m][c], p ? X + (size_t)r * C + c0 + c : X, p);
       }
     }
-    const T* Wk = w + ((size_t)(k_begin + kk) * C + c0) * Co + n0;
-    if (!F32 || b16) {
-      for (int i = tid; i < kw * BN / EPC; i += CONV_NT) {
-        const int c = i / (BN / EPC), n = (i % (BN / EPC)) * EPC;
+    const float* Wk = w + ((size_t)(k_begin + kk) * C + c0) * Co + n0;
+    if (b16) {
+      for (int i = tid; i < kw * BN / 4; i += CONV_NT) {
+        const int c = i / (BN / 4), n = (i % (BN / 4)) * 4;
         const bool p = c0 + c < C && n0 + n < Co;
         cp_async16(&Bs[slot][c][n], p ? Wk + (size_t)c * Co + n : w, p);
       }
@@ -195,66 +193,35 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ X,
     for (int ks = 0; ks < BK / KS; ++ks) {
       if (ks == nks) break;
       const int kb = ks * KS;
-      if constexpr (F32) {
-        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float* a0 = &As[slot][wm + mi * 16 + g][kb + t];
-          const float* a1 = a0 + 8 * AS;
-          split_tf32(a0[0], ah[mi][0], al[mi][0]);
-          split_tf32(a1[0], ah[mi][1], al[mi][1]);
-          split_tf32(a0[4], ah[mi][2], al[mi][2]);
-          split_tf32(a1[4], ah[mi][3], al[mi][3]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const float* b0 = &Bs[slot][kb + t][wn + ni * 8 + g];
-          split_tf32(b0[0], bh[ni][0], bl[ni][0]);
-          split_tf32(b0[4 * BS], bh[ni][1], bl[ni][1]);
-        }
-        // the small cross terms first, then hi * hi
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            float(&p)[4] = part[mi][ni];
-            if (ks == 0)
-              mma_tf32(p, al[mi], bh[ni], zero);
-            else
-              mma_tf32(p, al[mi], bh[ni], p);
-            mma_tf32(p, ah[mi], bl[ni], p);
-            mma_tf32(p, ah[mi], bh[ni], p);
-          }
-      } else {
-        // A: rows g and g + 8, k pairs 2t and 2t + 8, one 32-bit read
-        // each; B: k pairs 2t and 2t + 8 of column g, two 16-bit reads
-        uint32_t a[2][4], b[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const T* a0 = &As[slot][wm + mi * 16 + g][kb + 2 * t];
-          const T* a1 = a0 + 8 * AS;
-          a[mi][0] = *reinterpret_cast<const uint32_t*>(a0);
-          a[mi][1] = *reinterpret_cast<const uint32_t*>(a1);
-          a[mi][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
-          a[mi][3] = *reinterpret_cast<const uint32_t*>(a1 + 8);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const T* b0 = &Bs[slot][kb + 2 * t][wn + ni * 8 + g];
-          b[ni][0] = pack_bf16(b0[0], b0[BS]);
-          b[ni][1] = pack_bf16(b0[8 * BS], b0[9 * BS]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            float(&p)[4] = part[mi][ni];
-            if (ks == 0)
-              mma_bf16(p, a[mi], b[ni], zero);
-            else
-              mma_bf16(p, a[mi], b[ni], p);
-          }
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* a0 = &As[slot][wm + mi * 16 + g][kb + t];
+        const float* a1 = a0 + 8 * AS;
+        split_tf32(a0[0], ah[mi][0], al[mi][0]);
+        split_tf32(a1[0], ah[mi][1], al[mi][1]);
+        split_tf32(a0[4], ah[mi][2], al[mi][2]);
+        split_tf32(a1[4], ah[mi][3], al[mi][3]);
       }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* b0 = &Bs[slot][kb + t][wn + ni * 8 + g];
+        split_tf32(b0[0], bh[ni][0], bl[ni][0]);
+        split_tf32(b0[4 * BS], bh[ni][1], bl[ni][1]);
+      }
+      // the small cross terms first, then hi * hi
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          float(&p)[4] = part[mi][ni];
+          if (ks == 0)
+            mma_tf32(p, al[mi], bh[ni], zero);
+          else
+            mma_tf32(p, al[mi], bh[ni], p);
+          mma_tf32(p, ah[mi], bl[ni], p);
+          mma_tf32(p, ah[mi], bh[ni], p);
+        }
     }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)

@@ -24,10 +24,11 @@ gather rows; the Hopper kernels gather `feats[nbr[k, v]]` directly.
 Each kernel has two forms, picked by the dtype of the features: float32
 (split TF32 on the tensor cores, three products per f32 product), and
 bf16 (`compute_dtype="bfloat16"`, as the TPU kernels feed the MXU):
-features and weights read as bf16, one bf16 product each, summed in
-float32; the bf16 weight gradient takes float32 dout split into two bf16
-halves (the JAX package multiplies the f32 cotangent by the bf16
-features). The plain version of a bf16 form is the float32 one on the
+features and weights read as bf16, summed in float32 (the forward on
+`wgmma`, `csrc/sparse_conv_sm90.cuh`; the weight gradient one `mma.sync`
+product per bf16 half); the bf16 weight gradient takes float32 dout split
+into two bf16 halves (the JAX package multiplies the f32 cotangent by the
+bf16 features). The plain version of a bf16 form is the float32 one on the
 bf16 values: their products are exact in float32, so the two differ only
 in the order of the sums. What bounds each kernel on the H100, and how
 its design answers it, is in the source notes of `csrc/mapped_conv.cu`
@@ -111,9 +112,13 @@ mapped_conv.launches = 0
 
 def mapped_conv_bf16(feats, nbr, weights):
     """The bf16 form of `mapped_conv`: feats (B, V_in, C) and weights
-    (27, C, Co) bfloat16, Co a multiple of 8; (B, V, Co) float32, each
-    product one bf16 MMA, summed in float32. CPU tensors take
-    `mapped_conv_plain`."""
+    (27, C, Co) bfloat16, Co a multiple of 8; (B, V, Co) float32, bf16
+    products summed in float32. CPU tensors take `mapped_conv_plain`.
+
+    Its Hopper kernel is `keyed_conv_bf16`'s body over the map
+    (`csrc/sparse_conv_sm90.cuh`: `wgmma` behind an mbarrier ring, bound
+    by each stage's gather latency, not by the tensor cores), so the two
+    are bit-equal; it reads the map's columns where A searches."""
     if not feats.is_cuda:
         return mapped_conv_plain(feats, nbr, weights)
     feats, weights = pad_channels(feats, weights)
@@ -135,9 +140,9 @@ def _mapped_conv_launch(name, feats, nbr, weights):
         raise ValueError(f"the bf16 form needs Co % 8 == 0, got {Co}")
     dev = feats.device
     out = torch.empty(B, V, Co, dtype=torch.float32, device=dev)
-    splits = conv_splits(C)
-    scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32, device=dev)
-               if splits > 1 else out)
+    bf16 = feats.dtype == torch.bfloat16
+    splits = conv_splits(C, bf16)
+    scratch = conv_scratch(splits, B, V, Co, bf16, dev) if splits > 1 else out
     kernels.call(name, feats.data_ptr(), nbr.data_ptr(),
                  weights.data_ptr(), out.data_ptr(), scratch.data_ptr(), B,
                  V_in, V, C, Co, splits,
@@ -145,12 +150,26 @@ def _mapped_conv_launch(name, feats, nbr, weights):
     return out
 
 
-def conv_splits(C: int) -> int:
+def conv_scratch(splits: int, B: int, V: int, Co: int, bf16: bool, device):
+    """Scratch of an A or H launch whose offsets are split over `splits`
+    blocks: the (splits, B, V, Co) f32 partials and, in the bf16 form,
+    each split's live flag per 64-row tile (splits, B, ceil(V / 64)) int32
+    after them (a tile with no hit in a split leaves its partial
+    unwritten)."""
+    n = splits * B * V * Co + (splits * B * -(-V // 64) if bf16 else 0)
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def conv_splits(C: int, bf16: bool = False) -> int:
     """Blocks that share each 64-row tile's 27 offsets in kernels A and H
     (their partial sums added in a fixed order): the wider the input, the
     deeper the level and the fewer its live row tiles, and the longer each
-    tile's (offset, 16-channel) loop. From a sweep of the published convs
-    on the card (`python -m vdetr_tpu_torch.tools.conv_splits`)."""
+    tile's loop over (offset, channel chunk). Per form, since the split
+    sets the order of the sums and so the bits: the f32 form's, and the
+    bf16 form's (`bf16`, its wgmma body). From a sweep of the published
+    convs on the card (`python -m vdetr_tpu_torch.tools.conv_splits`)."""
+    if bf16:
+        return 1 if C < 256 else 3 if C < 512 else 6
     return 1 if C < 64 else 3 if C < 512 else 6
 
 

@@ -34,9 +34,9 @@ import torch
 from vdetr_tpu_torch import kernels
 from vdetr_tpu_torch.ops.map_kernel import neighbour_map
 from vdetr_tpu_torch.ops.sparse_conv_kernel import (
-    conv_form, conv_splits, dw_dense, dw_row_splits, dw_rulebook_ints,
-    flip_weights, mapped_conv_dfeats_scatter, mapped_conv_dw_plain,
-    mapped_conv_plain, pad_channels)
+    conv_form, conv_scratch, conv_splits, dw_dense, dw_row_splits,
+    dw_rulebook_ints, flip_weights, mapped_conv_dfeats_scatter,
+    mapped_conv_dw_plain, mapped_conv_plain, pad_channels)
 
 
 def keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent, weights):
@@ -74,8 +74,20 @@ keyed_conv.launches = 0
 
 def keyed_conv_bf16(feats, in_keys, q_coords, q_valid, extent, weights):
     """The bf16 form of `keyed_conv`: feats and weights bfloat16, Co a
-    multiple of 8; each product one bf16 MMA, summed in float32. CPU
-    tensors take `keyed_conv_plain`."""
+    multiple of 8; bf16 products summed in float32. CPU tensors take
+    `keyed_conv_plain`.
+
+    Its Hopper kernel (`csrc/sparse_conv_sm90.cuh`, under
+    `csrc/keyed_conv.cu:keyed_conv_bf16`) is bound by latency, not by the
+    tensor cores: each 64-channel stage of gathered rows and weights must
+    arrive before its four `wgmma` steps can run, and a tile's neighbour
+    rows are found by binary search first. It keeps four stages in flight
+    behind full/empty mbarriers (the rows by a producer warpgroup's
+    `cp.async`, the weights by TMA), computes 128 x 64 or 64 x 128 outputs
+    a block so that a tile's rows are resolved once for both halves, finds
+    a row's three z-neighbours with one lockstep search, and splits the
+    offsets of the deep, sparse levels over blocks whose empty tiles
+    write nothing (`conv_splits(C, bf16=True)`)."""
     if not feats.is_cuda:
         return keyed_conv_plain(feats, in_keys, q_coords, q_valid, extent,
                                 weights)
@@ -99,9 +111,10 @@ def _keyed_conv_launch(name, feats, in_keys, q_coords, q_valid, extent,
     if feats.dtype == torch.bfloat16 and Co % 8:
         raise ValueError(f"the bf16 form needs Co % 8 == 0, got {Co}")
     out = torch.empty(B, V, Co, dtype=torch.float32, device=feats.device)
-    splits = conv_splits(C)
-    scratch = (torch.empty(splits, B, V, Co, dtype=torch.float32,
-                           device=feats.device) if splits > 1 else out)
+    bf16 = feats.dtype == torch.bfloat16
+    splits = conv_splits(C, bf16)
+    scratch = (conv_scratch(splits, B, V, Co, bf16, feats.device)
+               if splits > 1 else out)
     kernels.call(name, feats.data_ptr(), in_keys.data_ptr(),
                  q_coords.data_ptr(), q_valid.data_ptr(), weights.data_ptr(),
                  out.data_ptr(), scratch.data_ptr(), B, V_in, V, C, Co, gx,

@@ -11,11 +11,13 @@ commit unpacked with `git archive` into an ignored directory. Per tree,
 on the published shapes and model (`VDETRConfig()`, seeded random
 weights, synthetic scenes):
 - the sparse-conv kernels A (keyed) and H (mapped) and their weight
-  gradients D (keyed) and I (mapped) on chip_smoke's four conv cases: ms
-  per launch (CUDA events, mean of 20), the error against the plain
-  version, the device ms of each kernel the call launches
-  (torch.profiler, per call), and a digest of the output's bits (equal
-  digests: two trees computed the same bits on the same seeded inputs);
+  gradients D (keyed) and I (mapped), each in its f32 and its bf16 form
+  (chip_smoke's `bf16_cases`), on chip_smoke's four conv cases: ms per
+  launch (CUDA events, mean of 20), the error against the plain version
+  (and over the plain version's max|ref|), the device ms of each kernel
+  the call launches (torch.profiler, per call), and a digest of the
+  output's bits (equal digests: two trees computed the same bits on the
+  same seeded inputs);
 - the RPE forward C in its eval form and its train form (dropout 0.1,
   lse and logits) on chip_smoke's decoder-shaped case: ms per launch
   (mean of 10), the error against the plain version and a digest of the
@@ -62,7 +64,11 @@ weights, synthetic scenes):
   at B = 1 and 4 (`chip_smoke.matcher_inputs`) and on chip_smoke's edge
   cases (ties, duplicated rows, a cut at max_iters): ms per launch (CUDA
   events), device ms per launch, the rounds, ms a round, and a digest of
-  col4row's and the rounds' bits.
+  col4row's and the rounds' bits;
+- the published model with the bf16 backbone (compute_dtype="bfloat16")
+  per route: one eval forward and one train step at B = 1 under
+  torch.profiler, device ms and launches per port kernel (the bf16
+  forms of A and H apart from the train step's f32 dFeats convs).
 The parts (PARTS) run in that order; `--only` names the ones to run.
 Prints one JSON line per tree (`ab_kernels {...}`) and a summary table
 last; the card's name and power limit beside it. Needs the card.
@@ -81,9 +87,15 @@ from pathlib import Path
 KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
                 ("dw_rulebook_kernel", "D/I rulebook"),
                 ("conv_sum_splits_kernel", "A/H split sums"),
+                ("conv_sum_live_splits_kernel", "A/H bf16 split sums"),
                 ("dw_sum_splits_kernel", "D/I split sums"),
                 ("sum_splits_kernel", "split sums"),
                 ("dw_kernel", "D/I dW GEMM"),
+                ("keyed_conv_bf16_kernel", "A bf16"),
+                ("mapped_conv_bf16_kernel", "H bf16"),
+                # a tree whose bf16 forms are instances of the f32 kernels
+                ("keyed_conv_kernel<__nv_bfloat16", "A bf16"),
+                ("mapped_conv_kernel<__nv_bfloat16", "H bf16"),
                 ("keyed_conv_kernel", "A"),
                 ("mapped_conv_kernel", "H"),
                 ("map_kernel", "G"),
@@ -100,7 +112,7 @@ KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
                 ("rotated_areas_kernel", "R forward"),
                 ("auction_kernel", "M"))
 PARTS = ("conv", "rpe", "table_sum", "fps", "maps", "dot_micro", "forward",
-         "train", "nms", "eval", "rotated", "auction")
+         "train", "nms", "eval", "rotated", "auction", "bf16_step")
 
 
 def _label(name: str):
@@ -186,6 +198,8 @@ def measure(parts=PARTS) -> dict:
         res["rotated"] = measure_rotated(dev, cs)
     if "auction" in parts:
         res["auction"] = measure_auction(cfg, dev, cs)
+    if "bf16_step" in parts:
+        res["bf16_step"] = measure_bf16_step(cfg, dev, cs)
     torch.cuda.empty_cache()
     ok = True
     if {"forward", "eval"} & set(parts):
@@ -240,26 +254,60 @@ def measure_convs(cfg, dev, cs, gen) -> dict:
 
     out = {}
     grids = cs.level_grids(cfg, dev)
-    for case in cs.conv_cases(cfg, grids, gen):
-        label, args, dout, nbr = case[0], case[1], case[2], case[4]
+    cases = cs.conv_cases(cfg, grids, gen)
+    for case, case16 in zip(cases, cs.bf16_cases(cases)):
+        label, dout, nbr = case[0], case[2], case[4]
         row = {}
-        for name, fn, plain, a in (
-                ("A", keyed_conv, keyed_conv_plain, args),
-                ("H", mapped_conv, mapped_conv_plain,
-                 (args[0], nbr, args[5])),
-                ("D", keyed_conv_dw, keyed_conv_dw_plain,
-                 args[:5] + (dout,)),
-                ("I", mapped_conv_dw, mapped_conv_dw_plain,
-                 (args[0], nbr, dout))):
-            ref = plain(*a)
-            got = fn(*a)
-            err = float((got - ref).abs().max())
-            row[name] = {"ms": time_ms(lambda: fn(*a), reps=20),
-                         "max_abs_err": err,
-                         "sha256": digest(got),
-                         "max_ref": float(ref.abs().max()),
-                         "parts": profile_by_kernel(lambda: fn(*a), reps=5)}
+        for form, args in (("", case[1]), (" bf16", case16[1])):
+            for name, fn, plain, a in (
+                    ("A", keyed_conv, keyed_conv_plain, args),
+                    ("H", mapped_conv, mapped_conv_plain,
+                     (args[0], nbr, args[5])),
+                    ("D", keyed_conv_dw, keyed_conv_dw_plain,
+                     args[:5] + (dout,)),
+                    ("I", mapped_conv_dw, mapped_conv_dw_plain,
+                     (args[0], nbr, dout))):
+                ref = plain(*a)
+                got = fn(*a)
+                err = float((got - ref).abs().max())
+                max_ref = float(ref.abs().max())
+                row[name + form] = {
+                    "ms": time_ms(lambda: fn(*a), reps=20),
+                    "max_abs_err": err, "rel_err": err / max_ref,
+                    "sha256": digest(got), "max_ref": max_ref,
+                    "parts": profile_by_kernel(lambda: fn(*a), reps=5)}
         out[label] = row
+    return out
+
+
+def measure_bf16_step(cfg, dev, cs) -> dict:
+    """The published model with the bf16 backbone (compute_dtype=
+    "bfloat16", the auction) per route: one eval forward at B = 1 and one
+    train step at B = 1 (after two warm steps), each under torch.profiler:
+    {"forward" | "train": {label: [device ms, launches]}} of the port's
+    kernels (KERNEL_NAMES; a train step's f32 dFeats convs are "A" or
+    "H", their split sums in "A/H split sums")."""
+    import torch
+
+    from vdetr_tpu_torch.train.engine import Trainer
+
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    inputs = cs.synthetic_batch(cfg16.num_points, 1, dev)
+    batch = cs.train_batch(cfg16, 1)
+    out = {}
+    for route in cs.ROUTES:
+        model = cs.published_model(cfg16, dev, route)
+        with torch.inference_mode():
+            fwd = profile_by_kernel(lambda: model(inputs), reps=3)
+        trainer = Trainer(cfg16, model, cs.dataset_of(cfg16),
+                          steps_per_epoch=1000, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        for _ in range(2):
+            trainer.train_step(batch, gen)
+        out[route] = {"forward": fwd, "train": profile_by_kernel(
+            lambda: trainer.train_step(batch, gen), reps=3)}
+        del model, trainer
+        torch.cuda.empty_cache()
     return out
 
 
@@ -642,19 +690,25 @@ def summary(runs) -> list:
     lines = ["| quantity | " + " | ".join(
         Path(r["tree"]).name or r["tree"] for r in runs) + " |"]
     has = set(runs[0])
+    conv_keys = ("A", "H", "D", "I", "A bf16", "H bf16", "D bf16", "I bf16")
     for label in runs[0].get("conv", {}):
-        for k in ("A", "H", "D", "I"):
+        for k in conv_keys:
             lines.append(f"| {k} ms {label} | "
                          + col(lambda r: r["conv"][label][k]["ms"]) + " |")
+            lines.append(f"| {k} max|diff| / max|ref| {label} | " + " | ".join(
+                f"{r['conv'][label][k]['rel_err']:.2e}" if k in r["conv"][label]
+                else "-" for r in runs) + " |")
             parts = sorted({p for r in runs
-                            for p in r["conv"][label][k]["parts"]})
+                            for p in r["conv"][label].get(k, {}).get(
+                                "parts", {})})
             for part in parts:
                 lines.append(f"| {k} {label}: {part} device ms | " + col(
                     lambda r: r["conv"][label][k]["parts"][part][0]) + " |")
     for label in runs[0].get("conv", {}):
-        for k in ("A", "H", "D", "I"):
+        for k in conv_keys:
             lines.append(f"| {k} output sha256 {label} | " + " | ".join(
-                r["conv"][label][k].get("sha256", "-") for r in runs) + " |")
+                r["conv"][label].get(k, {}).get("sha256", "-") for r in runs)
+                + " |")
     for form in ("eval", "train") if "rpe_fwd" in has else ():
         lines.append(f"| C ms {form} form | "
                      + col(lambda r: r["rpe_fwd"][form]["ms"]) + " |")
@@ -734,6 +788,14 @@ def summary(runs) -> list:
         for b in (1, 4):
             lines.append(f"| forward {route} ms/scene B={b} | " + col(
                 lambda r: r["forward_ms_per_scene"][route][str(b)]) + " |")
+    for route in ("keyed", "mapped") if "bf16_step" in has else ():
+        for step in ("forward", "train"):
+            for lab in sorted({k for r in runs
+                               for k in r["bf16_step"][route][step]}):
+                for i, what in ((0, "device ms"), (1, "launches")):
+                    lines.append(f"| bf16 {step} {route} B=1 {lab} {what} | "
+                                 + col(lambda r: r["bf16_step"][route][step]
+                                       [lab][i]) + " |")
     for route in ("keyed", "mapped") if "train" in has else ():
         lines.append(f"| train {route} median step ms | " + col(
             lambda r: r["train"][route]["ms_per_step"]) + " |")

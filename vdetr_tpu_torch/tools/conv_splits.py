@@ -1,11 +1,12 @@
 """How many blocks should share a row tile's 27 offsets in the sparse-conv
 kernels A and H: kernel A timed at each published conv shape for each
-offset split; and over how many blocks the weight gradients D and I
+offset split, in its f32 form and in its bf16 form (the split is picked
+per form); and over how many blocks the weight gradients D and I
 should split their rows: kernel D timed at the same shapes for each
 row-split plan of `ops.sparse_conv_kernel.dw_row_splits` (blocks for
 `waves` x 132 SMs, each split at least `min_rows` rows).
 
-    python -m vdetr_tpu_torch.tools.conv_splits
+    python -m vdetr_tpu_torch.tools.conv_splits [--only conv,conv_bf16,dw]
 
 The shapes are the published model's (`VDETRConfig()`, one synthetic
 scene, seeded random features and weights): the stem (3 -> 64, stride 2),
@@ -13,7 +14,8 @@ the submanifold convs of stages 1-4 (64, 128, 256, 512 channels) and the
 stride-2 conv into stage 2 (64 -> 128). Per shape and split: ms per
 launch (CUDA events, mean of 20) and the error against the plain version
 relative to max(1, max|ref|); the split `ops.sparse_conv_kernel.
-conv_splits` picks is marked. Needs the card.
+conv_splits` picks is marked. `--only` names the sweeps to run (all
+three by default). Needs the card.
 """
 
 from __future__ import annotations
@@ -26,12 +28,16 @@ SHAPES = ((0, 1, 3, 64), (2, 2, 64, 64), (2, 3, 64, 128), (3, 3, 128, 128),
           (4, 4, 256, 256), (5, 5, 512, 512))
 
 
-def sweep(reps: int = 20):
-    """Per shape (label, {splits: (ms, relative error)}, chosen split)."""
+def sweep(reps: int = 20, bf16: bool = False):
+    """Per shape (label, {splits: (ms, relative error)}, chosen split) of
+    kernel A's f32 form, or of its bf16 form (`bf16`: bf16 features and
+    weights, the stem's channels padded to 8)."""
     import chip_smoke as cs
     from vdetr_tpu_torch import kernels
     from vdetr_tpu_torch.config import VDETRConfig
-    from vdetr_tpu_torch.ops.sparse_conv_kernel import conv_splits
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (conv_scratch,
+                                                        conv_splits,
+                                                        pad_channels)
     from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv_plain
     from vdetr_tpu_torch.tools import time_ms
 
@@ -46,24 +52,26 @@ def sweep(reps: int = 20):
                              device=dev) * gi.valid[..., None]).contiguous()
         w = torch.randn(27, cin, cout, generator=gen, device=dev)
         w = w * (2.0 / (27 * cin)) ** 0.5
+        if bf16:
+            feats, w = pad_channels(feats.bfloat16(), w.bfloat16())
         q = (go.coords if li == lo else go.coords * 2).contiguous()
         ref = keyed_conv_plain(feats, gi.keys, q, go.valid, gi.extent, w)
         scale = max(1.0, float(ref.abs().max()))
-        B, V_in, _ = feats.shape
+        B, V_in, C = feats.shape
         V = q.shape[1]
         res = {}
         for splits in SPLITS:
             out = torch.empty(B, V, cout, device=dev)
-            scratch = (torch.empty(splits, B, V, cout, device=dev)
+            scratch = (conv_scratch(splits, B, V, cout, bf16, dev)
                        if splits > 1 else out)
 
             def run():
                 kernels.call(
-                    "keyed_conv", feats.data_ptr(), gi.keys.data_ptr(),
-                    q.data_ptr(), go.valid.data_ptr(), w.data_ptr(),
-                    out.data_ptr(), scratch.data_ptr(), B, V_in, V, cin,
-                    cout, *gi.extent, splits,
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    "keyed_conv_bf16" if bf16 else "keyed_conv",
+                    feats.data_ptr(), gi.keys.data_ptr(), q.data_ptr(),
+                    go.valid.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), B, V_in, V, C, cout, *gi.extent,
+                    splits, torch.cuda.current_stream(dev).cuda_stream)
 
             run()
             torch.cuda.synchronize()
@@ -72,7 +80,7 @@ def sweep(reps: int = 20):
             del out, scratch
         label = (f"{cin}->{cout} {'submanifold' if li == lo else 'stride-2'}"
                  f" V={V} valid={int(go.valid.sum())}")
-        rows.append((label, res, conv_splits(cin)))
+        rows.append((label, res, conv_splits(C, bf16)))
     return rows
 
 
@@ -139,21 +147,39 @@ def dw_sweep(reps: int = 20):
     return rows
 
 
-def main() -> int:
+SWEEPS = ("conv", "conv_bf16", "dw")
+
+
+def main(argv=None) -> int:
+    import sys
+
     from vdetr_tpu_torch import kernels
     from vdetr_tpu_torch.tools import card
 
+    argv = sys.argv[1:] if argv is None else argv
+    only = SWEEPS
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        only = tuple(argv[1].split(","))
+    if not set(only) <= set(SWEEPS):
+        print(f"conv_splits: --only takes {','.join(SWEEPS)}")
+        return 2
     if not torch.cuda.is_available():
         print("conv_splits: needs a CUDA card")
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.build_all()
-    print(f"kernel A ms per launch by offset split (relative error); * the "
-          f"split conv_splits picks; card {card()}")
-    for label, res, chosen in sweep():
-        print(f"  {label}: " + "; ".join(
-            f"{'*' if s == chosen else ''}{s}: {ms:.4f} ({err:.1e})"
-            for s, (ms, err) in res.items()))
+    for form in ("conv", "conv_bf16"):
+        if form not in only:
+            continue
+        print(f"kernel A{' bf16' if form == 'conv_bf16' else ''} ms per "
+              "launch by offset split (relative error); * the split "
+              f"conv_splits picks; card {card()}")
+        for label, res, chosen in sweep(bf16=form == "conv_bf16"):
+            print(f"  {label}: " + "; ".join(
+                f"{'*' if s == chosen else ''}{s}: {ms:.4f} ({err:.1e})"
+                for s, (ms, err) in res.items()))
+    if "dw" not in only:
+        return 0
     print("kernel D ms per launch by row-split plan (waves x 132 SMs of "
           "blocks, min rows a split): splits, ms (relative error); * the "
           f"default plan of dw_row_splits; card {card()}")
