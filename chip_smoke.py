@@ -32,12 +32,12 @@ Phases, each printing its own lines:
      and I, which multiply on the tensor cores in split TF32, against the
      TF32 rate, with the f32 CUDA-core bound beside it); I bit for bit
      against D and against a second call of itself; the bf16 forms of A,
-     D, H and I (compute_dtype="bfloat16": bf16 features and weights; A
-     and H on wgmma behind an mbarrier ring, csrc/sparse_conv_sm90.cuh;
-     D and I one mma.sync a bf16 half of f32 dout) against their plain
+     D, H and I (compute_dtype="bfloat16": bf16 features and weights, D
+     and I against f32 dout's two bf16 halves; all four on wgmma behind
+     an mbarrier ring, csrc/sparse_conv_sm90.cuh) against their plain
      versions at the same shapes, each beside the f32 form's ms of the
      call and the bf16 bound, H bit for bit against A's bf16 form and I
-     against D's, A's and H's bf16 forms bit for bit from call to call;
+     against D's, each of the four bit for bit from call to call;
   3b. probes of kernel C, the work of the entry points
      `python -m vdetr_tpu_torch.tools.rpe_ablate` and `.dot_micro` at the
      tool shapes: each stage-ablation level 0-5 against its plain version,
@@ -443,21 +443,27 @@ def conv_tile_rows(case) -> int:
 
 
 def dw_rows(case) -> int:
-    """The (row, offset) products kernels D and I compute on a case: in the
-    dense form every row for all 27 offsets, else each offset's hits from
-    the rulebook, a split's last stage of 32 rows padded."""
+    """The (row, offset) products kernels D and I compute on a case, in the
+    form the case's features take (bf16: the stem's channels padded to 8):
+    in the dense form every row for all 27 offsets, else each offset's
+    hits from the rulebook, a split's last stage padded (32 rows in the
+    f32 form, 64 in the bf16 form). Only the hit share reads it: the
+    bound counts the function's work, the (row, offset) hits."""
     from vdetr_tpu_torch.ops.sparse_conv_kernel import (
         dw_dense, dw_row_splits, dw_rulebook)
 
     nbr, (feats, *_, w) = case[4], case[1]
     B, _, V = nbr.shape
-    C, Co = w.shape[1:]
-    splits, per = dw_row_splits(B * V, C, Co)
-    if dw_dense(C):
+    bf16 = feats.dtype == torch.bfloat16
+    C, Co = w.shape[1] + (-w.shape[1] % 8 if bf16 else 0), w.shape[2]
+    stage = 64 if bf16 else 32
+    splits, per = dw_row_splits(B * V, C, Co, bf16=bf16)
+    if dw_dense(C, bf16):
         rows = torch.clamp(B * V - per * torch.arange(splits), 0, per)
     else:
         rows = dw_rulebook(nbr, feats.shape[1], splits, per)[2].long()
-    return int(((rows + 31) // 32).sum()) * 32 * (27 if dw_dense(C) else 1)
+    return (int(((rows + stage - 1) // stage).sum()) * stage
+            * (27 if dw_dense(C, bf16) else 1))
 
 
 def check_keyed_conv(cases):
@@ -2034,8 +2040,8 @@ def criterion_sync(trainer, batch, gen):
 # kernels and the part of it; the first match wins; "conv" is the route's
 # 3^3 conv (A or H, which share conv_sum_splits_kernel), "conv_bf16" its
 # bf16 form's (keyed_conv_bf16 or mapped_conv_bf16, with their sum of the
-# live splits), "dW" its weight gradient (D or I, which share dw_kernel
-# and dw_sum_splits_kernel); F
+# live splits), "dW" its weight gradient (D or I, which share dw_kernel,
+# the bf16 form's dw_bf16_kernel and dw_sum_splits_kernel); F
 # runs the pair kernel, the sum of its key shares' dQ and the dTables
 # table kernel
 PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
@@ -2046,6 +2052,7 @@ PROFILE_KERNELS = (("neighbour_map_kernel", "keyed_conv_dw", "private map"),
                    ("mapped_conv_bf16_kernel", "mapped_conv_bf16", "conv"),
                    ("dw_sum_splits_kernel", "dW", "split sums"),
                    ("dw_kernel", "dW", "dW GEMM"),
+                   ("dw_bf16_kernel", "dW", "dW GEMM"),
                    ("keyed_conv_kernel", "keyed_conv", "conv"),
                    ("mapped_conv_kernel", "mapped_conv", "conv"),
                    ("map_kernel", "kernel_map", "map"),
@@ -3676,9 +3683,11 @@ BF16_CONV_REASON = (
     "the f32 form's tolerance (tests/test_torch_kernel_premises.py)")
 BF16_DW_REASON = (
     "each dout is split into two bf16 halves (~2^-17 of it against a bf16 "
-    "feature, ~2.7e-6 of max|ref| at the published shapes), then f32 sums "
-    "over up to 65536 rows in another order than the plain GEMM's; the f32 "
-    "form's 2e-5 of max|ref|")
+    "feature, ~2.7e-6 of max|ref| at the published shapes), then 64-hit "
+    "stages of truncating wgmma k16 chains (the low half's, then the "
+    "high's) added in f32 over up to 65536 rows, in another order than "
+    "the plain GEMM's; emulated within a tenth of the f32 form's 2e-5 of "
+    "max|ref| (tests/test_torch_kernel_premises.py)")
 BF16_BOUND_NOTE = ("bound_ms: bf16 on the tensor cores (flops, x 2 for the "
                    "weight gradient's two halves, / 989 TFLOP/s against "
                    "bytes, features and weights at 2 bytes, / 3.35 TB/s); "
@@ -3702,8 +3711,8 @@ def bf16_cases(cases):
 def check_bf16_forms(cases, f32_res):
     """The bf16 forms of A, D, H and I against their plain versions at the
     published shapes, each case's ms beside the f32 form's of this call
-    (`f32_res`); H bit for bit against A's bf16 form, I against D's, A and
-    H against a second call of themselves."""
+    (`f32_res`); H bit for bit against A's bf16 form, I against D's, each
+    of the four against a second call of itself."""
     from vdetr_tpu_torch.ops.sparse_conv_keyed import (keyed_conv_bf16,
                                                        keyed_conv_dw_bf16,
                                                        keyed_conv_dw_plain,
@@ -3737,15 +3746,21 @@ def check_bf16_forms(cases, f32_res):
     for i, (label, args, dout, _, nbr) in enumerate(bcases):
         a = keyed_conv_bf16(*args)
         h = mapped_conv_bf16(args[0], nbr, args[5])
+        d = keyed_conv_dw_bf16(*args[:5], dout)
+        i_ = mapped_conv_dw_bf16(args[0], nbr, dout)
         same = {"H vs A": torch.equal(h, a),
-                "I vs D": torch.equal(mapped_conv_dw_bf16(args[0], nbr, dout),
-                                      keyed_conv_dw_bf16(*args[:5], dout)),
+                "I vs D": torch.equal(i_, d),
                 "A twice": torch.equal(keyed_conv_bf16(*args), a),
                 "H twice": torch.equal(mapped_conv_bf16(args[0], nbr,
-                                                        args[5]), h)}
+                                                        args[5]), h),
+                "D twice": torch.equal(keyed_conv_dw_bf16(*args[:5], dout),
+                                       d),
+                "I twice": torch.equal(mapped_conv_dw_bf16(args[0], nbr,
+                                                           dout), i_)}
         res["keyed_conv_bf16"]["ok"] &= same["A twice"]
         res["mapped_conv_bf16"]["ok"] &= same["H vs A"] and same["H twice"]
-        res["mapped_conv_dw_bf16"]["ok"] &= same["I vs D"]
+        res["keyed_conv_dw_bf16"]["ok"] &= same["D twice"]
+        res["mapped_conv_dw_bf16"]["ok"] &= same["I vs D"] and same["I twice"]
         log(f"check bf16 forms {label}: bit-equal "
             + ", ".join(f"{k} {v}" for k, v in same.items())
             + f" -> {'ok' if all(same.values()) else 'FAIL'}")

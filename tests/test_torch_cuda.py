@@ -25,8 +25,9 @@ the plain version and bit for bit from launch to launch, its launch
 counts, and a small SUN RGB-D train step that repeats bit for bit; the
 bf16 forms of A, H, D and I against their plain versions and each other,
 A and H's wgmma body on ragged tiles, split offsets and the padded stem,
-and the autograd Functions' bf16 dtypes on the card against the CPU.
-chip_smoke.py checks the published shapes.
+D and I's wgmma body on the dense stem, narrow and wide tiles, empty
+offsets, ragged stages and row splits, and the autograd Functions' bf16
+dtypes on the card against the CPU. chip_smoke.py checks the published shapes.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports no jax, so it runs where only PyTorch is installed:
@@ -332,6 +333,53 @@ def test_bf16_wgmma_body_ragged_cases(rng, cuda, cin, cout, stride,
     assert float(a[0][~valid].abs().max()) == 0.0
     assert torch.equal(a[0], a[1]) and torch.equal(h[0], h[1])
     assert torch.equal(h[0], a[0])
+
+
+@pytest.mark.parametrize("cin,cout,stride,capacity,flat", [
+    (3, 64, 2, 4003, False), (3, 40, 2, 4096, True), (24, 8, 1, 4001, False),
+    (40, 40, 2, 4096, False), (64, 64, 1, 4001, True),
+    (64, 128, 2, 4003, False), (128, 64, 1, 4096, False),
+    (256, 256, 1, 4001, False), (512, 512, 1, 4096, False)],
+    ids=["stem-dense-ragged-V", "stem-dense-flat-40", "24-8-ragged-V",
+         "40-40", "64-flat-ragged-V", "64-128", "128-64", "256-ragged-V",
+         "512"])
+def test_bf16_dw_wgmma_ragged_cases(rng, cuda, cin, cout, stride, capacity,
+                                    flat):
+    """The bf16 weight gradient's wgmma body (csrc/sparse_conv_sm90.cuh:
+    dw_bf16_kernel) on its edges: the dense stem (3 channels padded to 8,
+    216 dW rows in four 64-row tiles), C 24 and 40 and Co 8 and 40 (tiles
+    wider than the widths), a flat layer whose 18 offsets that step in z
+    have no hit (count 0), hit counts off the 64-hit stage, several row
+    splits, and the 64 x 64 and 128 x 128 tiles up to 512 -> 512: within
+    chip_smoke's 2e-5 of max|ref| of the plain version, I
+    bit-equal to D, two calls of each bit-equal, one launch counted a
+    call."""
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import (dw_dense,
+                                                        dw_row_splits)
+
+    args, dout = conv_case(rng, cuda, cin, cout, stride, capacity, flat)
+    args = (args[0].bfloat16(),) + args[1:5] + (args[5].bfloat16(),)
+    nbr = kernel_map(*map_args(args))
+    C = cin + -cin % 8
+    splits, _ = dw_row_splits(nbr.shape[0] * nbr.shape[2], C, cout,
+                              bf16=True)
+    assert dw_dense(C, bf16=True) == (cin == 3)
+    if cin in (24, 64) and not flat:
+        assert splits > 1
+    if flat:
+        hits = (nbr < args[0].shape[1]).sum((0, 2)).reshape(3, 3, 3)
+        assert int(hits.sum()) > 0 and int(hits[:, :, 0].sum()) == 0
+    before = (keyed_conv_dw_bf16.launches, mapped_conv_dw_bf16.launches)
+    d = [keyed_conv_dw(*args[:5], dout) for _ in range(2)]
+    i = [mapped_conv_dw(args[0], nbr, dout) for _ in range(2)]
+    assert (keyed_conv_dw_bf16.launches - before[0],
+            mapped_conv_dw_bf16.launches - before[1]) == (2, 2)
+    ref = mapped_conv_dw_plain(args[0], nbr, dout)
+    assert d[0].shape == ref.shape == (27, cin, cout)
+    tol = 2e-5 * float(ref.abs().max())
+    assert float((d[0] - ref).abs().max()) <= tol
+    assert torch.equal(d[0], d[1]) and torch.equal(i[0], i[1])
+    assert torch.equal(i[0], d[0])
 
 
 @pytest.mark.parametrize("route", ["keyed", "mapped"])

@@ -23,6 +23,16 @@
   and the stage sums added in f32. Emulated here, it stays within a tenth
   of the dW check's 2e-5 of max|ref| at 4096 and 65536 rows, and one TF32
   pass does not meet 2e-5 itself.
+- Its bf16 form (`dw_bf16_kernel` in `csrc/sparse_conv_sm90.cuh`) takes
+  bf16 features against f32 dout's two bf16 halves in 64-hit stages, per
+  stage the low half's chain of four truncating wgmma k16 steps, then
+  the high half's, from 0, the stage partials added in f32. Emulated
+  here, it stays within a tenth of 2e-5 of max|ref| of the f64 product of
+  the same operands at 4096 and 65536 rows (a fifth with the split's own
+  error, against the f32 dout); a stage's zero padding rows and a row split with no hit leave
+  every bit unchanged (so kernels D and I, over the same lists, agree bit
+  for bit); and the stem's dense packing (offset kk's 8 channels as dW
+  rows kk * 8 ... kk * 8 + 7) gives each offset's sums bit for bit.
 - The flash-RPE backward's table kernel (kernel F in
   `csrc/rpe_attention_bwd.cu`) quantizes x and y once for corners i and
   i + 4 when their x and y agree bit for bit. On the main path the
@@ -410,6 +420,116 @@ def test_bf16_wgmma_row_sum_ignores_its_tile_and_skipped_stages(C, seed):
     assert len(hit_stages(alone)) < stages
     assert torch.equal(every, tile_live) and torch.equal(every, row_live)
     assert float(every.abs().max()) > 0
+
+
+DW_WG_STAGE = 64  # hits a stage of the bf16 weight gradient (dw_bf16_kernel)
+
+
+def bf16_halves(d):
+    """f32 dout's two bf16 halves as the kernel splits it: hi = bf16(x),
+    lo = bf16(x - hi), both rounded to nearest."""
+    hi = bf16_round(d)
+    return hi, bf16_round(d - hi)
+
+
+def wgmma_dw(a, d, skip_padding_steps=False):
+    """The bf16 weight gradient's sums, a^T d: a (rows, C) bf16 values
+    (the gathered feature rows, hit by hit), d (rows, Co) f32; the rows
+    padded with zero rows to whole 64-hit stages; per stage the low half's
+    chain, then the high half's, of four k16 steps each (`mma`: the exact
+    sum of 16 products added to the chain and truncated to f32) into a
+    stage partial from 0, the partials added one by one in f32.
+    `skip_padding_steps`: leave out the k16 steps that hold only padding
+    rows."""
+    rows, C = a.shape
+    pad = -rows % DW_WG_STAGE
+    a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+    n = a.shape[0] // DW_WG_STAGE
+    A = a.reshape(n, DW_WG_STAGE, C).transpose(1, 2)
+    parts = torch.zeros(n, C, d.shape[1])
+    for half in bf16_halves(d)[::-1]:  # lo, then hi
+        H = torch.nn.functional.pad(half, (0, 0, 0, pad)).reshape(
+            n, DW_WG_STAGE, d.shape[1]).transpose(1, 2)
+        for c in range(0, DW_WG_STAGE, WG_K):
+            step = mma(parts, A[..., c:c + WG_K], H[..., c:c + WG_K])
+            if skip_padding_steps:  # stages whose step c is all padding
+                real = (torch.arange(n) * DW_WG_STAGE + c) < rows
+                step = torch.where(real[:, None, None], step, parts)
+            parts = step
+    acc = torch.zeros(C, d.shape[1])
+    for p in parts:
+        acc = acc + p
+    return acc
+
+
+@pytest.mark.parametrize("rows", [4096, 65536])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_dw_stages_meet_a_tenth_of_the_dw_tolerance(rows, seed):
+    """The bf16 weight gradient's 64-hit stages (truncating k16 chains,
+    low half then high, each stage from 0 and added in f32) stay within a
+    tenth of chip_smoke's 2e-5 of max|ref| of the f64 product of the same
+    operands, the bf16 features and dout's two bf16 halves. The split
+    itself (~2^-17 of each dout) costs 1.2-1.7 tenths (the parent's
+    mma.sync form split the same way): with it, within a fifth of the f64
+    product with the f32 dout."""
+    a, d, _ = dw_operands(rows, seed)
+    a = bf16_round(a)
+    got = wgmma_dw(a, d)
+    hi, lo = bf16_halves(d)
+    err = rel_err(got, a.double().t() @ (hi.double() + lo.double()))
+    assert err <= 0.1 * DW_RTOL, err
+    err = rel_err(got, a.double().t() @ d.double())
+    assert err <= 0.2 * DW_RTOL, err
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_dw_padding_rows_and_empty_splits_keep_every_bit(seed):
+    """A stage's zero padding rows add exact zeros to the truncating
+    chains (computing the k16 steps that hold only padding gives the bits
+    of leaving them out), and a row split with no hit (a zero partial)
+    leaves the fixed-order sum of the splits' partials unchanged: dW's
+    bits follow from the rulebook's lists and the split plan alone, which
+    kernels D and I share (I = D)."""
+    a, d, _ = dw_operands(1000, seed)  # 15 stages and a ragged 40 hits
+    a = bf16_round(a)
+    every = wgmma_dw(a, d)
+    assert torch.equal(every, wgmma_dw(a, d, skip_padding_steps=True))
+    splits = [wgmma_dw(a[:384], d[:384]), wgmma_dw(a[384:], d[384:])]
+    empty = wgmma_dw(a[:0], d[:0])
+    assert float(empty.abs().max()) == 0.0
+    in_order = splits[0] + splits[1]
+    assert torch.equal(in_order, splits[0] + empty + splits[1])
+    assert torch.equal(in_order, (splits[0] + splits[1]) + empty)
+    hi, lo = bf16_halves(d)
+    ref = a.double().t() @ (hi.double() + lo.double())
+    assert rel_err(in_order, ref) <= 0.1 * DW_RTOL
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_dw_dense_packing_gives_the_per_offset_sums(seed):
+    """The stem's dense form: each row's 27 neighbours' 8 channels (the 3
+    real ones zero-padded) packed as dW rows kk * 8 + c of one (216 -> 256
+    padded, Co) product over every row, zero at a miss, gives each
+    offset's (8, Co) block bit for bit as the per-offset sums over the
+    same rows, and the 40 padding dW rows 0; within a tenth of 2e-5 of
+    max|ref| of the f64 per-offset products of the same operands (the
+    features and dout's bf16 halves)."""
+    g = torch.Generator().manual_seed(seed)
+    rows, Co = 1000, 64
+    feats = torch.zeros(rows, 27, 8)
+    feats[..., :3] = torch.relu(torch.randn(rows, 27, 3, generator=g))
+    feats = bf16_round(feats * (torch.rand(rows, 27, 1, generator=g) < 0.3))
+    d = torch.randn(rows, Co, generator=g)
+    dense = wgmma_dw(torch.nn.functional.pad(feats.reshape(rows, 216),
+                                             (0, 40)), d)
+    assert float(dense[216:].abs().max()) == 0.0
+    for kk in range(27):
+        per = wgmma_dw(feats[:, kk], d)
+        assert torch.equal(dense[8 * kk:8 * kk + 8], per), kk
+    hi, lo = bf16_halves(d)
+    ref = torch.einsum("rkc,ro->kco", feats.double(),
+                       hi.double() + lo.double())
+    assert rel_err(dense[:216].reshape(27, 8, Co), ref) <= 0.1 * DW_RTOL
 
 
 def box_corners(angles, seed):

@@ -25,7 +25,10 @@ from vdetr_tpu.ops.voxelize import downsample_grid as jax_downsample
 from vdetr_tpu.ops.voxelize import voxelize as jax_voxelize
 from vdetr_tpu_torch.ops import sparse_conv as tsc
 from vdetr_tpu_torch.ops.map_kernel import kernel_map, neighbour_map
-from vdetr_tpu_torch.ops.sparse_conv_kernel import (dw_dense, dw_row_splits,
+from vdetr_tpu_torch.ops.sparse_conv_kernel import (DW_PLAN,
+                                                    dw_blocks_per_sm,
+                                                    dw_dense, dw_row_splits,
+                                                    dw_tiles,
                                                     dw_rulebook,
                                                     mapped_conv_dw_plain)
 from vdetr_tpu_torch.ops.voxelize import VoxelGrid
@@ -230,3 +233,29 @@ def test_dw_row_splits_cover_the_rows_in_32_row_stages(rows, C, Co):
     assert per % 32 == 0
     assert splits * per >= rows > (splits - 1) * per
     assert dw_dense(C) == (C == 3)
+
+
+@pytest.mark.parametrize("rows,C,Co", [
+    (65536, 8, 64), (32768, 64, 64), (16384, 64, 128), (4096, 512, 512),
+    (8192, 256, 256), (2 * 4003, 40, 8), (1, 8, 16)])
+def test_dw_row_splits_of_the_bf16_form(rows, C, Co):
+    """The bf16 form's launch plan (its own, since the split sets the
+    order of the sums): splits a multiple of the 32-row rulebook rounds
+    that cover every row, none empty; the dense form exactly at 8
+    channels (the stem's 3 padded); its blocks a split (`dw_tiles`) the
+    dense (216, Co) matrix's 64-column tiles, else 27 offsets' tiles of
+    128 x 128 where C and Co both exceed 64, 64 x 64 otherwise; and at
+    least the plan's rounds of the blocks 132 SMs hold (two 64 x 64
+    blocks an SM, one larger) where the rows allow."""
+    splits, per = dw_row_splits(rows, C, Co, bf16=True)
+    assert per % 32 == 0
+    assert splits * per >= rows > (splits - 1) * per
+    assert dw_dense(C, bf16=True) == (C == 8)
+    t = 128 if C > 64 and Co > 64 else 64
+    tiles = -(-Co // 64) if C == 8 else 27 * -(-C // t) * -(-Co // t)
+    assert dw_tiles(C, Co, bf16=True) == tiles
+    per_sm = 2 if t == 64 and C != 8 else 1
+    assert dw_blocks_per_sm(C, Co, bf16=True) == per_sm
+    waves, min_rows = DW_PLAN[True]
+    assert splits * tiles >= min(waves * per_sm * 132,
+                                 -(-rows // min_rows) * tiles)

@@ -37,10 +37,19 @@
 // fixed order. Every step is deterministic: two calls give the same bits.
 //
 // The bf16 form (keyed_conv_dw_bf16, compute_dtype="bfloat16"): the
-// features bf16 (half the gathered bytes), dout f32 as the JAX package's
-// cotangent, split into bf16 high and low halves against them (two
-// m16n8k16 MMAs per product, ~2^-17 of each), per offset only (C a
-// multiple of 8: the caller pads the stem's channels).
+// features bf16, dout f32 as the JAX package's cotangent, taken as its
+// bf16 high and low halves (each product two bf16 products, ~2^-17 of
+// it); C a multiple of 8 (the caller pads the stem's 3 channels). Its
+// GEMM is sparse_conv_sm90.cuh's dw_bf16_kernel: the per-hit gathers of
+// feature rows and f32 dout rows from L2 bound it (12 KB a hit at 512 ->
+// 512 in 128 x 128 tiles), not the tensor cores, so a producer warpgroup
+// keeps three 64-hit stages of cp.async gathers in flight behind a
+// four-deep mbarrier ring, splits each stage's dout once for the block,
+// and the consumer warpgroups run wgmma m64n64k16 with both operands read
+// hit by hit from shared memory; 128 x 128 tiles where both widths exceed
+// 64 halve the gathers each hit costs. The stem (8 channels) takes
+// the dense form over the same (27, B*V) map as the f32 form's: its 27
+// neighbours' 8 channels are dW's 216 rows, dout read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,7 +106,7 @@ int launch(const void* feats, const void* in_keys, const void* q_coords,
     cudaStream_t st = (cudaStream_t)stream;
     const SearchMap search{(const int*)in_keys, (const int*)q_coords,
                            (const uint8_t*)q_valid, V_in, V, gx, gy, gz};
-    if (is_f32<T>() && dw_dense(C) && rows > 0)
+    if (dw_dense_form<T>(C) && rows > 0)
       neighbour_map_kernel<<<528, 256, 0, st>>>(search, (int*)nbr, rows);
     float* dst = splits > 1 ? (float*)scratch : (float*)dw;
     const cudaError_t err = launch_dw(
@@ -129,8 +138,9 @@ extern "C" int keyed_conv_dw_f32(const void* feats, const void* in_keys,
                        rows_per_split, stream);
 }
 
-// The bf16 form: feats bf16 (C a multiple of 8, 16-byte aligned), dout
-// f32; nbr the rulebook, the rest as keyed_conv_dw_f32's.
+// The bf16 form: feats bf16 (C a multiple of 8), dout f32 (Co a multiple
+// of 4), both 16-byte aligned; nbr the dense form's map when C == 8, else
+// the rulebook; the rest as keyed_conv_dw_f32's.
 extern "C" int keyed_conv_dw_bf16(const void* feats, const void* in_keys,
                                   const void* q_coords, const void* q_valid,
                                   const void* dout, void* dw, void* nbr,

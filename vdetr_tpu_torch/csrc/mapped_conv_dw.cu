@@ -23,7 +23,11 @@
 // split (no atomics), and the GEMM blocks walk it, hits only; split TF32
 // on the tensor cores, partials of row splits added in a fixed order. On
 // the same neighbours D and I run the same GEMM over the same lists, so
-// they give the same bits.
+// they give the same bits. The bf16 form (mapped_conv_dw_bf16) is D's
+// bf16 form over the map: sparse_conv_sm90.cuh's dw_bf16_kernel, bound by
+// its per-hit gathers from L2, behind an mbarrier ring of 64-hit stages
+// (keyed_conv_dw.cu says more), dense at the stem (C == 8) over the map's
+// columns, so it too is bit-equal to D's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,8 +80,9 @@ extern "C" int mapped_conv_dw_f32(const void* feats, const void* nbr,
                        splits, rows_per_split, stream);
 }
 
-// The bf16 form (D's, keyed_conv_dw.cu): feats bf16 (C a multiple of 8,
-// 16-byte aligned), dout f32; scratch as mapped_conv_dw_f32's.
+// The bf16 form (D's, keyed_conv_dw.cu): feats bf16 (C a multiple of 8),
+// dout f32 (Co a multiple of 4), both 16-byte aligned; scratch as
+// mapped_conv_dw_f32's, the rulebook where C != 8.
 extern "C" int mapped_conv_dw_bf16(const void* feats, const void* nbr,
                                    const void* dout, void* dw, void* scratch,
                                    int B, int V_in, int V, int C, int Co,

@@ -13,11 +13,13 @@
 //   row, query row) pairs without atomics; the GEMM runs over the hits
 //   only, on the tensor cores in split TF32 behind a cp.async ring, or,
 //   where 27 C fits one tile (the stem), over every row with all 27
-//   offsets in one block. The bf16 form reads bf16 features against the
-//   f32 dout split into two bf16 halves (two m16n8k16 MMAs per product),
-//   per offset only. The keyed dW (keyed_conv_dw.cu) finds the
-//   neighbours by binary search, the mapped dW (mapped_conv_dw.cu) reads
-//   a (B, 27, V) map; the GEMM is the same, so the two are bit-equal.
+//   offsets in one block. The bf16 form's GEMM, bf16 features against
+//   the f32 dout's two bf16 halves, is sparse_conv_sm90.cuh's
+//   dw_bf16_kernel (wgmma behind an mbarrier ring) over the same
+//   rulebook, dense at the stem's 8 padded channels. The keyed dW
+//   (keyed_conv_dw.cu) finds the neighbours by binary search, the mapped
+//   dW (mapped_conv_dw.cu) reads a (B, 27, V) map; the GEMM is the same,
+//   so the two are bit-equal.
 // - conv_sum_splits_kernel / dw_sum_splits_kernel: add a kernel's
 //   partial sums in a fixed order.
 
@@ -29,6 +31,7 @@
 
 #include <type_traits>
 
+#include "sparse_conv_sm90.cuh"
 #include "tensor_core.cuh"
 
 namespace sparse_conv {
@@ -59,19 +62,10 @@ using tc::cp_async16;
 using tc::cp_async4;
 using tc::cp_commit;
 using tc::cp_wait;
-using tc::mma_bf16;
 using tc::mma_tf32;
-using tc::pack_bf16;
-using tc::split_bf16;
 using tc::split_tf32;
 
 using bf16 = __nv_bfloat16;
-
-// the element type of a form: float (split TF32) or bf16
-template <typename T>
-__host__ __device__ constexpr bool is_f32() {
-  return std::is_same<T, float>::value;
-}
 
 // A thread's share of a 64 x 64 conv tile: warp w holds rows 32 (w & 1)
 // + 16 mi + {g, g + 8} and columns 32 (w >> 1) + 8 ni + {2t, 2t + 1},
@@ -262,7 +256,10 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, int V,
 // dw_kernel's views of where row r = b * V + v finds its input row for
 // offset k: entry(k, r) points at the raw map entry, resolve(raw, r) turns
 // it into a global input row b * V_in + i, or -1 for none; BatchMap's
-// operator() is both (the mapped dW's rulebook lookup).
+// operator() is both (the mapped dW's rulebook lookup). The bf16 form's
+// dense producer takes them apart, one division a row: entry(k, r) =
+// row_entry(r) + k * kstride(), resolve(raw, r) = resolve_at(raw,
+// row_base(r)).
 // - FlatMap: the keyed dW's private (27, rows) map of global rows, -1 for
 //   none (keyed_conv_dw.cu);
 // - BatchMap: a (B, 27, V) map of local rows, V_in (or anything outside
@@ -274,6 +271,14 @@ struct FlatMap {
     return nbr + (size_t)k * rows + r;
   }
   __device__ __forceinline__ int resolve(int raw, int) const { return raw; }
+  __device__ __forceinline__ const int* row_entry(int r) const {
+    return nbr + r;
+  }
+  __device__ __forceinline__ size_t kstride() const { return rows; }
+  __device__ __forceinline__ int row_base(int) const { return 0; }
+  __device__ __forceinline__ int resolve_at(int raw, int) const {
+    return raw;
+  }
 };
 
 struct BatchMap {
@@ -288,6 +293,16 @@ struct BatchMap {
   }
   __device__ __forceinline__ int operator()(int k, int r) const {
     return resolve(*entry(k, r), r);
+  }
+  __device__ __forceinline__ const int* row_entry(int r) const {
+    return entry(0, r);
+  }
+  __device__ __forceinline__ size_t kstride() const { return V; }
+  __device__ __forceinline__ int row_base(int r) const {
+    return (r / V) * V_in;
+  }
+  __device__ __forceinline__ int resolve_at(int raw, int base) const {
+    return (raw >= 0 && raw < V_in) ? base + raw : -1;
   }
 };
 
@@ -308,22 +323,13 @@ __host__ __device__ inline bool dw_dense(int C) {
   return KV * C <= DW_DENSE_M;
 }
 
-// The B ring's row stride (dout, f32): fragments conflict-free. The bf16
-// form reads rows 2t and 2t + 1 of a k16 step, the f32 form rows t.
-template <typename T>
-__host__ __device__ constexpr int dw_ds() {
-  return is_f32<T>() ? DW_DS : DW_BO + 4;
-}
-
-// Dynamic shared memory of a dw_kernel block: the A ring (rows x dW rows,
-// of the features' type T), the B ring (rows x 64, f32) and the index
-// ring (per row: the 27 raw map entries in the dense form, the input and
-// query row otherwise).
-template <typename T>
+// Dynamic shared memory of a dw_kernel block: the A ring (rows x dW
+// rows), the B ring (rows x 64) and the index ring (per row: the 27 raw
+// map entries in the dense form, the input and query row otherwise).
 inline size_t dw_smem_bytes(bool dense) {
   const int as = (dense ? DW_DENSE_M : DW_BC) + 8;
-  return sizeof(T) * DW_STAGES * DW_BR * as +
-         sizeof(float) * DW_STAGES * DW_BR * dw_ds<T>() +
+  return sizeof(float) * DW_STAGES * DW_BR * as +
+         sizeof(float) * DW_STAGES * DW_BR * DW_DS +
          sizeof(int) * DW_STAGES * (dense ? KV : 2) * DW_BR;
 }
 
@@ -378,12 +384,12 @@ dw_rulebook_kernel(Lookup nbr, int rows, int rows_per_split,
 }
 
 // dW = sum over rows r of feats[nbr_k(r)]^T dout[r], f32 (27, C, Co), or
-// the split's partial, on the tensor cores (T = float: split TF32,
-// conv_tile's recipe, three m16n8k8 MMAs per f32 product; T = bf16: the
-// bf16 features against dout's two bf16 halves, two m16n8k16 MMAs; each
-// 32-row stage's MMAs start from 0 and the stage's partial is added to
-// the accumulators with f32 adds) behind a DW_STAGES-deep cp.async ring
-// that carries each stage's indices one ring ahead of its rows.
+// the split's partial, on the tensor cores in split TF32 (conv_tile's
+// recipe, three m16n8k8 MMAs per f32 product; each 32-row stage's MMAs
+// start from 0 and the stage's partial is added to the accumulators with
+// f32 adds) behind a DW_STAGES-deep cp.async ring that carries each
+// stage's indices one ring ahead of its rows. (The bf16 form has its own
+// body, sparse_conv_sm90.cuh's dw_bf16_kernel.)
 // - DENSE (dw_dense(C)): grid (Co tiles, 1, splits); a block walks the
 //   rows of its split and gathers, per row, all 27 neighbours' C channels
 //   into one A row of 27 C (<= 96) values, zero at a miss: dout is read
@@ -391,30 +397,27 @@ dw_rulebook_kernel(Lookup nbr, int rows, int rows_per_split,
 // - per offset: grid (C tiles x Co tiles, 27, splits); a block walks its
 //   offset's rulebook segment (dw_rulebook_kernel), hits only, 32 at a
 //   time; the last stage's missing rows are zero.
-// feats (B * V_in, C) of type T, dout (rows, Co) f32, dw (splits, 27, C,
-// Co); a16 / b16: feats / dout rows may be copied in 16-byte pieces (the
-// bf16 form is per offset and needs both).
-template <typename T, bool DENSE, class Map>
+// feats (B * V_in, C) f32, dout (rows, Co) f32, dw (splits, 27, C, Co);
+// a16 / b16: feats / dout rows may be copied in 16-byte pieces.
+template <bool DENSE, class Map>
 __global__ void __launch_bounds__(DW_NT)
-dw_kernel(const T* __restrict__ feats, const float* __restrict__ dout,
+dw_kernel(const float* __restrict__ feats, const float* __restrict__ dout,
           Map map, const int* __restrict__ src, const int* __restrict__ row,
           const int* __restrict__ count, float* __restrict__ dw, int rows,
           int C, int Co, int rows_per_split, bool a16, bool b16) {
-  constexpr bool F32 = is_f32<T>();
-  static_assert(F32 || !DENSE, "the bf16 form is per offset");
-  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int EPC = 4;  // elements per 16-byte copy
   constexpr int MI = DENSE ? 3 : 2;  // m16 tiles per warp
   constexpr int BM = 32 * MI;        // dW rows per block
   constexpr int AS = BM + 8;         // As row stride: fragments conflict-free
-  constexpr int DS = dw_ds<T>();
+  constexpr int DS = DW_DS;
   constexpr int NIDX = DENSE ? KV : 2;
   static_assert(BM == (DENSE ? DW_DENSE_M : DW_BC), "tile rows");
   extern __shared__ __align__(16) unsigned char dw_smem[];
-  T(*As)[DW_BR][AS] = reinterpret_cast<T(*)[DW_BR][AS]>(dw_smem);
+  float(*As)[DW_BR][AS] = reinterpret_cast<float(*)[DW_BR][AS]>(dw_smem);
   float(*Ds)[DW_BR][DS] = reinterpret_cast<float(*)[DW_BR][DS]>(
-      dw_smem + sizeof(T) * DW_STAGES * DW_BR * AS);
+      dw_smem + sizeof(float) * DW_STAGES * DW_BR * AS);
   int(*Ix)[NIDX][DW_BR] = reinterpret_cast<int(*)[NIDX][DW_BR]>(
-      dw_smem + sizeof(T) * DW_STAGES * DW_BR * AS +
+      dw_smem + sizeof(float) * DW_STAGES * DW_BR * AS +
       sizeof(float) * DW_STAGES * DW_BR * DS);
 
   const int tid = threadIdx.x;
@@ -474,7 +477,7 @@ dw_kernel(const T* __restrict__ feats, const float* __restrict__ dout,
                   s >= 0 ? (const void*)(feats + (size_t)s * C + c) : dout,
                   s >= 0);
       }
-    } else if (!F32 || a16) {
+    } else if (a16) {
       for (int i = tid; i < DW_BR * BM / EPC; i += DW_NT) {
         const int e = i / (BM / EPC), c = (i % (BM / EPC)) * EPC;
         const bool p = e0 + e < n && c0 + c < C;
@@ -544,82 +547,37 @@ dw_kernel(const T* __restrict__ feats, const float* __restrict__ dout,
     const int slot = it % DW_STAGES;
     float part[MI][4][4];
     const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (F32) {
 #pragma unroll
-      for (int ks = 0; ks < DW_BR / 8; ++ks) {
-        const int kb = ks * 8;
-        uint32_t ah[MI][4], al[MI][4], bh[4][2], bl[4][2];
+    for (int ks = 0; ks < DW_BR / 8; ++ks) {
+      const int kb = ks * 8;
+      uint32_t ah[MI][4], al[MI][4], bh[4][2], bl[4][2];
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {  // A[m][r] = As[r][m]
-          const float* a0 = &As[slot][kb + t][wm + mi * 16 + g];
-          const float* a1 = a0 + 4 * AS;
-          split_tf32(a0[0], ah[mi][0], al[mi][0]);
-          split_tf32(a0[8], ah[mi][1], al[mi][1]);
-          split_tf32(a1[0], ah[mi][2], al[mi][2]);
-          split_tf32(a1[8], ah[mi][3], al[mi][3]);
-        }
+      for (int mi = 0; mi < MI; ++mi) {  // A[m][r] = As[r][m]
+        const float* a0 = &As[slot][kb + t][wm + mi * 16 + g];
+        const float* a1 = a0 + 4 * AS;
+        split_tf32(a0[0], ah[mi][0], al[mi][0]);
+        split_tf32(a0[8], ah[mi][1], al[mi][1]);
+        split_tf32(a1[0], ah[mi][2], al[mi][2]);
+        split_tf32(a1[8], ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* b0 = &Ds[slot][kb + t][wn + ni * 8 + g];
+        split_tf32(b0[0], bh[ni][0], bl[ni][0]);
+        split_tf32(b0[4 * DS], bh[ni][1], bl[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          const float* b0 = &Ds[slot][kb + t][wn + ni * 8 + g];
-          split_tf32(b0[0], bh[ni][0], bl[ni][0]);
-          split_tf32(b0[4 * DS], bh[ni][1], bl[ni][1]);
+          float(&p)[4] = part[mi][ni];
+          if (ks == 0)
+            mma_tf32(p, al[mi], bh[ni], zero);
+          else
+            mma_tf32(p, al[mi], bh[ni], p);
+          mma_tf32(p, ah[mi], bl[ni], p);
+          mma_tf32(p, ah[mi], bh[ni], p);
         }
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            float(&p)[4] = part[mi][ni];
-            if (ks == 0)
-              mma_tf32(p, al[mi], bh[ni], zero);
-            else
-              mma_tf32(p, al[mi], bh[ni], p);
-            mma_tf32(p, ah[mi], bl[ni], p);
-            mma_tf32(p, ah[mi], bh[ni], p);
-          }
-      }
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < DW_BR / 16; ++ks) {
-        const int kb = ks * 16;
-        // A[m][r] = As[r][m]: the k pairs (rows 2t, 2t + 1 and 2t + 8,
-        // 2t + 9) of dW rows g and g + 8, two 16-bit reads a register;
-        // B[r][o] = Ds[r][o] split into bf16 halves, the same k pairs of
-        // column g
-        uint32_t a[MI][4], bh[4][2], bl[4][2];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          const T* a0 = &As[slot][kb + 2 * t][wm + mi * 16 + g];
-          a[mi][0] = pack_bf16(a0[0], a0[AS]);
-          a[mi][1] = pack_bf16(a0[8], a0[AS + 8]);
-          a[mi][2] = pack_bf16(a0[8 * AS], a0[9 * AS]);
-          a[mi][3] = pack_bf16(a0[8 * AS + 8], a0[9 * AS + 8]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const float* b0 = &Ds[slot][kb + 2 * t][wn + ni * 8 + g];
-          bf16 h0, l0, h1, l1;
-          split_bf16(b0[0], h0, l0);
-          split_bf16(b0[DS], h1, l1);
-          bh[ni][0] = pack_bf16(h0, h1);
-          bl[ni][0] = pack_bf16(l0, l1);
-          split_bf16(b0[8 * DS], h0, l0);
-          split_bf16(b0[9 * DS], h1, l1);
-          bh[ni][1] = pack_bf16(h0, h1);
-          bl[ni][1] = pack_bf16(l0, l1);
-        }
-        // the low halves first, then the high
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            float(&p)[4] = part[mi][ni];
-            if (ks == 0)
-              mma_bf16(p, a[mi], bl[ni], zero);
-            else
-              mma_bf16(p, a[mi], bl[ni], p);
-            mma_bf16(p, a[mi], bh[ni], p);
-          }
-      }
     }
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
@@ -655,50 +613,65 @@ inline size_t dw_rulebook_ints(int splits, int rows_per_split) {
   return (size_t)KV * splits * (2 * (size_t)rows_per_split + 1);
 }
 
+// Whether a form's weight gradient takes its dense form (no rulebook):
+// the f32 form's dw_dense, the bf16 form's sparse_conv_sm90::dw_dense.
+template <typename T>
+inline bool dw_dense_form(int C) {
+  return std::is_same<T, float>::value ? dw_dense(C)
+                                       : sparse_conv_sm90::dw_dense(C);
+}
+
 // Launches the weight gradient of one conv into `dst` ((splits, 27, C,
 // Co)): the rulebook (per-offset form; `lookup` finds the neighbours, the
-// lists go to `rb`, dw_rulebook_ints of them), then dw_kernel; the dense
-// form reads `map` instead. T: the features' type (bf16: per offset only,
-// 16-byte rows). Returns the first launch error.
+// lists go to `rb`, dw_rulebook_ints of them), then the GEMM, which in
+// the dense form reads `map` instead. T: the features' type, float
+// (dw_kernel) or bf16 (sparse_conv_sm90.cuh's dw_bf16_kernel: C a
+// multiple of 8, Co of 4, both rows 16-byte aligned). Returns the first
+// launch error.
 template <typename T, class Lookup, class Map>
 inline cudaError_t launch_dw(const T* feats, const float* dout,
                              Lookup lookup, Map map, int* rb, float* dst,
                              int rows, int C, int Co, int splits,
                              int rows_per_split, cudaStream_t st) {
-  const bool dense = dw_dense(C);
-  const size_t smem = dw_smem_bytes<T>(dense);
-  const bool a16 = C % (16 / sizeof(T)) == 0 && aligned16(feats);
-  const bool b16 = Co % 4 == 0 && aligned16(dout);
-  const int otiles = (Co + DW_BO - 1) / DW_BO;
-  cudaError_t err;
-  if constexpr (is_f32<T>()) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if (!F32 && (C % 8 || Co % 4 || !aligned16(feats) || !aligned16(dout)))
+    return cudaErrorInvalidValue;
+  int* src = rb;
+  int* row = src + (size_t)KV * splits * rows_per_split;
+  int* count = row + (size_t)KV * splits * rows_per_split;
+  if (!dw_dense_form<T>(C))
+    dw_rulebook_kernel<<<dim3(splits, KV), RB_NT, 0, st>>>(
+        lookup, rows, rows_per_split, src, row, count);
+  if constexpr (!F32) {
+    return sparse_conv_sm90::launch_dw_bf16(feats, dout, map, src, row,
+                                            count, dst, rows, C, Co, splits,
+                                            rows_per_split, st);
+  } else {
+    const bool dense = dw_dense(C);
+    const size_t smem = dw_smem_bytes(dense);
+    const bool a16 = C % 4 == 0 && aligned16(feats);
+    const bool b16 = Co % 4 == 0 && aligned16(dout);
+    const int otiles = (Co + DW_BO - 1) / DW_BO;
     if (dense) {
-      err = cudaFuncSetAttribute(dw_kernel<T, true, Map>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+      const cudaError_t err = cudaFuncSetAttribute(
+          dw_kernel<true, Map>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
       if (err != cudaSuccess) return err;
-      dw_kernel<T, true, Map><<<dim3(otiles, 1, splits), DW_NT, smem, st>>>(
+      dw_kernel<true, Map><<<dim3(otiles, 1, splits), DW_NT, smem, st>>>(
           feats, dout, map, nullptr, nullptr, nullptr, dst, rows, C, Co,
           rows_per_split, a16, b16);
       return cudaGetLastError();
     }
-  } else if (dense || !a16 || !b16) {
-    return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        dw_kernel<false, Map>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const int ctiles = (C + DW_BC - 1) / DW_BC;
+    dw_kernel<false, Map><<<dim3(ctiles * otiles, KV, splits), DW_NT, smem,
+                            st>>>(feats, dout, map, src, row, count, dst,
+                                  rows, C, Co, rows_per_split, a16, b16);
+    return cudaGetLastError();
   }
-  int* src = rb;
-  int* row = src + (size_t)KV * splits * rows_per_split;
-  int* count = row + (size_t)KV * splits * rows_per_split;
-  dw_rulebook_kernel<<<dim3(splits, KV), RB_NT, 0, st>>>(
-      lookup, rows, rows_per_split, src, row, count);
-  err = cudaFuncSetAttribute(dw_kernel<T, false, Map>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const int ctiles = (C + DW_BC - 1) / DW_BC;
-  dw_kernel<T, false, Map><<<dim3(ctiles * otiles, KV, splits), DW_NT, smem,
-                             st>>>(feats, dout, map, src, row, count, dst,
-                                   rows, C, Co, rows_per_split, a16, b16);
-  return cudaGetLastError();
 }
 
 // out = sum of the `splits` partials, in split order; two kernels of one

@@ -1,16 +1,14 @@
-// TF32 and bf16 tensor-core and cp.async pieces (PTX, sm_80 and later),
-// shared by the sparse-conv GEMMs (sparse_conv.cuh: conv_tile, dw_kernel)
-// and the flash-RPE backward's pair kernel (rpe_attention_bwd.cu). An f32
-// product on the tensor cores is split TF32: each operand split into hi
-// and lo (split_tf32) and multiplied in three m16n8k8 MMAs (mma_tf32), hi
-// * lo and lo * hi first, then hi * hi, each stage's MMAs chained from 0
-// and the stage sums added with f32 adds. A bf16 product is one m16n8k16
-// MMA (mma_bf16), exact in its f32 accumulator; an f32 operand against a
-// bf16 one is split into two bf16 halves (split_bf16), lo first.
+// TF32 tensor-core and cp.async pieces (PTX, sm_80 and later), shared by
+// the sparse-conv GEMMs (sparse_conv.cuh: conv_tile, dw_kernel) and the
+// flash-RPE backward's pair kernel (rpe_attention_bwd.cu). An f32 product
+// on the tensor cores is split TF32: each operand split into hi and lo
+// (split_tf32) and multiplied in three m16n8k8 MMAs (mma_tf32), hi * lo
+// and lo * hi first, then hi * hi, each stage's MMAs chained from 0 and
+// the stage sums added with f32 adds. (The bf16 forms' products are
+// wgmma's, sparse_conv_sm90.cuh.)
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,36 +69,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// d = a (16 x 16, row-major) . b (16 x 8, column-major) + c, bf16 in,
-// f32 out; fragments as PTX lays them out for m16n8k16: each register
-// holds two bf16 of consecutive k, the lower k in the low half
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2],
-                                         const float (&c)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// a register of two bf16: lo (the lower k) in the low half
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// x = hi + lo, both bf16 rounded to nearest: hi * b + lo * b carries ~16
-// bits of x against a bf16 b, against the f32 product's 24 (~2^-17
-// relative)
-__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi,
-                                           __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(x);
-  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
 }
 
 }  // namespace tc

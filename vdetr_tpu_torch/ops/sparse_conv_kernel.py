@@ -24,15 +24,17 @@ gather rows; the Hopper kernels gather `feats[nbr[k, v]]` directly.
 Each kernel has two forms, picked by the dtype of the features: float32
 (split TF32 on the tensor cores, three products per f32 product), and
 bf16 (`compute_dtype="bfloat16"`, as the TPU kernels feed the MXU):
-features and weights read as bf16, summed in float32 (the forward on
-`wgmma`, `csrc/sparse_conv_sm90.cuh`; the weight gradient one `mma.sync`
-product per bf16 half); the bf16 weight gradient takes float32 dout split
-into two bf16 halves (the JAX package multiplies the f32 cotangent by the
-bf16 features). The plain version of a bf16 form is the float32 one on the
-bf16 values: their products are exact in float32, so the two differ only
-in the order of the sums. What bounds each kernel on the H100, and how
-its design answers it, is in the source notes of `csrc/mapped_conv.cu`
-and `csrc/mapped_conv_dw.cu`.
+features and weights read as bf16, summed in float32, both on `wgmma`
+behind an mbarrier ring (`csrc/sparse_conv_sm90.cuh`); the bf16 weight
+gradient takes float32 dout as its two bf16 halves (the JAX package
+multiplies the f32 cotangent by the bf16 features), split once a 64-hit
+stage by the block's producer warpgroup. Both bf16 bodies are bound by
+their gathers' latency and L2 traffic, not by the tensor cores. The plain
+version of a bf16 form is the float32 one on the bf16 values: their
+products are exact in float32, so the two differ only in the order of the
+sums. What bounds each kernel on the H100, and how its design answers
+it, is in the source notes of `csrc/mapped_conv.cu`,
+`csrc/mapped_conv_dw.cu` and `csrc/keyed_conv_dw.cu`.
 """
 
 from __future__ import annotations
@@ -206,10 +208,11 @@ mapped_conv_dw.launches = 0
 
 
 def mapped_conv_dw_bf16(feats, nbr, dout):
-    """The bf16 form of `mapped_conv_dw`: feats bfloat16, dout float32;
-    (27, C, Co) float32, each product two bf16 MMAs (dout's bf16 high and
-    low halves), summed in float32. CPU tensors take
-    `mapped_conv_dw_plain`."""
+    """The bf16 form of `mapped_conv_dw`: feats bfloat16, dout float32
+    (Co a multiple of 4); (27, C, Co) float32, each product two bf16
+    products (dout's bf16 high and low halves), summed in float32. Its
+    Hopper kernel is `keyed_conv_dw_bf16`'s `wgmma` body over the map, so
+    the two are bit-equal. CPU tensors take `mapped_conv_dw_plain`."""
     if not feats.is_cuda:
         return mapped_conv_dw_plain(feats, nbr, dout)
     C = feats.shape[-1]
@@ -227,12 +230,14 @@ def _mapped_conv_dw_launch(name, feats, nbr, dout):
     V, Co = nbr.shape[-1], dout.shape[-1]
     _check_common(feats, nbr)
     kernels.check(dout, torch.float32, (B, V, Co), "dout")
-    splits, rows_per_split = dw_row_splits(B * V, C, Co)
+    bf16 = feats.dtype == torch.bfloat16
+    splits, rows_per_split = dw_row_splits(B * V, C, Co, bf16=bf16)
     dev = feats.device
     dw = torch.empty(27, C, Co, dtype=torch.float32, device=dev)
     # the partials (from a multiple of 4 floats), then the rulebook
     part = -(-splits * 27 * C * Co // 4) * 4 if splits > 1 else 0
-    rulebook = 0 if dw_dense(C) else dw_rulebook_ints(splits, rows_per_split)
+    rulebook = (0 if dw_dense(C, bf16)
+                else dw_rulebook_ints(splits, rows_per_split))
     scratch = (torch.empty(part + rulebook, dtype=torch.float32, device=dev)
                if part + rulebook > 0 else dw)
     kernels.call(name, feats.data_ptr(), nbr.data_ptr(),
@@ -242,27 +247,61 @@ def _mapped_conv_dw_launch(name, feats, nbr, dout):
     return dw
 
 
-def dw_dense(C: int) -> bool:
-    """Whether kernels D and I take their dense form (`dw_dense` in
-    `csrc/sparse_conv.cuh`): 27 C fits one 96-row tile (the stem's 3
-    channels), so a block takes all 27 offsets of its rows and dW is one
-    (27 C, Co) matrix; otherwise a block takes one offset's hits from the
-    rulebook (`dw_rulebook`)."""
-    return 27 * C <= 96
+def dw_dense(C: int, bf16: bool = False) -> bool:
+    """Whether kernels D and I take their dense form, a block taking all 27
+    offsets of its rows and dW one (27 C, Co) matrix (no rulebook): in the
+    f32 form where 27 C fits one 96-row tile (`dw_dense` in
+    `csrc/sparse_conv.cuh`: the stem's 3 channels), in the bf16 form at 8
+    channels (the stem's 3 padded; `sparse_conv_sm90::dw_dense`: 216 rows
+    in four 64-row tiles). Otherwise a block takes one offset's hits from
+    the rulebook (`dw_rulebook`)."""
+    return C == 8 if bf16 else 27 * C <= 96
 
 
-def dw_row_splits(rows: int, C: int, Co: int, waves: int = 8,
-                  min_rows: int = 256):
+def dw_tiles(C: int, Co: int, bf16: bool = False) -> int:
+    """Blocks of one row split of a weight-gradient launch: its dW tiles.
+    f32: 64 output channels of the dense (27 C, Co) matrix, else an
+    offset's 64 x 64 tile. bf16 (`launch_dw_bf16` in
+    `csrc/sparse_conv_sm90.cuh`): 64 output channels of the dense (216,
+    Co) matrix, else an offset's 128 x 128 tile where C and Co both
+    exceed 64, 64 x 64 otherwise."""
+    if dw_dense(C, bf16):
+        return -(-Co // 64)
+    t = 128 if bf16 and C > 64 and Co > 64 else 64
+    return 27 * -(-C // t) * -(-Co // t)
+
+
+def dw_blocks_per_sm(C: int, Co: int, bf16: bool = False) -> int:
+    """Blocks of a weight-gradient launch an SM holds: four of the f32
+    form's 128 threads; two of the bf16 form's 64 x 64 tiles, one of its
+    128 x 128 or dense ones (`dw_bf16_kernel`'s registers and shared
+    memory)."""
+    if not bf16:
+        return 4
+    return 1 if dw_dense(C, bf16) or (C > 64 and Co > 64) else 2
+
+
+# the row-split plans (rounds of resident blocks, min_rows) of each form,
+# from `python -m vdetr_tpu_torch.tools.conv_splits --only dw,dw_bf16`
+DW_PLAN = {False: (2, 256), True: (3, 512)}
+
+
+def dw_row_splits(rows: int, C: int, Co: int, waves: int = None,
+                  min_rows: int = None, bf16: bool = False):
     """(splits, rows_per_split) of a weight-gradient launch: one block per
-    dW tile (dense form: 64 output channels of the (27 C, Co) matrix;
-    else an offset's 64 x 64 tile) and row split; the rows are split over
-    more blocks until `waves` x the card's SMs have work (8: two rounds
-    of four resident blocks an SM), each split at least `min_rows` rows
-    and a multiple of 32 (partials added in a fixed order). From a sweep
-    of the published convs on the card (`python -m
-    vdetr_tpu_torch.tools.conv_splits`)."""
-    tiles = -(-Co // 64) * (1 if dw_dense(C) else 27 * -(-C // 64))
-    splits = max(1, min(-(-waves * _SMS // tiles), -(-rows // min_rows)))
+    dW tile (`dw_tiles`) and row split; the rows are split over more
+    blocks until `waves` rounds of the blocks the card holds at once
+    (`dw_blocks_per_sm` x its SMs) have work, each split at least
+    `min_rows` rows and a multiple of 32 (partials added in a fixed
+    order). The plan is per form (`DW_PLAN`), since the split sets the
+    order of the sums and so the bits: f32 (2, 256), two rounds of four
+    resident blocks an SM; bf16 (3, 512). From a sweep of the published
+    convs on the card (`python -m vdetr_tpu_torch.tools.conv_splits`)."""
+    waves = DW_PLAN[bf16][0] if waves is None else waves
+    min_rows = DW_PLAN[bf16][1] if min_rows is None else min_rows
+    tiles = dw_tiles(C, Co, bf16)
+    slots = waves * dw_blocks_per_sm(C, Co, bf16) * _SMS
+    splits = max(1, min(-(-slots // tiles), -(-rows // min_rows)))
     rows_per_split = max(32, -(-rows // (splits * 32)) * 32)
     return max(1, -(-rows // rows_per_split)), rows_per_split
 

@@ -154,9 +154,21 @@ keyed_conv_dw.launches = 0
 
 
 def keyed_conv_dw_bf16(feats, in_keys, q_coords, q_valid, extent, dout):
-    """The bf16 form of `keyed_conv_dw`: feats bfloat16, dout float32;
-    each product two bf16 MMAs (dout's bf16 high and low halves), summed
-    in float32. CPU tensors take `keyed_conv_dw_plain`."""
+    """The bf16 form of `keyed_conv_dw`: feats bfloat16, dout float32 (Co
+    a multiple of 4); each product two bf16 products (dout's bf16 high
+    and low halves), summed in float32. CPU tensors take
+    `keyed_conv_dw_plain`.
+
+    Its Hopper kernel (`csrc/sparse_conv_sm90.cuh:dw_bf16_kernel`) is
+    bound by its per-hit gathers of feature and f32 dout rows from L2,
+    not by the tensor cores: a producer warpgroup keeps 64-hit stages of
+    `cp.async` gathers in flight behind an mbarrier ring and splits each
+    stage's dout into its bf16 halves once for the block; the consumer
+    warpgroups run `wgmma` on both operands from shared memory, in 128 x
+    128 tiles where both widths exceed 64 (half the gathers a hit). The
+    stem's 8 padded channels take a dense form: every row, its 27
+    neighbours as dW's 216 rows, dout read once. Row splits of its own
+    (`dw_row_splits(..., bf16=True)`), added in a fixed order."""
     if not feats.is_cuda:
         return keyed_conv_dw_plain(feats, in_keys, q_coords, q_valid, extent,
                                    dout)
@@ -177,11 +189,12 @@ def _keyed_conv_dw_launch(name, feats, in_keys, q_coords, q_valid, extent,
     gx, gy, gz = _check_common(feats, in_keys, q_coords, q_valid, extent)
     kernels.check(dout, torch.float32, (B, V, Co), "dout")
     rows = B * V
-    splits, rows_per_split = dw_row_splits(rows, C, Co)
+    bf16 = feats.dtype == torch.bfloat16
+    splits, rows_per_split = dw_row_splits(rows, C, Co, bf16=bf16)
     dev = feats.device
     dw = torch.empty(27, C, Co, dtype=torch.float32, device=dev)
     # the dense form's (27, rows) map, or the rulebook
-    nbr = torch.empty(27 * rows if dw_dense(C) else
+    nbr = torch.empty(27 * rows if dw_dense(C, bf16) else
                       dw_rulebook_ints(splits, rows_per_split),
                       dtype=torch.int32, device=dev)
     scratch = (torch.empty(splits, 27, C, Co, dtype=torch.float32,

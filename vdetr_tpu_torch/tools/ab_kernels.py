@@ -91,6 +91,7 @@ KERNEL_NAMES = (("neighbour_map_kernel", "D private map"),
                 ("dw_sum_splits_kernel", "D/I split sums"),
                 ("sum_splits_kernel", "split sums"),
                 ("dw_kernel", "D/I dW GEMM"),
+                ("dw_bf16_kernel", "D/I dW GEMM"),
                 ("keyed_conv_bf16_kernel", "A bf16"),
                 ("mapped_conv_bf16_kernel", "H bf16"),
                 # a tree whose bf16 forms are instances of the f32 kernels

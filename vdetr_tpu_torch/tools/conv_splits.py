@@ -3,10 +3,12 @@ kernels A and H: kernel A timed at each published conv shape for each
 offset split, in its f32 form and in its bf16 form (the split is picked
 per form); and over how many blocks the weight gradients D and I
 should split their rows: kernel D timed at the same shapes for each
-row-split plan of `ops.sparse_conv_kernel.dw_row_splits` (blocks for
-`waves` x 132 SMs, each split at least `min_rows` rows).
+row-split plan of `ops.sparse_conv_kernel.dw_row_splits` (`waves`
+rounds of the blocks the card holds at once, each split at least
+`min_rows` rows), in its f32 form and in its bf16 form (the plan is
+picked per form).
 
-    python -m vdetr_tpu_torch.tools.conv_splits [--only conv,conv_bf16,dw]
+    python -m vdetr_tpu_torch.tools.conv_splits [--only conv,conv_bf16,dw,dw_bf16]
 
 The shapes are the published model's (`VDETRConfig()`, one synthetic
 scene, seeded random features and weights): the stem (3 -> 64, stride 2),
@@ -15,7 +17,7 @@ stride-2 conv into stage 2 (64 -> 128). Per shape and split: ms per
 launch (CUDA events, mean of 20) and the error against the plain version
 relative to max(1, max|ref|); the split `ops.sparse_conv_kernel.
 conv_splits` picks is marked. `--only` names the sweeps to run (all
-three by default). Needs the card.
+four by default). Needs the card.
 """
 
 from __future__ import annotations
@@ -84,20 +86,24 @@ def sweep(reps: int = 20, bf16: bool = False):
     return rows
 
 
-DW_PLANS = tuple((waves, min_rows) for waves in (2, 4, 8, 16)
-                 for min_rows in (128, 256, 512))
+DW_PLANS = {False: tuple((waves, min_rows) for waves in (1, 2, 4)
+                        for min_rows in (128, 256, 512)),
+            True: tuple((waves, min_rows) for waves in (1, 2, 3, 6)
+                        for min_rows in (256, 512))}
 
 
-def dw_sweep(reps: int = 20):
+def dw_sweep(reps: int = 20, bf16: bool = False):
     """Per shape (label, {(waves, min_rows): (splits, ms, relative
-    error)}) of kernel D; the error against the plain version relative to
-    its max|ref|."""
+    error)}) of kernel D's f32 form, or of its bf16 form (`bf16`: bf16
+    features, the stem's channels padded to 8); the error against the
+    plain version relative to its max|ref|."""
     import chip_smoke as cs
     from vdetr_tpu_torch import kernels
     from vdetr_tpu_torch.config import VDETRConfig
     from vdetr_tpu_torch.ops.sparse_conv_kernel import (dw_dense,
                                                         dw_row_splits,
-                                                        dw_rulebook_ints)
+                                                        dw_rulebook_ints,
+                                                        pad_channels)
     from vdetr_tpu_torch.ops.sparse_conv_keyed import keyed_conv_dw_plain
     from vdetr_tpu_torch.tools import time_ms
 
@@ -113,27 +119,31 @@ def dw_sweep(reps: int = 20):
         q = (go.coords if li == lo else go.coords * 2).contiguous()
         dout = (torch.randn(go.keys.shape + (cout,), generator=gen,
                             device=dev) * go.valid[..., None]).contiguous()
+        if bf16:
+            feats = pad_channels(feats.bfloat16())[0]
         args = (feats, gi.keys, q, go.valid, gi.extent)
         ref = keyed_conv_dw_plain(*args, dout)
         scale = float(ref.abs().max())
-        B, V_in, _ = feats.shape
+        B, V_in, C = feats.shape
         V = q.shape[1]
         res = {}
-        for waves, min_rows in DW_PLANS:
-            splits, per = dw_row_splits(B * V, cin, cout, waves, min_rows)
-            dw = torch.empty(27, cin, cout, device=dev)
-            nbr = torch.empty(27 * B * V if dw_dense(cin) else
+        for waves, min_rows in DW_PLANS[bf16]:
+            splits, per = dw_row_splits(B * V, C, cout, waves, min_rows,
+                                        bf16)
+            dw = torch.empty(27, C, cout, device=dev)
+            nbr = torch.empty(27 * B * V if dw_dense(C, bf16) else
                               dw_rulebook_ints(splits, per),
                               dtype=torch.int32, device=dev)
-            scratch = (torch.empty(splits, 27, cin, cout, device=dev)
+            scratch = (torch.empty(splits, 27, C, cout, device=dev)
                        if splits > 1 else dw)
 
             def run():
                 kernels.call(
-                    "keyed_conv_dw", feats.data_ptr(), gi.keys.data_ptr(),
+                    "keyed_conv_dw_bf16" if bf16 else "keyed_conv_dw",
+                    feats.data_ptr(), gi.keys.data_ptr(),
                     q.data_ptr(), go.valid.data_ptr(), dout.data_ptr(),
                     dw.data_ptr(), nbr.data_ptr(), scratch.data_ptr(), B,
-                    V_in, V, cin, cout, *gi.extent, splits, per,
+                    V_in, V, C, cout, *gi.extent, splits, per,
                     torch.cuda.current_stream(dev).cuda_stream)
 
             run()
@@ -147,7 +157,7 @@ def dw_sweep(reps: int = 20):
     return rows
 
 
-SWEEPS = ("conv", "conv_bf16", "dw")
+SWEEPS = ("conv", "conv_bf16", "dw", "dw_bf16")
 
 
 def main(argv=None) -> int:
@@ -178,15 +188,21 @@ def main(argv=None) -> int:
             print(f"  {label}: " + "; ".join(
                 f"{'*' if s == chosen else ''}{s}: {ms:.4f} ({err:.1e})"
                 for s, (ms, err) in res.items()))
-    if "dw" not in only:
-        return 0
-    print("kernel D ms per launch by row-split plan (waves x 132 SMs of "
-          "blocks, min rows a split): splits, ms (relative error); * the "
-          f"default plan of dw_row_splits; card {card()}")
-    for label, res in dw_sweep():
-        print(f"  {label}: " + "; ".join(
-            f"{'*' if plan == (8, 256) else ''}{plan[0]}x/{plan[1]}: "
-            f"{s} {ms:.4f} ({err:.1e})" for plan, (s, ms, err) in res.items()))
+    from vdetr_tpu_torch.ops.sparse_conv_kernel import DW_PLAN
+
+    for form in ("dw", "dw_bf16"):
+        if form not in only:
+            continue
+        bf16 = form == "dw_bf16"
+        print(f"kernel D{' bf16' if bf16 else ''} ms per launch by row-split "
+              "plan (rounds of resident blocks, min rows a split): splits, "
+              "ms (relative error); * the default plan of dw_row_splits; "
+              f"card {card()}")
+        for label, res in dw_sweep(bf16=bf16):
+            print(f"  {label}: " + "; ".join(
+                f"{'*' if plan == DW_PLAN[bf16] else ''}{plan[0]}x/"
+                f"{plan[1]}: {s} {ms:.4f} ({err:.1e})"
+                for plan, (s, ms, err) in res.items()))
     return 0
 
 
