@@ -1,0 +1,6 @@
+"""The share of the profiled eval steps in which the device ran nothing."""
+from benchmark import layers
+
+
+def read(ctx):
+    return layers.device_idle(ctx, "eval")
